@@ -25,7 +25,9 @@
 // dyn_jac_entries, reset_jac_entries), ops/hkd_tminor.py
 // (running_partial_entries, terminal_partial_entries) and solver/costs.py
 // (reb_derivs) line for line. Constants and weights come from the generated
-// header hkd_constants.cuh (ops/_build.py writes it from models/).
+// header hkd_constants.cuh (ops/_build.py writes it from models/). The
+// defect correction, the DYN step from the Q expansion on and the RESET
+// sandwich are shared with riccati_dense.cu (riccati_step.cuh).
 //
 // What bounds it on the H100: at B = 4096, T = 75 the sweep writes K,
 // B*T*24*24*4 bytes = 708 MB, about 0.2 ms of HBM bandwidth; the real bound
@@ -44,14 +46,11 @@
 #include <cuda_runtime.h>
 
 #include "hkd_constants.cuh"
+#include "riccati_step.cuh"
 
 namespace {
 
-constexpr int NX = 24;
-constexpr int NT = 32;          // threads per block (one scenario)
-constexpr int NW = 49;          // tableau columns: 24 Quu | 24 Qux | 1 Qu
-constexpr int KIND_DYN = 1;
-constexpr int KIND_RESET = 2;
+using namespace riccati;
 
 struct Rot {
   float R[3][3];
@@ -502,12 +501,7 @@ riccati_hkd_kernel(const int* __restrict__ kind, const float* __restrict__ X,
       if (e < 12) s.fr[e] = fr_b[(size_t)t * 12 + e];
     }
     __syncthreads();
-    for (int i = tid; i < NX; i += NT) {
-      float acc = s.G[i];
-      float hd = 0.f;
-      for (int j = 0; j < NX; ++j) hd += s.H[i][j] * s.dnext[j];
-      s.Gn[i] = acc + hd;
-    }
+    defect_correction(s, tid);
     // phi(t): RESET seed now, is_last seed at the next step
     if (kd == KIND_RESET || last == t) {
       stash_phi(s, tid, tc_b + (size_t)t * 4, td_b + (size_t)t * 4,
@@ -541,101 +535,7 @@ riccati_hkd_kernel(const int* __restrict__ kind, const float* __restrict__ X,
         s.B[i][j] = dt_b * s.B[i][j];
       }
       __syncthreads();
-      for (int e = tid; e < NX * NX; e += NT) {
-        const int i = e / NX, j = e % NX;
-        float ha = 0.f, hb = 0.f;
-        for (int k = 0; k < NX; ++k) {
-          ha += s.H[i][k] * s.A[k][j];
-          hb += s.H[i][k] * s.B[k][j];
-        }
-        s.HA[i][j] = ha;
-        s.HB[i][j] = hb;
-      }
-      __syncthreads();
-      // Q expansion; Quu and Qux go straight into the tableau
-      for (int e = tid; e < NX * NX; e += NT) {
-        const int i = e / NX, j = e % NX;
-        float atha = 0.f, btha = 0.f, bthb = 0.f;
-        for (int k = 0; k < NX; ++k) {
-          atha += s.A[k][i] * s.HA[k][j];
-          btha += s.B[k][i] * s.HA[k][j];
-          bthb += s.B[k][i] * s.HB[k][j];
-        }
-        const float rd = (i == j) ? reg_b : 0.f;
-        s.Qxx[i][j] = (s.Qxx[i][j] + atha) + rd;
-        s.Qux[i][j] = btha;
-        s.W[i][NX + j] = btha;
-        s.W[i][j] = (s.Luu[i][j] + bthb) + rd;
-      }
-      for (int i = tid; i < NX; i += NT) {
-        float ag = 0.f, bg = 0.f;
-        for (int k = 0; k < NX; ++k) {
-          ag += s.A[k][i] * s.Gn[k];
-          bg += s.B[k][i] * s.Gn[k];
-        }
-        s.Qx[i] = s.Lx[i] + ag;
-        s.Qu[i] = s.Lu[i] + bg;
-        s.W[i][2 * NX] = s.Qu[i];
-      }
-      __syncthreads();
-      for (int e = tid; e < NX * NX; e += NT) {
-        const int i = e / NX, j = e % NX;
-        s.HB[i][j] = 0.5f * (s.Qxx[i][j] + s.Qxx[j][i]);   // symmetric Qxx
-      }
-
-      // forward elimination on [Quu | Qux | Qu], PSD gate on each pivot
-      for (int k = 0; k < NX; ++k) {
-        __syncthreads();
-        const float d = s.W[k][k];
-        okb = okb && (d > 1e-9f);
-        const float d_safe = fabsf(d) > 1e-30f ? d : 1.f;
-        for (int i = k + 1 + tid; i < NX; i += NT) s.fac[i] = s.W[i][k] / d_safe;
-        __syncthreads();
-        const int n = (NX - 1 - k) * NW;
-        for (int e = tid; e < n; e += NT) {
-          const int i = k + 1 + e / NW, j = e % NW;
-          s.W[i][j] = s.W[i][j] - s.fac[i] * s.W[k][j];
-        }
-      }
-      __syncthreads();
-      // back-substitution: thread c owns right-hand-side column c
-      if (tid < 25) {
-        const int c = tid;
-        for (int i = NX - 1; i >= 0; --i) {
-          float acc = s.W[i][NX + c];
-          for (int j = i + 1; j < NX; ++j) acc = acc - s.W[i][j] * s.Sol[j][c];
-          const float di = s.W[i][i];
-          const float di_safe = fabsf(di) > 1e-30f ? di : 1.f;
-          s.Sol[i][c] = acc / di_safe;
-        }
-      }
-      __syncthreads();
-      // value update: H = sym(Qxx - Qux' S), G = Qx - Qux' s, dv = Qu' s
-      for (int e = tid; e < NX * NX; e += NT) {
-        const int i = e / NX, j = e % NX;
-        float a = 0.f;
-        for (int k = 0; k < NX; ++k) a += s.Qux[k][i] * s.Sol[k][j];
-        s.HA[i][j] = s.HB[i][j] - a;
-        K_bt[e] = -s.Sol[i][j];
-      }
-      for (int i = tid; i < NX; i += NT) {
-        float a = 0.f;
-        for (int k = 0; k < NX; ++k) a += s.Qux[k][i] * s.Sol[k][NX];
-        s.G[i] = s.Qx[i] - a;
-        dU_bt[i] = -s.Sol[i][NX];
-      }
-      if (tid == 0) {
-        float dv = 0.f;
-        for (int k = 0; k < NX; ++k) dv += s.Qu[k] * s.Sol[k][NX];
-        dv1 -= dv;
-        dv2 += dv;
-      }
-      __syncthreads();
-      for (int e = tid; e < NX * NX; e += NT) {
-        const int i = e / NX, j = e % NX;
-        s.H[i][j] = 0.5f * (s.HA[i][j] + s.HA[j][i]);
-      }
-      __syncthreads();
+      dyn_step(s, tid, reg_b, K_bt, dU_bt, dv1, dv2, okb);
     } else {
       for (int e = tid; e < NX * NX; e += NT) K_bt[e] = 0.f;
       for (int i = tid; i < NX; i += NT) dU_bt[i] = 0.f;
@@ -658,28 +558,7 @@ riccati_hkd_kernel(const int* __restrict__ kind, const float* __restrict__ X,
           s.A[i][j] = (i == j ? 1.f : 0.f) + s.A[i][j];   // Px = I + S
         }
         __syncthreads();
-        for (int e = tid; e < NX * NX; e += NT) {
-          const int i = e / NX, j = e % NX;
-          float ha = 0.f;
-          for (int k = 0; k < NX; ++k) ha += s.H[i][k] * s.A[k][j];
-          s.HA[i][j] = ha;
-        }
-        __syncthreads();
-        for (int e = tid; e < NX * NX; e += NT) {
-          const int i = e / NX, j = e % NX;
-          float a = 0.f;
-          for (int k = 0; k < NX; ++k) a += s.A[k][i] * s.HA[k][j];
-          s.HB[i][j] = s.Pxx[i][j] + a;
-        }
-        for (int i = tid; i < NX; i += NT) {
-          float a = 0.f;
-          for (int k = 0; k < NX; ++k) a += s.A[k][i] * s.Gn[k];
-          s.Qx[i] = s.Px[i] + a;
-        }
-        __syncthreads();
-        for (int e = tid; e < NX * NX; e += NT) (&s.H[0][0])[e] = (&s.HB[0][0])[e];
-        for (int i = tid; i < NX; i += NT) s.G[i] = s.Qx[i];
-        __syncthreads();
+        reset_step(s, tid);
       }
     }
   }

@@ -1,12 +1,15 @@
 """Build and load the port's CUDA kernels at first use.
 
-The sources live in `hkdmpc_tpu_torch/csrc/`. `nvcc` compiles them for
-Hopper (`sm_90a`) into a shared library with a plain C interface, loaded
-with ctypes, in `build/hkdmpc_tpu_torch/` beside the package. The constants
-and cost weights the kernels use are not typed into the sources: this module
-writes them from `models/mini_cheetah.py` and `models/hkd_weights.py` into a
-generated header, `hkd_constants.cuh`, in the build directory. The library
-is keyed on a hash of the sources, the header and the compiler flags, so a
+The sources live in `hkdmpc_tpu_torch/csrc/`: one `<name>.cu` per kernel,
+with a plain C interface (`<name>_launch`, `<name>_error_string`), and the
+`*.cuh` headers they include. `nvcc` compiles each `<name>.cu` for Hopper
+(`sm_90a`) into its own shared library, loaded with ctypes, in
+`build/hkdmpc_tpu_torch/` beside the package. The HKD constants and cost
+weights are not typed into the sources: this module writes them from
+`models/mini_cheetah.py` and `models/hkd_weights.py` into a generated header,
+`hkd_constants.cuh`, in the build directory. Each library is keyed on a hash
+of its source, of every header it includes (followed transitively), of the
+generated header where it is included, and of the compiler flags, so a
 change to any of them rebuilds it.
 """
 
@@ -15,11 +18,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from hkdmpc_tpu_torch.models import hkd_weights as W
 from hkdmpc_tpu_torch.models import mini_cheetah as mc
@@ -29,6 +34,17 @@ CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "hkdmpc_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+GENERATED_HEADER = "hkd_constants.cuh"
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+# ctypes signature of each kernel's `<name>_launch`: the tensor pointers,
+# then the int sizes, then the stream
+_LAUNCH_ARGTYPES = {
+    "riccati_hkd": [ctypes.c_void_p] * 24 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p],
+    "riccati_dense": [ctypes.c_void_p] * 17 + [ctypes.c_int] * 2
+                     + [ctypes.c_void_p],
+}
 
 _LIBS: dict = {}
 
@@ -85,19 +101,53 @@ def _nvcc() -> str:
                        "to build the CUDA kernels")
 
 
+def included_files(src: Path) -> list:
+    """The headers `src` includes with `#include "..."`, followed
+    transitively, as paths in src's directory (the generated header
+    excepted), sorted."""
+    seen, todo = set(), [src]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop().read_text()):
+            path = src.parent / name
+            if name != GENERATED_HEADER and path not in seen:
+                if not path.is_file():
+                    raise FileNotFoundError(f"{src.name} includes {name}, "
+                                            f"which is not in {src.parent}")
+                seen.add(path)
+                todo.append(path)
+    return sorted(seen)
+
+
+def uses_generated_header(src: Path) -> bool:
+    return any(GENERATED_HEADER in _INCLUDE.findall(p.read_text())
+               for p in [src] + included_files(src))
+
+
+def build_key(src: Path) -> str:
+    """Hash of the source, every header it includes, the generated header
+    (when included) and the compiler flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for path in included_files(src):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    if uses_generated_header(src):
+        h.update(constants_header().encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu (if its keyed library is not built yet) and
-    return the path of the shared library."""
+    return the path of the shared library. The compiler's output, with
+    ptxas's register and shared-memory report, goes to `<name>.build.log`
+    beside it."""
     src = CSRC / f"{name}.cu"
-    header = constants_header()
-    key = hashlib.sha256(src.read_bytes() + header.encode()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = BUILD_DIR / key
+    out_dir = BUILD_DIR / build_key(src)
     lib = out_dir / f"lib{name}.so"
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "hkd_constants.cuh").write_text(header)
+    if uses_generated_header(src):
+        (out_dir / GENERATED_HEADER).write_text(constants_header())
     tmp = out_dir / f"lib{name}.so.tmp{os.getpid()}"
     cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(out_dir),
            "-o", str(tmp), str(src)]
@@ -111,21 +161,45 @@ def build(name: str) -> Path:
     return lib
 
 
-def riccati_hkd_library() -> ctypes.CDLL:
-    """The Riccati sweep kernel's library, built and loaded once per
-    process."""
-    lib = _LIBS.get("riccati_hkd")
+def library(name: str) -> ctypes.CDLL:
+    """Kernel `name`'s library, built and loaded once per process, with the
+    ctypes signatures of `<name>_launch` and `<name>_error_string` set."""
+    lib = _LIBS.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build("riccati_hkd")))
-        lib.riccati_hkd_launch.argtypes = ([ctypes.c_void_p] * 24
-                                           + [ctypes.c_int] * 4
-                                           + [ctypes.c_void_p])
-        lib.riccati_hkd_launch.restype = ctypes.c_int
-        lib.riccati_hkd_error_string.argtypes = [ctypes.c_int]
-        lib.riccati_hkd_error_string.restype = ctypes.c_char_p
-        _LIBS["riccati_hkd"] = lib
+        lib = ctypes.CDLL(str(build(name)))
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = _LAUNCH_ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        errstr = getattr(lib, f"{name}_error_string")
+        errstr.argtypes = [ctypes.c_int]
+        errstr.restype = ctypes.c_char_p
+        _LIBS[name] = lib
     return lib
 
 
-def cuda_error_string(lib: ctypes.CDLL, err: int) -> str:
-    return lib.riccati_hkd_error_string(err).decode()
+def launch(name: str, *args) -> None:
+    """Call `<name>_launch(*args)` and raise if it returns a non-zero
+    cudaError_t (a refused launch never runs, and a later synchronize does
+    not report it)."""
+    lib = library(name)
+    err = getattr(lib, f"{name}_launch")(*args)
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err} "
+                           f"({msg})")
+
+
+def check_tensor(name, t, shape, dtype, device) -> None:
+    """Raise unless t is a contiguous tensor of `shape` and `dtype` on
+    `device` (TypeError for type, ValueError for the rest)."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")

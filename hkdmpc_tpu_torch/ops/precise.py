@@ -24,6 +24,18 @@ def mm(A, B):
     return torch.sum(A[..., :, :, None] * B[..., None, :, :], dim=-2)
 
 
+def vm(v, M):
+    """(..., m) @ (..., m, n) -> (..., n)."""
+    return torch.sum(v[..., :, None] * M, dim=-2)
+
+
+def xtwx(X, w):
+    """X' diag(w) X for X (..., r, n), w (..., r) -> (..., n, n). A batched
+    matmul (full f32 under `pin_full_f32`): the broadcast form's temporary
+    would be r times the output, gigabytes at the solver's batch sizes."""
+    return torch.matmul(X.transpose(-1, -2), w[..., :, None] * X)
+
+
 def quad(v, M, w):
     """v @ M @ w -> (...,)."""
     return torch.sum(v[..., :, None] * M * w[..., None, :], dim=(-2, -1))

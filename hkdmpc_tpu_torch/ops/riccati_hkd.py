@@ -79,20 +79,6 @@ def backward_sweep_hkd_plain(kind, X, U, contact, contact_next, xr, ur,
     return dU, K, dv1, dv2, ok
 
 
-def _check(name, t, shape, dtype, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-
-
 def backward_sweep_hkd_cuda(kind, X, U, contact, contact_next, xr, ur,
                             foot_r, reb_delta, reb_eps, term_contact,
                             td_mask, al_sigma, al_lambda, term_mask, defect,
@@ -134,9 +120,8 @@ def backward_sweep_hkd_cuda(kind, X, U, contact, contact_next, xr, ur,
             ("reg", reg, (nb,), f32),
             ("last_node", last_node, (nb,), i32),
             ("dt", dt, (nb,), f32)):
-        _check(name, t, shape, dtype, dev)
+        _build.check_tensor(name, t, shape, dtype, dev)
 
-    lib = _build.riccati_hkd_library()
     dU = torch.empty((nb, T, 24), dtype=f32, device=dev)
     K = torch.empty((nb, T, 24, 24), dtype=f32, device=dev)
     dv1 = torch.empty((nb,), dtype=f32, device=dev)
@@ -145,15 +130,13 @@ def backward_sweep_hkd_cuda(kind, X, U, contact, contact_next, xr, ur,
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.riccati_hkd_launch(
-            ptr(kind), ptr(X), ptr(U), ptr(contact), ptr(contact_next),
-            ptr(xr), ptr(ur), ptr(foot_r), ptr(reb_delta), ptr(reb_eps),
+        _build.launch(
+            "riccati_hkd", ptr(kind), ptr(X), ptr(U), ptr(contact),
+            ptr(contact_next), ptr(xr), ptr(ur), ptr(foot_r), ptr(reb_delta),
+            ptr(reb_eps),
             ptr(term_contact), ptr(td_mask), ptr(al_sigma), ptr(al_lambda),
             ptr(term_mask), ptr(defect), ptr(reg), ptr(last_node), ptr(dt),
             ptr(dU), ptr(K), ptr(dv1), ptr(dv2), ptr(ok),
             nb, T, U.shape[1], ur.shape[1], ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"riccati_hkd kernel launch failed: cudaError {err} "
-                           f"({_build.cuda_error_string(lib, err)})")
     LAUNCHES += 1
     return dU, K, dv1, dv2, ok

@@ -1,16 +1,18 @@
-"""Where the time of the PyTorch port's batched throughput solve goes, on one
-CUDA GPU.
+"""Where the time of the PyTorch port's batched solve goes, on one CUDA GPU.
 
-    python -m hkdmpc_tpu_torch.profile_solve
+    python -m hkdmpc_tpu_torch.profile_solve            # kernel_jac path
+    python -m hkdmpc_tpu_torch.profile_solve dense      # dense path
 
-Builds the main-path workload (the in-repo trot, plan 0.6 s, B = 4096,
-perturbed x0, f32, runtime caps), warms one
-`solve_batch(parallel_rollout, kernel_jac, unroll_caps)`, then:
+Builds the workload of one solve path (the in-repo trot, plan 0.6 s,
+B = 4096, perturbed x0, f32, runtime caps): `kernel_jac` is the default
+model's `solve_batch(kernel_jac=True)`, `dense` the swing-constraint model's
+`solve_batch(kernel_jac=False)`. Warms one solve, then:
   1. stage wall times: the solver's stages are wrapped with a synchronize on
-     both sides (initial/line-search rollouts, cost evaluation, backward sweep
-     with its retry loop, the CUDA kernel inside it, jvp linear rollout), and
-     their host-clock times summed over 3 solves, beside the unwrapped solve
-     time from CUDA events;
+     both sides (initial/line-search rollouts, cost evaluation, the LQ
+     approximation of the dense path, backward sweep with its retry loop,
+     the CUDA kernel inside it, the linear rollout), and their host-clock
+     times summed over 3 solves, beside the unwrapped solve time from CUDA
+     events;
   2. one solve under torch.profiler: device time by kernel name (top 15),
      and the device-busy share of the solve's wall time.
 Prints the card's name and power limit. Needs a CUDA device.
@@ -18,6 +20,7 @@ Prints the card's name and power limit. Needs a CUDA device.
 
 import collections
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -26,29 +29,37 @@ BATCH = 4096
 PLAN = 0.6
 
 
-def main():
+PATHS = ("kernel_jac", "dense")
+
+
+def main(path: str = "kernel_jac"):
     import torch
+    if path not in PATHS:
+        raise SystemExit(f"unknown path {path!r}: one of {', '.join(PATHS)}")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
-    from hkdmpc_tpu_torch.ops import riccati_hkd
+    from hkdmpc_tpu_torch.ops import riccati_dense, riccati_hkd
     from hkdmpc_tpu_torch.parallel.batch import (perturb_scenarios,
                                                  replicate_problem)
-    from hkdmpc_tpu_torch.solver import backward, ddp, rollout
+    from hkdmpc_tpu_torch.solver import backward, ddp, lq, rollout
+    from hkdmpc_tpu_torch.solver.model_api import hkd_model_spec
     from hkdmpc_tpu_torch.workload import trot_problem
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
+    dense = path == "dense"
+    model = hkd_model_spec(swing_constraint=True) if dense else None
     _, prob, state, opt = trot_problem(PLAN, dtype=torch.float32,
-                                       device="cuda")
+                                       device="cuda", model=model)
     prob_b, state_b = replicate_problem(prob, state, BATCH)
     prob_b = perturb_scenarios(prob_b, noise=np.random.default_rng(0)
                                .standard_normal((BATCH, 24)))
     optr = opt.runtime()
 
     def solve():
-        return ddp.solve_batch(prob_b, state_b, optr, parallel_rollout=True,
-                               kernel_jac=True, unroll_caps=True)
+        return ddp.solve_batch(prob_b, state_b, optr, kernel_jac=not dense,
+                               model=model)
 
     solve()
     torch.cuda.synchronize()
@@ -83,9 +94,20 @@ def main():
 
     wrap(rollout, "hybrid_rollout_parallel", "rollout (initial + line search)")
     wrap(rollout, "compute_cost", "cost + constraint rows")
-    wrap(rollout, "linear_rollout_jvp", "jvp linear rollout + closed-form dV")
-    wrap(backward, "backward_sweep_regularized", "backward sweep (retry loop)")
-    wrap(riccati_hkd, "backward_sweep_hkd_cuda", "  of which the CUDA kernel")
+    if dense:
+        wrap(lq, "lq_approximation", "LQ approximation (dense)")
+        wrap(rollout, "linear_rollout", "dense linear rollout + dV")
+        wrap(backward, "backward_sweep_regularized",
+             "backward sweep (retry loop)")
+        wrap(riccati_dense, "backward_sweep_dense_cuda",
+             "  of which the CUDA kernel")
+    else:
+        wrap(rollout, "linear_rollout_jvp",
+             "jvp linear rollout + closed-form dV")
+        wrap(backward, "backward_sweep_regularized",
+             "backward sweep (retry loop)")
+        wrap(riccati_hkd, "backward_sweep_hkd_cuda",
+             "  of which the CUDA kernel")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(3):
@@ -95,7 +117,8 @@ def main():
     for mod, name, fn in patched:
         setattr(mod, name, fn)
 
-    print(f"B={BATCH} T={prob.T} f32 runtime caps on {card}")
+    print(f"{path} path ({'swing-constraint' if dense else 'default'} "
+          f"model): B={BATCH} T={prob.T} f32 runtime caps on {card}")
     print(f"solve: {solve_ms:.3f} ms (CUDA events, mean of 3); with stage "
           f"syncs {wrapped_ms:.3f} ms")
     for label in totals:
@@ -124,4 +147,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(*sys.argv[1:2])

@@ -3,14 +3,18 @@ scenarios — port of `hkdmpc_tpu/solver/backward.py` (main path).
 
 - `backward_sweep`: the faithful sweep (augmented-sweep Riccati step,
   impact-aware reset sandwich, PAD carry), one Python step per transition
-  with per-scenario selects; the core of the plain version of the CUDA
-  kernel.
+  with per-scenario selects; the core of the plain versions of both CUDA
+  kernels.
+- `riccati_backward`: the whole sweep of one DDP iteration from
+  materialized LQ data (any model); an alias of
+  `ops/riccati_dense.backward_sweep_dense`, which runs the CUDA kernel on
+  CUDA tensors and the plain version on CPU tensors.
 - `riccati_backward_hkd`: the whole sweep of one DDP iteration for the HKD
   model, with the Jacobians and every cost partial rebuilt from (X, U); an
-  alias of `ops/riccati_hkd.backward_sweep_hkd`, which runs the CUDA kernel
-  on CUDA tensors and the plain version on CPU tensors.
+  alias of `ops/riccati_hkd.backward_sweep_hkd`, dispatching the same way.
 - `backward_sweep_regularized`: the regularization retry schedule, with a
-  per-scenario `reg` (the JAX package's vmapped while_loop).
+  per-scenario `reg` (the JAX package's vmapped while_loop), around either
+  sweep.
 
 Parity: SinglePhase::backward_sweep (SinglePhase.cpp:299-367),
 MultiPhaseDDP::impact_aware_step (MultiPhaseDDP.cpp:480-484),
@@ -21,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from hkdmpc_tpu_torch.ops import riccati_hkd
+from hkdmpc_tpu_torch.ops import riccati_dense, riccati_hkd
 from hkdmpc_tpu_torch.solver.structs import DYN, RESET
 
 REG_MIN_STEP = 1e-3   # reference: MultiPhaseDDP.cpp:157
@@ -139,6 +143,12 @@ def backward_sweep(kind, A, B, lx, lu, lxx, luu, phix, phixx, defect, reg,
     return dU, K, G, H, dv1, dv2, ok
 
 
+# Backward sweep from materialized LQ data, (kind, A, B, lxx, luu, lx, lu,
+# defect, phix, phixx, reg, last_node) -> (dU, K, dv1, dv2, ok): the CUDA
+# kernel on CUDA tensors, its plain version on CPU tensors. See
+# `ops/riccati_dense.py`.
+riccati_backward = riccati_dense.backward_sweep_dense
+
 # Backward sweep for the default HKD model with the Jacobians, running
 # partials and terminal partials rebuilt from (X, U): the CUDA kernel on CUDA
 # tensors, its plain version on CPU tensors. See `ops/riccati_hkd.py`.
@@ -146,17 +156,36 @@ riccati_backward_hkd = riccati_hkd.backward_sweep_hkd
 
 
 def backward_sweep_regularized(prob, defect, regularization,
-                               update_regularization, last_node,
-                               kernel_jac_XU):
+                               update_regularization, last_node, *,
+                               kernel_jac_XU=None, lq=None):
     """Retry the sweep with growing per-scenario regularization until Quu is
     PSD everywhere or the regularization exceeds REG_MAX (then that
     scenario's solve fails). The loop runs while any scenario is neither ok
     nor failed; finished scenarios keep their outputs.
 
-    kernel_jac_XU: (X, U, reb_delta, reb_eps, al_sigma, al_lambda).
+    Exactly one of: kernel_jac_XU = (X, U, reb_delta, reb_eps, al_sigma,
+    al_lambda) for the default HKD model's sweep (`riccati_backward_hkd`),
+    or lq = LQData for the dense sweep (`riccati_backward`; lq.lux is not
+    read).
     Returns (dU, K, dV_1, dV_2, reg_out, success, solve_failed); reg_out is
     the post-success relaxation reg/20, zeroed below 1e-6."""
-    X, U, rbd, rbe, sig, lam = kernel_jac_XU
+    if (kernel_jac_XU is None) == (lq is None):
+        raise ValueError("give exactly one of kernel_jac_XU= and lq=")
+    if lq is not None:
+        def sweep(reg):
+            return riccati_dense.backward_sweep_dense(
+                prob.kind, lq.A, lq.B, lq.lxx, lq.luu, lq.lx, lq.lu, defect,
+                lq.phix, lq.phixx, reg, last_node)
+    else:
+        X, U, rbd, rbe, sig, lam = kernel_jac_XU
+
+        def sweep(reg):
+            return riccati_hkd.backward_sweep_hkd(
+                prob.kind, X, U, prob.contact, prob.contact_next, prob.xr,
+                prob.ur, prob.foot_r, rbd, rbe, prob.term_contact,
+                prob.td_mask, sig, lam, prob.term_mask, defect, reg,
+                last_node, prob.dt)
+
     nb = prob.kind.shape[0]
     dev = defect.device
     reg = torch.broadcast_to(torch.as_tensor(regularization, dtype=defect.dtype,
@@ -168,11 +197,7 @@ def backward_sweep_regularized(prob, defect, regularization,
         active = ~ok & ~failed
         if not bool(active.any()):
             break
-        new = riccati_hkd.backward_sweep_hkd(
-            prob.kind, X, U, prob.contact, prob.contact_next, prob.xr,
-            prob.ur, prob.foot_r, rbd, rbe, prob.term_contact, prob.td_mask,
-            sig, lam, prob.term_mask, defect, reg.contiguous(), last_node,
-            prob.dt)
+        new = sweep(reg.contiguous())
         ok_new = new[4]
         reg_next = torch.clamp(reg * update_regularization, min=REG_MIN_STEP)
         failed_new = ~ok_new & (reg_next > REG_MAX)

@@ -1,6 +1,16 @@
 """Multi-phase HS-DDP driver, batched over scenarios — port of
-`hkdmpc_tpu/solver/ddp.py` for the batched throughput configuration:
-`parallel_rollout + kernel_jac + unroll_caps`.
+`hkdmpc_tpu/solver/ddp.py` for its batched configurations with the parallel
+rollout and statically unrolled caps (the JAX package's
+`parallel_rollout=True, unroll_caps=True`), on two paths:
+
+- `kernel_jac=True`: the default HKD model, with the Jacobians and cost
+  partials rebuilt inside the backward sweep (`riccati_backward_hkd`, the
+  CUDA kernel `csrc/riccati_hkd.cu`) and the jvp linear rollout with the
+  closed-form expected-cost change (the JAX package's `kernel_jac=True`);
+- `kernel_jac=False`: any `ModelSpec`, with the dense LQ approximation
+  (`solver/lq.py`), the dense backward sweep (`riccati_backward`, the CUDA
+  kernel `csrc/riccati_dense.cu`) and the dense linear rollout (the JAX
+  package's `pallas_backward=True` without kernel_jac).
 
 Parity target: MultiPhaseDDP::solve (MultiPhaseDDP.cpp:232-428) — AL outer
 loop, DDP inner loop with the regularized backward sweep, multiple-shooting
@@ -23,8 +33,9 @@ import torch
 
 from hkdmpc_tpu.config import HSDDPOption
 from hkdmpc_tpu_torch.ops import precise
-from hkdmpc_tpu_torch.solver import backward
+from hkdmpc_tpu_torch.solver import backward, lq as lq_mod
 from hkdmpc_tpu_torch.solver import rollout as ro_mod
+from hkdmpc_tpu_torch.solver.model_api import hkd_model_spec
 from hkdmpc_tpu_torch.solver.structs import (ConstraintState, ProblemData,
                                              SolveResult, SolverState,
                                              tree_map, tree_where)
@@ -77,31 +88,23 @@ def _set_at(buf, n, v):
     return buf.scatter(1, n.long()[:, None], v[:, None])
 
 
-def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption,
-                parallel_rollout: bool = False, model=None,
-                assoc_linear: bool = False, aug_sweep: bool = True,
-                pallas_backward: bool = False, jvp_linear: bool = False,
-                kernel_jac: bool = False, unroll_caps: bool = False,
-                assoc_backward: bool = False) -> SolveResult:
+def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
+                kernel_jac: bool, model=None) -> SolveResult:
     """Run one full HS-DDP solve for every scenario of a batch (leading axis
-    of every field of prob and state). The flags keep the JAX package's
-    names; the port implements the batched throughput configuration only —
-    parallel_rollout=True, kernel_jac=True, unroll_caps=True — and raises
-    NotImplementedError for any other. parallel_rollout is only valid when
-    every active node is a shooting node (HKDProblem.all_shooting())."""
-    if not (parallel_rollout and kernel_jac and unroll_caps):
-        raise NotImplementedError(
-            "the port implements parallel_rollout=True, kernel_jac=True, "
-            "unroll_caps=True only")
-    if (model is not None or assoc_linear or not aug_sweep or pallas_backward
-            or assoc_backward):
-        raise NotImplementedError(
-            "model, assoc_linear, aug_sweep=False, pallas_backward and "
-            "assoc_backward are not ported")
+    of every field of prob and state).
+
+    kernel_jac=True: the default HKD model's path (model must be None).
+    kernel_jac=False: the dense-LQ path for `model` (None means
+    `hkd_model_spec()`). Both need multiple shooting (opt.MS) with every
+    active node a shooting node (HKDProblem.all_shooting()), the condition
+    of the parallel rollout."""
+    if kernel_jac and model is not None:
+        raise ValueError("kernel_jac=True is the default HKD model's path; "
+                         "pass model=None or kernel_jac=False")
     if not opt.MS:
         raise NotImplementedError("the parallel rollout needs multiple "
                                   "shooting (opt.MS)")
-    del jvp_linear  # kernel_jac implies the jvp linear rollout
+    model = None if kernel_jac else (model or hkd_model_spec())
     precise.pin_full_f32()
 
     dtype, dev = prob.xr.dtype, prob.xr.device
@@ -116,10 +119,11 @@ def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption,
     falses = torch.zeros(nb, dtype=torch.bool, device=dev)
 
     def rollout_fn(st, eps, du_eff=None):
-        return ro_mod.hybrid_rollout_parallel(prob, st, eps, du_eff=du_eff)
+        return ro_mod.hybrid_rollout_parallel(prob, st, eps, model,
+                                              du_eff=du_eff)
 
     def cost_of(X, U, constr):
-        return ro_mod.compute_cost(prob, X, U, constr, reb_on, al_on)
+        return ro_mod.compute_cost(prob, X, U, constr, reb_on, al_on, model)
 
     # ---- initial nominal rollout (MultiPhaseDDP.cpp:257-280) -------------
     ro = rollout_fn(state, 0.0)
@@ -175,20 +179,33 @@ def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption,
         cost, (g, h) = cost_of(c["X"], c["U"], st.constr)
         feas = ro_mod.dynamics_feasibility(c["defect"])
 
-        rbe = st.constr.reb_eps if reb_on else torch.zeros_like(st.constr.reb_eps)
-        sig = (st.constr.al_sigma if al_on
-               else torch.zeros_like(st.constr.al_sigma))
-        lam = (st.constr.al_lambda if al_on
-               else torch.zeros_like(st.constr.al_lambda))
-        dU, K, dv1, dv2, reg_new, ok_bw, bw_failed = \
-            backward.backward_sweep_regularized(
-                prob, c["defect"], reg, opt.update_regularization, last_node,
-                kernel_jac_XU=(c["X"], c["U"], st.constr.reb_delta, rbe, sig,
-                               lam))
-        st = _replace(st, dU=dU, K=K)
-        dX, dv1, dv2 = ro_mod.linear_rollout_jvp(
-            prob, st, c["X"], c["U"], c["defect"], 1.0, reb_active=reb_on,
-            al_active=al_on)
+        if kernel_jac:
+            rbe = (st.constr.reb_eps if reb_on
+                   else torch.zeros_like(st.constr.reb_eps))
+            sig = (st.constr.al_sigma if al_on
+                   else torch.zeros_like(st.constr.al_sigma))
+            lam = (st.constr.al_lambda if al_on
+                   else torch.zeros_like(st.constr.al_lambda))
+            dU, K, dv1, dv2, reg_new, ok_bw, bw_failed = \
+                backward.backward_sweep_regularized(
+                    prob, c["defect"], reg, opt.update_regularization,
+                    last_node, kernel_jac_XU=(c["X"], c["U"],
+                                              st.constr.reb_delta, rbe, sig,
+                                              lam))
+            st = _replace(st, dU=dU, K=K)
+            dX, dv1, dv2 = ro_mod.linear_rollout_jvp(
+                prob, st, c["X"], c["U"], c["defect"], 1.0, reb_active=reb_on,
+                al_active=al_on)
+        else:
+            lqd = lq_mod.lq_approximation(prob, c["X"], c["U"], st.constr,
+                                          reb_on, al_on, model)
+            dU, K, dv1, dv2, reg_new, ok_bw, bw_failed = \
+                backward.backward_sweep_regularized(
+                    prob, c["defect"], reg, opt.update_regularization,
+                    last_node, lq=lqd)
+            st = _replace(st, dU=dU, K=K)
+            dX, dv1, dv2 = ro_mod.linear_rollout(prob, st, lqd, c["defect"],
+                                                 1.0)
         st = _replace(st, dX=dX)
 
         dv_abs = torch.abs(dv1 + 0.5 * dv2)
@@ -283,10 +300,11 @@ def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption,
         eqn_trace=c["traces"]["eqn"], ineq_trace=c["traces"]["ineq"])
 
 
-def solve(prob: ProblemData, state: SolverState, opt: HSDDPOption,
-          **flags) -> SolveResult:
+def solve(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
+          kernel_jac: bool, model=None) -> SolveResult:
     """One scenario's solve: prob/state without a batch axis. Takes the
-    same flags as solve_batch."""
+    same keywords as solve_batch."""
     res = solve_batch(tree_map(lambda a: a[None], prob),
-                      tree_map(lambda a: a[None], state), opt, **flags)
+                      tree_map(lambda a: a[None], state), opt,
+                      kernel_jac=kernel_jac, model=model)
     return tree_map(lambda a: a[0], res)

@@ -1,9 +1,10 @@
 """Host-side problem construction: contact-schedule segmentation and
 flattening to the static-shape tensors the solver takes.
 
-Port of `hkdmpc_tpu/solver/problem.py` for the default HKD model (20 GRF
-friction-cone path rows, 4 touchdown terminal rows): `initialization`,
-`problem_arrays`, `build` and `all_shooting`. The bookkeeping is numpy, as in
+Port of `hkdmpc_tpu/solver/problem.py`: `initialization`, `problem_arrays`,
+`build` and `all_shooting`, for any `ModelSpec` (the default HKD model has 20
+GRF friction-cone path rows and 4 touchdown terminal rows; the swing
+constraint adds 4 path rows). The bookkeeping is numpy, as in
 the JAX package; only `build` makes tensors, of an explicit dtype on an
 explicit device. The receding-horizon `update` belongs to the MPC slice and
 is not ported yet.
@@ -22,8 +23,8 @@ import torch
 
 from hkdmpc_tpu.config import ConstraintParams
 from hkdmpc_tpu.reference.quad_reference import QuadReference
-from hkdmpc_tpu_torch.solver.structs import (DYN, N_GRF_ROWS, N_TD_ROWS,
-                                             RESET, ConstraintState,
+from hkdmpc_tpu_torch.solver.model_api import hkd_model_spec
+from hkdmpc_tpu_torch.solver.structs import (DYN, RESET, ConstraintState,
                                              ProblemData, SolverState)
 
 _EPS_T = 1e-6
@@ -46,10 +47,10 @@ class Phase:
     K: np.ndarray = None             # (h, 24, 24)
     dX: np.ndarray = None            # (h+1, 24)
     defect_bar: np.ndarray = None    # (h+1, 24)
-    reb_delta: np.ndarray = None     # (h, 20)
-    reb_eps: np.ndarray = None       # (h, 20)
-    al_lambda: np.ndarray = None     # (4,)
-    al_sigma: np.ndarray = None      # (4,)
+    reb_delta: np.ndarray = None     # (h, n_path_rows)
+    reb_eps: np.ndarray = None       # (h, n_path_rows)
+    al_lambda: np.ndarray = None     # (n_terminal_rows,)
+    al_sigma: np.ndarray = None      # (n_terminal_rows,)
 
     def alloc(self, pb: "HKDProblem"):
         h = self.horizon
@@ -62,8 +63,8 @@ class Phase:
         deltas, _, epss = pb._reb_row_params()
         self.reb_delta = np.tile(deltas, (h, 1))
         self.reb_eps = np.tile(epss, (h, 1))
-        self.al_lambda = np.zeros(N_TD_ROWS)
-        self.al_sigma = np.zeros(N_TD_ROWS)
+        self.al_lambda = np.zeros(pb.n_term_rows)
+        self.al_sigma = np.zeros(pb.n_term_rows)
         self.td_mask = np.zeros(4)
         self.next_contact = self.contact.copy()
 
@@ -76,7 +77,8 @@ class HKDProblem:
                  device, plan_duration: float = 0.6, dt_sim: float = 0.01,
                  dt_mpc: float = 0.01,
                  cparams: Optional[ConstraintParams] = None,
-                 T: Optional[int] = None):
+                 T: Optional[int] = None, model=None):
+        self.model = model or hkd_model_spec()
         self.ref = quad_ref
         self.plan_duration = plan_duration
         self.dt_sim = dt_sim
@@ -92,10 +94,23 @@ class HKDProblem:
                   else n_steps + 15 + max(0, (n_steps - 60) // 4))
 
     def _reb_row_params(self):
-        """Per-row ReB parameter vectors of the 20 GRF cone rows."""
-        p = self.cparams.grf_reb
-        return (np.full(N_GRF_ROWS, p.delta), np.full(N_GRF_ROWS, p.delta_min),
-                np.full(N_GRF_ROWS, p.eps))
+        """Per-row ReB parameter vectors (delta, delta_min, eps) from the
+        model's path-constraint terms, keyed by term name
+        (HKDProblem::loadConstrintParameters analog)."""
+        deltas, delta_mins, epss = [], [], []
+        for c in self.model.path_constraints:
+            p = {"GRF": self.cparams.grf_reb,
+                 "Swing": self.cparams.swing_reb}.get(c.name)
+            d, dm, e = ((p.delta, p.delta_min, p.eps) if p
+                        else (0.01, 0.001, 1.0))
+            deltas += [d] * c.n_rows
+            delta_mins += [dm] * c.n_rows
+            epss += [e] * c.n_rows
+        return (np.asarray(deltas), np.asarray(delta_mins), np.asarray(epss))
+
+    @property
+    def n_term_rows(self) -> int:
+        return self.model.n_terminal_rows
 
     # ------------------------------------------------------------------
     # initialization (parity: HKDProblem.cpp:14-111)
@@ -148,8 +163,9 @@ class HKDProblem:
         ph.td_mask = td
         ph.has_tconstr = True
         if td.any():
-            ph.al_lambda = np.full(N_TD_ROWS, self.cparams.td_al.lambda_)
-            ph.al_sigma = np.full(N_TD_ROWS, self.cparams.td_al.sigma)
+            ph.al_lambda = np.full(self.n_term_rows,
+                                   self.cparams.td_al.lambda_)
+            ph.al_sigma = np.full(self.n_term_rows, self.cparams.td_al.sigma)
 
     # ------------------------------------------------------------------
     # flattening
@@ -157,7 +173,7 @@ class HKDProblem:
 
     def all_shooting(self) -> bool:
         """True when every phase's nodes are shooting nodes — the condition
-        for the scan-free parallel rollout (solve(parallel_rollout=True))."""
+        for the scan-free parallel rollout that ddp.solve_batch runs."""
         return all(self._ss_on(i) for i in range(len(self.phases)))
 
     def _ss_on(self, i: int) -> bool:
@@ -243,8 +259,8 @@ class HKDProblem:
         deltas, delta_mins, epss = self._reb_row_params()
         reb_delta = np.tile(deltas, (T, 1))
         reb_eps = np.tile(epss, (T, 1))
-        al_lambda = np.zeros((T + 1, N_TD_ROWS))
-        al_sigma = np.zeros((T + 1, N_TD_ROWS))
+        al_lambda = np.zeros((T + 1, self.n_term_rows))
+        al_sigma = np.zeros((T + 1, self.n_term_rows))
 
         t_idx = 0
         for i, ph in enumerate(self.phases):
@@ -280,7 +296,7 @@ class HKDProblem:
             reb_delta=f(reb_delta),
             reb_delta_min=f(np.tile(delta_mins, (T, 1))),
             reb_eps=f(reb_eps), al_lambda=f(al_lambda), al_sigma=f(al_sigma),
-            al_sigma_max=f(np.full((T + 1, N_TD_ROWS),
+            al_sigma_max=f(np.full((T + 1, self.n_term_rows),
                                    self.cparams.td_al.sigma_max)),
         )
         state = SolverState(Xbar=f(Xbar), Ubar=f(Ubar), dU=f(dU), K=f(K),

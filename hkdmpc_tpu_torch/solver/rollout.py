@@ -1,15 +1,21 @@
 """Forward passes over the flattened transition graph, batched over scenarios
-— port of the main-path subset of `hkdmpc_tpu/solver/rollout.py`:
+— port of `hkdmpc_tpu/solver/rollout.py` (the parallel rollout paths):
 
-- hybrid_rollout_parallel: the scan-free multiple-shooting rollout
-- compute_cost / dynamics_feasibility / max_violations
-- linear_rollout_jvp (closed-form expected-cost change): the tangent step
-  A dx + B du (DYN) and Px dx (RESET) is taken from A/B assembled out of the
-  sparse Jacobian entries (`ops/jac_tminor.build_AB_tminor`) — the same
-  numbers `jax.jvp` of the JAX package's dynamics/reset map gives, up to
-  float reassociation.
+- hybrid_rollout_parallel: the scan-free multiple-shooting rollout, with the
+  model's horizon-minor dynamics/reset maps or its generic ones
+- run_ctx / term_ctx: the per-transition / per-node reference data the
+  model's terms read (`solver/model_api.py`)
+- compute_cost / cost_nodes / dynamics_feasibility / max_violations
+- linear_rollout: the search direction dX and expected cost change from the
+  dense LQ data (lq.A/B and the cost partials)
+- linear_rollout_jvp (closed-form expected-cost change, the default HKD
+  model only): the tangent step A dx + B du (DYN) and Px dx (RESET) is taken
+  from A/B assembled out of the sparse Jacobian entries
+  (`ops/jac_tminor.build_AB_tminor`) — the same numbers `jax.jvp` of the JAX
+  package's dynamics/reset map gives, up to float reassociation.
 
-Every array carries a leading scenario axis B.
+Every array carries a leading scenario axis B. `model=None` means
+`hkd_model_spec()`.
 """
 
 from __future__ import annotations
@@ -18,21 +24,45 @@ import torch
 
 from hkdmpc_tpu_torch.ops import hkd_tminor, precise
 from hkdmpc_tpu_torch.ops.jac_tminor import build_AB_tminor
-from hkdmpc_tpu_torch.solver.structs import (DYN, PAD, RESET, ProblemData,
-                                             Rollout, SolverState)
+from hkdmpc_tpu_torch.solver import costs
+from hkdmpc_tpu_torch.solver.model_api import hkd_model_spec
+from hkdmpc_tpu_torch.solver.structs import (DYN, PAD, RESET, LQData,
+                                             ProblemData, Rollout,
+                                             SolverState)
 
 DIVERGE_NORM = 1e6  # reference: SinglePhase.cpp:205-208
 
 
+def run_ctx(prob: ProblemData):
+    """Per-transition context of the cost/constraint terms (source node t),
+    every field with leading dims (B, T)."""
+    T = prob.T
+    return {"contact": prob.contact, "xr": prob.xr[..., :T, :],
+            "ur": prob.ur[..., :T, :], "foot_r": prob.foot_r[..., :T, :],
+            "dt": prob.dt[..., None].expand(prob.kind.shape),
+            "term_contact": prob.term_contact[..., :T, :],
+            "td_mask": prob.td_mask[..., :T, :]}
+
+
+def term_ctx(prob: ProblemData):
+    """Per-node context of the terminal terms, leading dims (B, T+1)."""
+    return {"contact": prob.term_contact, "xr": prob.xr, "ur": prob.ur,
+            "foot_r": prob.foot_r,
+            "dt": prob.dt[..., None].expand(prob.term_mask.shape),
+            "term_contact": prob.term_contact, "td_mask": prob.td_mask}
+
+
 def hybrid_rollout_parallel(prob: ProblemData, state: SolverState, eps,
-                            du_eff=None) -> Rollout:
+                            model=None, du_eff=None) -> Rollout:
     """Scan-free hybrid rollout — valid when every active node is a shooting
     node. X = Xbar + eps dX is known up front, U = Ubar + eps (dU + K dX),
     and every one-step simulation is independent; the Xsim source of a RESET
     transition is the simulated output of the preceding transition.
 
     eps: a float or a (B,) tensor; du_eff: optional precomputed
-    dU + K @ dX[:-1] (B, T, 24), shared by every line-search trial."""
+    dU + K @ dX[:-1] (B, T, us), shared by every line-search trial. A model
+    without `dynamics_tbatch` / `reset_tbatch` has its `dynamics` /
+    `reset_map` called on all transitions at once."""
     dtype = prob.xr.dtype
     eps = torch.as_tensor(eps, dtype=dtype, device=prob.xr.device)
     e3 = eps.reshape(eps.shape + (1, 1)) if eps.dim() else eps
@@ -42,13 +72,23 @@ def hybrid_rollout_parallel(prob: ProblemData, state: SolverState, eps,
         du_eff = state.dU + precise.mv(state.K, state.dX[..., :-1, :])
     U = state.Ubar + e3 * du_eff
 
-    sim = hkd_tminor.dynamics_tbatch(X[..., :-1, :], U, prob.contact,
-                                     prob.dt[..., None])
+    dyn_tb = model.dynamics_tbatch if model is not None else \
+        hkd_tminor.dynamics_tbatch
+    rst_tb = model.reset_tbatch if model is not None else \
+        hkd_tminor.reset_tbatch
+    if dyn_tb is not None:
+        sim = dyn_tb(X[..., :-1, :], U, prob.contact, prob.dt[..., None])
+    else:
+        sim = model.dynamics(X[..., :-1, :], U, prob.contact,
+                             prob.dt[..., None].expand(prob.kind.shape))
 
     # reset transitions: source sim state = sim output of transition t-1
     sim_prev = torch.cat([prob.x0[..., None, :], sim[..., :-1, :]], dim=-2)
-    reset_out = hkd_tminor.reset_tbatch(sim_prev, prob.contact,
-                                        prob.contact_next)
+    if rst_tb is not None:
+        reset_out = rst_tb(sim_prev, prob.contact, prob.contact_next)
+    else:
+        reset_out = model.reset_map(sim_prev, prob.contact,
+                                    prob.contact_next)
 
     is_dyn = (prob.kind == DYN)[..., None]
     is_reset = (prob.kind == RESET)[..., None]
@@ -77,21 +117,67 @@ def dynamics_feasibility(defect):
 
 
 def compute_cost(prob: ProblemData, X, U, constr, reb_active: bool,
-                 al_active: bool):
+                 al_active: bool, model=None):
     """Total cost (B,) = running terms [+ ReB barrier] + terminal terms
-    [+ AL penalty]; returns (cost, (g_all (B, T, 20), h_all (B, T+1, 4)))."""
-    return hkd_tminor.compute_cost_tbatch(prob, X, U, constr, reb_active,
-                                          al_active)
+    [+ AL penalty], from the model's horizon-minor cost when it has one and
+    from its terms otherwise. Returns (cost, (g_all (B, T, n_path),
+    h_all (B, T+1, n_term))), masked rows reading as satisfied."""
+    fast = (model.compute_cost_tbatch if model is not None
+            else hkd_tminor.compute_cost_tbatch)
+    if fast is not None:
+        return fast(prob, X, U, constr, reb_active, al_active)
+    run_l, term_phi, g_all, h_all = cost_nodes(prob, X, U, constr, reb_active,
+                                               al_active, model)
+    total = (torch.sum(prob.is_dyn * run_l, dim=-1)
+             + torch.sum(prob.term_mask * term_phi, dim=-1))
+    return total, (g_all, h_all)
+
+
+def cost_nodes(prob: ProblemData, X, U, constr, reb_active: bool,
+               al_active: bool, model=None):
+    """Per-node cost breakdown from the model's terms: (run_l (B, T),
+    term_phi (B, T+1), g_all, h_all). run_l is the reference's
+    rcostData[k].l (ReB barrier included when active,
+    SinglePhase.cpp:240-250); term_phi is tcostData.Phi (AL penalty included
+    when active, :253-260)."""
+    model = model or hkd_model_spec()
+    T = prob.T
+    ctx = run_ctx(prob)
+    Xt = X[..., :T, :]
+    run_l = model.running_cost(Xt, U, ctx)
+    g, row_mask = model.path_violations(Xt, U, ctx)
+    if reb_active and model.n_path_rows:
+        run_l = run_l + ctx["dt"] * torch.sum(
+            row_mask * costs.reb_value(g, constr.reb_delta, constr.reb_eps),
+            dim=-1)
+    g_all = g * row_mask + (1.0 - row_mask)
+
+    tctx = term_ctx(prob)
+    term_phi = model.terminal_cost(X, tctx)
+    h, h_mask = model.terminal_violations(X, tctx)
+    if al_active and model.n_terminal_rows:
+        term_phi = term_phi + torch.sum(h_mask * (
+            0.5 * constr.al_sigma * h * h + constr.al_lambda * h), dim=-1)
+    return run_l, term_phi, g_all, h * h_mask
 
 
 def max_violations(prob: ProblemData, g_all, h_all):
     """(max_pconstr <= 0, max_tconstr >= 0) per scenario — parity with
-    ConstraintContainer::get_max_pconstrs/get_max_tconstrs."""
-    g_eff = torch.where(prob.is_dyn[..., None] > 0, g_all,
-                        torch.zeros_like(g_all))
-    max_p = torch.clamp(torch.amin(g_eff, dim=(-2, -1)), max=0.0)
-    h_eff = torch.abs(h_all) * prob.term_mask[..., None]
-    max_t = torch.clamp(torch.amax(h_eff, dim=(-2, -1)), min=0.0)
+    ConstraintContainer::get_max_pconstrs/get_max_tconstrs; 0 for a model
+    without such rows."""
+    nb = prob.kind.shape[:-1]
+    zero = prob.xr.new_zeros(nb)
+    if g_all.shape[-1]:
+        g_eff = torch.where(prob.is_dyn[..., None] > 0, g_all,
+                            torch.zeros_like(g_all))
+        max_p = torch.clamp(torch.amin(g_eff, dim=(-2, -1)), max=0.0)
+    else:
+        max_p = zero
+    if h_all.shape[-1]:
+        h_eff = torch.abs(h_all) * prob.term_mask[..., None]
+        max_t = torch.clamp(torch.amax(h_eff, dim=(-2, -1)), min=0.0)
+    else:
+        max_t = zero
     return max_p, max_t
 
 
@@ -128,3 +214,48 @@ def linear_rollout_jvp(prob: ProblemData, state: SolverState, X, U, defect,
                                            dU_full, last, reb_active,
                                            al_active)
     return dX, dv1, dv2
+
+
+def linear_rollout(prob: ProblemData, state: SolverState, lq: LQData,
+                   defect, eps):
+    """Propagate the linearized dynamics along (dU, K) through the dense LQ
+    data: the multiple-shooting search direction dX (B, T+1, xs) and the
+    expected cost change (dV_1, dV_2) (B,), from lq.A/B and the cost
+    partials (parity: MultiPhaseDDP.cpp:20-50, SinglePhase.cpp:145-178).
+    Returns (dX, dV_1, dV_2)."""
+    last = last_active_node(prob).long()
+    lanes = torch.arange(last.shape[0], device=last.device)
+    eps = torch.as_tensor(eps, dtype=lq.lx.dtype, device=lq.lx.device)
+    dx = eps * defect[..., 0, :]
+    dxs, dv1s, dv2s = [dx], [], []
+    for t in range(prob.T):
+        du = eps * state.dU[..., t, :] + precise.mv(state.K[..., t, :, :], dx)
+        Adx = precise.mv(lq.A[..., t, :, :], dx)
+        dx_dyn = Adx + precise.mv(lq.B[..., t, :, :], du) \
+            + eps * defect[..., t + 1, :]
+        dv1_dyn = (torch.sum(lq.lx[..., t, :] * dx, dim=-1)
+                   + torch.sum(lq.lu[..., t, :] * du, dim=-1))
+        dv2_dyn = (precise.quad(dx, lq.lxx[..., t, :, :], dx)
+                   + precise.quad(du, lq.luu[..., t, :, :], du))
+        if lq.lux is not None:
+            dv2_dyn = dv2_dyn + precise.quad(du, lq.lux[..., t, :, :], dx)
+        dv1_rst = torch.sum(lq.phix[..., t, :] * dx, dim=-1)
+        dv2_rst = precise.quad(dx, lq.phixx[..., t, :, :], dx)
+        dx_rst = Adx + eps * defect[..., t + 1, :]
+        is_dyn = prob.kind[..., t] == DYN
+        is_rst = prob.kind[..., t] == RESET
+        dx = torch.where(is_dyn[..., None], dx_dyn,
+                         torch.where(is_rst[..., None], dx_rst, dx))
+        zero = torch.zeros_like(dv1_dyn)
+        dv1s.append(torch.where(is_dyn, dv1_dyn,
+                                torch.where(is_rst, dv1_rst, zero)))
+        dv2s.append(torch.where(is_dyn, dv2_dyn,
+                                torch.where(is_rst, dv2_rst, zero)))
+        dxs.append(dx)
+    dX = torch.stack(dxs, dim=-2)
+    dx_term = dX[lanes, last]
+    dV_1 = (torch.sum(torch.stack(dv1s, dim=-1), dim=-1)
+            + torch.sum(lq.phix[lanes, last] * dx_term, dim=-1))
+    dV_2 = (torch.sum(torch.stack(dv2s, dim=-1), dim=-1)
+            + precise.quad(dx_term, lq.phixx[lanes, last], dx_term))
+    return dX, dV_1, dV_2

@@ -18,9 +18,6 @@ import torch
 # transition kinds
 PAD, DYN, RESET = 0, 1, 2
 
-N_GRF_ROWS = 20  # 5 friction-cone rows x 4 legs, swing rows masked
-N_TD_ROWS = 4    # touchdown rows, one per leg
-
 
 def tree_map(fn, obj):
     """Apply fn to every tensor leaf of a (nested) struct dataclass."""
@@ -82,13 +79,16 @@ class ProblemData:
 
 @dataclasses.dataclass
 class ConstraintState:
-    """AL / ReB parameters (reference: ConstraintsBase.h:58-86)."""
-    reb_delta: torch.Tensor      # (T, 20)
-    reb_delta_min: torch.Tensor  # (T, 20)
-    reb_eps: torch.Tensor        # (T, 20)
-    al_lambda: torch.Tensor      # (T+1, 4)
-    al_sigma: torch.Tensor       # (T+1, 4)
-    al_sigma_max: torch.Tensor   # (T+1, 4)
+    """AL / ReB parameters (reference: ConstraintsBase.h:58-86), one column
+    per path-constraint row (20 GRF cone rows for the default HKD model, 24
+    with the swing constraint) and per terminal-constraint row (4 touchdown
+    rows)."""
+    reb_delta: torch.Tensor      # (T, n_path_rows)
+    reb_delta_min: torch.Tensor  # (T, n_path_rows)
+    reb_eps: torch.Tensor        # (T, n_path_rows)
+    al_lambda: torch.Tensor      # (T+1, n_terminal_rows)
+    al_sigma: torch.Tensor       # (T+1, n_terminal_rows)
+    al_sigma_max: torch.Tensor   # (T+1, n_terminal_rows)
 
 
 @dataclasses.dataclass
@@ -102,6 +102,18 @@ class SolverState:
     defect_bar: torch.Tensor  # (T+1, 24)
     constr: ConstraintState
 
+    @classmethod
+    def init(cls, prob: ProblemData, constr: ConstraintState) -> "SolverState":
+        """Cold start: Xbar = xr, every other trajectory field zero. Keeps
+        prob's leading batch axes."""
+        T = prob.T
+        lead = prob.kind.shape[:-1]
+        xs, us = prob.xr.shape[-1], prob.ur.shape[-1]
+        z = lambda *shape: prob.xr.new_zeros(lead + shape)
+        return cls(Xbar=prob.xr.clone(), Ubar=z(T, us), dU=z(T, us),
+                   K=z(T, us, xs), dX=z(T + 1, xs), defect_bar=z(T + 1, xs),
+                   constr=constr)
+
 
 @dataclasses.dataclass
 class Rollout:
@@ -111,6 +123,25 @@ class Rollout:
     Xsim: torch.Tensor     # (T+1, 24)
     defect: torch.Tensor   # (T+1, 24)
     success: torch.Tensor  # () bool — divergence guard ||xsim|| <= 1e6
+
+
+@dataclasses.dataclass
+class LQData:
+    """LQ approximation along the nominal trajectory, per transition / node,
+    with a leading batch axis. At RESET transitions A holds the reset-map
+    Jacobian Px and B is zero. The cost partials include the ReB barrier
+    (running) and the AL terms (terminal) as the reference folds them in
+    (SinglePhase.cpp:265-296, 370-426)."""
+    A: torch.Tensor      # (T, xs, xs)
+    B: torch.Tensor      # (T, xs, us)
+    lx: torch.Tensor     # (T, xs)
+    lu: torch.Tensor     # (T, us)
+    lxx: torch.Tensor    # (T, xs, xs)
+    luu: torch.Tensor    # (T, us, us)
+    lux: object          # (T, us, xs), or None when the model has no u-x
+                         # cross cost terms (every in-repo model)
+    phix: torch.Tensor   # (T+1, xs) terminal gradient per node (masked)
+    phixx: torch.Tensor  # (T+1, xs, xs)
 
 
 @dataclasses.dataclass

@@ -3,7 +3,9 @@ ConstraintParams defaults, and the nominal standing initial state.
 
 With the default 0.6 s plan the problem has T = 75 transitions (60 DYN,
 4 RESET, 11 PAD); the 2.0 s plan has T = 250. Every node is a shooting
-node, so the parallel rollout applies.
+node, so the parallel rollout applies. `model=` builds the problem for
+another `ModelSpec`, such as `hkd_model_spec(swing_constraint=True)` (24 path
+rows, with the `ConstraintParams()` swing defaults).
 """
 
 from __future__ import annotations
@@ -46,10 +48,12 @@ def initial_state(contact) -> np.ndarray:
     return np.concatenate([body, qd.numpy()])
 
 
-def trot_problem(plan_duration: float = 0.6, *, dtype: torch.dtype, device):
-    """(HKDProblem, ProblemData, SolverState, HSDDPOption) of the trot."""
+def trot_problem(plan_duration: float = 0.6, *, dtype: torch.dtype, device,
+                 model=None):
+    """(HKDProblem, ProblemData, SolverState, HSDDPOption) of the trot, for
+    `model` (None: the default HKD model)."""
     pb = HKDProblem(trot_reference(), plan_duration=plan_duration,
-                    dtype=dtype, device=device)
+                    dtype=dtype, device=device, model=model)
     pb.initialization()
     prob, state = pb.build(initial_state(pb.phases[0].contact))
     return pb, prob, state, HSDDPOption()

@@ -17,23 +17,36 @@ from hkdmpc_tpu.config import HSDDPOption
 from hkdmpc_tpu.models import hkd
 from hkdmpc_tpu.reference.quad_reference import QuadReference
 from hkdmpc_tpu.reference.refgen import GaitSynthesizer
+from hkdmpc_tpu.solver import model_api as jmodel_api
 from hkdmpc_tpu.solver import structs as jstructs
 from hkdmpc_tpu.solver.problem import HKDProblem
 from hkdmpc_tpu_torch import workload
 from hkdmpc_tpu_torch.parallel.batch import default_x0_scale
-from hkdmpc_tpu_torch.solver import structs as tstructs
+from hkdmpc_tpu_torch.solver import model_api, structs as tstructs
 
 F64 = torch.float64
 
+# the in-repo model specs, by name: swing_constraint of hkd_model_spec
+SPECS = {"default": False, "swing": True}
 
-def jax_trot_problem(plan_duration=0.6):
+
+def specs(name):
+    """(JAX ModelSpec, port ModelSpec) of the named in-repo spec."""
+    swing = SPECS[name]
+    return (jmodel_api.hkd_model_spec(swing_constraint=swing),
+            model_api.hkd_model_spec(swing_constraint=swing))
+
+
+def jax_trot_problem(plan_duration=0.6, model=None):
     """(HKDProblem, ProblemData, SolverState, HSDDPOption) of the same trot
-    the port's `workload.trot_problem` builds, from the JAX package, f64."""
+    the port's `workload.trot_problem` builds, from the JAX package, f64,
+    for the JAX ModelSpec `model` (None: the default HKD model)."""
     with tempfile.TemporaryDirectory() as d:
         path = GaitSynthesizer().write(os.path.join(d, "trot.csv"),
                                        workload.TROT_SEGMENTS)
         ref = QuadReference.from_file(path)
-    pb = HKDProblem(ref, plan_duration=plan_duration, dtype=jnp.float64)
+    pb = HKDProblem(ref, plan_duration=plan_duration, dtype=jnp.float64,
+                    model=model)
     pb.initialization()
     body = np.zeros(12)
     body[5] = workload.BODY_HEIGHT0
@@ -73,10 +86,11 @@ def x0_noise(batch, seed):
     return noise, noise * default_x0_scale(F64, "cpu").numpy()
 
 
-def batched_trot(batch, seed, plan_duration=0.6):
+def batched_trot(batch, seed, plan_duration=0.6, model=None):
     """Numpy field trees (prob, state) of `batch` perturbed trot scenarios —
-    the same arrays for both packages — and the option set."""
-    _, prob, state, opt = jax_trot_problem(plan_duration)
+    the same arrays for both packages — and the option set. model: a JAX
+    ModelSpec (it sizes the constraint rows)."""
+    _, prob, state, opt = jax_trot_problem(plan_duration, model)
     prob_n = tile_tree(to_numpy_tree(prob), batch)
     state_n = tile_tree(to_numpy_tree(state), batch)
     prob_n["x0"] = prob_n["x0"] + x0_noise(batch, seed)[1]
@@ -100,18 +114,32 @@ def assert_close(got, want, rtol, what=""):
                                atol=rtol * scale, err_msg=what)
 
 
-def solve_both(batch, seed, plan_duration):
-    """The batched throughput solve (runtime caps) of the same perturbed trot
-    scenarios in both packages: (port SolveResult, JAX SolveResult)."""
+def solve_both(batch, seed, plan_duration, model=None):
+    """The batched solve (runtime caps) of the same perturbed trot scenarios
+    in both packages: (port SolveResult, JAX SolveResult).
+
+    model None: the throughput path — the port's kernel_jac=True against
+    the JAX package's parallel_rollout + kernel_jac + unroll_caps. model a
+    name in SPECS: the dense path with that spec — the port's
+    kernel_jac=False against parallel_rollout + pallas_backward +
+    unroll_caps (in f64 the JAX batched rule runs its scan)."""
     from hkdmpc_tpu.solver import ddp as jddp
     from hkdmpc_tpu_torch.solver import ddp
 
-    prob_n, state_n, opt = batched_trot(batch, seed, plan_duration)
+    jspec, spec = specs(model) if model is not None else (None, None)
+    prob_n, state_n, opt = batched_trot(batch, seed, plan_duration, jspec)
     jprob, prob = both(prob_n, tstructs.ProblemData)
     jstate, state = both(state_n, tstructs.SolverState)
-    flags = dict(parallel_rollout=True, kernel_jac=True, unroll_caps=True)
-    got = ddp.solve_batch(prob, state, opt.runtime(), **flags)
-    want = jddp.solve_batch(jprob, jstate, opt.runtime(), **flags)
+    jflags = dict(parallel_rollout=True, unroll_caps=True)
+    if model is None:
+        got = ddp.solve_batch(prob, state, opt.runtime(), kernel_jac=True)
+        want = jddp.solve_batch(jprob, jstate, opt.runtime(), kernel_jac=True,
+                                **jflags)
+    else:
+        got = ddp.solve_batch(prob, state, opt.runtime(), kernel_jac=False,
+                              model=spec)
+        want = jddp.solve_batch(jprob, jstate, opt.runtime(), model=jspec,
+                                pallas_backward=True, **jflags)
     return got, jax.tree_util.tree_map(np.asarray, want)
 
 

@@ -1,7 +1,8 @@
 """The PyTorch port never imports JAX: in a fresh interpreter (the test
 process has JAX loaded already), import every module of hkdmpc_tpu_torch,
-build the trot problem and run one small batched solve, then check that
-`jax` is not in sys.modules."""
+build the trot problem and run one small batched solve on each path (the
+default model's kernel_jac path, the dense path with the swing constraint),
+then check that `jax` is not in sys.modules."""
 import os
 import pathlib
 import subprocess
@@ -23,8 +24,13 @@ torch.set_num_threads(2)
 _, prob, state, opt = trot_problem(dtype=torch.float64, device="cpu")
 prob_b, state_b = replicate_problem(prob, state, 2)
 prob_b = perturb_scenarios(prob_b, noise=np.random.default_rng(0).standard_normal((2, 24)))
-res = ddp.solve_batch(prob_b, state_b, opt.runtime(), parallel_rollout=True,
-                      kernel_jac=True, unroll_caps=True)
+res = ddp.solve_batch(prob_b, state_b, opt.runtime(), kernel_jac=True)
+assert bool(torch.isfinite(res.cost).all())
+from hkdmpc_tpu_torch.solver.model_api import hkd_model_spec
+spec = hkd_model_spec(swing_constraint=True)
+_, prob, state, opt = trot_problem(dtype=torch.float64, device="cpu", model=spec)
+prob_b, state_b = replicate_problem(prob, state, 2)
+res = ddp.solve_batch(prob_b, state_b, opt.runtime(), kernel_jac=False, model=spec)
 assert bool(torch.isfinite(res.cost).all())
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 print("NO_JAX_OK")
