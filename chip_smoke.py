@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """GPU check of the PyTorch/CUDA port (`hkdmpc_tpu_torch`): builds the two
 CUDA Riccati kernels, holds each against its plain PyTorch version on the
-card, and drives both batched solve paths once at full width.
+card, drives both batched solve paths once at full width, and steps the
+fleet MPC at full width.
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
 
@@ -29,7 +30,20 @@ Phases, one line each:
      the card; solves/s from 5 runs;
   6. K2 against K1: the default model on the phase-3 scenarios through both
      paths; both without failures and at least 99% of the final costs within
-     1e-3 relative of each other.
+     1e-3 relative of each other;
+  7. the fleet MPC: FleetMPC on the trot (plan 0.6 s, T = 75), N = 1024
+     robots, f32, FleetConfig() defaults (kernel_jac resolves to K1's
+     path): cold solve, 2 warm-up steps, then 50 receding-horizon steps
+     (rollout_steps, measurements from workload.meas_stream(1024, 0)) timed
+     with the host clock around the blocking call. K1 must have been
+     launched at least twice per step, the cold solve and the last step
+     without a failed robot, the last controls and gains finite, and every
+     step that is not all-shooting must have taken the sequential rollout
+     (and only those); ms per step and robot-steps/s overall and for the
+     parallel- and sequential-rollout steps apart. Then an 8-robot fleet
+     with the plain sweep on the card beside an 8-robot K1 fleet, both
+     stepped 5 times with the same measurements: per-step final costs
+     within 1e-3 relative.
 Each solve path runs with its kernel's launch count set to 0 just before it
 and read just after. Then one JSON line with both kernels, the card's name
 and power limit, and the result line. Any failure raises and exits non-zero.
@@ -49,6 +63,10 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BATCH = 4096
+FLEET_N = 1024
+FLEET_STEPS = 50
+FLEET_WARMUP = 2
+FLEET_CHECK_STEPS = 5
 SEED = 0
 PLAIN_CHECK_LANES = 8
 KERNELS = ("riccati_hkd", "riccati_dense")
@@ -347,6 +365,163 @@ def k2_vs_k1_phase(batch=BATCH):
                              "1e-3")
 
 
+@contextlib.contextmanager
+def counting_calls(module, names):
+    """Count the calls of module.<name> for each name while inside."""
+    counts = dict.fromkeys(names, 0)
+    saved = {n: getattr(module, n) for n in names}
+
+    def counted(name):
+        def call(*args, **kw):
+            counts[name] += 1
+            return saved[name](*args, **kw)
+        return call
+
+    for n in names:
+        setattr(module, n, counted(n))
+    try:
+        yield counts
+    finally:
+        for n in names:
+            setattr(module, n, saved[n])
+
+
+def _rate(ms_list, n):
+    """'ms per step, robot-steps/s' of a list of per-step ms."""
+    if not ms_list:
+        return "no steps"
+    ms = sum(ms_list) / len(ms_list)
+    return f"{ms:.3f} ms/step = {n / ms * 1e3:.1f} robot-steps/s"
+
+
+def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
+    """The fleet MPC at full width on K1's path; returns K1's launch count
+    over the timed steps."""
+    torch = _torch()
+    import tempfile
+    from hkdmpc_tpu_torch.mpc.fleet import FleetConfig, FleetMPC
+    from hkdmpc_tpu_torch.ops import riccati_hkd
+    from hkdmpc_tpu_torch.solver import rollout as ro_mod
+    from hkdmpc_tpu_torch.workload import gait_file, meas_stream
+
+    with tempfile.TemporaryDirectory() as d:
+        ref = gait_file("trot", d)
+        fleet = FleetMPC(ref, n, config=FleetConfig(), dtype=torch.float32,
+                         device="cuda")
+        if not fleet._kernel_jac:
+            raise AssertionError("kernel_jac did not resolve to K1's path")
+        init = fleet.initialize()
+        if init["n_failed"]:
+            raise AssertionError(f"cold solve: {init['n_failed']} robots "
+                                 "failed")
+        stream = meas_stream(n, SEED)
+        fleet.rollout_steps(FLEET_WARMUP, stream)
+
+        # per step: the host clock and the rollout calls at each step's
+        # start (meas_fn is called first), all_shooting() after its update
+        stamps, shooting, calls = [], [], []
+        names = ("hybrid_rollout", "hybrid_rollout_parallel")
+        with counting_calls(ro_mod, names) as counts:
+            def meas_fn(k):
+                if k:
+                    shooting.append(fleet.problem.all_shooting())
+                calls.append(dict(counts))
+                stamps.append(time.perf_counter())
+                return stream(k)
+
+            riccati_hkd.LAUNCHES = 0
+            t0 = time.perf_counter()
+            last = fleet.rollout_steps(steps, meas_fn,
+                                       mpc_time0=0.01 * FLEET_WARMUP)
+            t1 = time.perf_counter()
+            launches = riccati_hkd.LAUNCHES
+            shooting.append(fleet.problem.all_shooting())
+            calls.append(dict(counts))
+            stamps.append(t1)
+
+        out = fleet.unpack(last)
+    if launches < 2 * steps:
+        raise AssertionError(f"K1 launched {launches} times in {steps} "
+                             "fleet steps, expected >= 2 per step")
+    n_failed = int((out["scalars"][:, 5] > 0).sum())
+    if n_failed:
+        raise AssertionError(f"{n_failed} robots failed in the last step")
+    if out["controls"].shape != (n, fleet.n_cmd, 24) or not (
+            np.isfinite(out["controls"]).all()
+            and np.isfinite(out["gains"]).all()):
+        raise AssertionError("the last step's controls or gains are not "
+                             "finite")
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    n_seq = 0
+    for k in range(steps):
+        seq = calls[k + 1]["hybrid_rollout"] - calls[k]["hybrid_rollout"]
+        par = (calls[k + 1]["hybrid_rollout_parallel"]
+               - calls[k]["hybrid_rollout_parallel"])
+        if shooting[k] == (seq > 0) or shooting[k] != (par > 0):
+            raise AssertionError(
+                f"step {k}: all_shooting() {shooting[k]} but {seq} "
+                f"sequential and {par} parallel rollouts")
+        n_seq += not shooting[k]
+    total_ms = (t1 - t0) * 1e3
+    par_ms = [m for m, s in zip(step_ms, shooting) if s]
+    seq_ms = [m for m, s in zip(step_ms, shooting) if not s]
+    print(f"phase 7 fleet: FleetMPC N={n} trot plan 0.6 s T="
+          f"{fleet.problem.T} f32 FleetConfig() (kernel_jac -> K1); cold "
+          f"solve mean cost {init['mean_cost']:.6g}, 0/{n} failed, "
+          f"{init['solve_ms']:.3f} ms; {steps} steps after {FLEET_WARMUP} "
+          f"warm-up in {total_ms:.3f} ms (host clock around rollout_steps)"
+          f" = {_rate([total_ms / steps], n)}; K1 launches {launches} "
+          f"({launches / steps:.2f}/step); {n_seq} of {steps} steps not "
+          f"all-shooting took the sequential rollout; parallel-rollout "
+          f"steps: {_rate(par_ms, n)}; sequential-rollout steps: "
+          f"{_rate(seq_ms, n)}; last step 0/{n} failed, mean cost "
+          f"{float(out['scalars'][:, 0].mean()):.6g}; on {card}",
+          flush=True)
+    fleet_vs_plain(torch, card)
+    return launches
+
+
+def fleet_vs_plain(torch, card, n=PLAIN_CHECK_LANES,
+                   steps=FLEET_CHECK_STEPS):
+    """An n-robot fleet with the plain sweep on the card beside an n-robot
+    K1 fleet, same measurements: per-step final costs within 1e-3."""
+    import tempfile
+    from hkdmpc_tpu_torch.mpc.fleet import FleetConfig, FleetMPC
+    from hkdmpc_tpu_torch.ops import riccati_hkd
+    from hkdmpc_tpu_torch.workload import gait_file, meas_stream
+
+    stream = meas_stream(FLEET_N, SEED)
+    meas = [{k: v[:n] for k, v in stream(s).items()} for s in range(steps)]
+    costs = {}
+    with tempfile.TemporaryDirectory() as d:
+        ref = gait_file("trot", d)
+        for label in ("kernel", "plain"):
+            route = (plain_sweep_on_card(riccati_hkd, "backward_sweep_hkd",
+                                         riccati_hkd.backward_sweep_hkd_plain)
+                     if label == "plain" else contextlib.nullcontext())
+            with route:
+                f = FleetMPC(ref, n, config=FleetConfig(),
+                             dtype=torch.float32, device="cuda")
+                f.initialize()
+                costs[label] = []
+                for s, m in enumerate(meas):
+                    out = f.step(m["rpy"], m["p"], m["v"], m["omega"],
+                                 m["qJ"], mpc_time=0.01 * s)
+                    if (out["scalars"][:, 5] > 0).any():
+                        raise AssertionError(f"{label} fleet: a robot "
+                                             f"failed at step {s}")
+                    costs[label].append(out["scalars"][:, 0].astype(
+                        np.float64))
+    rel = max(float(np.max(np.abs(k - p) / np.abs(p)))
+              for k, p in zip(costs["kernel"], costs["plain"]))
+    print(f"phase 7 fleet vs plain sweep: {n} robots x {steps} steps, K1 "
+          f"fleet vs plain-sweep fleet on the card; per-step final costs "
+          f"max {rel:.3e} rel (limit 1e-3); card {card}", flush=True)
+    if not rel <= 1e-3:
+        raise AssertionError(f"fleet costs differ from the plain-sweep "
+                             f"fleet by {rel:.3e} rel")
+
+
 def main():
     torch = _torch()
     card = build_phase()
@@ -355,6 +530,7 @@ def main():
     dense = dense_kernel_phase()
     dense["launches"] = dense_slice_phase(card)
     k2_vs_k1_phase()
+    hkd["fleet_launches"] = fleet_phase(card)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     print(json.dumps({"kernels": [hkd, dense]}))

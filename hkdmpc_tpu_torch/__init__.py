@@ -8,7 +8,9 @@ HKD model's throughput path, and `kernel_jac=False`, the dense-LQ path for
 any `solver.model_api.ModelSpec` — with each path's Riccati backward sweep
 as a hand-written CUDA kernel for Hopper (`csrc/riccati_hkd.cu` wrapped by
 `ops/riccati_hkd.py`, `csrc/riccati_dense.cu` wrapped by
-`ops/riccati_dense.py`). This package never imports JAX.
+`ops/riccati_dense.py`); and the fleet MPC built on it (`mpc.fleet.FleetMPC`:
+receding-horizon updates, the batched fleet step `mpc.fused.fleet_step`,
+checkpoints in `utils.checkpoint`). This package never imports JAX.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,313 @@
+"""Batched fleet MPC: N warm-started robots stepping receding horizons with
+their state on the device — port of `hkdmpc_tpu/mpc/fleet.py`.
+
+A uniform-gait fleet advances one schedule: the host computes the
+warm-start shift descriptor, the problem arrays and the command-walk indices
+once per step (`fused.host_step`), and the device step
+(`fused.fleet_step`) runs the whole receding-horizon update of every robot
+on its own state and its 28-float measurement vector. A mixed-gait fleet is
+one such fleet per gait (`MixedFleetMPC`).
+
+The solve path follows `FleetConfig.kernel_jac`: True is the default HKD
+model's path with the CUDA kernel K1 (`csrc/riccati_hkd.cu`), False the
+dense path with K2 (`csrc/riccati_dense.cu`); None picks True for a CUDA
+device in float32 and False otherwise. On the CPU both run their plain
+versions. Every step passes `problem.all_shooting()` as the solve's
+`parallel_rollout`, so the steps after a back-phase append (whose last phase
+is too short to shoot) take the sequential rollout.
+
+Reference analog, per robot: HKDMPC/HKDMPC.cpp:96-166 (the re-solve loop) +
+HKD-TrajOpt/HKDProblem.cpp:116-222 (the receding-horizon update).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from hkdmpc_tpu.config import (ConstraintParams, HSDDPOption,
+                               load_constraint_params, load_ddp_setting)
+from hkdmpc_tpu.reference.quad_reference import QuadReference
+from hkdmpc_tpu_torch.mpc import fused
+from hkdmpc_tpu_torch.mpc.solver import MPCCommand, default_stand_state
+from hkdmpc_tpu_torch.parallel.batch import replicate_problem
+from hkdmpc_tpu_torch.solver import ddp
+from hkdmpc_tpu_torch.solver.problem import HKDProblem
+
+
+@dataclasses.dataclass
+class FleetConfig:
+    # schedule parameters (parity: HKDMPC.cpp:26-29, per robot)
+    plan_duration: float = 0.6
+    nsteps_between_mpc: int = 1
+    timestep: float = 0.01
+    n_cmd_extra: int = 7
+    # solve path: True = K1 (default HKD model), False = dense path (K2);
+    # None = True on a CUDA device in float32, False otherwise
+    kernel_jac: Optional[bool] = None
+    # the batch-1 latency options of the JAX package; not ported yet
+    assoc_linear: bool = False
+    assoc_backward: bool = False
+
+
+def unpack_bundle_batch(arr: np.ndarray, n_cmd: int,
+                        trace_len: int = fused.TRACE_LEN) -> dict:
+    """Batched fused.unpack_bundle: arr (N, L) -> dict of (N, ...) arrays."""
+    arr = np.asarray(arr)
+    N = arr.shape[0]
+    out = fused._unpack(arr, fused.bundle_layout(n_cmd, trace_len))
+    out["controls"] = out["controls"].reshape(N, n_cmd, 24)
+    out["body"] = out["body"].reshape(N, n_cmd, 12)
+    out["gains"] = out["gains"].reshape(N, n_cmd, 12, 12)
+    out["pf"] = out["pf"].reshape(N, 4, 3)
+    return out
+
+
+class FleetMPC:
+    """N-robot uniform-gait fleet MPC with device-resident warm starts.
+
+    All robots track one gait schedule (one QuadReference window, one
+    HKDProblem doing the host bookkeeping); each robot has its own
+    measurements, trajectories, gains and multipliers on the device."""
+
+    def __init__(self, reference_file: str, n_robots: int,
+                 ddp_settings: Optional[str] = None,
+                 constraint_params: Optional[str] = None,
+                 config: Optional[FleetConfig] = None, *,
+                 dtype: torch.dtype = torch.float32, device="cuda"):
+        self.cfg = config or FleetConfig()
+        if self.cfg.assoc_linear or self.cfg.assoc_backward:
+            raise NotImplementedError("assoc_linear / assoc_backward (the "
+                                      "batch-1 latency path) are not ported")
+        self.n = int(n_robots)
+        self.opt = (load_ddp_setting(ddp_settings) if ddp_settings
+                    else HSDDPOption())
+        self.cparams = (load_constraint_params(constraint_params)
+                        if constraint_params else ConstraintParams())
+        self.ref = QuadReference.from_file(reference_file)
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.problem = HKDProblem(
+            self.ref, dtype=dtype, device=self.device,
+            plan_duration=self.cfg.plan_duration, dt_sim=self.cfg.timestep,
+            dt_mpc=self.cfg.timestep, cparams=self.cparams)
+        self._np_dtype = (np.float64 if dtype == torch.float64
+                          else np.float32)
+        kj = self.cfg.kernel_jac
+        if kj is None:
+            kj = self.device.type == "cuda" and dtype == torch.float32
+        self._kernel_jac = bool(kj)
+        self.n_cmd = self.cfg.nsteps_between_mpc + self.cfg.n_cmd_extra
+        self.mpc_iter = 0
+        self.solve_time = 0.0
+        self._pending = None
+        self._last = None
+        self._pf = np.zeros((self.n, 4, 3))
+
+    # ------------------------------------------------------------------
+
+    def initialize(self, x0_b: Optional[np.ndarray] = None) -> dict:
+        """Cold-solve the whole fleet with the full option set. x0_b: (N, 24)
+        per-robot HKD states (default: the stand pose for every robot,
+        HKDMPC.cpp:44-54). Returns aggregate stats."""
+        pb = self.problem
+        pb.initialization()
+        if x0_b is None:
+            x0_b = np.tile(default_stand_state(pb.phases[0].contact),
+                           (self.n, 1))
+        x0_b = np.asarray(x0_b, self._np_dtype)
+        if x0_b.shape != (self.n, 24):
+            raise ValueError(f"x0_b: shape {x0_b.shape}, expected "
+                             f"({self.n}, 24)")
+
+        prob, state = pb.build(x0_b[0])
+        prob_b, state_b = replicate_problem(prob, state, self.n)
+        prob_b = dataclasses.replace(prob_b, x0=torch.as_tensor(
+            x0_b, dtype=self.dtype, device=self.device))
+        t0 = time.perf_counter()
+        res = ddp.solve_batch(prob_b, state_b, self.opt,
+                              kernel_jac=self._kernel_jac,
+                              parallel_rollout=pb.all_shooting())
+        self._sync()
+        self.solve_time = (time.perf_counter() - t0) * 1e3
+        self._state_dev = res.state
+        self._tables = fused.make_tables(pb, self.dtype, self.device)
+        self._offsets = pb.flat_offsets()
+        self.mpc_iter = 0
+        return {
+            "mean_cost": float(res.cost.mean()),
+            "max_feas": float(res.dyn_feas.max()),
+            "n_failed": int(res.solve_failed.sum()),
+            "solve_ms": self.solve_time,
+        }
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------
+
+    def _meas_batch(self, rpy_b, p_b, v_b, omega_b, qJ_b) -> np.ndarray:
+        """(N, 28) measurement pack; rpy arrives (roll, pitch, yaw) and is
+        flipped to (yaw, pitch, roll) as in HKDMPC.cpp:118."""
+        f = lambda a, w: np.asarray(a, self._np_dtype).reshape(self.n, w)
+        fc = np.tile(np.asarray(self.problem.phases[0].contact,
+                                self._np_dtype), (self.n, 1))
+        return np.concatenate([f(rpy_b, 3)[:, ::-1], f(p_b, 3),
+                               f(omega_b, 3), f(v_b, 3), f(qJ_b, 12), fc],
+                              axis=1)
+
+    def _dispatch(self, meas, mpc_time):
+        """host_step, then the device step on this step's vectors; returns
+        (bundle on the device, aux, host clock at the device step's start).
+        host_step runs before the measurement pack, so x0 takes the
+        front-phase contact after the update, as the reference updates the
+        problem before building x0 (HKDMPC.cpp:96-130)."""
+        pb = self.problem
+        ints, floats, self._offsets, aux = fused.host_step(
+            pb, self._offsets, self.cfg.nsteps_between_mpc, self.n_cmd,
+            mpc_time, self.cfg.timestep, self._np_dtype)
+        meas_b = self._meas_batch(meas["rpy"], meas["p"], meas["v"],
+                                  meas["omega"], meas["qJ"])
+        dev = lambda a, dt: torch.as_tensor(a, dtype=dt, device=self.device)
+        t0 = time.perf_counter()
+        self._state_dev, bundle = fused.fleet_step(
+            self._tables, self._state_dev, dev(ints, torch.int32),
+            dev(floats, self.dtype), dev(meas_b, self.dtype),
+            self.opt.runtime(), pb.all_shooting(), self.n_cmd,
+            self._kernel_jac)
+        self.mpc_iter += 1
+        return bundle, aux, t0
+
+    def _check_idle(self, what):
+        if self._pending is not None:
+            raise RuntimeError(f"{what} with an in-flight step pending — "
+                               "call complete() first")
+
+    def step_async(self, rpy_b, p_b, v_b, omega_b, qJ_b,
+                   mpc_time: float = 0.0) -> None:
+        """Dispatch one fleet receding-horizon step; complete() fetches
+        it."""
+        self._check_idle("step_async")
+        bundle, aux, t0 = self._dispatch(
+            dict(rpy=rpy_b, p=p_b, v=v_b, omega=omega_b, qJ=qJ_b), mpc_time)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        self._pending = dict(bundle=bundle, t0=t0, aux=aux, event=event)
+
+    def ready(self) -> bool:
+        """True when the dispatched step's result is available (complete()
+        will not wait for the device)."""
+        pend = self._pending
+        return pend is not None and (pend["event"] is None
+                                     or pend["event"].query())
+
+    def complete(self) -> dict:
+        """Fetch the dispatched step: batched command arrays controls
+        (N, n_cmd, 24), body (N, n_cmd, 12), gains (N, n_cmd, 12, 12),
+        pf (N, 4, 3), scalars (N, 6) and the four (N, trace_len) traces, the
+        shared times / contacts / status, and foot_placement (N, 4, 3), the
+        last planned foot placement of each leg."""
+        pend = self._pending
+        if pend is None:
+            raise RuntimeError("complete() without a dispatched step")
+        self._pending = None
+        out = self.unpack(pend["bundle"])
+        self.solve_time = (time.perf_counter() - pend["t0"]) * 1e3
+        found = pend["aux"]["found"]
+        for leg in range(4):
+            if found[leg]:
+                self._pf[:, leg] = out["pf"][:, leg]
+        out["foot_placement"] = self._pf.copy()
+        out["times"] = pend["aux"]["times"]
+        out["contacts"] = pend["aux"]["contacts"]
+        out["status"] = pend["aux"]["status"]
+        out["solve_time"] = self.solve_time
+        self._last = out
+        return out
+
+    def step(self, rpy_b, p_b, v_b, omega_b, qJ_b,
+             mpc_time: float = 0.0) -> dict:
+        self.step_async(rpy_b, p_b, v_b, omega_b, qJ_b, mpc_time)
+        return self.complete()
+
+    def rollout_steps(self, n_steps: int, meas_fn, mpc_time0: float = 0.0):
+        """Dispatch n_steps fleet steps back to back without fetching
+        between them; meas_fn(k) gives step k's measurements as a dict of
+        (N, ...) arrays rpy / p / v / omega / qJ. Waits for the device at
+        the end and returns the last bundle (a device tensor). As in the JAX
+        package, the foot placements of complete() are not updated by these
+        steps."""
+        self._check_idle("rollout_steps")
+        for k in range(n_steps):
+            bundle, _, _ = self._dispatch(meas_fn(k),
+                                          mpc_time0 + k * self.cfg.timestep)
+        self._sync()
+        return bundle
+
+    # ------------------------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Checkpoint the fleet (utils.checkpoint.save_fleet)."""
+        from hkdmpc_tpu_torch.utils.checkpoint import save_fleet
+        self._check_idle("save")
+        save_fleet(path, self)
+
+    def resume(self, path: str) -> None:
+        """Restore from save() (or from the JAX package's save_fleet): no
+        solve is run, the next step continues where the saved fleet left
+        off."""
+        from hkdmpc_tpu_torch.utils.checkpoint import load_fleet
+        load_fleet(path, self)
+
+    def unpack(self, bundle_b) -> dict:
+        """Unpack an (N, L) fleet bundle (a tensor on any device, or an
+        array), copied to the host once."""
+        if isinstance(bundle_b, torch.Tensor):
+            bundle_b = bundle_b.cpu().numpy()
+        return unpack_bundle_batch(bundle_b, self.n_cmd,
+                                   ddp.trace_len_for(self.opt.runtime()))
+
+    def command(self, i: int) -> MPCCommand:
+        """Robot i's MPCCommand from the last completed fleet step, the
+        output contract of the single-robot solver (hkd_command_lcmt)."""
+        out = self._last
+        if out is None:
+            raise RuntimeError("command() before any completed fleet step")
+        return MPCCommand(
+            N_mpcsteps=out["controls"].shape[1], mpc_times=out["times"],
+            hkd_controls=out["controls"][i],
+            des_body_state=out["body"][i], contacts=out["contacts"],
+            status_times=out["status"], feedback=out["gains"][i],
+            foot_placement=out["foot_placement"][i].reshape(12).copy(),
+            solve_time=out["solve_time"])
+
+
+class MixedFleetMPC:
+    """Mixed-gait fleet: G gait groups, each a uniform FleetMPC. A fleet
+    step dispatches every group, then completes every group; the schedule
+    bookkeeping is per gait by construction."""
+
+    def __init__(self, groups, **kw):
+        """groups: sequence of (reference_file, n_robots). The remaining
+        keywords go to each FleetMPC."""
+        self.fleets = [FleetMPC(ref, n, **kw) for ref, n in groups]
+        self.n = sum(f.n for f in self.fleets)
+
+    def initialize(self, x0_bs=None) -> list:
+        return [f.initialize(None if x0_bs is None else x0_bs[i])
+                for i, f in enumerate(self.fleets)]
+
+    def step(self, meas_list, mpc_time: float = 0.0) -> list:
+        """meas_list: per-group dicts of batched measurement arrays
+        (rpy / p / v / omega / qJ)."""
+        for f, m in zip(self.fleets, meas_list):
+            f.step_async(m["rpy"], m["p"], m["v"], m["omega"], m["qJ"],
+                         mpc_time)
+        return [f.complete() for f in self.fleets]

@@ -2,11 +2,16 @@
 
     python -m hkdmpc_tpu_torch.profile_solve            # kernel_jac path
     python -m hkdmpc_tpu_torch.profile_solve dense      # dense path
+    python -m hkdmpc_tpu_torch.profile_solve sequential # sequential rollout
 
 Builds the workload of one solve path (the in-repo trot, plan 0.6 s,
 B = 4096, perturbed x0, f32, runtime caps): `kernel_jac` is the default
 model's `solve_batch(kernel_jac=True)`, `dense` the swing-constraint model's
-`solve_batch(kernel_jac=False)`. Warms one solve, then:
+`solve_batch(kernel_jac=False)`, `sequential` the kernel_jac path on the
+trot after two receding-horizon updates, whose appended last phase is too
+short to shoot, so the solve takes the sequential rollout
+(`parallel_rollout=False`, as a fleet step there does). Warms one solve,
+then:
   1. stage wall times: the solver's stages are wrapped with a synchronize on
      both sides (initial/line-search rollouts, cost evaluation, the LQ
      approximation of the dense path, backward sweep with its retry loop,
@@ -29,7 +34,7 @@ BATCH = 4096
 PLAN = 0.6
 
 
-PATHS = ("kernel_jac", "dense")
+PATHS = ("kernel_jac", "dense", "sequential")
 
 
 def main(path: str = "kernel_jac"):
@@ -38,6 +43,7 @@ def main(path: str = "kernel_jac"):
         raise SystemExit(f"unknown path {path!r}: one of {', '.join(PATHS)}")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
+    from hkdmpc_tpu_torch.mpc.solver import default_stand_state
     from hkdmpc_tpu_torch.ops import riccati_dense, riccati_hkd
     from hkdmpc_tpu_torch.parallel.batch import (perturb_scenarios,
                                                  replicate_problem)
@@ -48,10 +54,16 @@ def main(path: str = "kernel_jac"):
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
-    dense = path == "dense"
+    dense, sequential = path == "dense", path == "sequential"
     model = hkd_model_spec(swing_constraint=True) if dense else None
-    _, prob, state, opt = trot_problem(PLAN, dtype=torch.float32,
-                                       device="cuda", model=model)
+    pb, prob, state, opt = trot_problem(PLAN, dtype=torch.float32,
+                                        device="cuda", model=model)
+    if sequential:
+        pb.update(1)
+        pb.update(1)
+        if pb.all_shooting():
+            raise AssertionError("the updated trot is all-shooting")
+        prob, state = pb.build(default_stand_state(pb.phases[0].contact))
     prob_b, state_b = replicate_problem(prob, state, BATCH)
     prob_b = perturb_scenarios(prob_b, noise=np.random.default_rng(0)
                                .standard_normal((BATCH, 24)))
@@ -59,7 +71,7 @@ def main(path: str = "kernel_jac"):
 
     def solve():
         return ddp.solve_batch(prob_b, state_b, optr, kernel_jac=not dense,
-                               model=model)
+                               model=model, parallel_rollout=not sequential)
 
     solve()
     torch.cuda.synchronize()
@@ -92,7 +104,8 @@ def main(path: str = "kernel_jac"):
         patched.append((mod, name, fn))
         totals[label] = 0.0  # print in wrap order, nested stages after outer
 
-    wrap(rollout, "hybrid_rollout_parallel", "rollout (initial + line search)")
+    wrap(rollout, "hybrid_rollout" if sequential else "hybrid_rollout_parallel",
+         "rollout (initial + line search)")
     wrap(rollout, "compute_cost", "cost + constraint rows")
     if dense:
         wrap(lq, "lq_approximation", "LQ approximation (dense)")
@@ -118,7 +131,8 @@ def main(path: str = "kernel_jac"):
         setattr(mod, name, fn)
 
     print(f"{path} path ({'swing-constraint' if dense else 'default'} "
-          f"model): B={BATCH} T={prob.T} f32 runtime caps on {card}")
+          f"model): B={BATCH} T={prob.T} f32 runtime caps, parallel_rollout "
+          f"{not sequential} on {card}")
     print(f"solve: {solve_ms:.3f} ms (CUDA events, mean of 3); with stage "
           f"syncs {wrapped_ms:.3f} ms")
     for label in totals:
@@ -138,9 +152,12 @@ def main(path: str = "kernel_jac"):
               if getattr(e, "device_type", None) is not None
               and str(e.device_type).endswith("CUDA")]
     dev_total = sum(e.self_device_time_total for e in events)
+    # a copy from pageable host memory waits for the stream to drain
+    h2d = sum(e.count for e in events if "HtoD" in e.key)
     print(f"profiler: solve wall {wall_us / 1e3:.3f} ms, device kernel time "
           f"{dev_total / 1e3:.3f} ms, device busy {dev_total / wall_us:.1%}, "
-          f"{sum(e.count for e in events)} kernel launches")
+          f"{sum(e.count for e in events)} kernel launches, {h2d} of them "
+          "host-to-device copies")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
               f"{e.key[:90]}")

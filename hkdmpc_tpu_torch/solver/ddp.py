@@ -1,7 +1,7 @@
 """Multi-phase HS-DDP driver, batched over scenarios — port of
-`hkdmpc_tpu/solver/ddp.py` for its batched configurations with the parallel
-rollout and statically unrolled caps (the JAX package's
-`parallel_rollout=True, unroll_caps=True`), on two paths:
+`hkdmpc_tpu/solver/ddp.py` for its batched configurations with statically
+unrolled caps (the JAX package's `unroll_caps=True`), with the parallel or
+the sequential rollout (`parallel_rollout`), on two paths:
 
 - `kernel_jac=True`: the default HKD model, with the Jacobians and cost
   partials rebuilt inside the backward sweep (`riccati_backward_hkd`, the
@@ -89,21 +89,26 @@ def _set_at(buf, n, v):
 
 
 def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
-                kernel_jac: bool, model=None) -> SolveResult:
+                kernel_jac: bool, model=None,
+                parallel_rollout: bool = True) -> SolveResult:
     """Run one full HS-DDP solve for every scenario of a batch (leading axis
     of every field of prob and state).
 
     kernel_jac=True: the default HKD model's path (model must be None).
     kernel_jac=False: the dense-LQ path for `model` (None means
-    `hkd_model_spec()`). Both need multiple shooting (opt.MS) with every
-    active node a shooting node (HKDProblem.all_shooting()), the condition
-    of the parallel rollout."""
+    `hkd_model_spec()`). Both need multiple shooting (opt.MS).
+
+    parallel_rollout: the caller passes `HKDProblem.all_shooting()`. True
+    takes the scan-free rollout, which is right only when every active node
+    is a shooting node; False takes the sequential `hybrid_rollout`, which
+    is right for every problem. A wrong True is not caught here (that would
+    need a device sync): it silently gives another trajectory."""
     if kernel_jac and model is not None:
         raise ValueError("kernel_jac=True is the default HKD model's path; "
                          "pass model=None or kernel_jac=False")
     if not opt.MS:
-        raise NotImplementedError("the parallel rollout needs multiple "
-                                  "shooting (opt.MS)")
+        raise NotImplementedError("single shooting (opt.MS = False) is not "
+                                  "ported")
     model = None if kernel_jac else (model or hkd_model_spec())
     precise.pin_full_f32()
 
@@ -119,8 +124,10 @@ def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
     falses = torch.zeros(nb, dtype=torch.bool, device=dev)
 
     def rollout_fn(st, eps, du_eff=None):
-        return ro_mod.hybrid_rollout_parallel(prob, st, eps, model,
-                                              du_eff=du_eff)
+        if parallel_rollout:
+            return ro_mod.hybrid_rollout_parallel(prob, st, eps, model,
+                                                  du_eff=du_eff)
+        return ro_mod.hybrid_rollout(prob, st, eps, True, model)
 
     def cost_of(X, U, constr):
         return ro_mod.compute_cost(prob, X, U, constr, reb_on, al_on, model)
@@ -150,8 +157,10 @@ def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
 
     # ---- line search (every candidate step size, first Armijo pick) -------
     def line_search(st, dv1, dv2, merit_rho, merit_prev, feas_prev):
-        # dX is fixed across trials: dU + K dX is shared by every trial
-        du_eff = st.dU + precise.mv(st.K, st.dX[..., :-1, :])
+        # dX is fixed across trials: dU + K dX is shared by every parallel
+        # trial (the sequential rollout applies K to the rolled state)
+        du_eff = (st.dU + precise.mv(st.K, st.dX[..., :-1, :])
+                  if parallel_rollout else None)
         trials = []
         for i in range(n_eps):
             eps = eps_candidates[i]
@@ -301,10 +310,12 @@ def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
 
 
 def solve(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
-          kernel_jac: bool, model=None) -> SolveResult:
+          kernel_jac: bool, model=None,
+          parallel_rollout: bool = True) -> SolveResult:
     """One scenario's solve: prob/state without a batch axis. Takes the
     same keywords as solve_batch."""
     res = solve_batch(tree_map(lambda a: a[None], prob),
                       tree_map(lambda a: a[None], state), opt,
-                      kernel_jac=kernel_jac, model=model)
+                      kernel_jac=kernel_jac, model=model,
+                      parallel_rollout=parallel_rollout)
     return tree_map(lambda a: a[0], res)

@@ -1,15 +1,18 @@
-"""Host-side problem construction: contact-schedule segmentation and
-flattening to the static-shape tensors the solver takes.
+"""Host-side problem construction: contact-schedule segmentation,
+receding-horizon updates and flattening to the static-shape tensors the
+solver takes.
 
-Port of `hkdmpc_tpu/solver/problem.py`: `initialization`, `problem_arrays`,
-`build` and `all_shooting`, for any `ModelSpec` (the default HKD model has 20
-GRF friction-cone path rows and 4 touchdown terminal rows; the swing
-constraint adds 4 path rows). The bookkeeping is numpy, as in
+Port of `hkdmpc_tpu/solver/problem.py`: `initialization`, `update` (with the
+uid-keyed `flat_offsets` / `shift_descriptor` the fleet step gathers by),
+`problem_arrays`, `build` and `all_shooting`, for any `ModelSpec` (the
+default HKD model has 20 GRF friction-cone path rows and 4 touchdown terminal
+rows; the swing constraint adds 4 path rows). The bookkeeping is numpy, as in
 the JAX package; only `build` makes tensors, of an explicit dtype on an
-explicit device. The receding-horizon `update` belongs to the MPC slice and
-is not ported yet.
+explicit device.
 
 Parity targets: HKDProblem::initialization (HKDProblem.cpp:14-111),
+HKDProblem::update (HKDProblem.cpp:116-222) with the reference's warm-start
+quirks (front Ubar[0] zeroed, appended phases warm-started at zero),
 add_tconstr_one_phase (HKDProblem.cpp:267-310).
 """
 
@@ -37,6 +40,7 @@ class Phase:
     horizon: int
     contact: np.ndarray              # (4,) int
     contact_duration: np.ndarray     # (4,)
+    reach_end: bool = False
     has_tconstr: bool = False
     td_mask: np.ndarray = None       # (4,) float, set when tconstr added
     next_contact: np.ndarray = None  # (4,) int, bound when tconstr added
@@ -51,8 +55,10 @@ class Phase:
     reb_eps: np.ndarray = None       # (h, n_path_rows)
     al_lambda: np.ndarray = None     # (n_terminal_rows,)
     al_sigma: np.ndarray = None      # (n_terminal_rows,)
+    uid: int = -1                    # stable identity across receding updates
 
     def alloc(self, pb: "HKDProblem"):
+        self.uid = pb._new_uid()
         h = self.horizon
         self.Xbar = np.zeros((h + 1, 24))
         self.Ubar = np.zeros((h, 24))
@@ -92,6 +98,14 @@ class HKDProblem:
         # package: the 0.6 s window keeps T = 75
         self.T = (T if T is not None
                   else n_steps + 15 + max(0, (n_steps - 60) // 4))
+        self._uid_counter = 0
+        # phases whose AL params _add_tconstr re-initialized in the last
+        # update()
+        self._al_reinit_uids = set()
+
+    def _new_uid(self) -> int:
+        self._uid_counter += 1
+        return self._uid_counter
 
     def _reb_row_params(self):
         """Per-row ReB parameter vectors (delta, delta_min, eps) from the
@@ -107,6 +121,10 @@ class HKDProblem:
             delta_mins += [dm] * c.n_rows
             epss += [e] * c.n_rows
         return (np.asarray(deltas), np.asarray(delta_mins), np.asarray(epss))
+
+    @property
+    def n_path_rows(self) -> int:
+        return self.model.n_path_rows
 
     @property
     def n_term_rows(self) -> int:
@@ -166,6 +184,86 @@ class HKDProblem:
             ph.al_lambda = np.full(self.n_term_rows,
                                    self.cparams.td_al.lambda_)
             ph.al_sigma = np.full(self.n_term_rows, self.cparams.td_al.sigma)
+            self._al_reinit_uids.add(ph.uid)
+
+    # ------------------------------------------------------------------
+    # receding-horizon update (parity: HKDProblem.cpp:116-222)
+    # ------------------------------------------------------------------
+
+    def update(self, nsteps: Optional[int] = None):
+        """Slide the window by nsteps simulation steps (default: one MPC
+        step): shrink or pop the front phase, grow the back phase or append
+        a new one when the contact changes after the back phase reached its
+        end, and bind the terminal machinery of a back phase that reached
+        its end."""
+        ref = self.ref
+        self._al_reinit_uids = set()
+        for _ in range(nsteps or int(round(self.dt_mpc / self.dt_sim))):
+            ref.step(self.dt_sim)
+            new_start = ref.start_time
+            new_end = ref.end_time
+
+            # front end: shrink or pop the first phase
+            front = self.phases[0]
+            front.start_time += self.dt_sim
+            if front.end_time <= new_start + _EPS_T:
+                self.phases.pop(0)
+            else:
+                self._pop_front_step(front)
+                front.start_time = new_start
+
+            # back end: grow the last phase or append a new one
+            back = self.phases[-1]
+            new_contact = ref.contact_at_t(new_end - new_start).astype(int)
+            contact_change = (new_contact != back.contact).any()
+
+            if contact_change and back.reach_end:
+                h_new = int(round((new_end - back.end_time) / self.dt_sim))
+                ph = Phase(start_time=back.end_time, end_time=new_end,
+                           horizon=h_new, contact=new_contact.copy(),
+                           contact_duration=ref.contact_duration_at_t(
+                               new_end - new_start).copy())
+                ph.alloc(self)  # new phases warm-start at zero
+                self.phases.append(ph)
+            else:
+                back.end_time = new_end
+                back.horizon += 1
+                if contact_change:
+                    back.reach_end = True
+                self._push_back_step(back)
+
+            if self.phases[-1].reach_end:
+                self._add_tconstr(len(self.phases) - 1)
+
+        # warm-start quirk: the first control of the horizon is zeroed every
+        # update (HKDProblem.cpp:219)
+        if self.phases[0].horizon > 0:
+            self.phases[0].Ubar[0] = 0.0
+
+    @staticmethod
+    def _pop_front_step(ph: Phase):
+        ph.horizon -= 1
+        for name in ("Xbar", "dX", "defect_bar", "Ubar", "dU", "K",
+                     "reb_delta", "reb_eps"):
+            setattr(ph, name, getattr(ph, name)[1:].copy())
+
+    def _push_back_step(self, ph: Phase):
+        """push_back_default: duplicate the last state, zero controls, copy
+        the last constraint params (TrajectoryManagement.cpp:181-207,
+        ConstraintsBase.h push_back)."""
+        ph.Xbar = np.vstack([ph.Xbar, ph.Xbar[-1:]])
+        ph.dX = np.vstack([ph.dX, np.zeros((1, 24))])
+        ph.defect_bar = np.vstack([ph.defect_bar, np.zeros((1, 24))])
+        ph.Ubar = np.vstack([ph.Ubar, np.zeros((1, 24))])
+        ph.dU = np.vstack([ph.dU, np.zeros((1, 24))])
+        ph.K = np.concatenate([ph.K, np.zeros((1, 24, 24))], axis=0)
+        if len(ph.reb_delta):
+            ph.reb_delta = np.vstack([ph.reb_delta, ph.reb_delta[-1:]])
+            ph.reb_eps = np.vstack([ph.reb_eps, ph.reb_eps[-1:]])
+        else:
+            deltas, _, epss = self._reb_row_params()
+            ph.reb_delta = deltas[None].copy()
+            ph.reb_eps = epss[None].copy()
 
     # ------------------------------------------------------------------
     # flattening
@@ -180,6 +278,67 @@ class HKDProblem:
         """Shooting-set activity of phase i (HKDProblem.cpp:205-216 +
         SinglePhase::update_SS_config)."""
         return i < len(self.phases) - 1 or self.phases[i].horizon > 2
+
+    def flat_offsets(self) -> dict:
+        """{uid: (node_offset, trans_offset, horizon)} of the current
+        schedule in the flat layout build() produces."""
+        out = {}
+        off = 0
+        for i, ph in enumerate(self.phases):
+            out[ph.uid] = (off, off, ph.horizon)
+            off += ph.horizon + (1 if i < len(self.phases) - 1 else 0)
+        return out
+
+    def shift_descriptor(self, old_offsets: dict) -> dict:
+        """Index arrays that express the receding-horizon warm-start update
+        as gathers over the previous flat SolverState, so the state stays on
+        the device (`mpc/fused.py`). Call after update(), with the
+        flat_offsets() captured before it. Every entry -1 means "no source":
+          gidx_node (T+1,): source node of Xbar and the AL rows. Grown-tail
+            nodes clamp to the phase's old terminal (push_back duplicates the
+            last state, TrajectoryManagement.cpp:181-207); -1 gives zero
+            (appended phases warm-start at zero, HKDProblem.cpp:116-222).
+          node_new (T+1,): 1 where dX / defect_bar are zeroed (new nodes).
+          gidx_u (T,): source transition of Ubar / dU / K; -1 gives zero.
+          gidx_reb (T,): source transition of the ReB rows; grown steps
+            clamp to the phase's old last step (push_back copies constraint
+            params); -1 gives the default row.
+          al_init (T+1,): 1 where _add_tconstr re-initialized the AL params
+            in this update (overrides the gather)."""
+        T = self.T
+        gidx_node = np.full(T + 1, -1, np.int32)
+        node_new = np.zeros(T + 1)
+        gidx_u = np.full(T, -1, np.int32)
+        gidx_reb = np.full(T, -1, np.int32)
+        al_init = np.zeros(T + 1)
+
+        new_offsets = self.flat_offsets()
+        for ph in self.phases:
+            no_n, to_n, h_n = new_offsets[ph.uid]
+            old = old_offsets.get(ph.uid)
+            if old is None:
+                continue  # appended phase: zeros / default rows
+            no_o, to_o, h_o = old
+            trim = max(0, h_o - h_n)   # front phase: steps popped
+            grown = max(0, h_n - h_o)  # back phase: steps pushed
+            if trim and grown:
+                raise ValueError("a phase cannot shrink and grow in one "
+                                 "update")
+            for k in range(h_n + 1):
+                k_old = k + trim
+                gidx_node[no_n + k] = no_o + min(k_old, h_o)
+                if k_old > h_o:
+                    node_new[no_n + k] = 1.0
+            for k in range(h_n):
+                k_old = k + trim
+                if k_old <= h_o - 1:
+                    gidx_u[to_n + k] = to_o + k_old
+                gidx_reb[to_n + k] = to_o + min(k_old, h_o - 1)
+            if ph.uid in self._al_reinit_uids:
+                al_init[no_n + h_n] = 1.0
+
+        return dict(gidx_node=gidx_node, node_new=node_new, gidx_u=gidx_u,
+                    gidx_reb=gidx_reb, al_init=al_init)
 
     def problem_arrays(self) -> dict:
         """The ProblemData-side flat arrays as host numpy, plus the per-node

@@ -1,6 +1,10 @@
 """Forward passes over the flattened transition graph, batched over scenarios
-— port of `hkdmpc_tpu/solver/rollout.py` (the parallel rollout paths):
+— port of `hkdmpc_tpu/solver/rollout.py`:
 
+- hybrid_rollout: the sequential rollout with the feedback policy applied to
+  the state as it is rolled, shooting at shooting nodes (or, with ms=False,
+  at phase starts only) — the rollout of a problem that is not
+  all-shooting
 - hybrid_rollout_parallel: the scan-free multiple-shooting rollout, with the
   model's horizon-minor dynamics/reset maps or its generic ones
 - run_ctx / term_ctx: the per-transition / per-node reference data the
@@ -50,6 +54,73 @@ def term_ctx(prob: ProblemData):
             "foot_r": prob.foot_r,
             "dt": prob.dt[..., None].expand(prob.term_mask.shape),
             "term_contact": prob.term_contact, "td_mask": prob.td_mask}
+
+
+def hybrid_rollout(prob: ProblemData, state: SolverState, eps,
+                   ms: bool = True, model=None) -> Rollout:
+    """Roll the hybrid system forward at step size eps, one transition at a
+    time (parity: MultiPhaseDDP::hybrid_rollout, MultiPhaseDDP.cpp:57-95,
+    SinglePhase::hybrid_rollout, SinglePhase.cpp:182-233).
+
+    The carry is (x_node, xsim): the optimization node state and the pure
+    simulation state, which chains through the reset maps of simulated
+    terminal states. A DYN step applies u = Ubar + eps dU + K (x - Xbar);
+    a node with ss_mask set (ss_mask * start_mask with ms=False, the
+    reference's asymmetric check) restarts from Xbar + eps dX. Kind masks
+    take the place of the JAX package's `lax.switch`; the model's generic
+    `dynamics` / `reset_map` run at a transition only where some scenario
+    takes that branch (the kinds are copied to the host once per call).
+    eps: a float or a (B,) tensor."""
+    model = model or hkd_model_spec()
+    dtype, dev = prob.xr.dtype, prob.xr.device
+    eps = torch.as_tensor(eps, dtype=dtype, device=dev)
+    e2 = eps[..., None] if eps.dim() else eps
+    e3 = e2[..., None] if eps.dim() else eps
+    ss = (prob.ss_mask if ms else prob.ss_mask * prob.start_mask) > 0
+    Xbar = state.Xbar
+    X_shoot = Xbar + e3 * state.dX
+    U_ff = state.Ubar + e3 * state.dU
+    is_dyn_all = (prob.kind == DYN)[..., None]
+    is_rst_all = (prob.kind == RESET)[..., None]
+    is_pad_all = prob.kind == PAD
+    shoot_all = (ss[:, 1:] & ~is_pad_all)[..., None]
+    kinds = prob.kind.cpu()
+    any_dyn = (kinds == DYN).any(dim=0).tolist()
+    any_rst = (kinds == RESET).any(dim=0).tolist()
+
+    x0 = prob.x0
+    xsim = x0
+    x = torch.where(ss[:, :1], X_shoot[:, 0], x0)
+    u_zero = torch.zeros_like(U_ff[:, 0])
+    Xs, Xsims, Us, oks = [x], [xsim], [], []
+    for t in range(prob.T):
+        c, cn = prob.contact[:, t], prob.contact_next[:, t]
+        x_prop, xsim_next, u = x, xsim, u_zero
+        if any_rst[t]:
+            is_rst = is_rst_all[:, t]
+            x_prop = torch.where(is_rst, model.reset_map(x, c, cn), x_prop)
+            xsim_next = torch.where(is_rst, model.reset_map(xsim, c, cn),
+                                    xsim_next)
+        if any_dyn[t]:
+            is_dyn = is_dyn_all[:, t]
+            u = U_ff[:, t] + precise.mv(state.K[:, t], x - Xbar[:, t])
+            sim = model.dynamics(x, u, c, prob.dt)
+            x_prop = torch.where(is_dyn, sim, x_prop)
+            xsim_next = torch.where(is_dyn, sim, xsim_next)
+            u = torch.where(is_dyn, u, u_zero)
+        xsim = xsim_next
+        x = torch.where(shoot_all[:, t], X_shoot[:, t + 1], x_prop)
+        oks.append(is_pad_all[:, t]
+                   | (torch.linalg.vector_norm(xsim, dim=-1) <= DIVERGE_NORM))
+        Xs.append(x)
+        Xsims.append(xsim)
+        Us.append(u)
+
+    X = torch.stack(Xs, dim=1)
+    Xsim = torch.stack(Xsims, dim=1)
+    defect = (Xsim - X) * node_active_mask(prob)[..., None]
+    return Rollout(X=X, U=torch.stack(Us, dim=1), Xsim=Xsim, defect=defect,
+                   success=torch.stack(oks, dim=1).all(dim=1))
 
 
 def hybrid_rollout_parallel(prob: ProblemData, state: SolverState, eps,

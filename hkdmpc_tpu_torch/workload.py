@@ -1,11 +1,14 @@
-"""The in-repo trot workload: a GaitSynthesizer trot, the HSDDPOption and
-ConstraintParams defaults, and the nominal standing initial state.
+"""The in-repo workloads: a GaitSynthesizer trot from the stand pose
+(`mpc.solver.default_stand_state`) with the HSDDPOption and
+ConstraintParams defaults, gait files for the fleet, and the fleet's seeded
+measurement stream.
 
-With the default 0.6 s plan the problem has T = 75 transitions (60 DYN,
-4 RESET, 11 PAD); the 2.0 s plan has T = 250. Every node is a shooting
-node, so the parallel rollout applies. `model=` builds the problem for
-another `ModelSpec`, such as `hkd_model_spec(swing_constraint=True)` (24 path
-rows, with the `ConstraintParams()` swing defaults).
+With the default 0.6 s plan the trot problem has T = 75 transitions (60 DYN,
+4 RESET, 11 PAD); the 2.0 s plan has T = 250. At initialization every node
+is a shooting node, so the parallel rollout applies. `model=` builds the
+problem for another `ModelSpec`, such as
+`hkd_model_spec(swing_constraint=True)` (24 path rows, with the
+`ConstraintParams()` swing defaults).
 """
 
 from __future__ import annotations
@@ -18,34 +21,46 @@ import torch
 
 from hkdmpc_tpu.config import HSDDPOption
 from hkdmpc_tpu.reference.quad_reference import QuadReference
-from hkdmpc_tpu_torch.models import hkd
+from hkdmpc_tpu_torch.mpc.solver import STAND_QLEG, default_stand_state
 from hkdmpc_tpu_torch.reference.refgen import GaitSynthesizer
 from hkdmpc_tpu_torch.solver.problem import HKDProblem
 
 # (gait, duration s, forward speed m/s) after the synthesizer's stand lead-in
 TROT_SEGMENTS = (("trot", 2.0, 0.5),)
-BODY_HEIGHT0 = 0.2486
-QLEG0 = (0.0, -0.8, 1.6)
+GAIT_SEGMENTS = {"trot": TROT_SEGMENTS, "flytrot": (("flytrot", 2.0, 0.5),)}
+
+
+def gait_file(gait: str, directory: str) -> str:
+    """Write the in-repo GaitSynthesizer gait `gait` ("trot" or "flytrot",
+    0.5 m/s) into `directory` in the reference CSV format, the file a
+    FleetMPC takes; returns its path."""
+    return GaitSynthesizer().write(os.path.join(directory, f"{gait}.csv"),
+                                   GAIT_SEGMENTS[gait])
+
+
+def meas_stream(n_robots: int, seed: int):
+    """meas_fn(k) for FleetMPC.rollout_steps: the noisy stand-pose
+    measurements of n_robots robots, drawn in sequence from one seeded
+    generator (one draw per call, whatever k)."""
+    rng = np.random.default_rng(seed)
+
+    def meas_fn(k):
+        return dict(
+            rpy=rng.normal(scale=0.01, size=(n_robots, 3)),
+            p=np.array([0.0, 0.0, 0.25]) + rng.normal(scale=0.005,
+                                                      size=(n_robots, 3)),
+            v=rng.normal(scale=0.02, size=(n_robots, 3)),
+            omega=rng.normal(scale=0.02, size=(n_robots, 3)),
+            qJ=np.tile(STAND_QLEG, (n_robots, 4))
+            + rng.normal(scale=0.01, size=(n_robots, 12)))
+    return meas_fn
 
 
 def trot_reference() -> QuadReference:
     """Synthesize the trot, write it in the reference's CSV format and load
     it back, as a user loads a gait file."""
     with tempfile.TemporaryDirectory() as d:
-        path = GaitSynthesizer().write(os.path.join(d, "trot.csv"),
-                                       TROT_SEGMENTS)
-        return QuadReference.from_file(path)
-
-
-def initial_state(contact) -> np.ndarray:
-    """Standing x0 (24,): level body at BODY_HEIGHT0, legs at QLEG0, stance
-    feet at their forward-kinematics positions."""
-    body = np.zeros(12)
-    body[5] = BODY_HEIGHT0
-    f = lambda a: torch.as_tensor(np.asarray(a, np.float64))
-    qd = hkd.compute_hkd_state(f(body[:3]), f(body[3:6]),
-                               f(np.tile(QLEG0, 4)), f(contact))
-    return np.concatenate([body, qd.numpy()])
+        return QuadReference.from_file(gait_file("trot", d))
 
 
 def trot_problem(plan_duration: float = 0.6, *, dtype: torch.dtype, device,
@@ -55,5 +70,5 @@ def trot_problem(plan_duration: float = 0.6, *, dtype: torch.dtype, device,
     pb = HKDProblem(trot_reference(), plan_duration=plan_duration,
                     dtype=dtype, device=device, model=model)
     pb.initialization()
-    prob, state = pb.build(initial_state(pb.phases[0].contact))
+    prob, state = pb.build(default_stand_state(pb.phases[0].contact))
     return pb, prob, state, HSDDPOption()

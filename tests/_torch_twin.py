@@ -21,6 +21,7 @@ from hkdmpc_tpu.solver import model_api as jmodel_api
 from hkdmpc_tpu.solver import structs as jstructs
 from hkdmpc_tpu.solver.problem import HKDProblem
 from hkdmpc_tpu_torch import workload
+from hkdmpc_tpu_torch.mpc import solver as tsolver
 from hkdmpc_tpu_torch.parallel.batch import default_x0_scale
 from hkdmpc_tpu_torch.solver import model_api, structs as tstructs
 
@@ -49,10 +50,10 @@ def jax_trot_problem(plan_duration=0.6, model=None):
                     model=model)
     pb.initialization()
     body = np.zeros(12)
-    body[5] = workload.BODY_HEIGHT0
+    body[5] = tsolver.STAND_BODY_HEIGHT
     qd = hkd.compute_hkd_state(
         jnp.array(body[:3]), jnp.array(body[3:6]),
-        jnp.array(np.tile(workload.QLEG0, 4)),
+        jnp.array(np.tile(tsolver.STAND_QLEG, 4)),
         jnp.array(pb.phases[0].contact, dtype=jnp.float64))
     x0 = np.concatenate([body, np.asarray(qd)])
     prob, state = pb.build(x0)
@@ -157,3 +158,110 @@ def assert_solves_match(got, want):
     for name in ("Ubar", "K", "Xbar", "dU", "dX"):
         assert_close(getattr(got.state, name), getattr(want.state, name),
                      1e-8, name)
+
+
+# ---------------------------------------------------------------------------
+# receding-horizon problems and fleets
+# ---------------------------------------------------------------------------
+
+def problem_pair(gait, plan_duration, directory):
+    """(JAX HKDProblem, port HKDProblem) of the in-repo gait file, both
+    initialized, f64 on the CPU."""
+    from hkdmpc_tpu_torch.solver.problem import HKDProblem as TProblem
+    path = workload.gait_file(gait, str(directory))
+    jpb = HKDProblem(QuadReference.from_file(path),
+                     plan_duration=plan_duration, dtype=jnp.float64)
+    tpb = TProblem(QuadReference.from_file(path), dtype=F64, device="cpu",
+                   plan_duration=plan_duration)
+    jpb.initialization()
+    tpb.initialization()
+    return jpb, tpb
+
+
+def fleet_meas(n_robots, n_steps):
+    """Per step, a dict of (n_robots, ...) measurement arrays: robot i draws
+    from the stream of tests/test_fleet.py:20-30 seeded 100 + i."""
+    rngs = [np.random.default_rng(100 + i) for i in range(n_robots)]
+    steps = []
+    for _ in range(n_steps):
+        ms = [dict(rpy=r.normal(scale=0.01, size=3),
+                   p=np.array([0.0, 0.0, 0.25]) + r.normal(scale=0.005,
+                                                           size=3),
+                   v=r.normal(scale=0.02, size=3),
+                   omega=r.normal(scale=0.02, size=3),
+                   qJ=np.tile([0.0, -0.8, 1.6], 4)
+                   + r.normal(scale=0.01, size=12)) for r in rngs]
+        steps.append({k: np.stack([m[k] for m in ms]) for k in ms[0]})
+    return steps
+
+
+def step_fleet(fleet, meas, first, count):
+    """Step a FleetMPC (either package's) through meas[first:first+count]
+    with mpc_time = 0.01 k; per step, a record of the step's output, every
+    robot's command, the schedule events and all_shooting()."""
+    recs = []
+    for k in range(first, first + count):
+        m = meas[k]
+        before = [ph.uid for ph in fleet.problem.phases]
+        out = fleet.step(m["rpy"], m["p"], m["v"], m["omega"], m["qJ"],
+                         mpc_time=0.01 * k)
+        after = [ph.uid for ph in fleet.problem.phases]
+        recs.append(dict(
+            out={k_: np.array(v) for k_, v in out.items()
+                 if k_ != "solve_time"},
+            cmds=[fleet.command(i) for i in range(fleet.n)],
+            all_shooting=fleet.problem.all_shooting(),
+            appended=after[-1] not in before, popped=after[0] != before[0]))
+    return recs
+
+
+def fleet_state(fleet):
+    """The fleet's warm-start state as numpy: Xbar, Ubar, K, al_lambda."""
+    st = fleet._state_dev
+    f = lambda a: (a.numpy() if isinstance(a, torch.Tensor)
+                   else np.asarray(a))
+    return dict(Xbar=f(st.Xbar), Ubar=f(st.Ubar), K=f(st.K),
+                al_lambda=f(st.constr.al_lambda))
+
+
+def assert_steps_match(got, want, what=""):
+    """Fleet step records (step_fleet) of the port against the JAX
+    package's, at the tolerances of tests/test_fleet.py:66-97: controls,
+    body and foot placements rtol 1e-9 / atol 1e-10, gains rtol 1e-8 /
+    atol 1e-8, cost traces rtol 1e-9; n_iters, solve_failed and the
+    schedule exactly."""
+    assert len(got) == len(want)
+    for k, (g, w) in enumerate(zip(got, want)):
+        at = f"{what} step {k}"
+        for key in ("all_shooting", "appended", "popped"):
+            assert g[key] == w[key], (at, key)
+        for key in ("times", "contacts", "status"):
+            np.testing.assert_array_equal(g["out"][key], w["out"][key],
+                                          err_msg=f"{at} {key}")
+        np.testing.assert_array_equal(g["out"]["scalars"][:, 4:],
+                                      w["out"]["scalars"][:, 4:],
+                                      err_msg=f"{at} n_iters/failed")
+        for i, (gc, wc) in enumerate(zip(g["cmds"], w["cmds"])):
+            at_i = f"{at} robot {i}"
+            assert gc.N_mpcsteps == wc.N_mpcsteps
+            for name, rtol, atol in (("hkd_controls", 1e-9, 1e-10),
+                                     ("des_body_state", 1e-9, 1e-10),
+                                     ("feedback", 1e-8, 1e-8),
+                                     ("foot_placement", 1e-9, 1e-10)):
+                np.testing.assert_allclose(
+                    getattr(gc, name), getattr(wc, name), rtol=rtol,
+                    atol=atol, err_msg=f"{at_i} {name}")
+            ct_g, ct_w = g["out"]["cost_trace"][i], w["out"]["cost_trace"][i]
+            np.testing.assert_array_equal(np.isnan(ct_g), np.isnan(ct_w))
+            np.testing.assert_allclose(ct_g[~np.isnan(ct_g)],
+                                       ct_w[~np.isnan(ct_w)], rtol=1e-9,
+                                       err_msg=f"{at_i} cost trace")
+
+
+def assert_fleet_states_match(got, want):
+    """Warm-start states (fleet_state) at tests/test_fleet.py:86-97's
+    tolerances."""
+    for name, atol in (("Xbar", 1e-10), ("Ubar", 1e-10),
+                       ("al_lambda", 1e-12)):
+        np.testing.assert_allclose(got[name], want[name], rtol=1e-9,
+                                   atol=atol, err_msg=name)

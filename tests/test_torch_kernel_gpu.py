@@ -28,7 +28,8 @@ from hkdmpc_tpu_torch.reference.refgen import GaitSynthesizer
 from hkdmpc_tpu_torch.solver import backward, ddp, lq, rollout as ro
 from hkdmpc_tpu_torch.solver.problem import HKDProblem
 from hkdmpc_tpu_torch.solver.structs import tree_map
-from hkdmpc_tpu_torch.workload import initial_state, trot_problem
+from hkdmpc_tpu_torch.mpc.solver import default_stand_state
+from hkdmpc_tpu_torch.workload import trot_problem
 
 pytestmark = pytest.mark.gpu
 
@@ -47,7 +48,7 @@ def _gait_batch(tmp_path, gait, dtype, device):
     path = GaitSynthesizer().write(str(tmp_path / f"{gait}.csv"), GAITS[gait])
     pb = HKDProblem(QuadReference.from_file(path), dtype=dtype, device=device)
     pb.initialization()
-    prob, state = pb.build(initial_state(pb.phases[0].contact))
+    prob, state = pb.build(default_stand_state(pb.phases[0].contact))
     return replicate_problem(prob, state, PER_GAIT)
 
 
@@ -262,3 +263,36 @@ def test_kernel_wrapper_rejects_bad_inputs(mixed):
     short[15] = args[15][:, :-1].contiguous()
     with pytest.raises(ValueError, match="defect"):
         riccati_hkd.backward_sweep_hkd_cuda(*short)
+
+
+@pytest.mark.parametrize("kernel_jac", [True, False], ids=["K1", "K2"])
+def test_f32_fleet_on_card_matches_f64_cpu_fleet(cuda, kernel_jac, tmp_path):
+    """A7's rule applied to the fleet: 16 robots on the trot (plan 0.6 s),
+    cold solve and 3 warm-started receding-horizon steps, f32 on the card
+    against f64 on the CPU with the same measurements; every step's final
+    costs within 1e-4 relative, no failed robot."""
+    from hkdmpc_tpu_torch.mpc.fleet import FleetConfig, FleetMPC
+    from hkdmpc_tpu_torch.workload import gait_file, meas_stream
+
+    nb = 16
+    ref = gait_file("trot", str(tmp_path))
+    stream = meas_stream(nb, 0)
+    meas = [stream(k) for k in range(3)]
+    module = riccati_hkd if kernel_jac else riccati_dense
+    costs = {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        f = FleetMPC(ref, nb, config=FleetConfig(kernel_jac=kernel_jac),
+                     dtype=dtype, device=dev)
+        assert f.initialize()["n_failed"] == 0
+        before = module.LAUNCHES
+        costs[dev] = []
+        for k, m in enumerate(meas):
+            out = f.step(m["rpy"], m["p"], m["v"], m["omega"], m["qJ"],
+                         mpc_time=0.01 * k)
+            assert not np.any(out["scalars"][:, 5])
+            costs[dev].append(out["scalars"][:, 0].astype(np.float64))
+        if dev == "cuda":
+            assert module.LAUNCHES >= before + 2 * len(meas)
+    for k, (g, w) in enumerate(zip(costs["cuda"], costs["cpu"])):
+        rel = np.abs(g - w) / np.abs(w)
+        assert float(rel.max()) < 1e-4, (k, rel)

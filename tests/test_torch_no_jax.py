@@ -2,7 +2,9 @@
 process has JAX loaded already), import every module of hkdmpc_tpu_torch,
 build the trot problem and run one small batched solve on each path (the
 default model's kernel_jac path, the dense path with the swing constraint),
-then check that `jax` is not in sys.modules."""
+step a small fleet and carry it through a checkpoint (`mpc.fleet`,
+`mpc.fused`, `utils.checkpoint`), then check that `jax` is not in
+sys.modules."""
 import os
 import pathlib
 import subprocess
@@ -32,6 +34,23 @@ _, prob, state, opt = trot_problem(dtype=torch.float64, device="cpu", model=spec
 prob_b, state_b = replicate_problem(prob, state, 2)
 res = ddp.solve_batch(prob_b, state_b, opt.runtime(), kernel_jac=False, model=spec)
 assert bool(torch.isfinite(res.cost).all())
+import os, tempfile
+from hkdmpc_tpu_torch.mpc import fleet, fused
+from hkdmpc_tpu_torch.utils import checkpoint
+from hkdmpc_tpu_torch.workload import gait_file, meas_stream
+with tempfile.TemporaryDirectory() as d:
+    cfg = fleet.FleetConfig(plan_duration=0.3)
+    f = fleet.FleetMPC(gait_file("trot", d), 2, config=cfg,
+                       dtype=torch.float64, device="cpu")
+    assert f.initialize()["n_failed"] == 0
+    f.rollout_steps(1, meas_stream(2, 0))
+    f.save(os.path.join(d, "fleet.npz"))
+    g = fleet.FleetMPC(gait_file("trot", d), 2, config=cfg,
+                       dtype=torch.float64, device="cpu")
+    g.resume(os.path.join(d, "fleet.npz"))
+    m = meas_stream(2, 1)(0)
+    out = g.step(m["rpy"], m["p"], m["v"], m["omega"], m["qJ"])
+    assert np.isfinite(out["controls"]).all() and g.mpc_iter == 2
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 print("NO_JAX_OK")
 """
