@@ -9,13 +9,21 @@ fleet MPC at full width.
 Phases, one line each:
   1. build both kernels from hkdmpc_tpu_torch/csrc (one nvcc per source,
      started together, sm_90a) and print the build time, each kernel's
-     ptxas registers and shared memory, and the card's name and power limit;
+     ptxas registers, spills and barriers, its threads per block, dynamic
+     shared memory and resident blocks per SM, and the card's name and
+     power limit;
   2. K1 (riccati_hkd) vs plain: at B = 4096 trot scenarios (T = 75, f32),
      feed one nominal rollout to the kernel and to the plain version, both
      on the card, with the plain version in f64 as the oracle; the kernel's
      error on dU, K, dv1, dv2 must be at most max(10 x the plain-f32 error,
      1e-5) and `ok` must agree on at least 99.9% of scenarios; both are
-     timed with CUDA events (median of 10 runs);
+     timed with CUDA events (median of 10 runs), the kernel also at
+     B = 1024 (the fleet's N), beside the least time the card could take
+     for the sweep (hkdmpc_tpu_torch/ops/riccati_bound.py: the larger of
+     its bytes over 3.35 TB/s and its operations over 67 TFLOP/s, each
+     input and output byte once, K1's products on the non-zeros of A and
+     B) and which of the two sets it. No single PyTorch call computes a
+     Riccati recursion with a PSD gate, so there is no library time;
   3. the default model's path, solve_batch(kernel_jac=True), at B = 4096,
      f32, runtime caps: K1 must have been launched, every cost finite, no
      scenario failed, and the first 8 scenarios' final costs must match a
@@ -45,9 +53,11 @@ Phases, one line each:
      stepped 5 times with the same measurements: per-step final costs
      within 1e-3 relative.
 Each solve path runs with its kernel's launch count set to 0 just before it
-and read just after. Then one JSON line with both kernels, the card's name
-and power limit, and the result line. Any failure raises and exits non-zero.
-No CUDA device: exit 1.
+and read just after. Then one JSON line with both kernels (name, route,
+source, replaces, launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
+library_ms, ms_b1024, threads_per_block, smem_bytes, blocks_per_sm), the
+card's name and power limit, and the result line. Any failure raises and
+exits non-zero. No CUDA device: exit 1.
 """
 
 import contextlib
@@ -64,6 +74,7 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 BATCH = 4096
 FLEET_N = 1024
+KERNEL_SMALL_BATCH = FLEET_N   # the kernels are also timed at the fleet's N
 FLEET_STEPS = 50
 FLEET_WARMUP = 2
 FLEET_CHECK_STEPS = 5
@@ -129,9 +140,13 @@ def build_phase():
     reports = []
     for name, (path, build_s) in built.items():
         log = (path.parent / f"{name}.build.log").read_text()
+        info = _build.kernel_info(name)
         reports.append(f"{name} {build_s:.3f} s: " + " | ".join(
             l.strip() for l in log.splitlines()
-            if "registers" in l or "spill" in l))
+            if "registers" in l or "spill" in l)
+            + f" | {info['threads_per_block']} threads, "
+            f"{info['smem_bytes']} B dynamic shared memory per block, "
+            f"{info['blocks_per_sm']} blocks per SM")
     card = card_line()
     print(f"phase 1 build: {', '.join(KERNELS)} built in parallel in "
           f"{secs:.3f} s; {'; '.join(reports)}; card: {card}; "
@@ -169,10 +184,14 @@ def dense_kernel_inputs(torch, prob_b, state_b, model):
             ro_mod.last_active_node(prob_b))
 
 
-def kernel_vs_plain(torch, phase, name, cuda_fn, plain_fn, args, batch, T):
+def kernel_vs_plain(torch, phase, name, cuda_fn, plain_fn, args, small_args,
+                    work, batch, T):
     """Kernel against its plain version (f32) and the f64 oracle on the
-    card; prints the phase line and returns (max |kernel - plain|, kernel
-    ms, plain ms)."""
+    card, timed at `batch` and (the kernel only, on `small_args`) at
+    KERNEL_SMALL_BATCH, beside the bound of `work` (riccati_bound); prints
+    the phase line and returns the measured part of the kernel's JSON
+    record."""
+    from hkdmpc_tpu_torch.ops import _build, riccati_bound
     args64 = tuple(a.double() if a.is_floating_point() else a for a in args)
     out_k = cuda_fn(*args)
     torch.cuda.synchronize()
@@ -202,48 +221,70 @@ def kernel_vs_plain(torch, phase, name, cuda_fn, plain_fn, args, batch, T):
 
     ms = cuda_ms(torch, lambda: cuda_fn(*args), 10)
     plain_ms = cuda_ms(torch, lambda: plain_fn(*args), 10)
+    small = cuda_fn(*small_args)
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(o).all()) for o in small[:4]):
+        raise AssertionError(f"{name} at B={KERNEL_SMALL_BATCH}: non-finite "
+                             "values")
+    ms_small = cuda_ms(torch, lambda: cuda_fn(*small_args), 10)
+    bound = riccati_bound.bound_ms(work)
     print(f"phase {phase} {name} kernel vs plain: B={batch} T={T} f32; max "
           "|err| vs f64 oracle (kernel / plain f32): "
           + ", ".join(f"{n} {a:.3e} / {b:.3e}" for n, a, b in errs)
           + f"; ok agree {ok_agree:.4%} (ok {int(out_k[4].sum())}/{batch}); "
           f"max |kernel - plain f32| {max_abs_err:.3e}; "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (median of 10)",
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (median of 10); "
+          f"kernel at B={KERNEL_SMALL_BATCH} {ms_small:.3f} ms; bound "
+          f"{bound['bound_ms']:.3f} ms set by {bound['bound_by']} "
+          f"({work['bytes'] / 1e9:.3f} GB = {bound['bytes_ms']:.3f} ms at "
+          f"3.35 TB/s, {work['flops'] / 1e9:.3f} GFLOP = "
+          f"{bound['operations_ms']:.3f} ms at 67 TFLOP/s f32): the kernel "
+          f"runs at {bound['bound_ms'] / ms:.1%} of it; library call: none",
           flush=True)
-    return max_abs_err, ms, plain_ms
+    return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "library_ms": None, "ms_b1024": ms_small,
+            **_build.kernel_info(name)}
 
 
 def kernel_phase(batch=BATCH):
     """K1 against its plain version on the card; returns its JSON record
     (without launches)."""
     torch = _torch()
-    from hkdmpc_tpu_torch.ops import riccati_hkd
+    from hkdmpc_tpu_torch.ops import riccati_bound, riccati_hkd
     prob_b, state_b, _ = trot_batch(torch, batch, torch.float32)
-    err, ms, plain_ms = kernel_vs_plain(
+    args = kernel_inputs(torch, prob_b, state_b)
+    measured = kernel_vs_plain(
         torch, 2, "riccati_hkd", riccati_hkd.backward_sweep_hkd_cuda,
-        riccati_hkd.backward_sweep_hkd_plain,
-        kernel_inputs(torch, prob_b, state_b), batch, prob_b.T)
+        riccati_hkd.backward_sweep_hkd_plain, args,
+        kernel_inputs(torch, *trot_batch(torch, KERNEL_SMALL_BATCH,
+                                         torch.float32)[:2]),
+        riccati_bound.hkd_sweep_work(args[0], args[2].shape[1],
+                                     args[6].shape[1]), batch, prob_b.T)
     return {"name": "riccati_hkd", "route": "cuda",
             "source": "hkdmpc_tpu_torch/csrc/riccati_hkd.cu",
-            "replaces": "hkdmpc_tpu/ops/pallas_backward.py:358",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "replaces": "hkdmpc_tpu/ops/pallas_backward.py:358", **measured}
 
 
 def dense_kernel_phase(batch=BATCH):
     """K2 against its plain version on the card, on the swing-constraint
     trot's LQ data; returns its JSON record (without launches)."""
     torch = _torch()
-    from hkdmpc_tpu_torch.ops import riccati_dense
+    from hkdmpc_tpu_torch.ops import riccati_bound, riccati_dense
     from hkdmpc_tpu_torch.solver.model_api import hkd_model_spec
     spec = hkd_model_spec(swing_constraint=True)
     prob_b, state_b, _ = trot_batch(torch, batch, torch.float32, spec)
-    err, ms, plain_ms = kernel_vs_plain(
+    args = dense_kernel_inputs(torch, prob_b, state_b, spec)
+    measured = kernel_vs_plain(
         torch, 4, "riccati_dense", riccati_dense.backward_sweep_dense_cuda,
-        riccati_dense.backward_sweep_dense_plain,
-        dense_kernel_inputs(torch, prob_b, state_b, spec), batch, prob_b.T)
+        riccati_dense.backward_sweep_dense_plain, args,
+        dense_kernel_inputs(torch, *trot_batch(torch, KERNEL_SMALL_BATCH,
+                                               torch.float32, spec)[:2],
+                            spec),
+        riccati_bound.dense_sweep_work(args[0]), batch, prob_b.T)
     return {"name": "riccati_dense", "route": "cuda",
             "source": "hkdmpc_tpu_torch/csrc/riccati_dense.cu",
-            "replaces": "hkdmpc_tpu/ops/pallas_backward.py:57",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "replaces": "hkdmpc_tpu/ops/pallas_backward.py:57", **measured}
 
 
 @contextlib.contextmanager

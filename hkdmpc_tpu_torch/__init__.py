@@ -10,7 +10,9 @@ as a hand-written CUDA kernel for Hopper (`csrc/riccati_hkd.cu` wrapped by
 `ops/riccati_hkd.py`, `csrc/riccati_dense.cu` wrapped by
 `ops/riccati_dense.py`); and the fleet MPC built on it (`mpc.fleet.FleetMPC`:
 receding-horizon updates, the batched fleet step `mpc.fused.fleet_step`,
-checkpoints in `utils.checkpoint`). This package never imports JAX.
+checkpoints in `utils.checkpoint`). This package imports neither JAX nor any module
+of `hkdmpc_tpu`: what it needs from there (`config`, `reference`, `models`) it
+keeps as its own copy, pinned equal by the tests.
 """
 
 __version__ = "0.1.0"

@@ -12,29 +12,51 @@
 //     active node;
 //   - for t = T-1 .. 0: Gn = G + H * defect[t+1], then
 //     DYN: Q expansion from A[t], B[t], lxx[t], luu[t], lx[t], lu[t] with
-//     the per-scenario reg on the Qxx and Quu diagonals, Gaussian
-//     elimination with the PSD gate pivot > 1e-9 on [Quu | Qux | Qu] and
-//     back-substitution, K = -Quu^-1 Qux, dU = -Quu^-1 Qu, and the value
-//     update H = sym(Qxx - Qux' S), G = Qx - Qux' s, dv = Qu' s;
+//     the per-scenario reg on the Qxx and Quu diagonals, elimination with
+//     the PSD gate pivot > 1e-9 on [Quu | Qux | Qu], K = -Quu^-1 Qux,
+//     dU = -Quu^-1 Qu, and the value update H = sym(Qxx - Qux' S),
+//     G = Qx - Qux' s, dv = Qu' s;
 //     RESET (A holds Px): G = phix[t] + Px' Gn, H = phixx[t] + Px' H Px;
 //     PAD: the value carries through, K and dU are zero.
 // There is no lux input (the JAX package's array interface drops it). The
-// Pallas kernel pivots a Gauss-Jordan split sweep; this kernel runs the
-// Gaussian elimination K1 runs (riccati_step.cuh, shared with
-// riccati_hkd.cu). The PSD gate can flip at the ulp level between the two
-// orders, so `ok` is compared on a share of scenarios, not bit for bit.
+// PSD gate can flip at the ulp level against another elimination order, so
+// `ok` is compared on a share of scenarios, not bit for bit.
 //
-// What bounds it on the H100: at B = 4096, T = 75 each DYN step reads four
-// 24x24 tiles (9.2 KB) per scenario, about 2.8 GB per sweep with K's 0.7 GB
-// written back: roughly 1 ms of HBM bandwidth. The serial chain inside each
-// scenario (75 steps, each with 24 dependent pivots, dense 24-term products
-// and block-wide barriers) bounds it, as it bounds K1. The design is K1's:
-// one 32-thread block per scenario (4096 independent blocks fill the 132
-// SMs; every barrier is a single-warp barrier), the carry and the working
-// tiles (about 29 KB) in shared memory, each 24x24 tile loaded by the
-// block's threads on consecutive addresses, rows of each product and of
-// each elimination step spread over the threads, pivots in sequence, and K
-// and dU written straight into their (B, T, ...) layout.
+// What bounds it on the H100 (3.35 TB/s, 67 TFLOP/s f32 outside the tensor
+// cores), at B = 4096, T = 75 (60 DYN, 4 RESET, 11 PAD): every DYN step
+// reads four 24 x 24 tiles and three vectors, 9.5 KB per scenario, and
+// writes K[b, t]; with the RESET tiles, the seed and the K and dU rows the
+// sweep moves 3.16 GB, 0.94 ms of memory time. Its dense products (210k
+// flop a DYN step with the elimination and the value update) are
+// 52.6 GFLOP, 0.78 ms. Bytes bound it. (ops/riccati_bound.py computes both
+// from the shapes; chip_smoke.py prints them beside the measured time.)
+//
+// What the design does about it (block layout, register tiles and the
+// elimination: riccati_step.cuh):
+//   - one 128-thread block per scenario. In the Q expansion each of the
+//     three consumer warps owns one whole product in 3 x 6 register tiles
+//     (H A, H B, then A'HA, B'HA, B'HB): six shared loads for 18
+//     multiply-adds per k, a third of a shared word per multiply-add where
+//     a 1 x 6 tile of every product in every thread reads a whole word
+//     (measured on an NVIDIA H100 80GB HBM3 at 700 W, B = 4096: 11% off
+//     the sweep). The elimination runs in one warp on registers, with no
+//     block barrier inside it;
+//   - the step's tiles never wait in the serial chain: one thread of the
+//     producer warp starts 1-D bulk asynchronous copies
+//     (cp.async.bulk ... mbarrier::complete_tx::bytes, no tensor map) for
+//     the next ring item's A, B, lxx, luu, lx, lu and defect while the
+//     consumers run the current step, and the consumers wait on the stage's
+//     `full` mbarrier (measured on the same card: under 2% of a block's
+//     cycles). Each tile is 2,304 contiguous bytes from a 16-byte-aligned
+//     base (the wrapper checks it). PAD steps take no ring item; RESET
+//     steps load Px and phixx the same way;
+//   - the producer warp also writes the zero rows of K and dU, off the
+//     chain; K's DYN rows leave as 8-byte stores that fill whole 96-byte
+//     rows.
+// What is left: the shared-memory pipe, not the FMA pipe or device memory,
+// is what four resident blocks (128 registers a thread) saturate, and the
+// elimination's chain of 12 rounds is 40% of a block's cycles.
+// No tensor cores, no TF32 (riccati_step.cuh says why).
 
 #include <cuda_runtime.h>
 
@@ -44,31 +66,111 @@ namespace {
 
 using namespace riccati;
 
-struct Smem {
-  float H[NX][NX];
-  float A[NX][NX];     // DYN: A[t]; RESET: Px
-  float B[NX][NX];
-  float HA[NX][NX];
-  float HB[NX][NX];
-  float Qxx[NX][NX];   // lxx[t], then lxx + A'HA + reg I
-  float Qux[NX][NX];
-  float Luu[NX][NX];
-  float Pxx[NX][NX];   // RESET: phixx of the source node
-  float W[NX][NW];     // elimination tableau
-  float Sol[NX][25];   // Quu^-1 [Qux | Qu]
-  float G[NX], Gn[NX], Qx[NX], Qu[NX], Lx[NX], Lu[NX], Px[NX], fac[NX];
-  float dnext[NX];
+constexpr int NSTAGE = 2;
+constexpr uint32_t TILE_BYTES = NX * NX * sizeof(float);
+constexpr uint32_t VEC_BYTES = NX * sizeof(float);
+
+// One ring item. DYN: A[t], B[t], lxx[t], luu[t], lx[t], lu[t];
+// RESET: Px in A, phixx[t] in C, phix[t] in lx. Both: defect[t+1].
+struct __align__(16) Stage {
+  float A[NX * NX];
+  float B[NX * NX];
+  float C[NX * NX];
+  float Luu[NX * NX];
+  float lx[NX], lu[NX], dnext[NX];
 };
 
-// n floats from device memory into shared memory, the block's threads on
-// consecutive addresses
-__device__ __forceinline__ void load(float* dst,
-                                     const float* __restrict__ src, int n,
-                                     int tid) {
-  for (int e = tid; e < n; e += NT) dst[e] = src[e];
+struct __align__(16) Smem {
+  Work w;
+  Stage ring[NSTAGE];
+  uint64_t full[NSTAGE];
+  uint64_t empty[NSTAGE];
+};
+
+// acc[i][:] += sum_k left(k, i) * right[k][c0 .. c0 + 5], i < 3: a 3 x 6
+// register tile of a 24-deep product, six shared loads for 18 multiply-adds
+// per k. `right` has rows of `ld` floats; left(k, i) is the tile's i-th row
+// entry of the left factor at depth k.
+template <class Left>
+__device__ __forceinline__ void tile_product(float acc[3][TC],
+                                             const float* right, int ld,
+                                             int c0, Left left) {
+  float v[TC];
+#pragma unroll 4
+  for (int k = 0; k < NX; ++k) {
+    ld6(right + k * ld + c0, v);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) fma6(acc[i], left(k, i), v);
+  }
 }
 
-__global__ void __launch_bounds__(NT)
+// DYN: the dense Q expansion into the working set, then the shared step.
+// In the expansion each consumer warp owns one whole product, thread
+// (rg, cg) = (lane / 4, lane % 4) its 3 x 6 tile [3 rg .. 3 rg + 2][6 cg ..]:
+// H A and H B in warps 0 and 1, then A'(HA), B'(HA), B'(HB) in warps 0, 1, 2.
+// A 1 x 6 tile of every product in every thread reads about one shared word
+// per multiply-add, and the shared-memory pipe is what the resident blocks
+// saturate; the 3 x 6 tiles read a third of a word.
+__device__ __forceinline__ void dyn_step(Work& w, const Stage& st,
+                                         uint64_t* stage_empty, float reg_b,
+                                         int tid, int r, int cg, int c0,
+                                         float* K_bt, float* dU_bt,
+                                         float& dv1, float& dv2, bool& okb) {
+  const int warp = tid >> 5, r0 = 3 * ((tid & 31) >> 2);
+  defect_correction(w, st.dnext, r, cg, c0);
+  if (warp < 2) {
+    float acc[3][TC] = {};
+    tile_product(acc, warp == 0 ? st.A : st.B, NX, c0,
+                 [&](int k, int i) { return w.H[r0 + i][k]; });
+    float(*out)[LDP] = warp == 0 ? w.HA : w.HB;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) st6(&out[r0 + i][c0], acc[i]);
+  }
+  consumer_sync();
+  {
+    const float* left = warp == 0 ? st.A : st.B;
+    float acc[3][TC] = {};
+    tile_product(acc, warp == 2 ? &w.HB[0][0] : &w.HA[0][0], LDP, c0,
+                 [&](int k, int i) { return left[k * NX + r0 + i]; });
+    // A'HA, B'HB are added to lxx, luu apart, as the plain version adds them
+    const float* cost = warp == 0 ? st.C : st.Luu;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const int row = r0 + i;
+      if (warp == 1) {
+        st6(&w.Qux[row][c0], acc[i]);
+        st6(&w.W[row][NX + c0], acc[i]);
+      } else {
+        float q[TC];
+        ld6(cost + row * NX + c0, q);
+#pragma unroll
+        for (int j = 0; j < TC; ++j)
+          q[j] = (q[j] + acc[i][j]) + (row == c0 + j ? reg_b : 0.f);
+        st6(warp == 0 ? &w.Qxx[row][c0] : &w.W[row][c0], q);
+      }
+    }
+  }
+  float ag = 0.f, bg = 0.f;
+#pragma unroll
+  for (int j = 0; j < TC; ++j) {
+    const float gn = w.Gn[c0 + j];
+    ag = fmaf(st.A[(c0 + j) * NX + r], gn, ag);
+    bg = fmaf(st.B[(c0 + j) * NX + r], gn, bg);
+  }
+  ag = row_sum(ag);
+  bg = row_sum(bg);
+  if (cg == 0) {
+    const float qu = st.lu[r] + bg;
+    w.Qx[r] = st.lx[r] + ag;
+    w.Qu[r] = qu;
+    w.W[r][2 * NX] = qu;
+  }
+  mbar_arrive(stage_empty);   // the last read of the stage is behind us
+  consumer_sync();
+  solve_and_update(w, tid, r, cg, c0, K_bt, dU_bt, dv1, dv2, okb);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 4)
 riccati_dense_kernel(const int* __restrict__ kind,
                      const float* __restrict__ A, const float* __restrict__ B,
                      const float* __restrict__ lxx,
@@ -83,7 +185,8 @@ riccati_dense_kernel(const int* __restrict__ kind,
                      float* __restrict__ dU, float* __restrict__ K,
                      float* __restrict__ dv1_out, float* __restrict__ dv2_out,
                      unsigned char* __restrict__ ok_out, int T) {
-  __shared__ Smem s;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
   const int tid = threadIdx.x;
   const size_t b = blockIdx.x;
   const size_t Tn = (size_t)T + 1;
@@ -93,48 +196,88 @@ riccati_dense_kernel(const int* __restrict__ kind,
   const float* def_b = defect + b * Tn * NX;
   const float* phix_b = phix + b * Tn * NX;
   const float* phixx_b = phixx + b * Tn * M;
+
+  if (tid == 0) {
+    for (int i = 0; i < NSTAGE; ++i) {
+      mbar_init(&s.full[i], 1);        // the producer's arrive + the bytes
+      mbar_init(&s.empty[i], NCONS);   // every consumer thread
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= PRODUCER_WARP * 32) {
+    // ---- producer warp: bulk copies one ring item ahead, zero rows ----
+    const int lane = tid - PRODUCER_WARP * 32;
+    int item = 0;
+    for (int t = T - 1; t >= 0; --t) {
+      const int kd = kind_b[t];
+      const size_t bt = b * T + t;
+      if (kd == KIND_DYN || kd == KIND_RESET) {
+        if (lane == 0) {
+          const RingPos pos(item, NSTAGE);
+          Stage& st = s.ring[pos.stage];
+          uint64_t* full = &s.full[pos.stage];
+          mbar_wait(&s.empty[pos.stage], pos.parity ^ 1);
+          fence_proxy_async();
+          if (kd == KIND_DYN) {
+            mbar_arrive_expect_tx(full, 4 * TILE_BYTES + 3 * VEC_BYTES);
+            bulk_copy_g2s(st.A, A + bt * M, TILE_BYTES, full);
+            bulk_copy_g2s(st.B, B + bt * M, TILE_BYTES, full);
+            bulk_copy_g2s(st.C, lxx + bt * M, TILE_BYTES, full);
+            bulk_copy_g2s(st.Luu, luu + bt * M, TILE_BYTES, full);
+            bulk_copy_g2s(st.lx, lx + bt * NX, VEC_BYTES, full);
+            bulk_copy_g2s(st.lu, lu + bt * NX, VEC_BYTES, full);
+          } else {
+            mbar_arrive_expect_tx(full, 2 * TILE_BYTES + 2 * VEC_BYTES);
+            bulk_copy_g2s(st.A, A + bt * M, TILE_BYTES, full);
+            bulk_copy_g2s(st.C, phixx_b + (size_t)t * M, TILE_BYTES, full);
+            bulk_copy_g2s(st.lx, phix_b + (size_t)t * NX, VEC_BYTES, full);
+          }
+          bulk_copy_g2s(st.dnext, def_b + (size_t)(t + 1) * NX, VEC_BYTES,
+                        full);
+        }
+        ++item;
+      }
+      if (kd != KIND_DYN) zero_gain_rows(K + bt * M, dU + bt * NX, lane);
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  Work& w = s.w;
+  const int r = tid >> 2, cg = tid & 3, c0 = TC * cg;
   const float reg_b = reg[b];
   const size_t last = (size_t)last_node[b];
-
   float dv1 = 0.f, dv2 = 0.f;   // meaningful in thread 0
-  bool okb = true;
+  bool okb = true;              // meaningful in warp 0
 
   // seed: the terminal partials of the last active node
-  load(&s.H[0][0], phixx_b + last * M, (int)M, tid);
-  load(s.G, phix_b + last * NX, NX, tid);
+  {
+    float v[TC];
+    ld6(phixx_b + last * M + r * NX + c0, v);
+    st6(&w.H[r][c0], v);
+    if (cg == 0) w.G[r] = phix_b[last * NX + r];
+  }
+  consumer_sync();
 
+  int item = 0;
+  int kd_next = kind_b[T - 1];
   for (int t = T - 1; t >= 0; --t) {
-    const int kd = kind_b[t];
-    const size_t bt = b * T + t;
-    float* K_bt = K + bt * M;
-    float* dU_bt = dU + bt * NX;
-    if (kd != KIND_DYN && kd != KIND_RESET) {   // PAD: the value carries
-      for (int e = tid; e < (int)M; e += NT) K_bt[e] = 0.f;
-      for (int i = tid; i < NX; i += NT) dU_bt[i] = 0.f;
-      continue;
-    }
-    // the previous step ended synchronized: every tile below is free
-    load(s.dnext, def_b + (size_t)(t + 1) * NX, NX, tid);
-    load(&s.A[0][0], A + bt * M, (int)M, tid);
+    const int kd = kd_next;
+    if (t > 0) kd_next = kind_b[t - 1];   // in flight during this step
+    if (kd != KIND_DYN && kd != KIND_RESET) continue;   // PAD
+    const RingPos pos(item, NSTAGE);
+    ++item;
+    const Stage& st = s.ring[pos.stage];
+    mbar_wait(&s.full[pos.stage], pos.parity);
     if (kd == KIND_DYN) {
-      load(&s.B[0][0], B + bt * M, (int)M, tid);
-      load(&s.Qxx[0][0], lxx + bt * M, (int)M, tid);
-      load(&s.Luu[0][0], luu + bt * M, (int)M, tid);
-      load(s.Lx, lx + bt * NX, NX, tid);
-      load(s.Lu, lu + bt * NX, NX, tid);
+      const size_t bt = b * T + t;
+      dyn_step(w, st, &s.empty[pos.stage], reg_b, tid, r, cg, c0,
+               K + bt * M, dU + bt * NX, dv1, dv2, okb);
     } else {
-      load(s.Px, phix_b + (size_t)t * NX, NX, tid);
-      load(&s.Pxx[0][0], phixx_b + (size_t)t * M, (int)M, tid);
-    }
-    __syncthreads();
-    defect_correction(s, tid);
-    __syncthreads();
-    if (kd == KIND_DYN) {
-      dyn_step(s, tid, reg_b, K_bt, dU_bt, dv1, dv2, okb);
-    } else {
-      for (int e = tid; e < (int)M; e += NT) K_bt[e] = 0.f;
-      for (int i = tid; i < NX; i += NT) dU_bt[i] = 0.f;
-      reset_step(s, tid);
+      reset_step(w, st.A, st.C, st.lx, st.dnext, &s.empty[pos.stage], r, cg,
+                 c0);
     }
   }
   if (tid == 0) {
@@ -142,6 +285,12 @@ riccati_dense_kernel(const int* __restrict__ kind,
     dv2_out[b] = dv2;
     ok_out[b] = okb ? 1 : 0;
   }
+}
+
+cudaError_t configure() {
+  return cudaFuncSetAttribute(riccati_dense_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)sizeof(Smem));
 }
 
 }  // namespace
@@ -153,10 +302,25 @@ extern "C" int riccati_dense_launch(
     const int* last_node, float* dU, float* K, float* dv1, float* dv2,
     unsigned char* ok, int batch, int T, void* stream) {
   if (batch <= 0 || T <= 0) return 0;
-  riccati_dense_kernel<<<batch, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+  const cudaError_t st = configure();
+  if (st != cudaSuccess) return static_cast<int>(st);
+  riccati_dense_kernel<<<batch, NTHREADS, sizeof(Smem),
+                         static_cast<cudaStream_t>(stream)>>>(
       kind, A, B, lxx, luu, lx, lu, defect, phix, phixx, reg, last_node, dU,
       K, dv1, dv2, ok, T);
   return static_cast<int>(cudaGetLastError());
+}
+
+// threads per block, dynamic shared memory per block and resident blocks
+// per SM of the kernel on the current device
+extern "C" int riccati_dense_info(int* threads, int* smem_bytes,
+                                  int* blocks_per_sm) {
+  const cudaError_t st = configure();
+  if (st != cudaSuccess) return static_cast<int>(st);
+  *threads = NTHREADS;
+  *smem_bytes = (int)sizeof(Smem);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, riccati_dense_kernel, NTHREADS, sizeof(Smem)));
 }
 
 extern "C" const char* riccati_dense_error_string(int err) {

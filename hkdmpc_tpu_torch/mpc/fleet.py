@@ -29,13 +29,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from hkdmpc_tpu.config import (ConstraintParams, HSDDPOption,
-                               load_constraint_params, load_ddp_setting)
-from hkdmpc_tpu.reference.quad_reference import QuadReference
+from hkdmpc_tpu_torch.config import (ConstraintParams, HSDDPOption,
+                                     load_constraint_params,
+                                     load_ddp_setting)
 from hkdmpc_tpu_torch.mpc import fused
 from hkdmpc_tpu_torch.mpc.solver import MPCCommand, default_stand_state
 from hkdmpc_tpu_torch.parallel.batch import replicate_problem
 from hkdmpc_tpu_torch.solver import ddp
+from hkdmpc_tpu_torch.reference.quad_reference import QuadReference
 from hkdmpc_tpu_torch.solver.problem import HKDProblem
 
 

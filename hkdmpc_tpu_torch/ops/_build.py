@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels at first use.
 
 The sources live in `hkdmpc_tpu_torch/csrc/`: one `<name>.cu` per kernel,
-with a plain C interface (`<name>_launch`, `<name>_error_string`), and the
+with a plain C interface (`<name>_launch`, `<name>_info`,
+`<name>_error_string`), and the
 `*.cuh` headers they include. `nvcc` compiles each `<name>.cu` for Hopper
 (`sm_90a`) into its own shared library, loaded with ctypes, in
 `build/hkdmpc_tpu_torch/` beside the package. The HKD constants and cost
@@ -170,6 +171,9 @@ def library(name: str) -> ctypes.CDLL:
         fn = getattr(lib, f"{name}_launch")
         fn.argtypes = _LAUNCH_ARGTYPES[name]
         fn.restype = ctypes.c_int
+        info = getattr(lib, f"{name}_info")
+        info.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+        info.restype = ctypes.c_int
         errstr = getattr(lib, f"{name}_error_string")
         errstr.argtypes = [ctypes.c_int]
         errstr.restype = ctypes.c_char_p
@@ -181,17 +185,32 @@ def launch(name: str, *args) -> None:
     """Call `<name>_launch(*args)` and raise if it returns a non-zero
     cudaError_t (a refused launch never runs, and a later synchronize does
     not report it)."""
-    lib = library(name)
-    err = getattr(lib, f"{name}_launch")(*args)
+    err = getattr(library(name), f"{name}_launch")(*args)
     if err != 0:
-        msg = getattr(lib, f"{name}_error_string")(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err} "
-                           f"({msg})")
+        _raise_cuda(name, "kernel launch", err)
 
 
-def check_tensor(name, t, shape, dtype, device) -> None:
+def _raise_cuda(name: str, what: str, err: int) -> None:
+    msg = getattr(library(name), f"{name}_error_string")(err).decode()
+    raise RuntimeError(f"{name} {what} failed: cudaError {err} ({msg})")
+
+
+def kernel_info(name: str) -> dict:
+    """How kernel `name` sits on the current CUDA device: threads per block,
+    dynamic shared memory per block in bytes, and the blocks of it that one
+    SM holds at a time (`<name>_info`)."""
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    err = getattr(library(name), f"{name}_info")(*map(ctypes.byref, vals))
+    if err != 0:
+        _raise_cuda(name, "occupancy query", err)
+    return dict(zip(("threads_per_block", "smem_bytes", "blocks_per_sm"),
+                    (v.value for v in vals)))
+
+
+def check_tensor(name, t, shape, dtype, device, align=1) -> None:
     """Raise unless t is a contiguous tensor of `shape` and `dtype` on
-    `device` (TypeError for type, ValueError for the rest)."""
+    `device` whose first byte lies on a multiple of `align` (TypeError for
+    type, ValueError for the rest)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.device != device:
@@ -203,3 +222,6 @@ def check_tensor(name, t, shape, dtype, device) -> None:
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: data pointer {t.data_ptr():#x} is not "
+                         f"{align}-byte aligned")

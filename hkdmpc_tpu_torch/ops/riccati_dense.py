@@ -34,6 +34,7 @@ from hkdmpc_tpu_torch.ops import precise
 
 LAUNCHES = 0
 NX = 24  # the kernel's state and control width
+BULK_COPY_ALIGN = 16  # bytes: source alignment of a bulk asynchronous copy
 
 
 def backward_sweep_dense(kind, A, B, lxx, luu, lx, lu, defect, phix, phixx,
@@ -74,7 +75,11 @@ def backward_sweep_dense_cuda(kind, A, B, lxx, luu, lx, lu, defect, phix,
                               phixx, reg, last_node):
     """Launch the CUDA kernel on the current stream. Every tensor must lie
     on one CUDA device, be contiguous, and be float32 with nx = 24 (kind and
-    last_node int32)."""
+    last_node int32). The kernel fetches each A[b, t], B[b, t], lxx[b, t],
+    luu[b, t], phixx[b, t] tile (2,304 bytes) and each lx, lu, defect, phix
+    row (96 bytes) with one bulk asynchronous copy, which takes 16-byte
+    aligned addresses: those tensors must start on a multiple of 16 bytes
+    (a tensor from the allocator does; a view at an odd offset may not)."""
     global LAUNCHES
     from hkdmpc_tpu_torch.ops import _build
 
@@ -86,20 +91,21 @@ def backward_sweep_dense_cuda(kind, A, B, lxx, luu, lx, lu, defect, phix,
         raise ValueError(f"kind: shape {tuple(kind.shape)}, expected (B, T)")
     nb, T = kind.shape
     f32, i32 = torch.float32, torch.int32
-    for name, t, shape, dtype in (
-            ("kind", kind, (nb, T), i32),
-            ("A", A, (nb, T, NX, NX), f32),
-            ("B", B, (nb, T, NX, NX), f32),
-            ("lxx", lxx, (nb, T, NX, NX), f32),
-            ("luu", luu, (nb, T, NX, NX), f32),
-            ("lx", lx, (nb, T, NX), f32),
-            ("lu", lu, (nb, T, NX), f32),
-            ("defect", defect, (nb, T + 1, NX), f32),
-            ("phix", phix, (nb, T + 1, NX), f32),
-            ("phixx", phixx, (nb, T + 1, NX, NX), f32),
-            ("reg", reg, (nb,), f32),
-            ("last_node", last_node, (nb,), i32)):
-        _build.check_tensor(name, t, shape, dtype, dev)
+    bulk = BULK_COPY_ALIGN   # fetched by bulk copies; the rest by plain loads
+    for name, t, shape, dtype, align in (
+            ("kind", kind, (nb, T), i32, 1),
+            ("A", A, (nb, T, NX, NX), f32, bulk),
+            ("B", B, (nb, T, NX, NX), f32, bulk),
+            ("lxx", lxx, (nb, T, NX, NX), f32, bulk),
+            ("luu", luu, (nb, T, NX, NX), f32, bulk),
+            ("lx", lx, (nb, T, NX), f32, bulk),
+            ("lu", lu, (nb, T, NX), f32, bulk),
+            ("defect", defect, (nb, T + 1, NX), f32, bulk),
+            ("phix", phix, (nb, T + 1, NX), f32, bulk),
+            ("phixx", phixx, (nb, T + 1, NX, NX), f32, bulk),
+            ("reg", reg, (nb,), f32, 1),
+            ("last_node", last_node, (nb,), i32, 1)):
+        _build.check_tensor(name, t, shape, dtype, dev, align)
 
     dU = torch.empty((nb, T, NX), dtype=f32, device=dev)
     K = torch.empty((nb, T, NX, NX), dtype=f32, device=dev)

@@ -31,7 +31,7 @@ import dataclasses
 
 import torch
 
-from hkdmpc_tpu.config import HSDDPOption
+from hkdmpc_tpu_torch.config import HSDDPOption
 from hkdmpc_tpu_torch.ops import precise
 from hkdmpc_tpu_torch.solver import backward, lq as lq_mod
 from hkdmpc_tpu_torch.solver import rollout as ro_mod

@@ -24,8 +24,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from hkdmpc_tpu.config import ConstraintParams
-from hkdmpc_tpu.reference.quad_reference import QuadReference
+from hkdmpc_tpu_torch.config import ConstraintParams
+from hkdmpc_tpu_torch.reference.quad_reference import QuadReference
 from hkdmpc_tpu_torch.solver.model_api import hkd_model_spec
 from hkdmpc_tpu_torch.solver.structs import (DYN, RESET, ConstraintState,
                                              ProblemData, SolverState)

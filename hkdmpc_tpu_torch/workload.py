@@ -19,9 +19,9 @@ import tempfile
 import numpy as np
 import torch
 
-from hkdmpc_tpu.config import HSDDPOption
-from hkdmpc_tpu.reference.quad_reference import QuadReference
+from hkdmpc_tpu_torch.config import HSDDPOption
 from hkdmpc_tpu_torch.mpc.solver import STAND_QLEG, default_stand_state
+from hkdmpc_tpu_torch.reference.quad_reference import QuadReference
 from hkdmpc_tpu_torch.reference.refgen import GaitSynthesizer
 from hkdmpc_tpu_torch.solver.problem import HKDProblem
 

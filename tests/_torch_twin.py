@@ -20,9 +20,12 @@ from hkdmpc_tpu.reference.refgen import GaitSynthesizer
 from hkdmpc_tpu.solver import model_api as jmodel_api
 from hkdmpc_tpu.solver import structs as jstructs
 from hkdmpc_tpu.solver.problem import HKDProblem
+from hkdmpc_tpu_torch import config as tconfig
 from hkdmpc_tpu_torch import workload
 from hkdmpc_tpu_torch.mpc import solver as tsolver
 from hkdmpc_tpu_torch.parallel.batch import default_x0_scale
+from hkdmpc_tpu_torch.reference.quad_reference import (
+    QuadReference as TQuadReference)
 from hkdmpc_tpu_torch.solver import model_api, structs as tstructs
 
 F64 = torch.float64
@@ -36,6 +39,12 @@ def specs(name):
     swing = SPECS[name]
     return (jmodel_api.hkd_model_spec(swing_constraint=swing),
             model_api.hkd_model_spec(swing_constraint=swing))
+
+
+def port_option(jopt):
+    """The port's HSDDPOption with the field values of the JAX package's
+    `jopt`: each package is handed its own option object."""
+    return tconfig.HSDDPOption(**dataclasses.asdict(jopt))
 
 
 def jax_trot_problem(plan_duration=0.6, model=None):
@@ -89,8 +98,9 @@ def x0_noise(batch, seed):
 
 def batched_trot(batch, seed, plan_duration=0.6, model=None):
     """Numpy field trees (prob, state) of `batch` perturbed trot scenarios —
-    the same arrays for both packages — and the option set. model: a JAX
-    ModelSpec (it sizes the constraint rows)."""
+    the same arrays for both packages — and the JAX package's option set
+    (`port_option` makes the port's). model: a JAX ModelSpec (it sizes the
+    constraint rows)."""
     _, prob, state, opt = jax_trot_problem(plan_duration, model)
     prob_n = tile_tree(to_numpy_tree(prob), batch)
     state_n = tile_tree(to_numpy_tree(state), batch)
@@ -132,12 +142,13 @@ def solve_both(batch, seed, plan_duration, model=None):
     jprob, prob = both(prob_n, tstructs.ProblemData)
     jstate, state = both(state_n, tstructs.SolverState)
     jflags = dict(parallel_rollout=True, unroll_caps=True)
+    topt = port_option(opt)
     if model is None:
-        got = ddp.solve_batch(prob, state, opt.runtime(), kernel_jac=True)
+        got = ddp.solve_batch(prob, state, topt.runtime(), kernel_jac=True)
         want = jddp.solve_batch(jprob, jstate, opt.runtime(), kernel_jac=True,
                                 **jflags)
     else:
-        got = ddp.solve_batch(prob, state, opt.runtime(), kernel_jac=False,
+        got = ddp.solve_batch(prob, state, topt.runtime(), kernel_jac=False,
                               model=spec)
         want = jddp.solve_batch(jprob, jstate, opt.runtime(), model=jspec,
                                 pallas_backward=True, **jflags)
@@ -171,7 +182,7 @@ def problem_pair(gait, plan_duration, directory):
     path = workload.gait_file(gait, str(directory))
     jpb = HKDProblem(QuadReference.from_file(path),
                      plan_duration=plan_duration, dtype=jnp.float64)
-    tpb = TProblem(QuadReference.from_file(path), dtype=F64, device="cpu",
+    tpb = TProblem(TQuadReference.from_file(path), dtype=F64, device="cpu",
                    plan_duration=plan_duration)
     jpb.initialization()
     tpb.initialization()

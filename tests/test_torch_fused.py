@@ -13,7 +13,8 @@ from hkdmpc_tpu_torch.mpc import fused as tfused
 from hkdmpc_tpu_torch.mpc.solver import default_stand_state
 from hkdmpc_tpu_torch.solver import structs as tstructs
 from tests._torch_twin import (F64, assert_close, both, fleet_meas,
-                               problem_pair, tile_tree, to_numpy_tree)
+                               port_option, problem_pair, tile_tree,
+                               to_numpy_tree)
 
 N = 3
 N_CMD = 8
@@ -164,7 +165,8 @@ def test_fleet_step_matches_jax(tmp_path):
         unroll_caps=True)
     tnew, tbundle = tfused.fleet_step(
         tfused.make_tables(tpb, F64, "cpu"), tstate, torch.as_tensor(ti),
-        torch.as_tensor(tf), torch.as_tensor(meas), optr, False, N_CMD, True)
+        torch.as_tensor(tf), torch.as_tensor(meas), port_option(optr), False,
+        N_CMD, True)
 
     jbundle = np.asarray(jbundle)
     tb = tbundle.numpy()

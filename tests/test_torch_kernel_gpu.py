@@ -20,10 +20,10 @@ import numpy as np
 import pytest
 import torch
 
-from hkdmpc_tpu.config import HSDDPOption
-from hkdmpc_tpu.reference.quad_reference import QuadReference
+from hkdmpc_tpu_torch.config import HSDDPOption
 from hkdmpc_tpu_torch.ops import riccati_dense, riccati_hkd
 from hkdmpc_tpu_torch.parallel.batch import perturb_scenarios, replicate_problem
+from hkdmpc_tpu_torch.reference.quad_reference import QuadReference
 from hkdmpc_tpu_torch.reference.refgen import GaitSynthesizer
 from hkdmpc_tpu_torch.solver import backward, ddp, lq, rollout as ro
 from hkdmpc_tpu_torch.solver.problem import HKDProblem
@@ -101,13 +101,7 @@ def test_kernel_matches_plain_on_mixed_batch(mixed):
     plain = riccati_hkd.backward_sweep_hkd_plain(*args32)
     oracle = riccati_hkd.backward_sweep_hkd_plain(*args64)
     torch.cuda.synchronize()
-    for name, g, p, o in zip(("dU", "K", "dv1", "dv2"), got, plain, oracle):
-        assert bool(torch.isfinite(g).all()), name
-        err = float((g.double() - o).abs().max())
-        roundoff = float((p.double() - o).abs().max())
-        assert err <= max(10.0 * roundoff, 1e-5), (name, err, roundoff)
-    # the PSD gate can flip at the ulp level between elimination orders
-    assert float((got[4] == oracle[4]).double().mean()) >= 0.999
+    _assert_sweep_close(got, plain, oracle)
     # trot and hop lanes really differ
     assert not torch.equal(prob.kind[0], prob.kind[1])
 
@@ -208,13 +202,67 @@ def test_dense_kernel_matches_plain_on_mixed_batch(mixed):
     plain = riccati_dense.backward_sweep_dense_plain(*args32)
     oracle = riccati_dense.backward_sweep_dense_plain(*args64)
     torch.cuda.synchronize()
+    _assert_sweep_close(got, plain, oracle)
+    assert not torch.equal(prob.kind[0], prob.kind[1])
+
+
+def _assert_sweep_close(got, plain, oracle):
+    """A kernel's outputs against the f64 oracle within max(10 x the plain
+    f32 version's error, 1e-5); the PSD gate can flip at the ulp level
+    between elimination orders, so `ok` on 99.9%."""
     for name, g, p, o in zip(("dU", "K", "dv1", "dv2"), got, plain, oracle):
         assert bool(torch.isfinite(g).all()), name
         err = float((g.double() - o).abs().max())
         roundoff = float((p.double() - o).abs().max())
         assert err <= max(10.0 * roundoff, 1e-5), (name, err, roundoff)
     assert float((got[4] == oracle[4]).double().mean()) >= 0.999
-    assert not torch.equal(prob.kind[0], prob.kind[1])
+
+
+@pytest.mark.parametrize("nb,plan", [(37, 0.6), (5, 2.0)],
+                         ids=["B37", "T250"])
+def test_kernels_on_odd_batch_and_long_horizon(cuda, nb, plan):
+    """Both kernels against their plain versions at a batch that is a
+    multiple of nothing convenient (B = 37, more blocks than fit a wave of
+    a few SMs, fewer than the card holds) and at T = 250 (the 2.0 s plan:
+    the ring wraps 40 times and more, with 19 RESET items between the DYN
+    ones). The same gates as on the mixed batch."""
+    _, prob, state, _ = trot_problem(plan, dtype=torch.float64, device=cuda)
+    prob, state = replicate_problem(prob, state, nb)
+    rng = np.random.default_rng(9)
+    prob = perturb_scenarios(prob, noise=rng.standard_normal((nb, 24)))
+    T = prob.T
+    assert T == (250 if plan == 2.0 else 75)
+    state.Ubar = prob.ur[:, :T] + torch.as_tensor(
+        2.0 * rng.standard_normal((nb, T, 24)), device=cuda)
+    for args_of, kernel, plain in (
+            (_args, riccati_hkd.backward_sweep_hkd,
+             riccati_hkd.backward_sweep_hkd_plain),
+            (_dense_args, riccati_dense.backward_sweep_dense,
+             riccati_dense.backward_sweep_dense_plain)):
+        args32 = args_of(prob, state, torch.float32)
+        got = kernel(*args32)
+        torch.cuda.synchronize()
+        assert got[1].shape == (nb, T, 24, 24)
+        _assert_sweep_close(got, plain(*args32),
+                            plain(*args_of(prob, state, torch.float64)))
+        # PAD and RESET rows of K and dU are written as zeros
+        idle = args32[0] != 1
+        assert not bool(got[1][idle].any()) and not bool(got[0][idle].any())
+
+
+def test_dense_wrapper_rejects_misaligned_input(mixed):
+    """The bulk copies take 16-byte aligned sources: a contiguous view that
+    starts 4 bytes into an allocation is refused, not copied."""
+    prob, state = mixed
+    args = list(_dense_args(prob, state, torch.float32))
+    flat = torch.empty(args[5].numel() + 1, dtype=torch.float32,
+                       device=args[5].device)
+    shifted = flat[1:].view(args[5].shape)
+    shifted.copy_(args[5])
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    args[5] = shifted
+    with pytest.raises(ValueError, match="aligned"):
+        riccati_dense.backward_sweep_dense_cuda(*args)
 
 
 def test_dense_wrapper_rejects_bad_inputs(mixed):

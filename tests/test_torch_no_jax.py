@@ -1,10 +1,14 @@
-"""The PyTorch port never imports JAX: in a fresh interpreter (the test
+"""The PyTorch port never imports JAX, nor any module of the JAX package
+`hkdmpc_tpu` (not even one that is itself free of JAX: the port keeps its
+own copy): in a fresh interpreter (the test
 process has JAX loaded already), import every module of hkdmpc_tpu_torch,
 build the trot problem and run one small batched solve on each path (the
 default model's kernel_jac path, the dense path with the swing constraint),
 step a small fleet and carry it through a checkpoint (`mpc.fleet`,
-`mpc.fused`, `utils.checkpoint`), then check that `jax` is not in
-sys.modules."""
+`mpc.fused`, `utils.checkpoint`), then check that neither `jax` nor `hkdmpc_tpu` (nor any
+`hkdmpc_tpu.*`) is in sys.modules. A source scan refuses `import jax`,
+`import hkdmpc_tpu` and `from hkdmpc_tpu...` in every module of the port and
+in `chip_smoke.py`."""
 import os
 import pathlib
 import subprocess
@@ -52,6 +56,9 @@ with tempfile.TemporaryDirectory() as d:
     out = g.step(m["rpy"], m["p"], m["v"], m["omega"], m["qJ"])
     assert np.isfinite(out["controls"]).all() and g.mpc_iter == 2
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+reference_pkg = sorted(m for m in sys.modules
+                       if m == "hkdmpc_tpu" or m.startswith("hkdmpc_tpu."))
+assert not reference_pkg, reference_pkg
 print("NO_JAX_OK")
 """
 
@@ -64,9 +71,42 @@ def test_port_runs_without_jax():
     assert "NO_JAX_OK" in out.stdout
 
 
+FORBIDDEN_ROOTS = ("jax", "hkdmpc_tpu")
+
+
+def imported_forbidden_root(line: str):
+    """The forbidden top-level package an `import ...` / `from ... import`
+    line names, or None (`hkdmpc_tpu_torch` is another package)."""
+    words = line.replace(",", " ").split()
+    if len(words) < 2 or words[0] not in ("import", "from"):
+        return None
+    names = words[1:2] if words[0] == "from" else [
+        w for w in words[1:] if w != "as"]
+    for name in names:
+        if name.split(".")[0] in FORBIDDEN_ROOTS:
+            return name.split(".")[0]
+    return None
+
+
+def port_sources():
+    return sorted((REPO / "hkdmpc_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py"]
+
+
 def test_port_sources_do_not_import_jax():
-    for path in (REPO / "hkdmpc_tpu_torch").rglob("*.py"):
+    for path in port_sources():
         for line in path.read_text().splitlines():
-            words = line.split()
-            assert not (words[:1] in (["import"], ["from"]) and len(words) > 1
-                        and words[1].split(".")[0] == "jax"), (path, line)
+            assert imported_forbidden_root(line) is None, (path, line)
+
+
+def test_source_scan_sees_an_import_of_the_jax_package():
+    hits = {"import hkdmpc_tpu": "hkdmpc_tpu",
+            "from hkdmpc_tpu.config import HSDDPOption": "hkdmpc_tpu",
+            "    from hkdmpc_tpu import config": "hkdmpc_tpu",
+            "import os, hkdmpc_tpu.config as c": "hkdmpc_tpu",
+            "import jax.numpy as jnp": "jax",
+            "from hkdmpc_tpu_torch.config import HSDDPOption": None,
+            "import hkdmpc_tpu_torch": None,
+            "# from hkdmpc_tpu.config import x": None}
+    for line, root in hits.items():
+        assert imported_forbidden_root(line) == root, line

@@ -15,8 +15,8 @@ from hkdmpc_tpu.solver import rollout as jro
 from hkdmpc_tpu_torch.solver import ddp, rollout as tro
 from hkdmpc_tpu_torch.solver import structs as tstructs
 from tests._torch_twin import (assert_close, assert_solves_match, both,
-                               problem_pair, tile_tree, to_numpy_tree,
-                               x0_noise)
+                               port_option, problem_pair, tile_tree,
+                               to_numpy_tree, x0_noise)
 
 B = 3
 N_UPDATES = 9
@@ -94,7 +94,8 @@ def test_solve_with_sequential_rollout_matches_jax(updated, kernel_jac):
     jprob, prob = both(prob_n, tstructs.ProblemData)
     jstate, state = both(state_n, tstructs.SolverState)
     optr = opt.runtime()
-    got = ddp.solve_batch(prob, state, optr, kernel_jac=kernel_jac,
+    got = ddp.solve_batch(prob, state, port_option(optr),
+                          kernel_jac=kernel_jac,
                           parallel_rollout=False)
     want = jddp.solve_batch(jprob, jstate, optr, parallel_rollout=False,
                             unroll_caps=True, kernel_jac=kernel_jac)

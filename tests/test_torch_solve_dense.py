@@ -22,7 +22,8 @@ from hkdmpc_tpu.solver import model_api as jmodel_api
 from hkdmpc_tpu.solver import structs as jstructs
 from hkdmpc_tpu_torch.solver import ddp, model_api
 from hkdmpc_tpu_torch.solver import structs as tstructs
-from tests._torch_twin import assert_solves_match, solve_both
+from tests._torch_twin import (assert_solves_match, port_option,
+                               solve_both)
 
 torch.set_num_threads(2)
 
@@ -44,7 +45,8 @@ def test_kernel_jac_path_takes_no_model():
     """kernel_jac=True is the default model's path: a model is refused."""
     spec = model_api.hkd_model_spec()
     with pytest.raises(ValueError, match="kernel_jac"):
-        ddp.solve_batch(None, None, HSDDPOption(), kernel_jac=True,
+        ddp.solve_batch(None, None, port_option(HSDDPOption()),
+                        kernel_jac=True,
                         model=spec)
 
 
@@ -206,7 +208,7 @@ def _solve_bouncing(xs, us):
         **{k: torch.as_tensor(v) for k, v in constr_n.items()}))
     opt = HSDDPOption(max_DDP_iter=12, max_AL_iter=1, AL_active=False,
                       ReB_active=False)
-    got = ddp.solve_batch(prob, state, opt, kernel_jac=False,
+    got = ddp.solve_batch(prob, state, port_option(opt), kernel_jac=False,
                           model=_port_spec(xs, us))
     want = jddp.solve_batch(jprob, jstate, opt, parallel_rollout=True,
                             model=_jax_spec(xs, us), pallas_backward=True,
