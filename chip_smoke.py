@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """GPU check of the PyTorch/CUDA port (`hkdmpc_tpu_torch`): builds the two
 CUDA Riccati kernels, holds each against its plain PyTorch version on the
-card, drives both batched solve paths once at full width, and steps the
-fleet MPC at full width.
+card, drives both batched solve paths once at full width, steps the fleet
+MPC at full width, and steps the single-robot MPC on its three paths.
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
 
@@ -52,10 +52,32 @@ Phases, one line each:
      with the plain sweep on the card beside an 8-robot K1 fleet, both
      stepped 5 times with the same measurements: per-step final costs
      within 1e-3 relative.
+  8. the single-robot MPC: HKDMPCSolver on the trot (plan 0.6 s, T = 75),
+     f32, cold solve, 2 warm-up updates, then 20 updates from
+     workload.meas_stream(1, 0), three times: (a) MPCConfig's defaults on
+     the card with the fused step (assoc_linear, assoc_backward: the
+     parallel-in-time recursions of ops/assoc.py), (b) both off (the dense
+     sweep: K2 at B = 1), (c) as (b) with the classic step. Per run: cold
+     solve ms; ms per update (host clock around the blocking update; median,
+     and the parallel- and sequential-rollout updates apart); for the fused
+     runs the time inside update_async and the time waiting in
+     update_fused_complete; backward sweeps per update (K2 launches in (b)
+     and (c): at least 2.00 per update, anything above is a regularization
+     retry); no failed solve, finite commands. (a) against (b) and (b)
+     against (c), update by update: final cost within 1e-4 relative and
+     controls and body states within 1e-3 of their magnitude in at least
+     90% of the updates, and within 5e-3 and 1e-1 in every update (in f32 a
+     marginal line-search accept can fall the other way: that update's
+     controls then differ by a few percent and its cost by up to 1e-3, and
+     the next ones, warm-started from it, by less and less). Then K2 at B = 1 against its plain version and the f64
+     oracle on the LQ data of the trot's first rollout (the gates of phase
+     4), its time, the plain version's and its bound at B = 1, and the
+     parallel-in-time sweep's f32 error against the same oracle.
 Each solve path runs with its kernel's launch count set to 0 just before it
 and read just after. Then one JSON line with both kernels (name, route,
 source, replaces, launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
-library_ms, ms_b1024, threads_per_block, smem_bytes, blocks_per_sm), the
+library_ms, ms_b1024, threads_per_block, smem_bytes, blocks_per_sm; K1 also
+fleet_launches; K2 also mpc_launches, ms_b1, plain_ms_b1, bound_ms_b1), the
 card's name and power limit, and the result line. Any failure raises and
 exits non-zero. No CUDA device: exit 1.
 """
@@ -80,6 +102,14 @@ FLEET_WARMUP = 2
 FLEET_CHECK_STEPS = 5
 SEED = 0
 PLAIN_CHECK_LANES = 8
+MPC_UPDATES = 20
+MPC_WARMUP = 2
+# two single-robot runs, update by update: final cost (relative) and
+# controls / body states (of their magnitude) this close in MPC_SHARE of the
+# updates, and within the worst-case limits in every update
+MPC_CLOSE = {"cost": 1e-4, "cmd": 1e-3}
+MPC_WORST = {"cost": 5e-3, "cmd": 1e-1}
+MPC_SHARE = 0.9
 KERNELS = ("riccati_hkd", "riccati_dense")
 
 
@@ -185,13 +215,15 @@ def dense_kernel_inputs(torch, prob_b, state_b, model):
 
 
 def kernel_vs_plain(torch, phase, name, cuda_fn, plain_fn, args, small_args,
-                    work, batch, T):
+                    work, batch, T, label=None):
     """Kernel against its plain version (f32) and the f64 oracle on the
-    card, timed at `batch` and (the kernel only, on `small_args`) at
-    KERNEL_SMALL_BATCH, beside the bound of `work` (riccati_bound); prints
-    the phase line and returns the measured part of the kernel's JSON
-    record."""
+    card, timed at `batch` and (the kernel only, on `small_args`, where
+    given) at KERNEL_SMALL_BATCH, beside the bound of `work`
+    (riccati_bound); prints the phase line and returns the measured part of
+    the kernel's JSON record."""
     from hkdmpc_tpu_torch.ops import _build, riccati_bound
+    info = _build.kernel_info(name)
+    name = label or name
     args64 = tuple(a.double() if a.is_floating_point() else a for a in args)
     out_k = cuda_fn(*args)
     torch.cuda.synchronize()
@@ -221,12 +253,16 @@ def kernel_vs_plain(torch, phase, name, cuda_fn, plain_fn, args, small_args,
 
     ms = cuda_ms(torch, lambda: cuda_fn(*args), 10)
     plain_ms = cuda_ms(torch, lambda: plain_fn(*args), 10)
-    small = cuda_fn(*small_args)
-    torch.cuda.synchronize()
-    if not all(bool(torch.isfinite(o).all()) for o in small[:4]):
-        raise AssertionError(f"{name} at B={KERNEL_SMALL_BATCH}: non-finite "
-                             "values")
-    ms_small = cuda_ms(torch, lambda: cuda_fn(*small_args), 10)
+    at_small, small_record = "", {}
+    if small_args is not None:
+        small = cuda_fn(*small_args)
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(o).all()) for o in small[:4]):
+            raise AssertionError(f"{name} at B={KERNEL_SMALL_BATCH}: "
+                                 "non-finite values")
+        ms_small = cuda_ms(torch, lambda: cuda_fn(*small_args), 10)
+        at_small = f"kernel at B={KERNEL_SMALL_BATCH} {ms_small:.3f} ms; "
+        small_record = {"ms_b1024": ms_small}
     bound = riccati_bound.bound_ms(work)
     print(f"phase {phase} {name} kernel vs plain: B={batch} T={T} f32; max "
           "|err| vs f64 oracle (kernel / plain f32): "
@@ -234,17 +270,16 @@ def kernel_vs_plain(torch, phase, name, cuda_fn, plain_fn, args, small_args,
           + f"; ok agree {ok_agree:.4%} (ok {int(out_k[4].sum())}/{batch}); "
           f"max |kernel - plain f32| {max_abs_err:.3e}; "
           f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (median of 10); "
-          f"kernel at B={KERNEL_SMALL_BATCH} {ms_small:.3f} ms; bound "
-          f"{bound['bound_ms']:.3f} ms set by {bound['bound_by']} "
-          f"({work['bytes'] / 1e9:.3f} GB = {bound['bytes_ms']:.3f} ms at "
-          f"3.35 TB/s, {work['flops'] / 1e9:.3f} GFLOP = "
-          f"{bound['operations_ms']:.3f} ms at 67 TFLOP/s f32): the kernel "
-          f"runs at {bound['bound_ms'] / ms:.1%} of it; library call: none",
+          f"{at_small}bound "
+          f"{bound['bound_ms']:.6f} ms set by {bound['bound_by']} "
+          f"({work['bytes'] / 1e9:.6f} GB = {bound['bytes_ms']:.6f} ms at "
+          f"3.35 TB/s, {work['flops'] / 1e9:.6f} GFLOP = "
+          f"{bound['operations_ms']:.6f} ms at 67 TFLOP/s f32): the kernel "
+          f"runs at {bound['bound_ms'] / ms:.3%} of it; library call: none",
           flush=True)
     return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-            "library_ms": None, "ms_b1024": ms_small,
-            **_build.kernel_info(name)}
+            "library_ms": None, **small_record, **info}
 
 
 def kernel_phase(batch=BATCH):
@@ -563,6 +598,210 @@ def fleet_vs_plain(torch, card, n=PLAIN_CHECK_LANES,
                              f"fleet by {rel:.3e} rel")
 
 
+def mpc_run(torch, ref, label, stream, **cfg):
+    """One single-robot MPC run: cold solve, MPC_WARMUP updates, then
+    MPC_UPDATES timed updates of `stream`'s measurements. Counts K2's
+    launches and the calls of the parallel-in-time sweep over the timed
+    updates. Returns a record of per-update times, costs and commands."""
+    from hkdmpc_tpu_torch.mpc.solver import HKDMPCSolver, MPCConfig
+    from hkdmpc_tpu_torch.ops import assoc, riccati_dense
+
+    solver = HKDMPCSolver(ref, config=MPCConfig(**cfg), dtype=torch.float32,
+                          device="cuda")
+    cmd = solver.initialize()
+    if bool(solver.last_result.solve_failed) or not np.isfinite(
+            cmd.hkd_controls).all():
+        raise AssertionError(f"{label}: the cold solve failed")
+    rec = dict(label=label, cold_ms=solver.solve_time, ms=[], dispatch=[],
+               wait=[], ready=[], shooting=[], cost=[], cmds=[],
+               assoc_bw=solver._assoc_bw)
+    with counting_calls(assoc, ("riccati_backward_assoc",)) as sweeps:
+        for k in range(MPC_WARMUP + MPC_UPDATES):
+            if k == MPC_WARMUP:
+                riccati_dense.LAUNCHES = 0
+                sweeps["riccati_backward_assoc"] = 0
+            m = {name: v[0] for name, v in stream(k).items()}
+            args = (m["rpy"], m["p"], m["v"], m["omega"], m["qJ"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if solver.cfg.fused_step:
+                solver.update_async(*args, mpc_time=0.01 * k)
+                t1 = time.perf_counter()
+                ready = solver.fused_ready()
+                cmd = solver.update_fused_complete()
+            else:
+                cmd = solver.update(*args, mpc_time=0.01 * k)
+                t1, ready = None, None
+            t2 = time.perf_counter()
+            res = solver.last_result
+            if bool(res.solve_failed):
+                raise AssertionError(f"{label}: update {k} failed")
+            if cmd.hkd_controls.shape != (solver.n_cmd, 24) or not (
+                    np.isfinite(cmd.hkd_controls).all()
+                    and np.isfinite(cmd.feedback).all()
+                    and np.isfinite(cmd.des_body_state).all()):
+                raise AssertionError(f"{label}: update {k}: command not "
+                                     "finite")
+            if k < MPC_WARMUP:
+                continue
+            rec["ms"].append((t2 - t0) * 1e3)
+            if t1 is not None:
+                rec["dispatch"].append((t1 - t0) * 1e3)
+                rec["wait"].append((t2 - t1) * 1e3)
+                rec["ready"].append(ready)
+            rec["shooting"].append(solver.problem.all_shooting())
+            rec["cost"].append(float(res.cost))
+            rec["cmds"].append(cmd)
+        rec["k2_launches"] = riccati_dense.LAUNCHES
+        rec["assoc_sweeps"] = sweeps["riccati_backward_assoc"]
+    return rec
+
+
+def _mean(xs):
+    return sum(xs) / len(xs) if xs else float("nan")
+
+
+def mpc_report(rec, card):
+    n = len(rec["ms"])
+    par = [m for m, s in zip(rec["ms"], rec["shooting"]) if s]
+    seq = [m for m, s in zip(rec["ms"], rec["shooting"]) if not s]
+    sweeps = rec["assoc_sweeps"] if rec["assoc_bw"] else rec["k2_launches"]
+    split = ""
+    if rec["dispatch"]:
+        total = sum(rec["ms"])
+        split = (f"; inside update_async {_mean(rec['dispatch']):.3f} ms "
+                 f"({sum(rec['dispatch']) / total:.2%} of the update), "
+                 f"waiting in update_fused_complete {_mean(rec['wait']):.3f}"
+                 f" ms ({sum(rec['wait']) / total:.2%}), bundle ready at the "
+                 f"dispatch's return in {sum(rec['ready'])} of {n}")
+    print(f"phase 8 single-robot MPC {rec['label']}: cold solve "
+          f"{rec['cold_ms']:.3f} ms; {n} updates after {MPC_WARMUP} warm-up:"
+          f" median {statistics.median(rec['ms']):.3f} ms, mean "
+          f"{_mean(rec['ms']):.3f} ms = {1e3 / _mean(rec['ms']):.3f} "
+          f"updates/s (budget 10 ms, HKDMPC.cpp:26-29); {len(par)} "
+          f"parallel-rollout updates {_mean(par):.3f} ms, {len(seq)} "
+          f"sequential-rollout updates {_mean(seq):.3f} ms{split}; backward "
+          f"sweeps {sweeps} ({sweeps / n:.2f}/update, "
+          f"{'ops/assoc' if rec['assoc_bw'] else 'K2'}); K2 launches "
+          f"{rec['k2_launches']} ({rec['k2_launches'] / n:.2f}/update); 0 "
+          f"failed, last cost {rec['cost'][-1]:.6g}; on {card}", flush=True)
+
+
+def mpc_compare(a, b):
+    """Two single-robot runs on the same measurements, update by update,
+    held to MPC_CLOSE in MPC_SHARE of the updates and to MPC_WORST in all;
+    gains reported."""
+    scaled = lambda x, y: float(np.max(np.abs(x - y))
+                                / max(1.0, np.max(np.abs(y))))
+    cost = [abs(x - y) / abs(y) for x, y in zip(a["cost"], b["cost"])]
+    diffs = {name: [scaled(getattr(x, name), getattr(y, name))
+                    for x, y in zip(a["cmds"], b["cmds"])]
+             for name in ("hkd_controls", "des_body_state", "feedback")}
+    cmd = [max(u, x) for u, x in zip(diffs["hkd_controls"],
+                                     diffs["des_body_state"])]
+    n = len(cmd)
+    close = sum(c <= MPC_CLOSE["cost"] and d <= MPC_CLOSE["cmd"]
+                for c, d in zip(cost, cmd))
+    print(f"phase 8 {a['label']} vs {b['label']}: final cost within "
+          f"{MPC_CLOSE['cost']:g} rel and controls / body states within "
+          f"{MPC_CLOSE['cmd']:g} of their magnitude in {close} of {n} "
+          f"updates (limit {MPC_SHARE:.0%}); median cost "
+          f"{statistics.median(cost):.3e}, controls "
+          f"{statistics.median(diffs['hkd_controls']):.3e}; worst cost "
+          f"{max(cost):.3e} (limit {MPC_WORST['cost']:g}), controls "
+          f"{max(diffs['hkd_controls']):.3e}, body states "
+          f"{max(diffs['des_body_state']):.3e} (limit {MPC_WORST['cmd']:g}) "
+          f"at timed update {int(np.argmax(cmd))}; gains worst "
+          f"{max(diffs['feedback']):.3e} (reported)", flush=True)
+    if (close < MPC_SHARE * n or not max(cost) <= MPC_WORST["cost"]
+            or not max(cmd) <= MPC_WORST["cmd"]):
+        raise AssertionError(f"{a['label']} vs {b['label']}: {close} of {n} "
+                             f"updates close, worst cost {max(cost):.3e}, "
+                             f"commands {max(cmd):.3e}")
+
+
+def assoc_sweep_error(torch, prob_b, args):
+    """The parallel-in-time sweep in f32 on the inputs of the B = 1 kernel
+    check, against the dense sweep's plain version in f64: max |error| of
+    dU and K (reported beside the kernel's, no gate: the solver's runs
+    above are held to each other)."""
+    from hkdmpc_tpu_torch.ops import assoc, riccati_dense
+    from hkdmpc_tpu_torch.solver.structs import LQData
+    kind, A, B, lxx, luu, lx, lu, defect, phix, phixx, reg, last = args
+    oracle = riccati_dense.backward_sweep_dense_plain(
+        *(a.double() if a.is_floating_point() else a for a in args))
+    lqd = LQData(A=A, B=B, lx=lx, lu=lu, lxx=lxx, luu=luu, lux=None,
+                 phix=phix, phixx=phixx)
+    sweep = lambda: assoc.riccati_backward_assoc(prob_b, lqd, defect, reg,
+                                                 last)
+    got = sweep()
+    torch.cuda.synchronize()
+    errs = [float((g.double() - o).abs().max())
+            for g, o in zip(got[:2], oracle[:2])]
+    ms = cuda_ms(torch, sweep, 5)
+    print(f"phase 8 ops/assoc.riccati_backward_assoc at B=1 f32 vs the f64 "
+          f"dense sweep: max |err| dU {errs[0]:.3e}, K {errs[1]:.3e}; ok "
+          f"{bool(got[4][0])} / {bool(oracle[4][0])}; {ms:.3f} ms (CUDA "
+          "events, median of 5)", flush=True)
+    if bool(got[4][0]) != bool(oracle[4][0]) or not all(
+            np.isfinite(e) for e in errs):
+        raise AssertionError("the parallel-in-time sweep disagrees with "
+                             "the dense sweep on ok, or is not finite")
+
+
+def mpc_phase(card):
+    """The single-robot MPC on its three paths, and K2 at B = 1; returns
+    the additions to K2's JSON record."""
+    torch = _torch()
+    import tempfile
+    from hkdmpc_tpu_torch.ops import riccati_bound, riccati_dense
+    from hkdmpc_tpu_torch.workload import gait_file, meas_stream
+
+    runs = []
+    with tempfile.TemporaryDirectory() as d:
+        ref = gait_file("trot", d)
+        for label, cfg in (
+                ("(a) fused, assoc_linear + assoc_backward (defaults)",
+                 dict(fused_step=True)),
+                ("(b) fused, assoc off (K2 at B=1)",
+                 dict(fused_step=True, assoc_linear=False,
+                      assoc_backward=False)),
+                ("(c) classic, assoc off (K2 at B=1)",
+                 dict(fused_step=False, assoc_linear=False,
+                      assoc_backward=False))):
+            rec = mpc_run(torch, ref, label, meas_stream(1, SEED), **cfg)
+            mpc_report(rec, card)
+            runs.append(rec)
+    a, b, c = runs
+    if not a["assoc_bw"] or a["k2_launches"] or a["assoc_sweeps"] < 2 * len(
+            a["ms"]):
+        raise AssertionError("(a) did not take the parallel-in-time sweep "
+                             f"({a['assoc_sweeps']} sweeps, "
+                             f"{a['k2_launches']} K2 launches)")
+    if not any(a["shooting"]) or all(a["shooting"]):
+        raise AssertionError("the timed updates do not hold both rollout "
+                             "kinds")
+    for rec in (b, c):
+        if rec["k2_launches"] < 2 * len(rec["ms"]) or rec["assoc_sweeps"]:
+            raise AssertionError(f"{rec['label']}: K2 launched "
+                                 f"{rec['k2_launches']} times in "
+                                 f"{len(rec['ms'])} updates")
+    mpc_compare(a, b)
+    mpc_compare(b, c)
+
+    prob_b, state_b, _ = trot_batch(torch, 1, torch.float32)
+    args = dense_kernel_inputs(torch, prob_b, state_b, None)
+    b1 = kernel_vs_plain(
+        torch, 8, "riccati_dense", riccati_dense.backward_sweep_dense_cuda,
+        riccati_dense.backward_sweep_dense_plain, args, None,
+        riccati_bound.dense_sweep_work(args[0]), 1, prob_b.T,
+        label="riccati_dense at B=1")
+    assoc_sweep_error(torch, prob_b, args)
+    return {"mpc_launches": b["k2_launches"] + c["k2_launches"],
+            "ms_b1": b1["ms"], "plain_ms_b1": b1["plain_ms"],
+            "bound_ms_b1": b1["bound_ms"]}
+
+
 def main():
     torch = _torch()
     card = build_phase()
@@ -572,6 +811,7 @@ def main():
     dense["launches"] = dense_slice_phase(card)
     k2_vs_k1_phase()
     hkd["fleet_launches"] = fleet_phase(card)
+    dense.update(mpc_phase(card))
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     print(json.dumps({"kernels": [hkd, dense]}))

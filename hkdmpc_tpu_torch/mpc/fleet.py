@@ -50,7 +50,8 @@ class FleetConfig:
     # solve path: True = K1 (default HKD model), False = dense path (K2);
     # None = True on a CUDA device in float32, False otherwise
     kernel_jac: Optional[bool] = None
-    # the batch-1 latency options of the JAX package; not ported yet
+    # the parallel-in-time recursions of the batch-1 path (ops/assoc.py),
+    # on the dense path only: they lose at a batch that fills the device
     assoc_linear: bool = False
     assoc_backward: bool = False
 
@@ -81,9 +82,6 @@ class FleetMPC:
                  config: Optional[FleetConfig] = None, *,
                  dtype: torch.dtype = torch.float32, device="cuda"):
         self.cfg = config or FleetConfig()
-        if self.cfg.assoc_linear or self.cfg.assoc_backward:
-            raise NotImplementedError("assoc_linear / assoc_backward (the "
-                                      "batch-1 latency path) are not ported")
         self.n = int(n_robots)
         self.opt = (load_ddp_setting(ddp_settings) if ddp_settings
                     else HSDDPOption())
@@ -102,6 +100,10 @@ class FleetMPC:
         if kj is None:
             kj = self.device.type == "cuda" and dtype == torch.float32
         self._kernel_jac = bool(kj)
+        if self._kernel_jac and (self.cfg.assoc_linear
+                                 or self.cfg.assoc_backward):
+            raise ValueError("assoc_linear / assoc_backward read dense A / "
+                             "B: they need kernel_jac=False")
         self.n_cmd = self.cfg.nsteps_between_mpc + self.cfg.n_cmd_extra
         self.mpc_iter = 0
         self.solve_time = 0.0
@@ -132,7 +134,9 @@ class FleetMPC:
         t0 = time.perf_counter()
         res = ddp.solve_batch(prob_b, state_b, self.opt,
                               kernel_jac=self._kernel_jac,
-                              parallel_rollout=pb.all_shooting())
+                              parallel_rollout=pb.all_shooting(),
+                              assoc_linear=self.cfg.assoc_linear,
+                              assoc_backward=self.cfg.assoc_backward)
         self._sync()
         self.solve_time = (time.perf_counter() - t0) * 1e3
         self._state_dev = res.state
@@ -180,7 +184,7 @@ class FleetMPC:
             self._tables, self._state_dev, dev(ints, torch.int32),
             dev(floats, self.dtype), dev(meas_b, self.dtype),
             self.opt.runtime(), pb.all_shooting(), self.n_cmd,
-            self._kernel_jac)
+            self._kernel_jac, self.cfg.assoc_linear, self.cfg.assoc_backward)
         self.mpc_iter += 1
         return bundle, aux, t0
 

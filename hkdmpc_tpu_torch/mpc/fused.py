@@ -23,8 +23,9 @@ array in, and one (N, L) float bundle out (command, traces, scalars).
 The JAX package writes the core for one robot and vmaps it; here
 `_fused_core` is batched over robots from the start: the shared index
 vectors gather every robot's rows at once (`state.Xbar[:, gidx]`), and
-`fleet_step` is the core itself. The previous state is not donated: the
-step returns a new state and the caller drops the old reference.
+`fleet_step` is the core itself and `fused_step`, the single robot's entry
+point, one call of it at N = 1. The previous state is not donated: the step
+returns a new state and the caller drops the old reference.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ import torch
 from hkdmpc_tpu_torch.models import hkd
 from hkdmpc_tpu_torch.solver import ddp
 from hkdmpc_tpu_torch.solver.structs import (DYN, ConstraintState,
-                                             ProblemData, SolverState)
+                                             ProblemData, SolverState,
+                                             tree_map)
 
 TRACE_LEN = ddp.TRACE_LEN
 
@@ -221,13 +223,15 @@ def host_step(pb, old_offsets, nsteps, n_cmd, mpc_time, timestep, np_dtype):
 # ---------------------------------------------------------------------------
 
 def _fused_core(tables, state, ints, floats, meas, opt, parallel_rollout,
-                n_cmd, kernel_jac):
+                n_cmd, kernel_jac, assoc_linear=False, assoc_backward=False):
     """The receding-horizon step of N robots as a function of device
     tensors: tables (make_tables), state (the batched SolverState of the
     previous step), ints / floats (the shared host_step vectors on the
     device), meas (N, 28). parallel_rollout is the problem's
     `all_shooting()`; kernel_jac picks the solve path (True: K1, False: the
-    dense path with K2). Returns (new state, bundle (N, L))."""
+    dense path with K2), assoc_linear / assoc_backward the dense path's
+    parallel-in-time recursions (`ddp.solve_batch`). Returns (new state,
+    bundle (N, L))."""
     N, T = state.Ubar.shape[0], state.Ubar.shape[1]
     dtype = state.Xbar.dtype
     iv = _unpack(ints.long(), _int_layout(T, n_cmd))
@@ -293,7 +297,9 @@ def _fused_core(tables, state, ints, floats, meas, opt, parallel_rollout,
 
     # ---- 4. solve ----------------------------------------------------------
     res = ddp.solve_batch(prob, new_state, opt, kernel_jac=kernel_jac,
-                          parallel_rollout=parallel_rollout)
+                          parallel_rollout=parallel_rollout,
+                          assoc_linear=assoc_linear,
+                          assoc_backward=assoc_backward)
 
     # ---- 5. command extraction (make_command walk, HKDMPC.cpp:242-298) ----
     ci = iv["cmd_idx"]
@@ -322,3 +328,15 @@ def _fused_core(tables, state, ints, floats, meas, opt, parallel_rollout,
 # measurements per robot (reference analog, per robot: HKDMPC.cpp:96-166 +
 # HKDProblem.cpp:116-222)
 fleet_step = _fused_core
+
+
+def fused_step(tables, state, ints, floats, meas, opt, parallel_rollout,
+               n_cmd, *, kernel_jac, assoc_linear, assoc_backward):
+    """The batch-1 entry point: one robot's step, `state` and `meas` (28,)
+    without a robot axis; one call of the core at N = 1. Returns (new state,
+    bundle (L,))."""
+    new_state, bundle = _fused_core(
+        tables, tree_map(lambda a: a[None], state), ints, floats, meas[None],
+        opt, parallel_rollout, n_cmd, kernel_jac, assoc_linear,
+        assoc_backward)
+    return tree_map(lambda a: a[0], new_state), bundle[0]

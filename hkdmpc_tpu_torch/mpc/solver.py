@@ -1,27 +1,77 @@
-"""The MPC command contract and the initial state from robot measurements —
-the part of `hkdmpc_tpu/mpc/solver.py` the fleet uses.
+"""Receding-horizon MPC of one robot — port of `hkdmpc_tpu/mpc/solver.py`.
 
-- `MPCCommand`: the contents of hkd_command_lcmt, the solver's output
-  contract (HKDMPC/HKDMPC.{h,cpp}, lcmtypes/hkd_command_lcmt.lcm).
+Parity target: HKDMPCSolver (HKDMPC/HKDMPC.{h,cpp}) — cold initialize,
+per-request re-solve with runtime iteration caps, next-foot-placement
+extraction, and the mpc_command output contract (controls, nominal body
+states, 12x12 feedback gains, contacts, status durations, foot placements,
+solve time — lcmtypes/hkd_command_lcmt.lcm).
+
+- `MPCConfig`: the schedule parameters and the step / solve options.
+- `MPCCommand`: the contents of hkd_command_lcmt.
 - `hkd_state_from_measurements`: the 24-dim HKD state from (rpy, p, v,
   omega, qJ), with the reference's rpy -> (yaw, pitch, roll) flip
-  (HKDMPC.cpp:118).
+  (HKDMPC.cpp:118); host numpy, float64.
 - `default_stand_state`: the hard-coded stand pose (HKDMPC.cpp:44-54).
+- `HKDMPCSolver`: `initialize` / `resume`, then `update` per control tick,
+  on one of two step paths. The classic step rebuilds the problem on the
+  host, solves (`ddp.solve`, the dense path at batch 1) and writes the
+  result back into the per-phase arrays. The fused step
+  (`MPCConfig.fused_step`) keeps the SolverState on the device and runs
+  `fused.fused_step`; its two halves `update_async` /
+  `update_fused_complete` let a service loop do other work between them.
 
-Host numpy in, host numpy out; the HKD state is computed in float64.
+Where the reference solves in a detached thread guarded by a mutex
+(HKDMPC.cpp:168-200), the host loop here is single-threaded and the overlap
+comes from the device's stream. Structure changes (phase pops / appends)
+change no tensor shape: the problem is masked data.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
+import types
+from typing import Optional
 
 import numpy as np
 import torch
 
+from hkdmpc_tpu_torch.config import (ConstraintParams, HSDDPOption,
+                                     load_constraint_params,
+                                     load_ddp_setting)
 from hkdmpc_tpu_torch.models import hkd
+from hkdmpc_tpu_torch.mpc import fused
+from hkdmpc_tpu_torch.reference.quad_reference import QuadReference
+from hkdmpc_tpu_torch.solver import ddp
+from hkdmpc_tpu_torch.solver.problem import HKDProblem
 
 STAND_BODY_HEIGHT = 0.2486           # HKDMPC.cpp:44-54
 STAND_QLEG = (0.0, -0.8, 1.6)
+
+
+@dataclasses.dataclass
+class MPCConfig:
+    # parity: HKDMPC.cpp:26-29
+    plan_duration: float = 0.6
+    nsteps_between_mpc: int = 1
+    timestep: float = 0.01
+    n_cmd_extra: int = 7   # publish nsteps+7 controls to mask latency
+                           # (HKDMPC.cpp:245)
+    fused_step: bool = False  # the device-resident fused update
+                              # (mpc/fused.py): packed I/O, one bundle per step
+    assoc_linear: bool = True  # parallel-in-time linear rollout
+                               # (ops/assoc.linear_rollout_assoc), for the
+                               # batch-1 regime; it loses at a batch that
+                               # fills the device, so solve_batch's default
+                               # keeps the sequential recursion
+    assoc_backward: Optional[bool] = None
+                                 # parallel-in-time Riccati backward sweep
+                                 # (ops/assoc.riccati_backward_assoc). None:
+                                 # True on a CUDA device, False on the CPU
+                                 # (the f64 parity backend, whose latency is
+                                 # not the product). False on a CUDA device
+                                 # takes the CUDA kernel of the dense sweep
+                                 # (csrc/riccati_dense.cu) at batch 1
 
 
 @dataclasses.dataclass
@@ -74,3 +124,278 @@ def default_stand_state(contact) -> np.ndarray:
         rpy=np.zeros(3), p=np.array([0.0, 0.0, STAND_BODY_HEIGHT]),
         v=np.zeros(3), omega=np.zeros(3), qJ=np.tile(STAND_QLEG, 4),
         contact=contact)
+
+
+class HKDMPCSolver:
+    """One robot's receding-horizon MPC on the dense solve path (batch 1),
+    on an explicit dtype and device."""
+
+    # the JAX package's names for the module-level functions
+    default_stand_state = staticmethod(default_stand_state)
+    hkd_state_from_measurements = staticmethod(hkd_state_from_measurements)
+
+    def __init__(self, reference_file: str,
+                 ddp_settings: Optional[str] = None,
+                 constraint_params: Optional[str] = None,
+                 config: Optional[MPCConfig] = None, *,
+                 dtype: torch.dtype = torch.float32, device="cuda"):
+        self.cfg = config or MPCConfig()
+        self.opt = (load_ddp_setting(ddp_settings) if ddp_settings
+                    else HSDDPOption())
+        self.cparams = (load_constraint_params(constraint_params)
+                        if constraint_params else ConstraintParams())
+        self.ref = QuadReference.from_file(reference_file)
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.problem = HKDProblem(
+            self.ref, dtype=dtype, device=self.device,
+            plan_duration=self.cfg.plan_duration, dt_sim=self.cfg.timestep,
+            dt_mpc=self.cfg.timestep, cparams=self.cparams)
+        self._np_dtype = (np.float64 if dtype == torch.float64
+                          else np.float32)
+        self._assoc_bw = (self.cfg.assoc_backward
+                          if self.cfg.assoc_backward is not None
+                          else self.device.type == "cuda")
+        self.n_cmd = self.cfg.nsteps_between_mpc + self.cfg.n_cmd_extra
+        self.mpc_iter = 0
+        self.mpc_time = 0.0
+        self.solve_time = 0.0
+        self.pf = np.zeros((4, 3))
+        self.last_result = None
+        self._pending = None    # in-flight fused dispatch
+        self._host_stale = False
+
+    # ------------------------------------------------------------------
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _solve(self, x0, opt):
+        """Build the problem at x0, solve it with option set `opt`, write
+        the result into the per-phase arrays; times the solve."""
+        prob, state = self.problem.build(x0)
+        t0 = time.perf_counter()
+        res = ddp.solve(prob, state, opt, kernel_jac=False,
+                        parallel_rollout=self.problem.all_shooting(),
+                        assoc_linear=self.cfg.assoc_linear,
+                        assoc_backward=self._assoc_bw)
+        self._sync()
+        self.solve_time = (time.perf_counter() - t0) * 1e3
+        self.problem.unflatten(res.state)
+        self.last_result = res
+        self.update_foot_placement()
+        return res
+
+    def _arm_fused(self, state):
+        """(Re)start the device-resident path from `state` (no robot
+        axis)."""
+        self._tables = fused.make_tables(self.problem, self.dtype,
+                                         self.device)
+        self._state_dev = state
+        self._offsets = self.problem.flat_offsets()
+        self._host_stale = False
+
+    def initialize(self, x0=None) -> MPCCommand:
+        """Cold solve with the full option set. x0 defaults to the
+        reference's hard-coded stand pose (HKDMPC.cpp:44-54); pass a 24-dim
+        HKD state to start mid-gait."""
+        self.problem.initialization()
+        if x0 is None:
+            x0 = default_stand_state(self.problem.phases[0].contact)
+        res = self._solve(x0, self.opt)
+        self.mpc_iter = 0
+        if self.cfg.fused_step:
+            self._arm_fused(res.state)
+        return self.make_command()
+
+    def resume(self, ckpt_path: str) -> MPCCommand:
+        """Warm restart from a checkpoint written by
+        utils.checkpoint.save_problem (of this package or the JAX one):
+        restores the phase structure, warm starts, AL/ReB multipliers and
+        reference window, then re-arms the fused path (uids survive the
+        round trip, so the shift-descriptor gathers stay valid). No solve is
+        run: the next update() continues where the saved solver left off."""
+        from hkdmpc_tpu_torch.utils.checkpoint import load_problem
+
+        load_problem(ckpt_path, self.problem)
+        # an in-flight dispatch was computed against the discarded state:
+        # completing it after resume would publish a stale command
+        self._pending = None
+        self.mpc_iter = 0
+        self.solve_time = 0.0
+        self.update_foot_placement()
+        if self.cfg.fused_step:
+            # the SolverState from the restored per-phase arrays (x0 only
+            # enters the ProblemData)
+            self._arm_fused(self.problem.build(np.zeros(24))[1])
+        return self.make_command()
+
+    def update(self, rpy, p, v, omega, qJ,
+               mpc_time: float = 0.0) -> MPCCommand:
+        """One MPC re-solve from measured robot state (HKDMPC.cpp:96-166)."""
+        self.mpc_iter += 1
+        self.mpc_time = mpc_time
+        if self.cfg.fused_step:
+            self.update_fused_dispatch(rpy, p, v, omega, qJ)
+            return self.update_fused_complete()
+        self.problem.update(self.cfg.nsteps_between_mpc)
+        x0 = hkd_state_from_measurements(rpy, p, v, omega, qJ,
+                                         self.problem.phases[0].contact)
+        self._solve(x0, self.opt.runtime())
+        return self.make_command()
+
+    # ------------------------------------------------------------------
+    # device-resident fused path (mpc/fused.py)
+    # ------------------------------------------------------------------
+
+    def update_async(self, rpy, p, v, omega, qJ,
+                     mpc_time: float = 0.0) -> None:
+        """The fused update without its fetch (fused path only): poll
+        fused_ready(), then call update_fused_complete() for the command."""
+        if not self.cfg.fused_step:
+            raise RuntimeError("update_async requires fused_step=True")
+        self.mpc_iter += 1
+        self.mpc_time = mpc_time
+        self.update_fused_dispatch(rpy, p, v, omega, qJ)
+
+    def update_fused_dispatch(self, rpy, p, v, omega, qJ) -> None:
+        """Async half 1: the host bookkeeping, the fused device step, and a
+        non-blocking copy of its bundle into pinned host memory with an
+        event behind it. The solve's retry loop reads a flag on the host
+        each pass, so this returns when the device has reached the last
+        backward sweep, not at once. Follow with fused_ready() /
+        update_fused_complete()."""
+        # a prior dispatch that was never completed would be dropped here,
+        # and mpc_iter / solve_time would no longer count served commands
+        if self._pending is not None:
+            raise RuntimeError(
+                "update_fused_dispatch with an in-flight dispatch pending — "
+                "call update_fused_complete() (or discard it) first")
+
+        pb = self.problem
+        ints, floats, self._offsets, aux = fused.host_step(
+            pb, self._offsets, self.cfg.nsteps_between_mpc, self.n_cmd,
+            self.mpc_time, self.cfg.timestep, self._np_dtype)
+        eul = np.asarray([rpy[2], rpy[1], rpy[0]])  # HKDMPC.cpp:118 flip
+        meas = fused.pack_meas(self._np_dtype, eul=eul, p=p, omega=omega,
+                               v=v, qJ=qJ,
+                               front_contact=pb.phases[0].contact)
+        dev = lambda a, dt: torch.as_tensor(a, dtype=dt, device=self.device)
+
+        t0 = time.perf_counter()
+        self._state_dev, bundle = fused.fused_step(
+            self._tables, self._state_dev, dev(ints, torch.int32),
+            dev(floats, self.dtype), dev(meas, self.dtype),
+            self.opt.runtime(), pb.all_shooting(), self.n_cmd,
+            kernel_jac=False, assoc_linear=self.cfg.assoc_linear,
+            assoc_backward=self._assoc_bw)
+        self._host_stale = True
+        event = None
+        if self.device.type == "cuda":
+            host = torch.empty(bundle.shape, dtype=bundle.dtype,
+                               pin_memory=True)
+            host.copy_(bundle, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            bundle = host
+        self._pending = dict(bundle=bundle, event=event, t0=t0, aux=aux)
+
+    def fused_ready(self) -> bool:
+        """True when the dispatched step's bundle has arrived on the host
+        (update_fused_complete() will not wait)."""
+        pend = self._pending
+        return pend is not None and (pend["event"] is None
+                                     or pend["event"].query())
+
+    def update_fused_complete(self) -> MPCCommand:
+        """Async half 2: wait for the bundle if it is not there yet and
+        build the MPCCommand."""
+        pend = self._pending
+        if pend is None:
+            raise RuntimeError("update_fused_complete() without a "
+                               "dispatched step")
+        self._pending = None
+        if pend["event"] is not None:
+            pend["event"].synchronize()
+        out = fused.unpack_bundle(pend["bundle"].numpy(), self.n_cmd,
+                                  ddp.trace_len_for(self.opt.runtime()))
+        self.solve_time = (time.perf_counter() - pend["t0"]) * 1e3
+
+        cost, feas, maxt, maxp, n_iters, failed = out["scalars"]
+        self.last_result = types.SimpleNamespace(
+            state=None, cost=cost, dyn_feas=feas, max_tconstr=maxt,
+            max_pconstr=maxp, n_iters=int(n_iters),
+            solve_failed=bool(failed), cost_trace=out["cost_trace"],
+            feas_trace=out["feas_trace"], eqn_trace=out["eqn_trace"],
+            ineq_trace=out["ineq_trace"])
+        aux = pend["aux"]
+        for leg in range(4):
+            if aux["found"][leg]:
+                self.pf[leg] = out["pf"][leg]
+        return MPCCommand(
+            N_mpcsteps=self.n_cmd, mpc_times=aux["times"],
+            hkd_controls=out["controls"], des_body_state=out["body"],
+            contacts=aux["contacts"], status_times=aux["status"],
+            feedback=out["gains"], foot_placement=self.pf.reshape(12).copy(),
+            solve_time=self.solve_time)
+
+    def materialize(self):
+        """Fused path: pull the device-resident state back into the host
+        per-phase warm-start arrays (for logging / trajectory publishers)."""
+        if self._host_stale:
+            self.problem.unflatten(self._state_dev)
+            self.update_foot_placement()
+            self._host_stale = False
+
+    # ------------------------------------------------------------------
+
+    def update_foot_placement(self):
+        """Scan the phase sequence for the next swing->stance transition per
+        leg; its foot placement is the next phase's initial qdummy
+        (HKDMPC.cpp:206-240, with the reference's break after 4 phases)."""
+        phases = self.problem.phases
+        found = [False] * 4
+        for i in range(len(phases) - 1):
+            c, cn = phases[i].contact, phases[i + 1].contact
+            for leg in range(4):
+                if not found[leg] and c[leg] == 0 and cn[leg] == 1:
+                    self.pf[leg] = phases[i + 1].Xbar[0, 12 + 3 * leg:
+                                                      15 + 3 * leg]
+                    found[leg] = True
+            if i >= 4:
+                break
+
+    def make_command(self) -> MPCCommand:
+        """Pack the command message (HKDMPC.cpp:242-298): walk the phase
+        sequence step by step collecting controls / nominal states /
+        gains."""
+        n = self.n_cmd
+        controls = np.zeros((n, 24))
+        body = np.zeros((n, 12))
+        gains = np.zeros((n, 12, 12))
+        contacts = np.zeros((n, 4), int)
+        status = np.zeros((n, 4))
+        times = np.zeros(n)
+        k = i = s = 0
+        phases = self.problem.phases
+        while k < n:
+            if s >= phases[i].horizon:
+                s = 0
+                i += 1
+                if i >= len(phases):
+                    break
+            ph = phases[i]
+            controls[k] = ph.Ubar[s]
+            body[k] = ph.Xbar[s, :12]
+            gains[k] = ph.K[s, :12, :12]
+            contacts[k] = ph.contact
+            status[k] = ph.contact_duration
+            times[k] = self.mpc_time + k * self.cfg.timestep
+            s += 1
+            k += 1
+        return MPCCommand(
+            N_mpcsteps=n, mpc_times=times, hkd_controls=controls,
+            des_body_state=body, contacts=contacts, status_times=status,
+            feedback=gains, foot_placement=self.pf.reshape(12).copy(),
+            solve_time=self.solve_time)

@@ -14,7 +14,8 @@ scenarios — port of `hkdmpc_tpu/solver/backward.py` (main path).
   alias of `ops/riccati_hkd.backward_sweep_hkd`, dispatching the same way.
 - `backward_sweep_regularized`: the regularization retry schedule, with a
   per-scenario `reg` (the JAX package's vmapped while_loop), around either
-  sweep.
+  sweep, or around the parallel-in-time one
+  (`ops/assoc.riccati_backward_assoc`, plain tensor code on any device).
 
 Parity: SinglePhase::backward_sweep (SinglePhase.cpp:299-367),
 MultiPhaseDDP::impact_aware_step (MultiPhaseDDP.cpp:480-484),
@@ -25,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from hkdmpc_tpu_torch.ops import riccati_dense, riccati_hkd
+from hkdmpc_tpu_torch.ops import assoc, riccati_dense, riccati_hkd
 from hkdmpc_tpu_torch.solver.structs import DYN, RESET
 
 REG_MIN_STEP = 1e-3   # reference: MultiPhaseDDP.cpp:157
@@ -157,7 +158,8 @@ riccati_backward_hkd = riccati_hkd.backward_sweep_hkd
 
 def backward_sweep_regularized(prob, defect, regularization,
                                update_regularization, last_node, *,
-                               kernel_jac_XU=None, lq=None):
+                               kernel_jac_XU=None, lq=None,
+                               assoc_backward: bool = False):
     """Retry the sweep with growing per-scenario regularization until Quu is
     PSD everywhere or the regularization exceeds REG_MAX (then that
     scenario's solve fails). The loop runs while any scenario is neither ok
@@ -166,12 +168,20 @@ def backward_sweep_regularized(prob, defect, regularization,
     Exactly one of: kernel_jac_XU = (X, U, reb_delta, reb_eps, al_sigma,
     al_lambda) for the default HKD model's sweep (`riccati_backward_hkd`),
     or lq = LQData for the dense sweep (`riccati_backward`; lq.lux is not
-    read).
+    read). With lq, assoc_backward=True takes the parallel-in-time sweep
+    `ops/assoc.riccati_backward_assoc` instead (it does read lq.lux).
     Returns (dU, K, dV_1, dV_2, reg_out, success, solve_failed); reg_out is
     the post-success relaxation reg/20, zeroed below 1e-6."""
     if (kernel_jac_XU is None) == (lq is None):
         raise ValueError("give exactly one of kernel_jac_XU= and lq=")
-    if lq is not None:
+    if assoc_backward and lq is None:
+        raise ValueError("assoc_backward reads dense A / B: give lq=, not "
+                         "kernel_jac_XU=")
+    if assoc_backward:
+        def sweep(reg):
+            return assoc.riccati_backward_assoc(prob, lq, defect, reg,
+                                                last_node)
+    elif lq is not None:
         def sweep(reg):
             return riccati_dense.backward_sweep_dense(
                 prob.kind, lq.A, lq.B, lq.lxx, lq.luu, lq.lx, lq.lu, defect,

@@ -10,7 +10,10 @@ the sequential rollout (`parallel_rollout`), on two paths:
 - `kernel_jac=False`: any `ModelSpec`, with the dense LQ approximation
   (`solver/lq.py`), the dense backward sweep (`riccati_backward`, the CUDA
   kernel `csrc/riccati_dense.cu`) and the dense linear rollout (the JAX
-  package's `pallas_backward=True` without kernel_jac).
+  package's `pallas_backward=True` without kernel_jac). On this path
+  `assoc_linear` / `assoc_backward` swap in the parallel-in-time linear
+  rollout and backward sweep of `ops/assoc.py`, the JAX package's
+  configuration for one robot's MPC step.
 
 Parity target: MultiPhaseDDP::solve (MultiPhaseDDP.cpp:232-428) — AL outer
 loop, DDP inner loop with the regularized backward sweep, multiple-shooting
@@ -32,7 +35,7 @@ import dataclasses
 import torch
 
 from hkdmpc_tpu_torch.config import HSDDPOption
-from hkdmpc_tpu_torch.ops import precise
+from hkdmpc_tpu_torch.ops import assoc, precise
 from hkdmpc_tpu_torch.solver import backward, lq as lq_mod
 from hkdmpc_tpu_torch.solver import rollout as ro_mod
 from hkdmpc_tpu_torch.solver.model_api import hkd_model_spec
@@ -90,7 +93,8 @@ def _set_at(buf, n, v):
 
 def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
                 kernel_jac: bool, model=None,
-                parallel_rollout: bool = True) -> SolveResult:
+                parallel_rollout: bool = True, assoc_linear: bool = False,
+                assoc_backward: bool = False) -> SolveResult:
     """Run one full HS-DDP solve for every scenario of a batch (leading axis
     of every field of prob and state).
 
@@ -102,7 +106,14 @@ def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
     takes the scan-free rollout, which is right only when every active node
     is a shooting node; False takes the sequential `hybrid_rollout`, which
     is right for every problem. A wrong True is not caught here (that would
-    need a device sync): it silently gives another trajectory."""
+    need a device sync): it silently gives another trajectory.
+
+    assoc_linear / assoc_backward (dense path only: the recursions read
+    dense A / B): the linear rollout / the backward sweep as log-depth
+    associative scans (`ops/assoc.py`)."""
+    if kernel_jac and (assoc_linear or assoc_backward):
+        raise ValueError("assoc_linear / assoc_backward read dense A / B: "
+                         "they need kernel_jac=False")
     if kernel_jac and model is not None:
         raise ValueError("kernel_jac=True is the default HKD model's path; "
                          "pass model=None or kernel_jac=False")
@@ -211,10 +222,11 @@ def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
             dU, K, dv1, dv2, reg_new, ok_bw, bw_failed = \
                 backward.backward_sweep_regularized(
                     prob, c["defect"], reg, opt.update_regularization,
-                    last_node, lq=lqd)
+                    last_node, lq=lqd, assoc_backward=assoc_backward)
             st = _replace(st, dU=dU, K=K)
-            dX, dv1, dv2 = ro_mod.linear_rollout(prob, st, lqd, c["defect"],
-                                                 1.0)
+            lin = (assoc.linear_rollout_assoc if assoc_linear
+                   else ro_mod.linear_rollout)
+            dX, dv1, dv2 = lin(prob, st, lqd, c["defect"], 1.0)
         st = _replace(st, dX=dX)
 
         dv_abs = torch.abs(dv1 + 0.5 * dv2)
@@ -311,11 +323,14 @@ def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
 
 def solve(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
           kernel_jac: bool, model=None,
-          parallel_rollout: bool = True) -> SolveResult:
+          parallel_rollout: bool = True, assoc_linear: bool = False,
+          assoc_backward: bool = False) -> SolveResult:
     """One scenario's solve: prob/state without a batch axis. Takes the
     same keywords as solve_batch."""
     res = solve_batch(tree_map(lambda a: a[None], prob),
                       tree_map(lambda a: a[None], state), opt,
                       kernel_jac=kernel_jac, model=model,
-                      parallel_rollout=parallel_rollout)
+                      parallel_rollout=parallel_rollout,
+                      assoc_linear=assoc_linear,
+                      assoc_backward=assoc_backward)
     return tree_map(lambda a: a[0], res)

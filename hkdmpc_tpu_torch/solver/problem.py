@@ -4,7 +4,8 @@ solver takes.
 
 Port of `hkdmpc_tpu/solver/problem.py`: `initialization`, `update` (with the
 uid-keyed `flat_offsets` / `shift_descriptor` the fleet step gathers by),
-`problem_arrays`, `build` and `all_shooting`, for any `ModelSpec` (the
+`problem_arrays`, `build`, `unflatten`, `all_shooting` and `pretty_print`,
+for any `ModelSpec` (the
 default HKD model has 20 GRF friction-cone path rows and 4 touchdown terminal
 rows; the swing constraint adds 4 path rows). The bookkeeping is numpy, as in
 the JAX package; only `build` makes tensors, of an explicit dtype on an
@@ -269,6 +270,24 @@ class HKDProblem:
     # flattening
     # ------------------------------------------------------------------
 
+    def pretty_print(self):
+        """Print the phase-schedule table (HKDProblem::pretty_print analog,
+        HKDProblem.cpp:313-358, as plain text)."""
+        hdr = ("idx", "horizon", "start", "end", "contact", "durations")
+        rows = [(str(i), str(ph.horizon), f"{ph.start_time:.3f}",
+                 f"{ph.end_time:.3f}", " ".join(map(str, ph.contact)),
+                 " ".join(f"{d:.2f}" for d in ph.contact_duration))
+                for i, ph in enumerate(self.phases)]
+        widths = [max(len(r[c]) for r in [hdr] + rows)
+                  for c in range(len(hdr))]
+        line = " | ".join(h.ljust(w) for h, w in zip(hdr, widths))
+        print(f"Plan duration {self.plan_duration}  dt_sim {self.dt_sim}  "
+              f"dt_mpc {self.dt_mpc}")
+        print(line)
+        print("-" * len(line))
+        for r in rows:
+            print(" | ".join(v.ljust(w) for v, w in zip(r, widths)))
+
     def all_shooting(self) -> bool:
         """True when every phase's nodes are shooting nodes — the condition
         for the scan-free parallel rollout that ddp.solve_batch runs."""
@@ -461,3 +480,39 @@ class HKDProblem:
         state = SolverState(Xbar=f(Xbar), Ubar=f(Ubar), dU=f(dU), K=f(K),
                             dX=f(dX), defect_bar=f(defect_bar), constr=constr)
         return prob, state
+
+    def unflatten(self, state: SolverState):
+        """Write a solved SolverState (no batch axis, or a batch axis of 1)
+        back into the per-phase warm-start arrays (the reference keeps these
+        alive inside HKDProblemData). Each field is copied to the host once
+        and sliced per phase there."""
+        def host(a, ndim=2):
+            a = a.detach().cpu().numpy().astype(np.float64, copy=False)
+            return a[0] if a.ndim == ndim + 1 and a.shape[0] == 1 else a
+
+        Xbar = host(state.Xbar)
+        dX, defect = host(state.dX), host(state.defect_bar)
+        Ubar, dU, K = host(state.Ubar), host(state.dU), host(state.K, 3)
+        c = state.constr
+        rd, re = host(c.reb_delta), host(c.reb_eps)
+        al_l, al_s = host(c.al_lambda), host(c.al_sigma)
+        if Xbar.shape != (self.T + 1, 24):
+            raise ValueError(f"unflatten takes one robot's state, Xbar "
+                             f"{tuple(state.Xbar.shape)}")
+
+        off = 0
+        last = len(self.phases) - 1
+        for i, ph in enumerate(self.phases):
+            h = ph.horizon
+            ph.Xbar[:] = Xbar[off: off + h + 1]
+            ph.dX[:] = dX[off: off + h + 1]
+            ph.defect_bar[:] = defect[off: off + h + 1]
+            ph.Ubar[:] = Ubar[off: off + h]
+            ph.dU[:] = dU[off: off + h]
+            ph.K[:] = K[off: off + h]
+            ph.reb_delta[:] = rd[off: off + h]
+            ph.reb_eps[:] = re[off: off + h]
+            if ph.has_tconstr:
+                ph.al_lambda = al_l[off + h].copy()
+                ph.al_sigma = al_s[off + h].copy()
+            off += h + (1 if i < last else 0)

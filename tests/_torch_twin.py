@@ -276,3 +276,119 @@ def assert_fleet_states_match(got, want):
                        ("al_lambda", 1e-12)):
         np.testing.assert_allclose(got[name], want[name], rtol=1e-9,
                                    atol=atol, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the single-robot MPC
+# ---------------------------------------------------------------------------
+
+def solver_pair(ref_file, jopt=None, **cfg):
+    """(JAX HKDMPCSolver, port HKDMPCSolver) from one gait file, one
+    MPCConfig field set `cfg` and one option set (`jopt`, default
+    HSDDPOption()), f64 on the CPU; each package gets its own config and
+    option objects."""
+    from hkdmpc_tpu.mpc import solver as jsolver
+    jopt = jopt or HSDDPOption()
+    js = jsolver.HKDMPCSolver(ref_file, config=jsolver.MPCConfig(**cfg),
+                              dtype=jnp.float64)
+    ts = tsolver.HKDMPCSolver(ref_file, config=tsolver.MPCConfig(**cfg),
+                              dtype=F64, device="cpu")
+    js.opt, ts.opt = jopt, port_option(jopt)
+    return js, ts
+
+
+def robot_meas(meas, i=0):
+    """Robot i's measurements of each step of `fleet_meas`."""
+    return [{k: v[i] for k, v in m.items()} for m in meas]
+
+
+def result_record(res):
+    """A solver's `last_result` (either package's, either step path) as
+    host values: the four scalars, n_iters, solve_failed, the four traces."""
+    f = lambda a: np.asarray(a.detach().cpu().numpy()
+                             if isinstance(a, torch.Tensor) else a,
+                             np.float64)
+    rec = {k: float(f(getattr(res, k))) for k in
+           ("cost", "dyn_feas", "max_tconstr", "max_pconstr")}
+    rec["n_iters"] = int(f(res.n_iters))
+    rec["solve_failed"] = bool(f(res.solve_failed))
+    for k in ("cost_trace", "feas_trace", "eqn_trace", "ineq_trace"):
+        rec[k] = f(getattr(res, k))
+    return rec
+
+
+def step_solver(solver, meas, first, count):
+    """Update an HKDMPCSolver (either package's) through
+    meas[first:first+count] with mpc_time = 0.01 k; per update, the
+    MPCCommand, the result record and all_shooting()."""
+    recs = []
+    for k in range(first, first + count):
+        m = meas[k]
+        cmd = solver.update(m["rpy"], m["p"], m["v"], m["omega"], m["qJ"],
+                            mpc_time=0.01 * k)
+        recs.append(dict(cmd=cmd, res=result_record(solver.last_result),
+                         all_shooting=solver.problem.all_shooting()))
+    return recs
+
+
+CMD_TOLS = (("hkd_controls", 1e-9, 1e-10), ("des_body_state", 1e-9, 1e-10),
+            ("feedback", 1e-8, 1e-8), ("foot_placement", 1e-9, 1e-10))
+
+
+def assert_commands_match(got, want, what="", tols=CMD_TOLS):
+    """Every field of an MPCCommand but solve_time: the schedule fields
+    exactly, the rest at `tols` (name, rtol, atol), by default those of
+    tests/test_fleet.py:66-97."""
+    assert got.N_mpcsteps == want.N_mpcsteps, what
+    for name in ("mpc_times", "contacts", "status_times"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name),
+                                      err_msg=f"{what} {name}")
+    for name, rtol, atol in tols:
+        g, w = getattr(got, name), getattr(want, name)
+        assert np.shape(g) == np.shape(w), (what, name)
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol,
+                                   err_msg=f"{what} {name}")
+
+
+def assert_results_match(got, want, what="", rtol=1e-9):
+    """Result records: n_iters, solve_failed and the traces' lengths
+    exactly, scalars and trace entries at rtol (atol 1e-12)."""
+    assert got["n_iters"] == want["n_iters"], what
+    assert got["solve_failed"] == want["solve_failed"], what
+    for k, w in want.items():
+        g = got[k]
+        if k.endswith("_trace"):
+            np.testing.assert_array_equal(np.isnan(g), np.isnan(w),
+                                          err_msg=f"{what} {k} length")
+            g, w = np.nan_to_num(g), np.nan_to_num(w)
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=1e-12,
+                                   err_msg=f"{what} {k}")
+
+
+def assert_solver_steps_match(got, want, what="", tols=CMD_TOLS, rtol=1e-9):
+    assert len(got) == len(want)
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert g["all_shooting"] == w["all_shooting"], (what, k)
+        assert_commands_match(g["cmd"], w["cmd"], f"{what} update {k}", tols)
+        assert_results_match(g["res"], w["res"], f"{what} update {k}", rtol)
+
+
+PHASE_ARRAYS = ("Xbar", "Ubar", "dU", "K", "dX", "defect_bar", "reb_delta",
+                "reb_eps", "al_lambda", "al_sigma")
+
+
+def phase_arrays(problem):
+    """The per-phase warm-start arrays of an HKDProblem (either package's),
+    one dict per phase."""
+    return [dict(uid=ph.uid, horizon=ph.horizon,
+                 **{n: np.array(getattr(ph, n), np.float64)
+                    for n in PHASE_ARRAYS}) for ph in problem.phases]
+
+
+def assert_phase_arrays_match(got, want, rtol=1e-9, atol=1e-10):
+    assert [p["horizon"] for p in got] == [p["horizon"] for p in want]
+    for i, (g, w) in enumerate(zip(got, want)):
+        for n in PHASE_ARRAYS:
+            np.testing.assert_allclose(
+                g[n], w[n], rtol=rtol, atol=atol if n != "K" else 1e-8,
+                err_msg=f"phase {i} {n}")

@@ -130,12 +130,13 @@ def test_checkpoint_of_another_fleet_size_is_refused(run):
 
 
 def test_refusals(run):
-    with pytest.raises(NotImplementedError):
-        FleetMPC(run["ref"], 1, config=FleetConfig(assoc_linear=True),
-                 dtype=F64, device="cpu")
-    with pytest.raises(NotImplementedError):
-        FleetMPC(run["ref"], 1, config=FleetConfig(assoc_backward=True),
-                 dtype=F64, device="cpu")
+    # the assoc recursions read dense A / B: refused on K1's path
+    with pytest.raises(ValueError, match="kernel_jac=False"):
+        FleetMPC(run["ref"], 1, dtype=F64, device="cpu", config=FleetConfig(
+            kernel_jac=True, assoc_linear=True))
+    with pytest.raises(ValueError, match="kernel_jac=False"):
+        FleetMPC(run["ref"], 1, dtype=F64, device="cpu", config=FleetConfig(
+            kernel_jac=True, assoc_backward=True))
     f = FleetMPC(run["ref"], 1, config=FleetConfig(**CFG), dtype=F64,
                  device="cpu")
     with pytest.raises(RuntimeError, match="command"):

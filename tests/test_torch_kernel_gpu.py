@@ -344,3 +344,64 @@ def test_f32_fleet_on_card_matches_f64_cpu_fleet(cuda, kernel_jac, tmp_path):
     for k, (g, w) in enumerate(zip(costs["cuda"], costs["cpu"])):
         rel = np.abs(g - w) / np.abs(w)
         assert float(rel.max()) < 1e-4, (k, rel)
+
+
+def test_dense_kernel_at_batch_one_matches_plain(cuda):
+    """K2 at B = 1, the single-robot solver's batch: one block on the card
+    against the plain version, on the trot's LQ data along a perturbed
+    rollout."""
+    _, prob, state, _ = trot_problem(dtype=torch.float64, device=cuda)
+    prob, state = replicate_problem(prob, state, 1)
+    rng = np.random.default_rng(11)
+    prob = perturb_scenarios(prob, noise=rng.standard_normal((1, 24)))
+    T = prob.T
+    state.Ubar = prob.ur[:, :T] + torch.as_tensor(
+        2.0 * rng.standard_normal((1, T, 24)), device=cuda)
+    args32 = _dense_args(prob, state, torch.float32)
+    before = riccati_dense.LAUNCHES
+    got = riccati_dense.backward_sweep_dense(*args32)
+    torch.cuda.synchronize()
+    assert riccati_dense.LAUNCHES == before + 1
+    assert got[1].shape == (1, T, 24, 24) and got[4].shape == (1,)
+    _assert_sweep_close(got, riccati_dense.backward_sweep_dense_plain(*args32),
+                        riccati_dense.backward_sweep_dense_plain(
+                            *_dense_args(prob, state, torch.float64)))
+
+
+@pytest.mark.parametrize("assoc", [True, False], ids=["assoc", "K2"])
+def test_f32_single_robot_on_card_matches_f64_cpu(cuda, assoc, tmp_path):
+    """The single-robot solver, cold solve and 4 updates (one of them on
+    the sequential rollout), f32 on the card against f64 on the CPU with the
+    same measurements and flags: every final cost within 1e-4 relative, no
+    failed solve. assoc: the parallel-in-time recursions, the card's
+    defaults; K2: both off, the CUDA kernel of the dense sweep at B = 1,
+    launched at least twice an update."""
+    from hkdmpc_tpu_torch.mpc.solver import HKDMPCSolver, MPCConfig
+    from hkdmpc_tpu_torch.workload import gait_file, meas_stream
+
+    ref = gait_file("trot", str(tmp_path))
+    stream = meas_stream(1, 0)
+    meas = [{k: v[0] for k, v in stream(k).items()} for k in range(4)]
+    cfg = MPCConfig(fused_step=True, assoc_linear=assoc,
+                    assoc_backward=assoc)
+    costs = {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        s = HKDMPCSolver(ref, config=cfg, dtype=dtype, device=dev)
+        s.initialize()
+        assert not bool(s.last_result.solve_failed)
+        costs[dev] = [float(s.last_result.cost)]
+        before = riccati_dense.LAUNCHES
+        shooting = []
+        for k, m in enumerate(meas):
+            s.update(m["rpy"], m["p"], m["v"], m["omega"], m["qJ"],
+                     mpc_time=0.01 * k)
+            assert not s.last_result.solve_failed
+            costs[dev].append(float(s.last_result.cost))
+            shooting.append(s.problem.all_shooting())
+        assert not all(shooting)
+        if dev == "cuda":
+            launched = riccati_dense.LAUNCHES - before
+            assert launched == 0 if assoc else launched >= 2 * len(meas)
+    rel = np.abs(np.array(costs["cuda"]) - costs["cpu"]) / np.abs(
+        costs["cpu"])
+    assert float(rel.max()) < 1e-4, rel

@@ -5,7 +5,9 @@ process has JAX loaded already), import every module of hkdmpc_tpu_torch,
 build the trot problem and run one small batched solve on each path (the
 default model's kernel_jac path, the dense path with the swing constraint),
 step a small fleet and carry it through a checkpoint (`mpc.fleet`,
-`mpc.fused`, `utils.checkpoint`), then check that neither `jax` nor `hkdmpc_tpu` (nor any
+`mpc.fused`, `utils.checkpoint`), initialize and update the single-robot
+solver on both step paths with the parallel-in-time recursions
+(`mpc.solver`, `ops.assoc`), then check that neither `jax` nor `hkdmpc_tpu` (nor any
 `hkdmpc_tpu.*`) is in sys.modules. A source scan refuses `import jax`,
 `import hkdmpc_tpu` and `from hkdmpc_tpu...` in every module of the port and
 in `chip_smoke.py`."""
@@ -55,6 +57,17 @@ with tempfile.TemporaryDirectory() as d:
     m = meas_stream(2, 1)(0)
     out = g.step(m["rpy"], m["p"], m["v"], m["omega"], m["qJ"])
     assert np.isfinite(out["controls"]).all() and g.mpc_iter == 2
+    from hkdmpc_tpu_torch.mpc.solver import HKDMPCSolver, MPCConfig
+    m = {k: v[0] for k, v in m.items()}
+    for fused_on in (False, True):
+        s = HKDMPCSolver(gait_file("trot", d), dtype=torch.float64,
+                         device="cpu", config=MPCConfig(
+                             plan_duration=0.3, fused_step=fused_on,
+                             assoc_backward=True))
+        assert np.isfinite(s.initialize().hkd_controls).all()
+        cmd = s.update(m["rpy"], m["p"], m["v"], m["omega"], m["qJ"])
+        assert np.isfinite(cmd.feedback).all()
+        assert not s.last_result.solve_failed
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 reference_pkg = sorted(m for m in sys.modules
                        if m == "hkdmpc_tpu" or m.startswith("hkdmpc_tpu."))
