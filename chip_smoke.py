@@ -2,7 +2,9 @@
 """GPU check of the PyTorch/CUDA port (`hkdmpc_tpu_torch`): builds the two
 CUDA Riccati kernels, holds each against its plain PyTorch version on the
 card, drives both batched solve paths once at full width, steps the fleet
-MPC at full width, and steps the single-robot MPC on its three paths.
+MPC at full width, steps the single-robot MPC on its three paths, and
+serves requests through the MPC service, scripted and at 100 Hz over the
+native transport.
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
 
@@ -53,7 +55,7 @@ Phases, one line each:
      stepped 5 times with the same measurements: per-step final costs
      within 1e-3 relative.
   8. the single-robot MPC: HKDMPCSolver on the trot (plan 0.6 s, T = 75),
-     f32, cold solve, 2 warm-up updates, then 20 updates from
+     f32, cold solve, 2 warm-up updates, then 12 updates from
      workload.meas_stream(1, 0), three times: (a) MPCConfig's defaults on
      the card with the fused step (assoc_linear, assoc_backward: the
      parallel-in-time recursions of ops/assoc.py), (b) both off (the dense
@@ -73,22 +75,52 @@ Phases, one line each:
      oracle on the LQ data of the trot's first rollout (the gates of phase
      4), its time, the plain version's and its bound at B = 1, and the
      parallel-in-time sweep's f32 error against the same oracle.
+  9. the MPC service: MPCService on an HKDMPCSolver on the card (trot, plan
+     0.6 s, T = 75, f32, MPCConfig(fused_step=True, assoc_backward=False,
+     assoc_linear=False): K2 at B = 1), message types from
+     workload.lcmtypes_dir. (a) MPCService.run over a scripted in-process
+     transport: 2 warm-up and 12 timed encoded mpc_data requests of
+     workload.meas_stream(1, 0), one a reset_mpc with MS = true and one with
+     MS = false (a single-shooting cold solve, and single-shooting updates
+     after it); every mpc_command and solver_info is decoded and must be
+     finite with n_iter >= 1, no solve may fail, K2 must be launched 2.00
+     times per update, and the commands of the updates must lie within
+     phase 8's limits of a bare HKDMPCSolver fed the same decoded requests.
+     (b) MPCService.run_async over the native transport (csrc/hkdcomm.cpp,
+     built with g++ in phase 1; a failed build fails the run) on multicast
+     loopback, a sender thread publishing 100 mpc_data at 100 Hz: received
+     == solved + superseded + resets + unserved, unserved == 0, abandoned
+     == 0, queue_drops == 0, the served mpc_times strictly increasing, at
+     least 2 solved; prints the ms inside update_async, the ms waiting in
+     update_fused_complete, the ms per solve beside (a)'s synchronous
+     updates, the polls per solve and the solved / superseded counts. Where
+     multicast loopback delivers nothing the script says so on a line of its
+     own and runs (b) over a thread-safe in-process queue transport.
+     (c) the poller's cost: the same 8 requests, each sent when the last was
+     answered, through run (the solve in the calling thread) and through
+     run_async (the solve in the worker thread, the loop polling beside
+     it): ms per update and updates/s of each; the ratio of the two must
+     stay under 3, so a poller that starves the launching thread fails.
 Each solve path runs with its kernel's launch count set to 0 just before it
 and read just after. Then one JSON line with both kernels (name, route,
 source, replaces, launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
 library_ms, ms_b1024, threads_per_block, smem_bytes, blocks_per_sm; K1 also
-fleet_launches; K2 also mpc_launches, ms_b1, plain_ms_b1, bound_ms_b1), the
-card's name and power limit, and the result line. Any failure raises and
-exits non-zero. No CUDA device: exit 1.
+fleet_launches; K2 also mpc_launches, service_launches, ms_b1, plain_ms_b1,
+bound_ms_b1), the card's name and power limit, and the result line. Any
+failure raises and exits non-zero. No CUDA device: exit 1.
 """
 
 import contextlib
+import dataclasses
 import json
 import os
+import queue
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -102,7 +134,7 @@ FLEET_WARMUP = 2
 FLEET_CHECK_STEPS = 5
 SEED = 0
 PLAIN_CHECK_LANES = 8
-MPC_UPDATES = 20
+MPC_UPDATES = 12
 MPC_WARMUP = 2
 # two single-robot runs, update by update: final cost (relative) and
 # controls / body states (of their magnitude) this close in MPC_SHARE of the
@@ -111,6 +143,17 @@ MPC_CLOSE = {"cost": 1e-4, "cmd": 1e-3}
 MPC_WORST = {"cost": 5e-3, "cmd": 1e-1}
 MPC_SHARE = 0.9
 KERNELS = ("riccati_hkd", "riccati_dense")
+SERVICE_WARMUP = 2
+# the 12 timed requests of phase 9 (a): index -> MS flag of a reset_mpc
+SERVICE_REQUESTS = 12
+SERVICE_RESETS = {4: True, 9: False}
+SERVICE_STREAM = 100            # phase 9 (b): requests, at SERVICE_RATE_HZ
+SERVICE_RATE_HZ = 100.0
+# the bus of phase 9 (b): a port of this process's own, so two runs on one
+# machine do not hear each other's mpc_command
+SERVICE_URL = f"udpm://239.255.76.67:{7700 + os.getpid() % 400}?ttl=0"
+SERVICE_POLLER_MAX_RATIO = 3.0  # phase 9 (c): run_async's solve over run's
+SERVICE_POLLER_REQUESTS = 8     # phase 9 (c)
 
 
 def _torch():
@@ -161,9 +204,16 @@ def build_phase():
         path = _build.build(name)
         return path, time.perf_counter() - t0
 
+    def timed_host_build():
+        t0 = time.perf_counter()
+        _build.build_host("hkdcomm")
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+        host = pool.submit(timed_host_build)
         built = dict(zip(KERNELS, pool.map(timed_build, KERNELS)))
+        host_s = host.result()
     for name in KERNELS:
         _build.library(name)
     secs = time.perf_counter() - t0
@@ -178,7 +228,8 @@ def build_phase():
             f"{info['smem_bytes']} B dynamic shared memory per block, "
             f"{info['blocks_per_sm']} blocks per SM")
     card = card_line()
-    print(f"phase 1 build: {', '.join(KERNELS)} built in parallel in "
+    print(f"phase 1 build: {', '.join(KERNELS)} and the native transport "
+          f"hkdcomm (g++, {host_s:.3f} s) built in parallel in "
           f"{secs:.3f} s; {'; '.join(reports)}; card: {card}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     return card
@@ -687,7 +738,7 @@ def mpc_report(rec, card):
           f"failed, last cost {rec['cost'][-1]:.6g}; on {card}", flush=True)
 
 
-def mpc_compare(a, b):
+def mpc_compare(a, b, phase=8):
     """Two single-robot runs on the same measurements, update by update,
     held to MPC_CLOSE in MPC_SHARE of the updates and to MPC_WORST in all;
     gains reported."""
@@ -702,7 +753,7 @@ def mpc_compare(a, b):
     n = len(cmd)
     close = sum(c <= MPC_CLOSE["cost"] and d <= MPC_CLOSE["cmd"]
                 for c, d in zip(cost, cmd))
-    print(f"phase 8 {a['label']} vs {b['label']}: final cost within "
+    print(f"phase {phase} {a['label']} vs {b['label']}: final cost within "
           f"{MPC_CLOSE['cost']:g} rel and controls / body states within "
           f"{MPC_CLOSE['cmd']:g} of their magnitude in {close} of {n} "
           f"updates (limit {MPC_SHARE:.0%}); median cost "
@@ -802,6 +853,429 @@ def mpc_phase(card):
             "bound_ms_b1": b1["bound_ms"]}
 
 
+class ScriptedTransport:
+    """An in-process transport for MPCService.run: hands out its requests
+    in order and records what is published."""
+
+    def __init__(self, messages):
+        self.todo, self.published = list(messages), []
+
+    def subscribe(self, channel):
+        pass
+
+    def publish(self, channel, data):
+        self.published.append((channel, bytes(data)))
+
+    def receive(self, timeout_ms=100):
+        return ("mpc_data", self.todo.pop(0)) if self.todo else None
+
+
+class QueueTransport:
+    """A thread-safe in-process transport, for machines whose multicast
+    loopback delivers nothing: `send` (the sender thread's side) queues a
+    request, `receive` waits on the queue without the interpreter lock,
+    `publish` records the service's answers and counts the commands on a
+    semaphore (a feeder can wait for each answer)."""
+
+    def __init__(self):
+        self.inbox, self.published = queue.Queue(), []
+        self.commands = threading.Semaphore(0)   # one per mpc_command
+
+    def subscribe(self, channel):
+        pass
+
+    def send(self, channel, data):
+        self.inbox.put((channel, bytes(data)))
+
+    def publish(self, channel, data):
+        self.published.append((channel, bytes(data)))
+        if channel == "mpc_command":
+            self.commands.release()
+
+    def receive(self, timeout_ms=100):
+        try:
+            return self.inbox.get(timeout=timeout_ms / 1e3)
+        except queue.Empty:
+            return None
+
+    def stats(self):
+        return {"queue_drops": 0, "frag_evictions": 0}
+
+
+def service_solver(torch, ref):
+    """The service's solver on the card: the fused step on K2 at B = 1."""
+    from hkdmpc_tpu_torch.mpc.solver import HKDMPCSolver, MPCConfig
+    solver = HKDMPCSolver(ref, dtype=torch.float32, device="cuda",
+                          config=MPCConfig(fused_step=True,
+                                           assoc_linear=False,
+                                           assoc_backward=False))
+    solver.initialize()
+    if bool(solver.last_result.solve_failed):
+        raise AssertionError("phase 9: the cold solve failed")
+    return solver
+
+
+def service_requests(stream, n, resets, first=0):
+    """n request dicts from `stream`'s measurements (mpctime 0.01 per
+    request from `first`); resets: index -> MS of a reset_mpc request."""
+    from hkdmpc_tpu_torch.workload import mpc_data_message
+    out = []
+    for i in range(n):
+        meas = {k: v[0] for k, v in stream(first + i).items()}
+        out.append(mpc_data_message(meas, 0.01 * (first + i + 1),
+                                    reset_mpc=i in resets,
+                                    MS=resets.get(i, True)))
+    return out
+
+
+def check_answer(label, k, cmd, info):
+    """A decoded mpc_command / solver_info pair: finite, n_iter >= 1."""
+    finite = all(np.isfinite(np.asarray(cmd[f], np.float64)).all()
+                 for f in ("hkd_controls", "des_body_state", "feedback",
+                           "foot_placement", "mpc_times"))
+    if not finite or cmd["N_mpcsteps"] < 1:
+        raise AssertionError(f"{label}: answer {k}: command not finite")
+    if info["n_iter"] < 1 or not np.isfinite(info["cost"]).all():
+        raise AssertionError(f"{label}: answer {k}: solver_info n_iter "
+                             f"{info['n_iter']}")
+
+
+def service_scripted(torch, card, ref, lcm_dir, lcm):
+    """Phase 9 (a). Returns (K2 launches over the timed requests, the mean
+    ms of the timed multiple-shooting updates by rollout kind, as text)."""
+    from hkdmpc_tpu_torch.mpc.runtime import MPCService
+    from hkdmpc_tpu_torch.ops import riccati_dense
+    from hkdmpc_tpu_torch.workload import meas_stream
+
+    data_t, cmd_t, info_t = (lcm["hkd_data_lcmt"], lcm["hkd_command_lcmt"],
+                             lcm["solver_info_lcmt"])
+    n_all = SERVICE_WARMUP + SERVICE_REQUESTS
+    resets = {SERVICE_WARMUP + i: ms for i, ms in SERVICE_RESETS.items()}
+    encoded = [data_t.encode(m) for m in service_requests(
+        meas_stream(1, SEED), n_all, resets)]
+
+    solver = service_solver(torch, ref)
+    tx = ScriptedTransport(encoded)
+    svc = MPCService(solver, tx, lcm_dir)
+    per = []          # per request: ms, K2 launches, failed, all_shooting
+    handle = svc.handle
+
+    def timed_handle(msg):
+        before = riccati_dense.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handle(msg)
+        per.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                        launches=riccati_dense.LAUNCHES - before,
+                        failed=bool(solver.last_result.solve_failed),
+                        shooting=solver.problem.all_shooting(),
+                        ms_mode=bool(solver.opt.MS)))
+
+    svc.handle = timed_handle
+    svc.run(max_messages=SERVICE_WARMUP)
+    riccati_dense.LAUNCHES = 0
+    svc.run(max_messages=SERVICE_REQUESTS)
+    launches = riccati_dense.LAUNCHES
+    solver.close()
+
+    cmds = [cmd_t.decode(b) for c, b in tx.published if c == "mpc_command"]
+    infos = [info_t.decode(b) for c, b in tx.published if c == "solver_info"]
+    if len(cmds) != n_all or len(infos) != n_all:
+        raise AssertionError(f"phase 9 (a): {len(cmds)} commands and "
+                             f"{len(infos)} solver_infos for {n_all} "
+                             "requests")
+    for k, (cmd, info) in enumerate(zip(cmds, infos)):
+        check_answer("phase 9 (a)", k, cmd, info)
+    if any(p["failed"] for p in per):
+        raise AssertionError("phase 9 (a): a solve failed")
+
+    # a bare solver fed the same decoded requests, resets as the service
+    # makes them
+    bare = service_solver(torch, ref)
+    bare_cmds, bare_cost = [], []
+    for buf in encoded:
+        msg = data_t.decode(buf)
+        if msg["reset_mpc"]:
+            bare.opt = dataclasses.replace(bare.opt, MS=bool(msg["MS"]))
+            cmd = bare.initialize()
+        else:
+            cmd = bare.update(
+                rpy=np.asarray(msg["rpy"]), p=np.asarray(msg["p"]),
+                v=np.asarray(msg["vWorld"]),
+                omega=np.asarray(msg["omegaBody"]), qJ=np.asarray(msg["qJ"]),
+                mpc_time=float(msg["mpctime"]))
+        bare_cmds.append(cmd)
+        bare_cost.append(float(bare.last_result.cost))
+    bare.close()
+
+    timed = range(SERVICE_WARMUP, n_all)
+    updates = [k for k in timed if k not in resets]
+    n = lambda cmd: cmd["N_mpcsteps"]
+    as_cmd = lambda c: types.SimpleNamespace(
+        hkd_controls=np.asarray(c["hkd_controls"][:n(c)], np.float64),
+        des_body_state=np.asarray(c["des_body_state"][:n(c)], np.float64),
+        feedback=np.asarray(c["feedback"][:n(c)], np.float64))
+    mpc_compare(
+        dict(label="(a) service", cmds=[as_cmd(cmds[k]) for k in updates],
+             cost=[float(infos[k]["cost"][-1]) for k in updates]),
+        dict(label="bare HKDMPCSolver", cmds=[bare_cmds[k] for k in updates],
+             cost=[bare_cost[k] for k in updates]), phase=9)
+
+    upd = [per[k] for k in updates]
+    bad = [p["launches"] for p in upd if p["launches"] != 2]
+    if bad or launches < 2 * len(updates):
+        raise AssertionError(f"phase 9 (a): K2 launches per update {bad} "
+                             f"(expected 2), {launches} in all")
+    ms_upd = [p["ms"] for p in upd if p["ms_mode"] and p["shooting"]]
+    ms_seq = [p["ms"] for p in upd if p["ms_mode"] and not p["shooting"]]
+    ss_upd = [p["ms"] for p in upd if not p["ms_mode"]]
+    cold = {ms: per[k] for k, ms in resets.items()}
+    print(f"phase 9 (a) MPCService.run, scripted transport: "
+          f"{SERVICE_REQUESTS} requests after {SERVICE_WARMUP} warm-up "
+          f"({len(updates)} updates, reset_mpc with MS=true and MS=false), "
+          f"{n_all} mpc_command and solver_info decoded, finite, n_iter >= "
+          f"1, 0 failed; K2 launches {launches} "
+          f"({sum(p['launches'] for p in upd) / len(upd):.2f} per update; "
+          f"resets {cold[True]['launches']} and {cold[False]['launches']}); "
+          f"multiple shooting: {len(ms_upd)} parallel-rollout updates "
+          f"{_mean(ms_upd):.3f} ms, {len(ms_seq)} sequential-rollout "
+          f"updates {_mean(ms_seq):.3f} ms, cold solve (reset) "
+          f"{cold[True]['ms']:.3f} ms; single shooting: cold solve (reset) "
+          f"{cold[False]['ms']:.3f} ms, {len(ss_upd)} updates "
+          f"{_mean(ss_upd):.3f} ms; host clock around handle(); on {card}",
+          flush=True)
+    return launches, (f"parallel {_mean(ms_upd):.3f} ms, sequential "
+                      f"{_mean(ms_seq):.3f} ms")
+
+
+def loopback_transports():
+    """(service transport, send(channel, bytes), heard(), close(), name)
+    over the native transport on multicast loopback, with a third transport
+    listening to the service's answers (`heard()` returns what arrived);
+    over a QueueTransport, said on a line of its own, where the loopback
+    delivers nothing (the probe of the JAX package's service test)."""
+    from hkdmpc_tpu_torch.comm.transport import LCMTransport
+    probe = LCMTransport(SERVICE_URL)
+    probe.subscribe("__probe__")
+    probe.publish("__probe__", b"x")
+    delivered = probe.receive(timeout_ms=2000) is not None
+    probe.close()
+    if not delivered:
+        print("phase 9 (b): multicast loopback delivers nothing on this "
+              "machine; run_async runs over an in-process queue transport "
+              "(the native transport was built and opened)", flush=True)
+        tx = QueueTransport()
+        return (tx, tx.send, lambda: list(tx.published), lambda: None,
+                "in-process queue")
+    tx, sender, listener = (LCMTransport(SERVICE_URL) for _ in range(3))
+    listener.subscribe("mpc_command")
+    listener.subscribe("solver_info")
+
+    def heard():
+        out = []
+        while (got := listener.receive(timeout_ms=300)) is not None:
+            out.append(got)
+        return out
+
+    def close():
+        for t in (tx, sender, listener):
+            t.close()
+
+    return (tx, sender.publish, heard, close,
+            "native transport, multicast loopback")
+
+
+def service_async(torch, card, ref, lcm_dir, lcm, sync_ms):
+    """Phase 9 (b). Returns K2's launches over the run."""
+    from hkdmpc_tpu_torch.mpc.runtime import MPCService
+    from hkdmpc_tpu_torch.ops import riccati_dense
+    from hkdmpc_tpu_torch.workload import meas_stream
+
+    data_t, cmd_t, info_t = (lcm["hkd_data_lcmt"], lcm["hkd_command_lcmt"],
+                             lcm["solver_info_lcmt"])
+    solver = service_solver(torch, ref)
+    stream = meas_stream(1, SEED)
+    for msg in service_requests(stream, SERVICE_WARMUP, {}):
+        solver.update(rpy=msg["rpy"], p=msg["p"], v=msg["vWorld"],
+                      omega=msg["omegaBody"], qJ=msg["qJ"],
+                      mpc_time=msg["mpctime"])
+    tx, send, heard, close, how = loopback_transports()
+    svc = MPCService(solver, tx, lcm_dir)
+    encoded = [data_t.encode(m) for m in service_requests(
+        stream, SERVICE_STREAM, {}, first=SERVICE_WARMUP)]
+
+    dispatch_ms, wait_ms, solve_ms, kinds = [], [], [], []
+    dispatch, complete = solver.update_async, solver.update_fused_complete
+
+    def timed_dispatch(**kw):
+        t0 = time.perf_counter()
+        dispatch(**kw)
+        dispatch_ms.append((time.perf_counter() - t0) * 1e3)
+        kinds.append("parallel" if solver.problem.all_shooting()
+                     else "sequential")
+
+    def timed_complete():
+        t0 = time.perf_counter()
+        cmd = complete()
+        wait_ms.append((time.perf_counter() - t0) * 1e3)
+        solve_ms.append(cmd.solve_time)
+        if bool(solver.last_result.solve_failed):
+            raise AssertionError("phase 9 (b): a solve failed")
+        return cmd
+
+    solver.update_async, solver.update_fused_complete = (timed_dispatch,
+                                                         timed_complete)
+
+    def send_stream():
+        t0 = time.perf_counter()
+        for i, buf in enumerate(encoded):
+            delay = t0 + i / SERVICE_RATE_HZ - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            send("mpc_data", buf)
+
+    sender = threading.Thread(target=send_stream, name="mpc-data-sender")
+    riccati_dense.LAUNCHES = 0
+    t0 = time.perf_counter()
+    sender.start()
+    try:
+        stats = svc.run_async(max_messages=SERVICE_STREAM, duration_s=180)
+    finally:
+        sender.join()
+    wall = time.perf_counter() - t0
+    launches = riccati_dense.LAUNCHES
+    solver.close()
+    answers = heard()
+    close()
+
+    if stats["received"] != (stats["solved"] + stats["superseded"]
+                             + stats["resets"] + stats["unserved"]):
+        raise AssertionError(f"phase 9 (b): requests unaccounted for: {stats}")
+    if stats["unserved"] or stats["abandoned"] or stats["queue_drops"] \
+            or stats["solved"] < 2 or stats["received"] < 0.9 * SERVICE_STREAM:
+        raise AssertionError(f"phase 9 (b): {stats}")
+    if launches < 2 * stats["solved"]:
+        raise AssertionError(f"phase 9 (b): K2 launched {launches} times for "
+                             f"{stats['solved']} solves")
+    if len(dispatch_ms) != stats["solved"] or len(wait_ms) != stats["solved"]:
+        raise AssertionError("phase 9 (b): dispatches and completions do "
+                             "not match the solved count")
+    cmds = [cmd_t.decode(b) for c, b in answers if c == "mpc_command"]
+    infos = [info_t.decode(b) for c, b in answers if c == "solver_info"]
+    if len(cmds) != stats["solved"] or len(infos) != stats["solved"]:
+        raise AssertionError(f"phase 9 (b): {len(cmds)} commands and "
+                             f"{len(infos)} solver_infos on the bus for "
+                             f"{stats['solved']} solves")
+    for k, (cmd, info) in enumerate(zip(cmds, infos)):
+        check_answer("phase 9 (b)", k, cmd, info)
+    served = [float(cmd["mpc_times"][0]) for cmd in cmds]
+    if any(b <= a for a, b in zip(served, served[1:])):
+        raise AssertionError(f"phase 9 (b): served mpc_times {served}")
+    print(f"phase 9 (b) MPCService.run_async, {how}: {SERVICE_STREAM} "
+          f"mpc_data at {SERVICE_RATE_HZ:g} Hz from a sender thread; "
+          f"received {stats['received']}, solved {stats['solved']}, "
+          f"superseded {stats['superseded']}, resets {stats['resets']}, "
+          f"ignored {stats['ignored']}, unserved 0, abandoned 0, queue_drops "
+          f"0, frag_evictions {stats['frag_evictions']}; served mpc_times "
+          f"{', '.join(f'{t:.2f}' for t in served)} (strictly increasing); "
+          f"inside update_async {_mean(dispatch_ms):.3f} ms (max "
+          f"{max(dispatch_ms):.3f}), waiting in update_fused_complete "
+          f"{_mean(wait_ms):.3f} ms, dispatch to command "
+          + ", ".join(f"{m:.3f} ms ({k} rollout)"
+                      for m, k in zip(solve_ms, kinds))
+          + f" (synchronous updates in (a): {sync_ms}); "
+          f"{stats['polls']} polls = {stats['polls'] / stats['solved']:.1f} "
+          f"per solve; K2 launches {launches} "
+          f"({launches / stats['solved']:.2f} per solve); {wall:.3f} s wall;"
+          f" on {card}", flush=True)
+    return launches
+
+
+def service_poller_cost(torch, card, ref, lcm_dir, lcm):
+    """Phase 9 (c): what the polling loop costs the launching thread. The
+    same SERVICE_POLLER_REQUESTS requests (after the same warm-up, so the
+    same rollout kinds) through `run` (the solve in the calling thread, no
+    poller) and through `run_async` (the solve in the worker thread, the
+    loop polling beside it), each request sent when the last was answered;
+    the solve times are the commands' own `solve_time`."""
+    from hkdmpc_tpu_torch.mpc.runtime import MPCService
+    from hkdmpc_tpu_torch.workload import meas_stream
+
+    data_t, cmd_t = lcm["hkd_data_lcmt"], lcm["hkd_command_lcmt"]
+    out = {}
+    for mode in ("run", "run_async"):
+        solver = service_solver(torch, ref)
+        stream = meas_stream(1, SEED)
+        for msg in service_requests(stream, SERVICE_WARMUP, {}):
+            solver.update(rpy=msg["rpy"], p=msg["p"], v=msg["vWorld"],
+                          omega=msg["omegaBody"], qJ=msg["qJ"],
+                          mpc_time=msg["mpctime"])
+        encoded = [data_t.encode(m) for m in service_requests(
+            stream, SERVICE_POLLER_REQUESTS, {}, first=SERVICE_WARMUP)]
+        tx = QueueTransport()
+        svc = MPCService(solver, tx, lcm_dir)
+
+        def feed():
+            for buf in encoded:
+                tx.send("mpc_data", buf)
+                if not tx.commands.acquire(timeout=120):
+                    return
+
+        feeder = threading.Thread(target=feed, name="lockstep-feeder")
+        feeder.start()
+        try:
+            if mode == "run":
+                svc.run(max_messages=len(encoded))
+                polls = 0
+            else:
+                polls = svc.run_async(max_messages=len(encoded),
+                                      duration_s=180)["polls"]
+        finally:
+            feeder.join()
+        solver.close()
+        times = [float(cmd_t.decode(b)["solve_time"])
+                 for c, b in tx.published if c == "mpc_command"]
+        if len(times) != len(encoded):
+            raise AssertionError(f"phase 9 (c) {mode}: {len(times)} commands "
+                                 f"for {len(encoded)} requests")
+        out[mode] = (times, polls)
+    run_ms, (async_ms, polls) = out["run"][0], out["run_async"]
+    ratio = _mean(async_ms) / _mean(run_ms)
+    print(f"phase 9 (c) the poller's cost: {SERVICE_POLLER_REQUESTS} "
+          f"requests in lockstep after {SERVICE_WARMUP} warm-up, solve_time "
+          f"of each command; run (no poller): mean {_mean(run_ms):.3f} ms = "
+          f"{1e3 / _mean(run_ms):.3f} updates/s ("
+          + ", ".join(f"{t:.1f}" for t in run_ms)
+          + f"); run_async (worker thread, {polls} polls = "
+          f"{polls / len(async_ms):.1f} per solve): mean "
+          f"{_mean(async_ms):.3f} ms = {1e3 / _mean(async_ms):.3f} updates/s ("
+          + ", ".join(f"{t:.1f}" for t in async_ms)
+          + f"); ratio {ratio:.3f} (gate < {SERVICE_POLLER_MAX_RATIO:g}); "
+          f"on {card}", flush=True)
+    if not ratio < SERVICE_POLLER_MAX_RATIO:
+        raise AssertionError(
+            f"phase 9 (c): the solve beside the polling loop takes {ratio:.3f}"
+            f" times the solve alone: the poller starves the launching thread")
+
+
+def service_phase(card):
+    """The MPC service on the card; returns the addition to K2's JSON
+    record."""
+    torch = _torch()
+    import tempfile
+    from hkdmpc_tpu_torch.comm.lcm_types import load_reference_types
+    from hkdmpc_tpu_torch.workload import gait_file, lcmtypes_dir
+
+    with tempfile.TemporaryDirectory() as d:
+        ref = gait_file("trot", d)
+        lcm_dir = lcmtypes_dir(os.path.join(d, "lcmtypes"))
+        lcm = load_reference_types(lcm_dir)
+        launches, sync_ms = service_scripted(torch, card, ref, lcm_dir, lcm)
+        service_async(torch, card, ref, lcm_dir, lcm, sync_ms)
+        service_poller_cost(torch, card, ref, lcm_dir, lcm)
+    return {"service_launches": launches}
+
+
 def main():
     torch = _torch()
     card = build_phase()
@@ -812,6 +1286,7 @@ def main():
     k2_vs_k1_phase()
     hkd["fleet_launches"] = fleet_phase(card)
     dense.update(mpc_phase(card))
+    dense.update(service_phase(card))
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     print(json.dumps({"kernels": [hkd, dense]}))

@@ -8,9 +8,12 @@ HKD model's throughput path, and `kernel_jac=False`, the dense-LQ path for
 any `solver.model_api.ModelSpec` — with each path's Riccati backward sweep
 as a hand-written CUDA kernel for Hopper (`csrc/riccati_hkd.cu` wrapped by
 `ops/riccati_hkd.py`, `csrc/riccati_dense.cu` wrapped by
-`ops/riccati_dense.py`); and the fleet MPC built on it (`mpc.fleet.FleetMPC`:
+`ops/riccati_dense.py`); the fleet MPC built on it (`mpc.fleet.FleetMPC`:
 receding-horizon updates, the batched fleet step `mpc.fused.fleet_step`,
-checkpoints in `utils.checkpoint`). This package imports neither JAX nor any module
+checkpoints in `utils.checkpoint`); one robot's MPC
+(`mpc.solver.HKDMPCSolver`); and the robot-facing service
+(`mpc.runtime.MPCService` over `comm.LCMTransport`, message types parsed at
+run time by `comm.lcm_types`). This package imports neither JAX nor any module
 of `hkdmpc_tpu`: what it needs from there (`config`, `reference`, `models`) it
 keeps as its own copy, pinned equal by the tests.
 """

@@ -20,15 +20,24 @@ solve time — lcmtypes/hkd_command_lcmt.lcm).
   `fused.fused_step`; its two halves `update_async` /
   `update_fused_complete` let a service loop do other work between them.
 
-Where the reference solves in a detached thread guarded by a mutex
-(HKDMPC.cpp:168-200), the host loop here is single-threaded and the overlap
-comes from the device's stream. Structure changes (phase pops / appends)
-change no tensor shape: the problem is masked data.
+The reference solves in a detached thread per message, guarded by a mutex
+(HKDMPC.cpp:168-200). Here `update_fused_dispatch` hands the device step to
+one worker thread that the solver owns: a solve is tens of thousands of
+kernel launches, so its time is the host's, and only another thread lets
+the caller go on (`MPCService.run_async` drains its socket meanwhile).
+`update` runs the same step in the calling thread. The worker is a daemon
+thread, so a step that hangs on the device does not keep the process from
+ending. Structure changes (phase
+pops / appends) change no tensor shape: the problem is masked data.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
+import queue
+import threading
 import time
 import types
 from typing import Optional
@@ -126,6 +135,37 @@ def default_stand_state(contact) -> np.ndarray:
         contact=contact)
 
 
+class _SolveWorker:
+    """One daemon thread that runs submitted calls in order, each behind a
+    `concurrent.futures.Future`."""
+
+    def __init__(self):
+        self._jobs = queue.SimpleQueue()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="hkdmpc-solve")
+        self._thread.start()
+
+    def _loop(self):
+        while (job := self._jobs.get()) is not None:
+            future, fn, args = job
+            try:
+                future.set_result(fn(*args))
+            except BaseException as exc:
+                future.set_exception(exc)
+
+    def submit(self, fn, *args) -> concurrent.futures.Future:
+        future = concurrent.futures.Future()
+        self._jobs.put((future, fn, args))
+        return future
+
+    def shutdown(self, timeout=None) -> bool:
+        """Ask the thread to end after the calls already submitted and wait
+        for it, at most `timeout` seconds; whether it has ended."""
+        self._jobs.put(None)
+        self._thread.join(timeout)
+        return not self._thread.is_alive()
+
+
 class HKDMPCSolver:
     """One robot's receding-horizon MPC on the dense solve path (batch 1),
     on an explicit dtype and device."""
@@ -156,6 +196,9 @@ class HKDMPCSolver:
         self._assoc_bw = (self.cfg.assoc_backward
                           if self.cfg.assoc_backward is not None
                           else self.device.type == "cuda")
+        # on the CPU the classic step and the cold solve take the JAX
+        # package's CPU configuration: the scan sweep and the loops that stop
+        self._on_cpu = self.device.type == "cpu"
         self.n_cmd = self.cfg.nsteps_between_mpc + self.cfg.n_cmd_extra
         self.mpc_iter = 0
         self.mpc_time = 0.0
@@ -163,6 +206,8 @@ class HKDMPCSolver:
         self.pf = np.zeros((4, 3))
         self.last_result = None
         self._pending = None    # in-flight fused dispatch
+        self._abandoned = None  # future of a discarded dispatch, while it runs
+        self._worker = None     # the dispatch's thread, made at first use
         self._host_stale = False
 
     # ------------------------------------------------------------------
@@ -179,7 +224,9 @@ class HKDMPCSolver:
         res = ddp.solve(prob, state, opt, kernel_jac=False,
                         parallel_rollout=self.problem.all_shooting(),
                         assoc_linear=self.cfg.assoc_linear,
-                        assoc_backward=self._assoc_bw)
+                        assoc_backward=self._assoc_bw,
+                        scan_backward=self._on_cpu and not self._assoc_bw,
+                        unroll_caps=not self._on_cpu)
         self._sync()
         self.solve_time = (time.perf_counter() - t0) * 1e3
         self.problem.unflatten(res.state)
@@ -200,6 +247,7 @@ class HKDMPCSolver:
         """Cold solve with the full option set. x0 defaults to the
         reference's hard-coded stand pose (HKDMPC.cpp:44-54); pass a 24-dim
         HKD state to start mid-gait."""
+        self._settle_abandoned()
         self.problem.initialization()
         if x0 is None:
             x0 = default_stand_state(self.problem.phases[0].contact)
@@ -218,10 +266,11 @@ class HKDMPCSolver:
         run: the next update() continues where the saved solver left off."""
         from hkdmpc_tpu_torch.utils.checkpoint import load_problem
 
-        load_problem(ckpt_path, self.problem)
         # an in-flight dispatch was computed against the discarded state:
         # completing it after resume would publish a stale command
-        self._pending = None
+        self.discard_pending()
+        self._settle_abandoned()
+        load_problem(ckpt_path, self.problem)
         self.mpc_iter = 0
         self.solve_time = 0.0
         self.update_foot_placement()
@@ -233,12 +282,16 @@ class HKDMPCSolver:
 
     def update(self, rpy, p, v, omega, qJ,
                mpc_time: float = 0.0) -> MPCCommand:
-        """One MPC re-solve from measured robot state (HKDMPC.cpp:96-166)."""
+        """One MPC re-solve from measured robot state (HKDMPC.cpp:96-166),
+        in the calling thread."""
+        if self.cfg.fused_step:
+            self._check_idle()
+            self._settle_abandoned()
         self.mpc_iter += 1
         self.mpc_time = mpc_time
         if self.cfg.fused_step:
-            self.update_fused_dispatch(rpy, p, v, omega, qJ)
-            return self.update_fused_complete()
+            step, pend = self._fused_host_half(rpy, p, v, omega, qJ)
+            return self._fused_finish(pend, self._fused_device_half(*step))
         self.problem.update(self.cfg.nsteps_between_mpc)
         x0 = hkd_state_from_measurements(rpy, p, v, omega, qJ,
                                          self.problem.phases[0].contact)
@@ -251,28 +304,37 @@ class HKDMPCSolver:
 
     def update_async(self, rpy, p, v, omega, qJ,
                      mpc_time: float = 0.0) -> None:
-        """The fused update without its fetch (fused path only): poll
-        fused_ready(), then call update_fused_complete() for the command."""
+        """The fused update without its fetch (fused path only): returns
+        once the step is handed to the worker thread. Poll fused_ready(),
+        then call update_fused_complete() for the command."""
         if not self.cfg.fused_step:
             raise RuntimeError("update_async requires fused_step=True")
+        self._check_idle()
         self.mpc_iter += 1
         self.mpc_time = mpc_time
         self.update_fused_dispatch(rpy, p, v, omega, qJ)
 
-    def update_fused_dispatch(self, rpy, p, v, omega, qJ) -> None:
-        """Async half 1: the host bookkeeping, the fused device step, and a
-        non-blocking copy of its bundle into pinned host memory with an
-        event behind it. The solve's retry loop reads a flag on the host
-        each pass, so this returns when the device has reached the last
-        backward sweep, not at once. Follow with fused_ready() /
-        update_fused_complete()."""
-        # a prior dispatch that was never completed would be dropped here,
-        # and mpc_iter / solve_time would no longer count served commands
+    def _check_idle(self):
+        # a prior dispatch that was never completed would be dropped, and
+        # mpc_iter / solve_time would no longer count served commands
         if self._pending is not None:
             raise RuntimeError(
                 "update_fused_dispatch with an in-flight dispatch pending — "
                 "call update_fused_complete() (or discard it) first")
 
+    def _settle_abandoned(self):
+        """Wait until a discarded dispatch has left the worker (its result
+        and any exception are dropped): a solve in the calling thread must
+        not run beside it on the same device, stream and tables. A dispatch
+        needs no such wait: it queues behind it on the one worker."""
+        if self._abandoned is not None:
+            concurrent.futures.wait([self._abandoned])
+            self._abandoned = None
+
+    def _fused_host_half(self, rpy, p, v, omega, qJ):
+        """The host bookkeeping of a fused update (`fused.host_step`, the
+        measurement pack). Returns (the device half's arguments, the
+        pending record without its result)."""
         pb = self.problem
         ints, floats, self._offsets, aux = fused.host_step(
             pb, self._offsets, self.cfg.nsteps_between_mpc, self.n_cmd,
@@ -281,44 +343,112 @@ class HKDMPCSolver:
         meas = fused.pack_meas(self._np_dtype, eul=eul, p=p, omega=omega,
                                v=v, qJ=qJ,
                                front_contact=pb.phases[0].contact)
-        dev = lambda a, dt: torch.as_tensor(a, dtype=dt, device=self.device)
+        step = (self._state_dev, ints, floats, meas, pb.all_shooting())
+        return step, dict(t0=time.perf_counter(), aux=aux)
 
-        t0 = time.perf_counter()
-        self._state_dev, bundle = fused.fused_step(
-            self._tables, self._state_dev, dev(ints, torch.int32),
-            dev(floats, self.dtype), dev(meas, self.dtype),
-            self.opt.runtime(), pb.all_shooting(), self.n_cmd,
-            kernel_jac=False, assoc_linear=self.cfg.assoc_linear,
-            assoc_backward=self._assoc_bw)
-        self._host_stale = True
-        event = None
-        if self.device.type == "cuda":
-            host = torch.empty(bundle.shape, dtype=bundle.dtype,
-                               pin_memory=True)
-            host.copy_(bundle, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-            bundle = host
-        self._pending = dict(bundle=bundle, event=event, t0=t0, aux=aux)
+    def _fused_device_half(self, state, ints, floats, meas,
+                           parallel_rollout):
+        """The fused device step on the solver's device and its current
+        stream (the default stream, in whichever thread this runs), then a
+        non-blocking copy of the bundle into pinned host memory with an
+        event behind it on that stream. Returns (new state, bundle on the
+        host, event or None)."""
+        dev = lambda a, dt: torch.as_tensor(a, dtype=dt, device=self.device)
+        on_card = self.device.type == "cuda"
+        with (torch.cuda.device(self.device) if on_card
+              else contextlib.nullcontext()):
+            new_state, bundle = fused.fused_step(
+                self._tables, state, dev(ints, torch.int32),
+                dev(floats, self.dtype), dev(meas, self.dtype),
+                self.opt.runtime(), parallel_rollout, self.n_cmd,
+                kernel_jac=False, assoc_linear=self.cfg.assoc_linear,
+                assoc_backward=self._assoc_bw)
+            event = None
+            if on_card:
+                host = torch.empty(bundle.shape, dtype=bundle.dtype,
+                                   pin_memory=True)
+                host.copy_(bundle, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+                bundle = host
+        return new_state, bundle, event
+
+    def update_fused_dispatch(self, rpy, p, v, omega, qJ) -> None:
+        """Async half 1: the host bookkeeping here, then the fused device
+        step handed to the solver's worker thread; returns without waiting
+        for it. Follow with fused_ready() / update_fused_complete()."""
+        self._check_idle()
+        step, pend = self._fused_host_half(rpy, p, v, omega, qJ)
+        if self._worker is None:
+            self._worker = _SolveWorker()
+        pend["future"] = self._worker.submit(self._fused_device_half, *step)
+        self._pending = pend
 
     def fused_ready(self) -> bool:
-        """True when the dispatched step's bundle has arrived on the host
-        (update_fused_complete() will not wait)."""
+        """True when the worker has finished the dispatched step's launches
+        (or failed: the completion then raises) and its bundle has arrived
+        on the host: update_fused_complete() will not wait."""
         pend = self._pending
-        return pend is not None and (pend["event"] is None
-                                     or pend["event"].query())
+        if pend is None or not pend["future"].done():
+            return False
+        if pend["future"].exception() is not None:
+            return True
+        event = pend["future"].result()[2]
+        return event is None or event.query()
 
     def update_fused_complete(self) -> MPCCommand:
-        """Async half 2: wait for the bundle if it is not there yet and
-        build the MPCCommand."""
+        """Async half 2: wait for the worker and the bundle if they are not
+        there yet, and build the MPCCommand. An exception of the worker is
+        raised here."""
         pend = self._pending
         if pend is None:
             raise RuntimeError("update_fused_complete() without a "
                                "dispatched step")
         self._pending = None
-        if pend["event"] is not None:
-            pend["event"].synchronize()
-        out = fused.unpack_bundle(pend["bundle"].numpy(), self.n_cmd,
+        return self._fused_finish(pend, pend["future"].result())
+
+    def fused_wait(self, timeout_s: float) -> bool:
+        """Wait at most timeout_s for the dispatched step; whether it is
+        ready (`fused_ready`). The wait for the worker's launches is on its
+        future, with the interpreter lock released."""
+        pend = self._pending
+        if pend is None:
+            return False
+        end = time.perf_counter() + timeout_s
+        concurrent.futures.wait([pend["future"]], timeout=timeout_s)
+        while not self.fused_ready() and time.perf_counter() < end \
+                and pend["future"].done():
+            time.sleep(0.001)   # launches done: only the copy's event is out
+        return self.fused_ready()
+
+    def discard_pending(self) -> None:
+        """Drop an in-flight dispatch: its result is never read and the
+        device-resident state stays the one from before it, while the host
+        schedule has already advanced, so follow with resume() or
+        initialize(). The worker runs it to its end all the same: a later
+        dispatch queues behind it, and update(), initialize() and resume()
+        wait for it before they touch the device."""
+        if self._pending is not None \
+                and not self._pending["future"].done():
+            self._abandoned = self._pending["future"]
+        self._pending = None
+
+    def close(self, timeout_s: Optional[float] = None) -> bool:
+        """Stop the worker thread after its current step, waiting at most
+        timeout_s for it (None: until it ends); whether it has ended. It is
+        a daemon thread: one that hangs does not hold the process."""
+        ended = True
+        if self._worker is not None:
+            ended = self._worker.shutdown(timeout_s)
+            self._worker = None
+        return ended
+
+    def _fused_finish(self, pend, result) -> MPCCommand:
+        self._state_dev, bundle, event = result
+        self._host_stale = True
+        if event is not None:
+            event.synchronize()
+        out = fused.unpack_bundle(bundle.numpy(), self.n_cmd,
                                   ddp.trace_len_for(self.opt.runtime()))
         self.solve_time = (time.perf_counter() - pend["t0"]) * 1e3
 

@@ -1,4 +1,6 @@
-"""Build and load the port's CUDA kernels at first use.
+"""Build and load the port's CUDA kernels, and its one host-only native
+library (`build_host`: the transport, csrc/hkdcomm.cpp, with g++), at first
+use.
 
 The sources live in `hkdmpc_tpu_torch/csrc/`: one `<name>.cu` per kernel,
 with a plain C interface (`<name>_launch`, `<name>_info`,
@@ -35,6 +37,7 @@ CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "hkdmpc_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+GXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared", "-pthread")
 GENERATED_HEADER = "hkd_constants.cuh"
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
@@ -136,6 +139,25 @@ def build_key(src: Path) -> str:
     return h.hexdigest()[:16]
 
 
+def _compile(name: str, out_dir: Path, cmd: list) -> Path:
+    """Run the compiler command `cmd` (complete but for its output) into a
+    temporary name in out_dir and move the result to `lib<name>.so`, so a
+    library that exists is whole; the compiler's output goes to
+    `<name>.build.log` beside it. Raises on a failed build."""
+    lib = out_dir / f"lib{name}.so"
+    tmp = out_dir / f"lib{name}.so.tmp{os.getpid()}"
+    cmd = cmd + ["-o", str(tmp)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (out_dir / f"{name}.build.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cmd[0]} failed on {name} (exit "
+                           f"{proc.returncode}):\n" + proc.stdout
+                           + proc.stderr)
+    os.replace(tmp, lib)
+    return lib
+
+
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu (if its keyed library is not built yet) and
     return the path of the shared library. The compiler's output, with
@@ -149,17 +171,26 @@ def build(name: str) -> Path:
     out_dir.mkdir(parents=True, exist_ok=True)
     if uses_generated_header(src):
         (out_dir / GENERATED_HEADER).write_text(constants_header())
-    tmp = out_dir / f"lib{name}.so.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(out_dir),
-           "-o", str(tmp), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / f"{name}.build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n"
-                           + proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
+    return _compile(name, out_dir, [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v",
+                                    "-I", str(out_dir), str(src)])
+
+
+def build_host(name: str) -> Path:
+    """Compile the host-only source csrc/<name>.cpp with g++ (if its keyed
+    library is not built yet) into the build directory and return the path
+    of the shared library. The key hashes the source and the flags."""
+    src = CSRC / f"{name}.cpp"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(GXX_FLAGS).encode())
+    out_dir = BUILD_DIR / h.hexdigest()[:16]
+    lib = out_dir / f"lib{name}.so"
+    if lib.exists():
+        return lib
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found on PATH: it builds {src.name}")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    return _compile(name, out_dir, [gxx, *GXX_FLAGS, str(src)])
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -14,14 +14,16 @@ Pallas kernel `_kernel`), which the JAX package reaches through
 
 There is no lux input: the JAX package's array interface drops it
 (`backward.py:185-186` builds its LQData with lux=None), and every in-repo
-model has lux = 0.
+model has lux = 0. The solver does not hand LQ data with a cross term to
+this function (`solver/backward._dense_route`).
 
 `backward_sweep_dense` dispatches on the tensors' device: CPU tensors go to
 `backward_sweep_dense_plain` (any width, any float dtype), CUDA tensors to
 the kernel (`csrc/riccati_dense.cu`). The kernel takes nx = 24 and float32
-only; on CUDA anything else raises NotImplementedError — where the JAX
-package's batched rule falls back to its scan for such input, the port has
-no fallback. `LAUNCHES` counts kernel launches.
+only; on CUDA anything else raises NotImplementedError here, and in the
+solver before it calls this function: neither has a fallback. The scan sweep
+(`scan_backward=True`) takes such LQ data where the caller asks for it.
+`LAUNCHES` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -59,14 +61,15 @@ def backward_sweep_dense(kind, A, B, lxx, luu, lx, lu, defect, phix, phixx,
 def backward_sweep_dense_plain(kind, A, B, lxx, luu, lx, lu, defect, phix,
                                phixx, reg, last_node):
     """Plain PyTorch version: the faithful sweep
-    (`solver.backward.backward_sweep`). Any device, width and float dtype."""
-    from hkdmpc_tpu_torch.solver.backward import backward_sweep
+    (`solver.backward.backward_sweep_arrays`). Any device, width and float
+    dtype."""
+    from hkdmpc_tpu_torch.solver.backward import backward_sweep_arrays
 
     precise.pin_full_f32()
     reg = torch.broadcast_to(torch.as_tensor(reg, dtype=A.dtype,
                                              device=A.device),
                              kind.shape[:1])
-    dU, K, _, _, dv1, dv2, ok = backward_sweep(
+    dU, K, _, _, dv1, dv2, ok = backward_sweep_arrays(
         kind, A, B, lx, lu, lxx, luu, phix, phixx, defect, reg, last_node)
     return dU, K, dv1, dv2, ok
 

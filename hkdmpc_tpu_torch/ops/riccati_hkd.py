@@ -54,8 +54,8 @@ def backward_sweep_hkd_plain(kind, X, U, contact, contact_next, xr, ur,
                              reg, last_node, dt):
     """Plain PyTorch version: assemble A/B and every cost partial from the
     shared entry formulas, then run the faithful sweep
-    (`solver.backward.backward_sweep`). Any device, any float dtype."""
-    from hkdmpc_tpu_torch.solver.backward import backward_sweep
+    (`solver.backward.backward_sweep_arrays`). Any device, any float dtype."""
+    from hkdmpc_tpu_torch.solver.backward import backward_sweep_arrays
 
     precise.pin_full_f32()
     T = kind.shape[-1]
@@ -71,7 +71,7 @@ def backward_sweep_hkd_plain(kind, X, U, contact, contact_next, xr, ur,
                                                           reb_active=True)
     phix, phixx = hkd_tminor.terminal_partials_tbatch(p, X, c,
                                                       al_active=True)
-    dU, K, _, _, dv1, dv2, ok = backward_sweep(
+    dU, K, _, _, dv1, dv2, ok = backward_sweep_arrays(
         kind, A, B, lx, lu, lxx, luu, phix, phixx, defect,
         torch.broadcast_to(torch.as_tensor(reg, dtype=X.dtype,
                                            device=X.device), kind.shape[:1]),

@@ -1,10 +1,14 @@
 """Riccati backward sweep over the flattened transition graph, batched over
 scenarios — port of `hkdmpc_tpu/solver/backward.py` (main path).
 
-- `backward_sweep`: the faithful sweep (augmented-sweep Riccati step,
-  impact-aware reset sandwich, PAD carry), one Python step per transition
-  with per-scenario selects; the core of the plain versions of both CUDA
-  kernels.
+- `backward_sweep_arrays`: the faithful sweep (augmented-sweep or
+  explicit-inverse Riccati step, impact-aware reset sandwich, PAD carry),
+  one Python step per transition with per-scenario selects, from plain
+  tensors; the core of the plain versions of both CUDA kernels.
+- `backward_sweep`: the same sweep by the JAX package's interface
+  (`prob`, `lq`), the scan route of the solve: it adds `lq.lux` to Qux, takes
+  `aug_sweep` both ways and, with `emit_G`, also returns the value gradient
+  at every node. Any width, any float dtype, any device.
 - `riccati_backward`: the whole sweep of one DDP iteration from
   materialized LQ data (any model); an alias of
   `ops/riccati_dense.backward_sweep_dense`, which runs the CUDA kernel on
@@ -13,8 +17,8 @@ scenarios — port of `hkdmpc_tpu/solver/backward.py` (main path).
   model, with the Jacobians and every cost partial rebuilt from (X, U); an
   alias of `ops/riccati_hkd.backward_sweep_hkd`, dispatching the same way.
 - `backward_sweep_regularized`: the regularization retry schedule, with a
-  per-scenario `reg` (the JAX package's vmapped while_loop), around either
-  sweep, or around the parallel-in-time one
+  per-scenario `reg` (the JAX package's vmapped while_loop), around any of
+  these sweeps, or around the parallel-in-time one
   (`ops/assoc.riccati_backward_assoc`, plain tensor code on any device).
 
 Parity: SinglePhase::backward_sweep (SinglePhase.cpp:299-367),
@@ -26,7 +30,8 @@ from __future__ import annotations
 
 import torch
 
-from hkdmpc_tpu_torch.ops import assoc, riccati_dense, riccati_hkd
+from hkdmpc_tpu_torch.ops import assoc, precise, riccati_dense, riccati_hkd
+from hkdmpc_tpu_torch.ops.linalg import sweep_inverse
 from hkdmpc_tpu_torch.solver.structs import DYN, RESET
 
 REG_MIN_STEP = 1e-3   # reference: MultiPhaseDDP.cpp:157
@@ -78,17 +83,43 @@ def _riccati_step_aug_sweep(Qx, Qu, Qxx, Quu, Qux):
     return dU_t, K_t, G_new, H_new, dv_k, ok
 
 
-def backward_sweep(kind, A, B, lx, lu, lxx, luu, phix, phixx, defect, reg,
-                   last_node):
+def _riccati_step_inverse(Qx, Qu, Qxx, Quu, Qux):
+    """The Riccati step with the explicit inverse of Quu
+    (`ops/linalg.sweep_inverse`, whose pivots are the PSD gate): where Quu
+    is not positive definite the inverse reads as the identity (the step's
+    outputs are discarded by the retry loop) and it is symmetrized before
+    use, as Qxx is (SinglePhase.cpp:337-358)."""
+    nu = Quu.shape[-1]
+    Quu_inv, psd = sweep_inverse(Quu, CHOL_SHIFT)
+    eye_u = torch.eye(nu, dtype=Quu.dtype, device=Quu.device)
+    Quu_inv = torch.where(psd[..., None, None], Quu_inv, eye_u)
+    Quu_inv = 0.5 * (Quu_inv + Quu_inv.transpose(-1, -2))
+    QuxT = Qux.transpose(-1, -2)
+    dU_t = -precise.mv(Quu_inv, Qu)
+    K_t = -precise.mm(Quu_inv, Qux)
+    G_new = Qx + precise.mv(QuxT, dU_t)
+    H_new = Qxx + precise.mm(QuxT, K_t)
+    dv_k = -torch.sum(Qu * dU_t, dim=-1)
+    return dU_t, K_t, G_new, H_new, dv_k, psd
+
+
+def backward_sweep_arrays(kind, A, B, lx, lu, lxx, luu, phix, phixx, defect,
+                          reg, last_node, *, lux=None, aug_sweep: bool = True,
+                          emit_G: bool = False):
     """One full backward sweep at a given per-scenario regularization.
 
-    kind (B, T) int; A/B/lxx/luu (B, T, 24, 24); lx/lu (B, T, 24);
-    phix (B, T+1, 24); phixx (B, T+1, 24, 24); defect (B, T+1, 24);
-    reg (B,); last_node (B,).
-    Returns (dU (B,T,24), K (B,T,24,24), G0, H0, dV_1 (B,), dV_2 (B,),
-    success (B,) bool). The carry (G, H) is the value approximation at the
-    dest node of the transition being processed, seeded at each scenario's
-    last active node with the terminal partials there."""
+    kind (B, T) int; A, lxx (B, T, nx, nx); B (B, T, nx, nu);
+    luu (B, T, nu, nu); lx (B, T, nx); lu (B, T, nu); phix (B, T+1, nx);
+    phixx (B, T+1, nx, nx); defect (B, T+1, nx); reg (B,); last_node (B,);
+    lux (B, T, nu, nx) or None, added to Qux. aug_sweep picks the fused
+    augmented-sweep Riccati step (default) or the explicit-inverse one.
+    Returns (dU (B,T,nu), K (B,T,nu,nx), G0, H0, dV_1 (B,), dV_2 (B,),
+    success (B,) bool); with emit_G also Gs (B, T+1, nx), the value gradient
+    at every node (node j's is the G produced at its outgoing transition,
+    the last active node's is the sweep's seed). The carry (G, H) is the
+    value approximation at the dest node of the transition being processed,
+    seeded at each scenario's last active node with the terminal partials
+    there."""
     nb, T = kind.shape
     nx, nu = lx.shape[-1], lu.shape[-1]
     dtype, dev = lx.dtype, lx.device
@@ -97,14 +128,18 @@ def backward_sweep(kind, A, B, lx, lu, lxx, luu, phix, phixx, defect, reg,
     lanes = torch.arange(nb, device=dev)
     last = last_node.long()
     reg3 = reg.reshape(-1, 1, 1)
+    riccati_step = (_riccati_step_aug_sweep if aug_sweep
+                    else _riccati_step_inverse)
 
-    G = phix[lanes, last]
+    G = G_seed = phix[lanes, last]
     H = phixx[lanes, last]
     dv1 = torch.zeros(nb, dtype=dtype, device=dev)
     dv2 = torch.zeros(nb, dtype=dtype, device=dev)
     ok = torch.ones(nb, dtype=torch.bool, device=dev)
     dU = torch.zeros((nb, T, nu), dtype=dtype, device=dev)
     K = torch.zeros((nb, T, nu, nx), dtype=dtype, device=dev)
+    Gs = torch.zeros((nb, T + 1, nx), dtype=dtype, device=dev) if emit_G \
+        else None
 
     for t in range(T - 1, -1, -1):
         is_dyn = kind[:, t] == DYN
@@ -124,7 +159,9 @@ def backward_sweep(kind, A, B, lx, lu, lxx, luu, phix, phixx, defect, reg,
         Qxx = lxx[:, t] + AtHA + reg3 * eye_x
         Quu = luu[:, t] + BtT @ HB + reg3 * eye_u
         Qux = BtT @ HA
-        dU_t, K_t, G_d, H_d, dv_k, psd = _riccati_step_aug_sweep(
+        if lux is not None:
+            Qux = Qux + lux[:, t]
+        dU_t, K_t, G_d, H_d, dv_k, psd = riccati_step(
             Qx, Qu, 0.5 * (Qxx + Qxx.transpose(-1, -2)), Quu, Qux)
 
         # RESET (A holds Px): impact-aware sandwich + terminal seed of the
@@ -141,7 +178,28 @@ def backward_sweep(kind, A, B, lx, lu, lxx, luu, phix, phixx, defect, reg,
         ok = torch.where(is_dyn, ok & psd, ok)
         dU[:, t] = torch.where(d1, dU_t, torch.zeros_like(dU_t))
         K[:, t] = torch.where(d2, K_t, torch.zeros_like(K_t))
+        if emit_G:
+            Gs[:, t] = G
+    if emit_G:
+        Gs[lanes, last] = G_seed
+        return dU, K, G, H, dv1, dv2, ok, Gs
     return dU, K, G, H, dv1, dv2, ok
+
+
+def backward_sweep(prob, lq, defect, regularization, last_node,
+                   aug_sweep: bool = True, emit_G: bool = False):
+    """The scan route: one full backward sweep of `lq` (an LQData with a
+    leading scenario axis) at a given regularization (a number or (B,)),
+    with `lq.lux` (when not None) added to Qux. Returns
+    `backward_sweep_arrays`' tuple."""
+    precise.pin_full_f32()
+    reg = torch.broadcast_to(
+        torch.as_tensor(regularization, dtype=defect.dtype,
+                        device=defect.device), prob.kind.shape[:1])
+    return backward_sweep_arrays(
+        prob.kind, lq.A, lq.B, lq.lx, lq.lu, lq.lxx, lq.luu, lq.phix,
+        lq.phixx, defect, reg, last_node, lux=lq.lux, aug_sweep=aug_sweep,
+        emit_G=emit_G)
 
 
 # Backward sweep from materialized LQ data, (kind, A, B, lxx, luu, lx, lu,
@@ -156,10 +214,42 @@ riccati_backward = riccati_dense.backward_sweep_dense
 riccati_backward_hkd = riccati_hkd.backward_sweep_hkd
 
 
+def _dense_route(lq) -> str:
+    """Which sweep the dense route (neither `scan` nor `assoc_backward`)
+    runs for this LQ data: "kernel" (`riccati_backward`: the CUDA kernel on
+    CUDA tensors, its plain version on CPU tensors) or "scan". The kernel's
+    array interface has no lux input and takes 24-wide float32 data only. On
+    the CPU a cross term goes to the scan route (exact). On CUDA the dense
+    route is the kernel or nothing: other widths and dtypes and a cross term
+    raise, each naming the routes the caller can ask for instead, so the
+    scan sweep runs on the card only where `scan=True` says so. `lq.lux` is
+    None exactly when the model's terms return none or the model declares
+    `lux_is_zero`, so this is decided on the host with no device read."""
+    if lq.A.device.type != "cuda":
+        return "kernel" if lq.lux is None else "scan"
+    nx = riccati_dense.NX
+    if lq.A.dtype != torch.float32 or tuple(lq.A.shape[-2:]) != (nx, nx) \
+            or tuple(lq.B.shape[-2:]) != (nx, nx):
+        raise NotImplementedError(
+            f"the CUDA dense Riccati kernel takes {nx}-wide float32 LQ "
+            f"data, got A {tuple(lq.A.shape)} B {tuple(lq.B.shape)} "
+            f"{lq.A.dtype}: solve with the scan sweep (scan_backward=True) "
+            "or with assoc_backward=True, or on the CPU")
+    if lq.lux is not None:
+        raise ValueError(
+            "the CUDA dense Riccati kernel has no lux input, and this "
+            "model's running cost returns a u-x cross term: solve with "
+            "assoc_backward=True or with the scan sweep (scan_backward=True),"
+            " or set lux_is_zero = True on a ModelSpec whose cross term is "
+            "identically zero")
+    return "kernel"
+
+
 def backward_sweep_regularized(prob, defect, regularization,
                                update_regularization, last_node, *,
                                kernel_jac_XU=None, lq=None,
-                               assoc_backward: bool = False):
+                               assoc_backward: bool = False,
+                               scan: bool = False, aug_sweep: bool = True):
     """Retry the sweep with growing per-scenario regularization until Quu is
     PSD everywhere or the regularization exceeds REG_MAX (then that
     scenario's solve fails). The loop runs while any scenario is neither ok
@@ -167,20 +257,30 @@ def backward_sweep_regularized(prob, defect, regularization,
 
     Exactly one of: kernel_jac_XU = (X, U, reb_delta, reb_eps, al_sigma,
     al_lambda) for the default HKD model's sweep (`riccati_backward_hkd`),
-    or lq = LQData for the dense sweep (`riccati_backward`; lq.lux is not
-    read). With lq, assoc_backward=True takes the parallel-in-time sweep
-    `ops/assoc.riccati_backward_assoc` instead (it does read lq.lux).
+    or lq = LQData. With lq: assoc_backward=True takes the parallel-in-time
+    sweep `ops/assoc.riccati_backward_assoc`; scan=True the scan route
+    `backward_sweep` (with `aug_sweep`); neither, the dense route
+    `riccati_backward` (`_dense_route`: on the CPU a cross term takes the
+    scan route; on CUDA what the kernel does not take raises). Every route
+    but the dense kernel's reads lq.lux.
     Returns (dU, K, dV_1, dV_2, reg_out, success, solve_failed); reg_out is
     the post-success relaxation reg/20, zeroed below 1e-6."""
     if (kernel_jac_XU is None) == (lq is None):
         raise ValueError("give exactly one of kernel_jac_XU= and lq=")
-    if assoc_backward and lq is None:
-        raise ValueError("assoc_backward reads dense A / B: give lq=, not "
-                         "kernel_jac_XU=")
+    if lq is None and (assoc_backward or scan):
+        raise ValueError("assoc_backward and scan read dense A / B: give "
+                         "lq=, not kernel_jac_XU=")
+    if assoc_backward and scan:
+        raise ValueError("give at most one of assoc_backward and scan")
     if assoc_backward:
         def sweep(reg):
             return assoc.riccati_backward_assoc(prob, lq, defect, reg,
                                                 last_node)
+    elif lq is not None and (scan or _dense_route(lq) == "scan"):
+        def sweep(reg):
+            dU, K, _, _, dv1, dv2, ok = backward_sweep(
+                prob, lq, defect, reg, last_node, aug_sweep)
+            return dU, K, dv1, dv2, ok
     elif lq is not None:
         def sweep(reg):
             return riccati_dense.backward_sweep_dense(

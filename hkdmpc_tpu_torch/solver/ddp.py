@@ -1,7 +1,6 @@
 """Multi-phase HS-DDP driver, batched over scenarios — port of
-`hkdmpc_tpu/solver/ddp.py` for its batched configurations with statically
-unrolled caps (the JAX package's `unroll_caps=True`), with the parallel or
-the sequential rollout (`parallel_rollout`), on two paths:
+`hkdmpc_tpu/solver/ddp.py`, with the parallel or the sequential rollout
+(`parallel_rollout`), multiple or single shooting (`opt.MS`), on two paths:
 
 - `kernel_jac=True`: the default HKD model, with the Jacobians and cost
   partials rebuilt inside the backward sweep (`riccati_backward_hkd`, the
@@ -9,11 +8,12 @@ the sequential rollout (`parallel_rollout`), on two paths:
   closed-form expected-cost change (the JAX package's `kernel_jac=True`);
 - `kernel_jac=False`: any `ModelSpec`, with the dense LQ approximation
   (`solver/lq.py`), the dense backward sweep (`riccati_backward`, the CUDA
-  kernel `csrc/riccati_dense.cu`) and the dense linear rollout (the JAX
-  package's `pallas_backward=True` without kernel_jac). On this path
-  `assoc_linear` / `assoc_backward` swap in the parallel-in-time linear
-  rollout and backward sweep of `ops/assoc.py`, the JAX package's
-  configuration for one robot's MPC step.
+  kernel `csrc/riccati_dense.cu`; the JAX package's `pallas_backward=True`)
+  or the scan sweep (`scan_backward`, the JAX package's default, with
+  `aug_sweep` both ways), and the dense linear rollout or the generic jvp
+  one (`jvp_linear`). On this path `assoc_linear` / `assoc_backward` swap in
+  the parallel-in-time linear rollout and backward sweep of `ops/assoc.py`,
+  the JAX package's configuration for one robot's MPC step.
 
 Parity target: MultiPhaseDDP::solve (MultiPhaseDDP.cpp:232-428) — AL outer
 loop, DDP inner loop with the regularized backward sweep, multiple-shooting
@@ -22,10 +22,13 @@ AL/ReB parameter updates and the reference's termination rules.
 
 The JAX package runs one scenario's solve under `vmap`; here every tensor
 has a leading scenario axis and each data-dependent branch is a per-scenario
-select: the AL and DDP loops are unrolled to their caps with the iterations
-a scenario would not have run masked out (unroll_caps), the line search runs
-for every scenario and is kept only where it would have run, and the
-regularization retry loop runs while any scenario still needs it.
+select: an AL or DDP iteration that a scenario would not have run is masked
+out for it, the line search runs for every scenario and is kept only where
+it would have run, and the regularization retry loop runs while any scenario
+still needs it. With `unroll_caps=True` the AL and DDP loops always run to
+their caps (the JAX package's statically unrolled form); with False they
+stop once no scenario would run another iteration (its `while_loop` form),
+at one host read per iteration. The two give the same decisions and values.
 """
 
 from __future__ import annotations
@@ -91,35 +94,71 @@ def _set_at(buf, n, v):
     return buf.scatter(1, n.long()[:, None], v[:, None])
 
 
+def _refuse_wrong_parallel_rollout(prob: ProblemData) -> None:
+    """Raise if `prob` is known not to be all-shooting: from the host-side
+    note `HKDProblem.build` leaves on it, with no device read; where there
+    is no note and the tensors lie on the CPU, from the arrays."""
+    known = prob.all_shooting
+    if known is None and prob.kind.device.type == "cpu":
+        known = bool(((prob.ss_mask > 0)
+                      | (ro_mod.node_active_mask(prob) == 0)).all())
+    if known is False:
+        raise ValueError(
+            "parallel_rollout=True on a problem that is not all-shooting "
+            "(the last phase has at most 2 steps left): the scan-free "
+            "rollout would give another trajectory. Pass "
+            "parallel_rollout=problem.all_shooting()")
+
+
 def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
                 kernel_jac: bool, model=None,
                 parallel_rollout: bool = True, assoc_linear: bool = False,
-                assoc_backward: bool = False) -> SolveResult:
+                assoc_backward: bool = False, scan_backward: bool = False,
+                aug_sweep: bool = True, jvp_linear: bool = False,
+                unroll_caps: bool = True) -> SolveResult:
     """Run one full HS-DDP solve for every scenario of a batch (leading axis
     of every field of prob and state).
 
     kernel_jac=True: the default HKD model's path (model must be None).
     kernel_jac=False: the dense-LQ path for `model` (None means
-    `hkd_model_spec()`). Both need multiple shooting (opt.MS).
+    `hkd_model_spec()`).
+
+    opt.MS False is single shooting: the sequential `hybrid_rollout` restarts
+    at phase starts only, whatever parallel_rollout says, the linear rollout
+    is skipped and the expected cost change is the backward sweep's.
 
     parallel_rollout: the caller passes `HKDProblem.all_shooting()`. True
     takes the scan-free rollout, which is right only when every active node
     is a shooting node; False takes the sequential `hybrid_rollout`, which
-    is right for every problem. A wrong True is not caught here (that would
-    need a device sync): it silently gives another trajectory.
+    is right for every problem. True on a problem that was built as not
+    all-shooting raises ValueError (`_refuse_wrong_parallel_rollout`).
 
-    assoc_linear / assoc_backward (dense path only: the recursions read
-    dense A / B): the linear rollout / the backward sweep as log-depth
-    associative scans (`ops/assoc.py`)."""
-    if kernel_jac and (assoc_linear or assoc_backward):
-        raise ValueError("assoc_linear / assoc_backward read dense A / B: "
-                         "they need kernel_jac=False")
+    Dense path only (they read dense LQ data): assoc_linear /
+    assoc_backward, the linear rollout / the backward sweep as log-depth
+    associative scans (`ops/assoc.py`); scan_backward, the scan sweep
+    `backward.backward_sweep` with `aug_sweep` (it reads lq.lux; without it
+    the dense route takes it by itself only on the CPU, for a cross term,
+    and on CUDA raises for LQ data the kernel does not take,
+    `backward._dense_route`); jvp_linear, the linear rollout's tangent by
+    `torch.func.jvp` through the model (`rollout.linear_rollout_jvp(lq=)`).
+
+    unroll_caps: True runs the AL and DDP loops to their caps and masks;
+    False stops a loop once no scenario would run its next iteration (one
+    host read per iteration). Same decisions and values."""
+    if kernel_jac and (assoc_linear or assoc_backward or scan_backward
+                       or jvp_linear):
+        raise ValueError("assoc_linear / assoc_backward / scan_backward / "
+                         "jvp_linear read dense LQ data: they need "
+                         "kernel_jac=False")
     if kernel_jac and model is not None:
         raise ValueError("kernel_jac=True is the default HKD model's path; "
                          "pass model=None or kernel_jac=False")
-    if not opt.MS:
-        raise NotImplementedError("single shooting (opt.MS = False) is not "
-                                  "ported")
+    if assoc_linear and jvp_linear:
+        raise ValueError("give at most one of assoc_linear and jvp_linear")
+    ms = bool(opt.MS)
+    parallel_rollout = parallel_rollout and ms
+    if parallel_rollout:
+        _refuse_wrong_parallel_rollout(prob)
     model = None if kernel_jac else (model or hkd_model_spec())
     precise.pin_full_f32()
 
@@ -138,7 +177,7 @@ def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
         if parallel_rollout:
             return ro_mod.hybrid_rollout_parallel(prob, st, eps, model,
                                                   du_eff=du_eff)
-        return ro_mod.hybrid_rollout(prob, st, eps, True, model)
+        return ro_mod.hybrid_rollout(prob, st, eps, ms, model)
 
     def cost_of(X, U, constr):
         return ro_mod.compute_cost(prob, X, U, constr, reb_on, al_on, model)
@@ -213,21 +252,30 @@ def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
                                               st.constr.reb_delta, rbe, sig,
                                               lam))
             st = _replace(st, dU=dU, K=K)
-            dX, dv1, dv2 = ro_mod.linear_rollout_jvp(
-                prob, st, c["X"], c["U"], c["defect"], 1.0, reb_active=reb_on,
-                al_active=al_on)
+            if ms:
+                dX, dv1, dv2 = ro_mod.linear_rollout_jvp(
+                    prob, st, c["X"], c["U"], c["defect"], 1.0,
+                    reb_active=reb_on, al_active=al_on)
+                st = _replace(st, dX=dX)
         else:
             lqd = lq_mod.lq_approximation(prob, c["X"], c["U"], st.constr,
                                           reb_on, al_on, model)
             dU, K, dv1, dv2, reg_new, ok_bw, bw_failed = \
                 backward.backward_sweep_regularized(
                     prob, c["defect"], reg, opt.update_regularization,
-                    last_node, lq=lqd, assoc_backward=assoc_backward)
+                    last_node, lq=lqd, assoc_backward=assoc_backward,
+                    scan=scan_backward, aug_sweep=aug_sweep)
             st = _replace(st, dU=dU, K=K)
-            lin = (assoc.linear_rollout_assoc if assoc_linear
-                   else ro_mod.linear_rollout)
-            dX, dv1, dv2 = lin(prob, st, lqd, c["defect"], 1.0)
-        st = _replace(st, dX=dX)
+            if ms and jvp_linear:
+                dX, dv1, dv2 = ro_mod.linear_rollout_jvp(
+                    prob, st, c["X"], c["U"], c["defect"], 1.0, lq=lqd,
+                    model=model)
+            elif ms:
+                lin = (assoc.linear_rollout_assoc if assoc_linear
+                       else ro_mod.linear_rollout)
+                dX, dv1, dv2 = lin(prob, st, lqd, c["defect"], 1.0)
+            if ms:
+                st = _replace(st, dX=dX)
 
         dv_abs = torch.abs(dv1 + 0.5 * dv2)
         merit_rho = torch.where(
@@ -283,6 +331,8 @@ def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
         for _ in range(int(opt.max_DDP_iter)):
             cc, reg, stop_in, iter_in = ic
             run = (iter_in < opt.max_DDP_iter) & ~stop_in
+            if not unroll_caps and not bool(run.any()):
+                break
             cc2, reg2, stop2 = inner_body(cc, reg)
             ic = tree_where(run, (cc2, reg2, stop2, iter_in + 1), ic)
         c = ic[0]
@@ -311,6 +361,8 @@ def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
     c = carry0
     for _ in range(int(opt.max_AL_iter)):
         run = (c["iter_ou"] < opt.max_AL_iter) & ~c["stop"]
+        if not unroll_caps and not bool(run.any()):
+            break
         c = tree_where(run, outer_body(c), c)
 
     return SolveResult(
@@ -322,15 +374,10 @@ def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
 
 
 def solve(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
-          kernel_jac: bool, model=None,
-          parallel_rollout: bool = True, assoc_linear: bool = False,
-          assoc_backward: bool = False) -> SolveResult:
+          kernel_jac: bool, **flags) -> SolveResult:
     """One scenario's solve: prob/state without a batch axis. Takes the
     same keywords as solve_batch."""
     res = solve_batch(tree_map(lambda a: a[None], prob),
                       tree_map(lambda a: a[None], state), opt,
-                      kernel_jac=kernel_jac, model=model,
-                      parallel_rollout=parallel_rollout,
-                      assoc_linear=assoc_linear,
-                      assoc_backward=assoc_backward)
+                      kernel_jac=kernel_jac, **flags)
     return tree_map(lambda a: a[0], res)

@@ -469,6 +469,7 @@ class HKDProblem:
             term_mask=f(pa["term_mask"]), term_contact=f(pa["term_contact"]),
             td_mask=f(pa["td_mask"]), ss_mask=f(pa["ss_mask"]),
             start_mask=f(pa["start_mask"]), x0=f(x0),
+            all_shooting=self.all_shooting(),
         )
         constr = ConstraintState(
             reb_delta=f(reb_delta),

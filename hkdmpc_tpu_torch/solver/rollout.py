@@ -12,11 +12,14 @@
 - compute_cost / cost_nodes / dynamics_feasibility / max_violations
 - linear_rollout: the search direction dX and expected cost change from the
   dense LQ data (lq.A/B and the cost partials)
-- linear_rollout_jvp (closed-form expected-cost change, the default HKD
-  model only): the tangent step A dx + B du (DYN) and Px dx (RESET) is taken
-  from A/B assembled out of the sparse Jacobian entries
+- linear_rollout_jvp: the same search direction with the tangent step taken
+  as a Jacobian-vector product. Without `lq`, the default HKD model's form
+  with the closed-form expected-cost change: A dx + B du (DYN) and Px dx
+  (RESET) from A/B assembled out of the sparse Jacobian entries
   (`ops/jac_tminor.build_AB_tminor`) — the same numbers `jax.jvp` of the JAX
-  package's dynamics/reset map gives, up to float reassociation.
+  package's dynamics/reset map gives, up to float reassociation. With `lq`,
+  any model's: `torch.func.jvp` through its `dynamics` / `reset_map`, the
+  expected cost change from the LQ partials.
 
 Every array carries a leading scenario axis B. `model=None` means
 `hkd_model_spec()`.
@@ -182,8 +185,13 @@ def node_active_mask(prob: ProblemData):
     return torch.cat([torch.ones_like(act[..., :1]), act], dim=-1)
 
 
-def dynamics_feasibility(defect):
-    """Defect 2-norm per scenario (parity: MultiPhaseDDP.cpp:514-529)."""
+def dynamics_feasibility(defect, norm_id: int = 2):
+    """Defect norm per scenario (parity:
+    Trajectory::measure_dynamics_feasibility, MultiPhaseDDP.cpp:514-529):
+    norm_id 2, the square root of the sum of squares; 1, the sum of
+    absolute values."""
+    if norm_id == 1:
+        return torch.sum(torch.abs(defect), dim=(-2, -1))
     return torch.sqrt(torch.sum(defect * defect, dim=(-2, -1)))
 
 
@@ -260,11 +268,25 @@ def last_active_node(prob: ProblemData):
 
 
 def linear_rollout_jvp(prob: ProblemData, state: SolverState, X, U, defect,
-                       eps, reb_active: bool = True, al_active: bool = True):
-    """Multiple-shooting search direction dX (B, T+1, 24) along (dU, K) and
-    the expected cost change (dV_1, dV_2) as closed-form Gauss-Newton
-    contractions (`linear_dv_tbatch`, the JAX package's use_closed_dv path).
-    Returns (dX, dV_1, dV_2)."""
+                       eps, reb_active: bool = True, al_active: bool = True,
+                       *, lq: LQData = None, model=None):
+    """Multiple-shooting search direction dX (B, T+1, xs) along (dU, K) with
+    the tangent step as a Jacobian-vector product, and the expected cost
+    change (dV_1, dV_2). Returns (dX, dV_1, dV_2).
+
+    lq=None (the JAX package's use_closed_dv=True; the default HKD model
+    only, model must be None): A dx + B du from the sparse Jacobian entries,
+    dV as closed-form Gauss-Newton contractions (`linear_dv_tbatch`).
+    lq=LQData (use_closed_dv=False; any `model`): the tangent through
+    `model.dynamics` / `model.reset_map` at the nominal (X, U) by
+    `torch.func.jvp`, dV from the LQ partials, lux included — `linear_rollout`
+    without reading lq.A / lq.B."""
+    if lq is not None:
+        return _linear_rollout_jvp_generic(prob, state, X, U, lq, defect, eps,
+                                           model or hkd_model_spec())
+    if model is not None:
+        raise ValueError("the closed-form expected cost change is the "
+                         "default HKD model's: give lq= for another model")
     last = last_active_node(prob)
     dtype = X.dtype
     eps = torch.as_tensor(eps, dtype=dtype, device=X.device)
@@ -287,6 +309,75 @@ def linear_rollout_jvp(prob: ProblemData, state: SolverState, X, U, defect,
     return dX, dv1, dv2
 
 
+def _step_dv(lq: LQData, t, dx, du):
+    """One transition's share of the expected cost change from the LQ
+    partials: (dv1, dv2) of a DYN step, (dv1, dv2) of a RESET step."""
+    dv1_dyn = (torch.sum(lq.lx[..., t, :] * dx, dim=-1)
+               + torch.sum(lq.lu[..., t, :] * du, dim=-1))
+    dv2_dyn = (precise.quad(dx, lq.lxx[..., t, :, :], dx)
+               + precise.quad(du, lq.luu[..., t, :, :], du))
+    if lq.lux is not None:
+        dv2_dyn = dv2_dyn + precise.quad(du, lq.lux[..., t, :, :], dx)
+    dv1_rst = torch.sum(lq.phix[..., t, :] * dx, dim=-1)
+    dv2_rst = precise.quad(dx, lq.phixx[..., t, :, :], dx)
+    return dv1_dyn, dv2_dyn, dv1_rst, dv2_rst
+
+
+def _linear_rollout_sums(prob, lq, dxs, dv1s, dv2s):
+    """(dX, dV_1, dV_2) from the per-transition lists of a linear rollout:
+    the sums plus the terminal partials at the last active node."""
+    last = last_active_node(prob).long()
+    lanes = torch.arange(last.shape[0], device=last.device)
+    dX = torch.stack(dxs, dim=-2)
+    dx_term = dX[lanes, last]
+    dV_1 = (torch.sum(torch.stack(dv1s, dim=-1), dim=-1)
+            + torch.sum(lq.phix[lanes, last] * dx_term, dim=-1))
+    dV_2 = (torch.sum(torch.stack(dv2s, dim=-1), dim=-1)
+            + precise.quad(dx_term, lq.phixx[lanes, last], dx_term))
+    return dX, dV_1, dV_2
+
+
+def _linear_rollout_jvp_generic(prob, state, X, U, lq, defect, eps, model):
+    """linear_rollout_jvp's lq= form. The model's functions take leading
+    batch dimensions and act per scenario, so one `torch.func.jvp` call per
+    transition gives every scenario's tangent; a branch is evaluated at a
+    transition only where some scenario takes it (the kinds are copied to
+    the host once per call)."""
+    eps = torch.as_tensor(eps, dtype=lq.lx.dtype, device=lq.lx.device)
+    kinds = prob.kind.cpu()
+    any_dyn = (kinds == DYN).any(dim=0).tolist()
+    any_rst = (kinds == RESET).any(dim=0).tolist()
+    dx = eps * defect[..., 0, :]
+    dxs, dv1s, dv2s = [dx], [], []
+    for t in range(prob.T):
+        x, u = X[..., t, :], U[..., t, :]
+        c, cn = prob.contact[..., t, :], prob.contact_next[..., t, :]
+        du = eps * state.dU[..., t, :] + precise.mv(state.K[..., t, :, :], dx)
+        dv1_dyn, dv2_dyn, dv1_rst, dv2_rst = _step_dv(lq, t, dx, du)
+        is_dyn = prob.kind[..., t] == DYN
+        is_rst = prob.kind[..., t] == RESET
+        dx_next = dx
+        if any_rst[t]:
+            _, jr = torch.func.jvp(lambda xx: model.reset_map(xx, c, cn),
+                                   (x,), (dx,))
+            dx_next = torch.where(is_rst[..., None],
+                                  jr + eps * defect[..., t + 1, :], dx_next)
+        if any_dyn[t]:
+            _, jd = torch.func.jvp(
+                lambda xx, uu: model.dynamics(xx, uu, c, prob.dt),
+                (x, u), (dx, du))
+            dx_next = torch.where(is_dyn[..., None],
+                                  jd + eps * defect[..., t + 1, :], dx_next)
+        dx = dx_next
+        zero = torch.zeros_like(dv1_dyn)
+        dv1s.append(torch.where(is_dyn, dv1_dyn,
+                                torch.where(is_rst, dv1_rst, zero)))
+        dv2s.append(torch.where(is_dyn, dv2_dyn,
+                                torch.where(is_rst, dv2_rst, zero)))
+        dxs.append(dx)
+    return _linear_rollout_sums(prob, lq, dxs, dv1s, dv2s)
+
+
 def linear_rollout(prob: ProblemData, state: SolverState, lq: LQData,
                    defect, eps):
     """Propagate the linearized dynamics along (dU, K) through the dense LQ
@@ -294,8 +385,6 @@ def linear_rollout(prob: ProblemData, state: SolverState, lq: LQData,
     expected cost change (dV_1, dV_2) (B,), from lq.A/B and the cost
     partials (parity: MultiPhaseDDP.cpp:20-50, SinglePhase.cpp:145-178).
     Returns (dX, dV_1, dV_2)."""
-    last = last_active_node(prob).long()
-    lanes = torch.arange(last.shape[0], device=last.device)
     eps = torch.as_tensor(eps, dtype=lq.lx.dtype, device=lq.lx.device)
     dx = eps * defect[..., 0, :]
     dxs, dv1s, dv2s = [dx], [], []
@@ -304,14 +393,7 @@ def linear_rollout(prob: ProblemData, state: SolverState, lq: LQData,
         Adx = precise.mv(lq.A[..., t, :, :], dx)
         dx_dyn = Adx + precise.mv(lq.B[..., t, :, :], du) \
             + eps * defect[..., t + 1, :]
-        dv1_dyn = (torch.sum(lq.lx[..., t, :] * dx, dim=-1)
-                   + torch.sum(lq.lu[..., t, :] * du, dim=-1))
-        dv2_dyn = (precise.quad(dx, lq.lxx[..., t, :, :], dx)
-                   + precise.quad(du, lq.luu[..., t, :, :], du))
-        if lq.lux is not None:
-            dv2_dyn = dv2_dyn + precise.quad(du, lq.lux[..., t, :, :], dx)
-        dv1_rst = torch.sum(lq.phix[..., t, :] * dx, dim=-1)
-        dv2_rst = precise.quad(dx, lq.phixx[..., t, :, :], dx)
+        dv1_dyn, dv2_dyn, dv1_rst, dv2_rst = _step_dv(lq, t, dx, du)
         dx_rst = Adx + eps * defect[..., t + 1, :]
         is_dyn = prob.kind[..., t] == DYN
         is_rst = prob.kind[..., t] == RESET
@@ -323,10 +405,4 @@ def linear_rollout(prob: ProblemData, state: SolverState, lq: LQData,
         dv2s.append(torch.where(is_dyn, dv2_dyn,
                                 torch.where(is_rst, dv2_rst, zero)))
         dxs.append(dx)
-    dX = torch.stack(dxs, dim=-2)
-    dx_term = dX[lanes, last]
-    dV_1 = (torch.sum(torch.stack(dv1s, dim=-1), dim=-1)
-            + torch.sum(lq.phix[lanes, last] * dx_term, dim=-1))
-    dV_2 = (torch.sum(torch.stack(dv2s, dim=-1), dim=-1)
-            + precise.quad(dx_term, lq.phixx[lanes, last], dx_term))
-    return dX, dV_1, dV_2
+    return _linear_rollout_sums(prob, lq, dxs, dv1s, dv2s)

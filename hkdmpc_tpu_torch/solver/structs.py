@@ -20,10 +20,14 @@ PAD, DYN, RESET = 0, 1, 2
 
 
 def tree_map(fn, obj):
-    """Apply fn to every tensor leaf of a (nested) struct dataclass."""
+    """Apply fn to every tensor leaf of a (nested) struct dataclass. A leaf
+    that is None or a bool is a host-side note (`ProblemData.all_shooting`)
+    and passes through as it is."""
     if dataclasses.is_dataclass(obj):
         return type(obj)(**{f.name: tree_map(fn, getattr(obj, f.name))
                             for f in dataclasses.fields(obj)})
+    if obj is None or isinstance(obj, bool):
+        return obj
     return fn(obj)
 
 
@@ -67,6 +71,12 @@ class ProblemData:
     ss_mask: torch.Tensor       # (T+1,) 1 if node is a shooting node
     start_mask: torch.Tensor    # (T+1,) 1 at phase-start nodes
     x0: torch.Tensor            # (24,)  initial condition
+    # host-side note, not a tensor: whether every active node is a shooting
+    # node, where the maker knew it from its numpy schedule
+    # (`HKDProblem.build`); None where it is not known (a problem assembled
+    # from arrays). `ddp.solve_batch` reads it to refuse a wrong
+    # `parallel_rollout=True` without reading the device.
+    all_shooting: object = None
 
     @property
     def T(self) -> int:
@@ -178,6 +188,8 @@ def from_numpy(tree, device, dtype):
     def build(cls, d):
         kw = {}
         for f in dataclasses.fields(cls):
+            if f.name not in d and f.default is not dataclasses.MISSING:
+                continue  # a host-side note keeps its default
             v = d[f.name]
             kw[f.name] = (build(ConstraintState, v) if f.name == "constr"
                           else _to_tensor(v, device, dtype))

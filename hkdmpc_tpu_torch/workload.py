@@ -1,7 +1,8 @@
 """The in-repo workloads: a GaitSynthesizer trot from the stand pose
 (`mpc.solver.default_stand_state`) with the HSDDPOption and
-ConstraintParams defaults, gait files for the fleet, and the fleet's seeded
-measurement stream.
+ConstraintParams defaults, gait files for the fleet, the fleet's seeded
+measurement stream, and what the MPC service needs beside a gait: stand-in
+LCM type files and request messages.
 
 With the default 0.6 s plan the trot problem has T = 75 transitions (60 DYN,
 4 RESET, 11 PAD); the 2.0 s plan has T = 250. At initialization every node
@@ -36,6 +37,80 @@ def gait_file(gait: str, directory: str) -> str:
     FleetMPC takes; returns its path."""
     return GaitSynthesizer().write(os.path.join(directory, f"{gait}.csv"),
                                    GAIT_SEGMENTS[gait])
+
+
+# Stand-ins for the reference's lcmtypes/*.lcm, one struct per file
+_LCM_SCHEMAS = {
+    "hkd_data_lcmt": """
+        boolean reset_mpc;
+        boolean MS;
+        double mpctime;
+        int32_t contact[4];
+        float p[3];
+        float vWorld[3];
+        float rpy[3];
+        float omegaBody[3];
+        float qJ[12];
+        float foot_placements[12];""",
+    "hkd_command_lcmt": """
+        int32_t N_mpcsteps;
+        double mpc_times[10];
+        float hkd_controls[10][24];
+        float des_body_state[10][12];
+        int32_t contacts[10][4];
+        double statusTimes[10][4];
+        float foot_placement[12];
+        float feedback[10][12][12];
+        float solve_time;""",
+    "solver_info_lcmt": """
+        int32_t n_iter;
+        float cost[n_iter];
+        float dyn_feas[n_iter];
+        float eqn_feas[n_iter];
+        float ineq_feas[n_iter];""",
+    "solver_intermtraj_lcmt": """
+        int32_t tau_sz;
+        int32_t x_sz;
+        int32_t u_sz;
+        float x_tau[tau_sz][x_sz];
+        float u_tau[tau_sz][u_sz];""",
+    "opt_sol_lcmt": """
+        int32_t N;
+        float qdummy[N][12];
+        int32_t contacts[N][4];""",
+}
+
+
+def lcmtypes_dir(directory: str) -> str:
+    """Write stand-in `.lcm` schemas of the five message types the MPC
+    service reads and writes into `directory` (one file per struct) and
+    return it: the directory `MPCService(lcmtypes_dir=)` and
+    `comm.lcm_types.load_reference_types` take, as `gait_file` writes the
+    gait a solver takes.
+
+    The member names, array shapes and length members are the ones the code
+    uses (`mpc/runtime.py`, `MPCCommand.to_lcm_dict`: 10 command slots, 24
+    controls, 12 body states, 12 x 12 gains). **Not verified** against the
+    reference's own lcmtypes/*.lcm, which are not in this repository: each
+    member's primitive type (float or double, int32_t or int8_t) and the
+    order of the members. Both enter the type hash, so the fingerprints of
+    these stand-ins need not be those on the reference's wire; a robot-side
+    controller needs the real files."""
+    os.makedirs(directory, exist_ok=True)
+    for name, body in _LCM_SCHEMAS.items():
+        with open(os.path.join(directory, f"{name}.lcm"), "w") as f:
+            f.write(f"struct {name}\n{{{body}\n}}\n")
+    return directory
+
+
+def mpc_data_message(meas: dict, mpc_time: float, *, reset_mpc: bool = False,
+                     MS: bool = True) -> dict:
+    """One robot's `hkd_data_lcmt` request from a measurement dict
+    (rpy, p, v, omega, qJ: one row of `meas_stream(1, seed)`)."""
+    return {"reset_mpc": reset_mpc, "MS": MS, "mpctime": mpc_time,
+            "contact": [1, 1, 1, 1], "p": meas["p"], "vWorld": meas["v"],
+            "rpy": meas["rpy"], "omegaBody": meas["omega"], "qJ": meas["qJ"],
+            "foot_placements": np.zeros(12, np.float32)}
 
 
 def meas_stream(n_robots: int, seed: int):

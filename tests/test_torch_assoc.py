@@ -12,7 +12,8 @@ to each output's magnitude unless said otherwise:
 - `associative_scan`, `affine_prefix` against a Python loop: 1e-10 absolute;
 - `linear_rollout_assoc` against the JAX function and the port's dense
   `linear_rollout`: 1e-9;
-- `riccati_backward_assoc` against the port's sequential `backward_sweep`
+- `riccati_backward_assoc` against the port's sequential
+  `backward_sweep_arrays`
   at T = 75: 1e-8 on dU, K, dv1, dv2, `ok` equal; against the JAX
   `riccati_backward_assoc` at plan 0.1 s (its XLA:CPU compile grows with the
   horizon): 1e-9, `ok` equal."""
@@ -216,10 +217,11 @@ def trot_lq(request):
 
 
 def _seq_sweep(prob, l, defect, reg, last):
-    """The port's sequential sweep; with lux it goes into Qux step by step,
-    which `backward_sweep` has no argument for: lux None only."""
-    return backward.backward_sweep(prob.kind, l.A, l.B, l.lx, l.lu, l.lxx,
-                                   l.luu, l.phix, l.phixx, defect, reg, last)
+    """The port's sequential sweep from plain tensors, the kernels' plain
+    core (without lux: the callers' LQ data has none)."""
+    return backward.backward_sweep_arrays(
+        prob.kind, l.A, l.B, l.lx, l.lu, l.lxx, l.luu, l.phix, l.phixx,
+        defect, reg, last)
 
 
 def _jax_lq(l, i):
@@ -231,7 +233,7 @@ def _jax_lq(l, i):
 def _jax_prob(prob, i):
     from tests._torch_twin import jax_struct
     tree = {f.name: getattr(prob, f.name)[i].numpy()
-            for f in dataclasses.fields(prob)}
+            for f in dataclasses.fields(jstructs.ProblemData)}
     return jax_struct(jstructs.ProblemData, tree)
 
 

@@ -13,7 +13,9 @@ kernel's error against the plain version in f64 must stay within
 max(10 x the plain-f32 error, 1e-5) per output, and `ok` agree on at least
 99.9% of scenarios, as in chip_smoke.py. The f32 solves on the card are held
 to the f64 solves on the CPU (the analog of
-test_fast_paths.py::test_f32_batch_final_cost_matches_f64_oracle)."""
+test_fast_paths.py::test_f32_batch_final_cost_matches_f64_oracle), and so
+are the fleet, the single-robot solver and the MPC service; a model that is
+not 24 wide solves on the card through the scan sweep."""
 import dataclasses
 
 import numpy as np
@@ -75,6 +77,9 @@ def _interleave(a, b):
         return type(a)(**{f.name: _interleave(getattr(a, f.name),
                                               getattr(b, f.name))
                           for f in dataclasses.fields(a)})
+    if not isinstance(a, torch.Tensor):
+        assert a == b       # a host-side note, the same on both
+        return a
     return torch.stack([a, b], dim=1).reshape((-1,) + tuple(a.shape[1:]))
 
 
@@ -404,4 +409,169 @@ def test_f32_single_robot_on_card_matches_f64_cpu(cuda, assoc, tmp_path):
             assert launched == 0 if assoc else launched >= 2 * len(meas)
     rel = np.abs(np.array(costs["cuda"]) - costs["cpu"]) / np.abs(
         costs["cpu"])
+    assert float(rel.max()) < 1e-4, rel
+
+
+class _ScriptedTransport:
+    """An in-memory transport for the service: hands out its requests in
+    order, records what is published."""
+
+    def __init__(self, messages):
+        self.todo, self.published = list(messages), []
+
+    def subscribe(self, channel):
+        pass
+
+    def publish(self, channel, data):
+        self.published.append((channel, bytes(data)))
+
+    def receive(self, timeout_ms=100):
+        return ("mpc_data", self.todo.pop(0)) if self.todo else None
+
+
+def test_f32_service_on_card_matches_f64_cpu_service(cuda, tmp_path):
+    """The MPC service on the card (f32, the fused step on K2 at B = 1)
+    against the service on the CPU in f64, same requests: two updates, a
+    single-shooting reset, an update. Every solver_info's final cost within
+    5e-3 relative and every command's controls and body states within 1e-1
+    of their magnitude (the worst-case limits chip_smoke.py holds f32
+    single-robot runs to), K2 launched at least twice per update."""
+    from hkdmpc_tpu_torch.comm.lcm_types import load_reference_types
+    from hkdmpc_tpu_torch.mpc.runtime import MPCService
+    from hkdmpc_tpu_torch.mpc.solver import HKDMPCSolver, MPCConfig
+    from hkdmpc_tpu_torch.workload import (gait_file, lcmtypes_dir,
+                                           meas_stream, mpc_data_message)
+
+    ref = gait_file("trot", str(tmp_path))
+    lcm_dir = lcmtypes_dir(str(tmp_path / "lcmtypes"))
+    types = load_reference_types(lcm_dir)
+    stream = meas_stream(1, 0)
+    script = ((False, True), (False, True), (True, False), (False, False))
+    requests = [types["hkd_data_lcmt"].encode(mpc_data_message(
+        {k: v[0] for k, v in stream(i).items()}, 0.01 * i, reset_mpc=r,
+        MS=ms)) for i, (r, ms) in enumerate(script)]
+    cfg = MPCConfig(fused_step=True, assoc_linear=False, assoc_backward=False)
+    out = {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        s = HKDMPCSolver(ref, config=cfg, dtype=dtype, device=dev)
+        s.initialize()
+        tx = _ScriptedTransport(requests)
+        before = riccati_dense.LAUNCHES
+        MPCService(s, tx, lcm_dir).run(max_messages=len(requests))
+        if dev == "cuda":
+            assert riccati_dense.LAUNCHES - before >= 2 * len(requests)
+        assert not s.opt.MS
+        out[dev] = (
+            [types["hkd_command_lcmt"].decode(b) for c, b in tx.published
+             if c == "mpc_command"],
+            [types["solver_info_lcmt"].decode(b) for c, b in tx.published
+             if c == "solver_info"])
+    (cmds, infos), (cmds64, infos64) = out["cuda"], out["cpu"]
+    assert len(cmds) == len(infos) == len(requests)
+    for k in range(len(requests)):
+        assert infos[k]["n_iter"] == infos64[k]["n_iter"] >= 1
+        cost, cost64 = infos[k]["cost"][-1], infos64[k]["cost"][-1]
+        assert abs(cost - cost64) <= 5e-3 * abs(cost64), (k, cost, cost64)
+        for name in ("hkd_controls", "des_body_state"):
+            a, b = cmds[k][name], cmds64[k][name]
+            assert np.isfinite(a).all()
+            assert np.max(np.abs(a - b)) <= 1e-1 * max(1.0, np.max(np.abs(b)))
+        np.testing.assert_array_equal(cmds[k]["contacts"],
+                                      cmds64[k]["contacts"])
+
+
+def _falling_mass(device, dtype, heights):
+    """A point mass (x = height, velocity; u = thrust), 12 Euler steps, a
+    quadratic cost toward 1 m: the smallest ModelSpec problem, xs = 2,
+    us = 1. Returns (spec, prob, state)."""
+    from hkdmpc_tpu_torch.solver import model_api
+    from hkdmpc_tpu_torch.solver import structs as S
+    T, nb = 12, len(heights)
+
+    def dyn(x, u, contact, dt):
+        return torch.stack([x[..., 0] + dt * x[..., 1],
+                            x[..., 1] + dt * (u[..., 0] - 9.81)], -1)
+
+    def dyn_jac(x, u, contact, dt):
+        A = torch.eye(2, dtype=x.dtype, device=x.device).expand(
+            x.shape[:-1] + (2, 2)).clone()
+        A[..., 0, 1] = dt
+        B = x.new_zeros(x.shape[:-1] + (2, 1))
+        B[..., 1, 0] = dt
+        return A, B
+
+    def e0(x, v):
+        out = torch.zeros_like(x)
+        out[..., 0] = v
+        return out
+
+    class Height(model_api.CostTerm):
+        def running(self, x, u, ctx):
+            d = x[..., 0] - 1.0
+            return ctx["dt"] * (0.5 * d * d + 0.5e-3 * u[..., 0] ** 2)
+
+        def running_partials(self, x, u, ctx):
+            dt = ctx["dt"]
+            lxx = x.new_zeros(x.shape + (2,))
+            lxx[..., 0, 0] = dt
+            return (e0(x, dt * (x[..., 0] - 1.0)), dt[..., None] * 1e-3 * u,
+                    lxx, (dt * 1e-3)[..., None, None].expand(
+                        u.shape + (1,)).clone(), None)
+
+        def terminal(self, x, ctx):
+            return 5.0 * (x[..., 0] - 1.0) ** 2
+
+        def terminal_partials(self, x, ctx):
+            phixx = x.new_zeros(x.shape + (2,))
+            phixx[..., 0, 0] = 10.0
+            return e0(x, 10.0 * (x[..., 0] - 1.0)), phixx
+
+    spec = model_api.ModelSpec(
+        dynamics=dyn, dynamics_jacobians=dyn_jac,
+        reset_map=lambda x, c, cn: x,
+        reset_map_jacobian=lambda x, c, cn: torch.eye(
+            2, dtype=x.dtype, device=x.device).expand(x.shape[:-1] + (2, 2)),
+        cost_terms=[Height()], xs=2, us=1)
+    z = lambda *s: np.zeros((nb,) + s)
+    term_mask, start_mask = z(T + 1), z(T + 1)
+    term_mask[:, T] = start_mask[:, 0] = 1.0
+    x0 = z(2)
+    x0[:, 0] = heights
+    prob = S.from_numpy(dict(
+        kind=np.full((nb, T), S.DYN, np.int32), contact=z(T, 4),
+        contact_next=z(T, 4), dt=np.full(nb, 0.02), xr=z(T + 1, 2),
+        ur=z(T + 1, 1), foot_r=z(T + 1, 12), term_mask=term_mask,
+        term_contact=z(T + 1, 4), td_mask=z(T + 1, 4),
+        ss_mask=np.ones((nb, T + 1)), start_mask=start_mask, x0=x0),
+        device, dtype)
+    empty = lambda n: torch.zeros((nb, n, 0), dtype=dtype, device=device)
+    state = S.SolverState.init(prob, S.ConstraintState(
+        reb_delta=empty(T), reb_delta_min=empty(T), reb_eps=empty(T),
+        al_lambda=empty(T + 1), al_sigma=empty(T + 1),
+        al_sigma_max=empty(T + 1)))
+    return spec, prob, state
+
+
+def test_narrow_model_takes_the_scan_route_on_card(cuda):
+    """A model that is not 24 wide solves on the card where the caller asks
+    for the scan sweep (`scan_backward=True`, plain tensor code): K2 is not
+    launched. Without it the dense route refuses, naming that way out: it
+    never gives way to the scan sweep by itself on the card. f32 on the card
+    against f64 on the CPU: final costs within 1e-4 relative."""
+    opt = HSDDPOption(max_DDP_iter=8, max_AL_iter=1, AL_active=False,
+                      ReB_active=False)
+    res = {}
+    before = riccati_dense.LAUNCHES
+    spec, prob, state = _falling_mass(cuda, torch.float32, [2.0, 1.5, 0.7])
+    with pytest.raises(NotImplementedError, match="scan_backward=True"):
+        ddp.solve_batch(prob, state, opt, kernel_jac=False, model=spec)
+    for dev, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        spec, prob, state = _falling_mass(dev, dtype, [2.0, 1.5, 0.7])
+        res[dtype] = ddp.solve_batch(prob, state, opt, kernel_jac=False,
+                                     model=spec, scan_backward=True)
+    assert riccati_dense.LAUNCHES == before
+    got, want = res[torch.float32], res[torch.float64]
+    assert got.cost.device.type == "cuda"
+    assert not bool(got.solve_failed.any()) and int(want.n_iters.min()) >= 1
+    rel = (got.cost.cpu().double() - want.cost).abs() / want.cost.abs()
     assert float(rel.max()) < 1e-4, rel

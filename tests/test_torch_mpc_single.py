@@ -14,6 +14,8 @@ step against its classic step: the same. The port with
 assoc_backward=True against False (the JAX one compiles for minutes on the
 CPU): n_iters and solve_failed exactly, cost rtol 1e-8, controls and body
 rtol 1e-6 / atol 1e-8, gains rtol 1e-5 / atol 1e-6."""
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -209,11 +211,17 @@ def test_async_halves_and_runtime_errors(run):
         ts.update_fused_complete()
     ts.update_async(*args, mpc_time=0.0)
     assert ts.mpc_iter == 1
-    assert ts.fused_ready()                # the CPU step ran in the call
+    deadline = time.monotonic() + 120.0    # the step runs in the worker
+    while not ts.fused_ready() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert ts.fused_ready()
     with pytest.raises(RuntimeError, match="in-flight"):
         ts.update_fused_dispatch(*args)
     with pytest.raises(RuntimeError, match="in-flight"):
         ts.update_async(*args)
+    with pytest.raises(RuntimeError, match="in-flight"):
+        ts.update(*args)
+    assert ts.mpc_iter == 1                # a refused call counts nothing
     cmd = ts.update_fused_complete()
     assert not ts.fused_ready()
     assert_commands_match(cmd, run["frecs"][0]["cmd"], "async halves")

@@ -7,7 +7,8 @@ default model's kernel_jac path, the dense path with the swing constraint),
 step a small fleet and carry it through a checkpoint (`mpc.fleet`,
 `mpc.fused`, `utils.checkpoint`), initialize and update the single-robot
 solver on both step paths with the parallel-in-time recursions
-(`mpc.solver`, `ops.assoc`), then check that neither `jax` nor `hkdmpc_tpu` (nor any
+(`mpc.solver`, `ops.assoc`), serve three requests through the MPC service
+(`comm`, `mpc.runtime`), then check that neither `jax` nor `hkdmpc_tpu` (nor any
 `hkdmpc_tpu.*`) is in sys.modules. A source scan refuses `import jax`,
 `import hkdmpc_tpu` and `from hkdmpc_tpu...` in every module of the port and
 in `chip_smoke.py`."""
@@ -68,6 +69,34 @@ with tempfile.TemporaryDirectory() as d:
         cmd = s.update(m["rpy"], m["p"], m["v"], m["omega"], m["qJ"])
         assert np.isfinite(cmd.feedback).all()
         assert not s.last_result.solve_failed
+    # the MPC service: comm/ and mpc/runtime.py, three requests (an update,
+    # a single-shooting reset, an update) over an in-memory transport
+    import time
+    from hkdmpc_tpu_torch import comm
+    from hkdmpc_tpu_torch.comm.lcm_types import load_reference_types
+    from hkdmpc_tpu_torch.mpc.runtime import MPCService
+    from hkdmpc_tpu_torch.workload import lcmtypes_dir, mpc_data_message
+    types = load_reference_types(lcmtypes_dir(os.path.join(d, "lcmtypes")))
+    class Transport:
+        def __init__(self, todo):
+            self.todo, self.out = todo, []
+        def subscribe(self, channel):
+            pass
+        def publish(self, channel, data):
+            self.out.append((channel, data))
+        def receive(self, timeout_ms=100):
+            if self.todo:
+                return "mpc_data", self.todo.pop(0)
+            time.sleep(timeout_ms / 1e3)
+    tx = Transport([types["hkd_data_lcmt"].encode(mpc_data_message(
+        m, 0.01 * k, reset_mpc=(k == 1), MS=False)) for k in range(3)])
+    svc = MPCService(s, tx, os.path.join(d, "lcmtypes"))
+    svc.run(max_messages=3)
+    assert [c for c, _ in tx.out] == ["mpc_command", "solver_info"] * 3
+    cmd = types["hkd_command_lcmt"].decode(tx.out[-2][1])
+    assert np.isfinite(cmd["hkd_controls"]).all() and not s.opt.MS
+    assert types["solver_info_lcmt"].decode(tx.out[-1][1])["n_iter"] >= 1
+    s.close()
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 reference_pkg = sorted(m for m in sys.modules
                        if m == "hkdmpc_tpu" or m.startswith("hkdmpc_tpu."))

@@ -67,7 +67,7 @@ def _fields(obj, prefix=""):
         v = getattr(obj, f.name)
         if dataclasses.is_dataclass(v):
             yield from _fields(v, prefix + f.name + ".")
-        else:
+        elif not (v is None or isinstance(v, bool)):   # no host-side note
             yield prefix + f.name, v
 
 
