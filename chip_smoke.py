@@ -2,9 +2,10 @@
 """GPU check of the PyTorch/CUDA port (`hkdmpc_tpu_torch`): builds the two
 CUDA Riccati kernels, holds each against its plain PyTorch version on the
 card, drives both batched solve paths once at full width, steps the fleet
-MPC at full width, steps the single-robot MPC on its three paths, and
-serves requests through the MPC service, scripted and at 100 Hz over the
-native transport.
+MPC at full width, steps the single-robot MPC on its three paths, serves
+requests through the MPC service, scripted and at 100 Hz over the native
+transport, and runs the sharded solve and fleet on an NCCL group, the stage
+timer, the reference-format logs and the examples' loops.
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
 
@@ -101,12 +102,31 @@ Phases, one line each:
      run_async (the solve in the worker thread, the loop polling beside
      it): ms per update and updates/s of each; the ratio of the two must
      stay under 3, so a poller that starves the launching thread fails.
+ 10. scale-out, utilities and examples. (a) `init_multihost` joins an NCCL
+     group of one process (a TCP store on 127.0.0.1 at a free port, bound to
+     cuda:0), then `solve_sharded` on phase 3's inputs (B = 4096, T = 75,
+     f32, runtime caps, kernel_jac): K1 launched, every final cost within
+     1e-6 relative of `solve_batch` on the same inputs, `agg` equal to the
+     host reductions of the result; ms per solve (sharded, solve_batch,
+     solve_batch, sharded) beside phase 3's. (b) `FleetMPC(mesh=)` N = 1024
+     against an unsharded fleet on the same measurement stream, 2 + 8 steps
+     (`rollout_steps(keep_bundles=True)`): every step's commands within 1e-5;
+     then the group is destroyed. (c) `utils.timing.profile_solve` at
+     B = 4096 on the default model (runtime caps: the sequential rollout 9
+     times, K2 in the backward stage): the StageTimer summary and K2's
+     launches. (d) `utils.logging.log_solution` of phase 8's classic solver
+     on the card against the same state's log in f64 on the CPU: row counts
+     as the phases dictate, values within 1e-3 of their magnitude. (e) the
+     two examples' loops on the card (10 steps; the fleet with 4 robots):
+     finite heights and logs, K2 / K1 launched; no plot (matplotlib is not
+     needed on the card's machine; the CPU tests run the plots). A failed
+     NCCL initialization or collective fails the run.
 Each solve path runs with its kernel's launch count set to 0 just before it
 and read just after. Then one JSON line with both kernels (name, route,
 source, replaces, launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
 library_ms, ms_b1024, threads_per_block, smem_bytes, blocks_per_sm; K1 also
-fleet_launches; K2 also mpc_launches, service_launches, ms_b1, plain_ms_b1,
-bound_ms_b1), the card's name and power limit, and the result line. Any
+fleet_launches, sharded_launches; K2 also mpc_launches, service_launches,
+profile_launches, ms_b1, plain_ms_b1, bound_ms_b1), the card's name and power limit, and the result line. Any
 failure raises and exits non-zero. No CUDA device: exit 1.
 """
 
@@ -154,6 +174,12 @@ SERVICE_RATE_HZ = 100.0
 SERVICE_URL = f"udpm://239.255.76.67:{7700 + os.getpid() % 400}?ttl=0"
 SERVICE_POLLER_MAX_RATIO = 3.0  # phase 9 (c): run_async's solve over run's
 SERVICE_POLLER_REQUESTS = 8     # phase 9 (c)
+SHARDED_FLEET_STEPS = 8         # phase 10 (b): after FLEET_WARMUP
+EXAMPLE_STEPS = 10              # phase 10 (e)
+EXAMPLE_ROBOTS = 4
+# what later phases read of earlier ones: the ms per solve of phases 3 and
+# 5, and phase 8's classic single-robot solver
+KEPT = {}
 
 
 def _torch():
@@ -425,6 +451,7 @@ def slice_run(torch, phase, label, run, counter, plain_route, card, batch,
                              f"from the plain-path solve by {rel:.3e} rel")
 
     ms = cuda_ms(torch, lambda: run(prob_b, state_b, optr), 5)
+    KEPT[f"phase{phase}_ms"] = ms
     print(f"phase {phase} {label}: B={batch} T={prob_b.T} f32 runtime caps"
           f" (AL {optr.max_AL_iter} x DDP {optr.max_DDP_iter}); kernel "
           f"launches {launches}; 0/{batch} failed; mean cost "
@@ -705,6 +732,7 @@ def mpc_run(torch, ref, label, stream, **cfg):
             rec["cmds"].append(cmd)
         rec["k2_launches"] = riccati_dense.LAUNCHES
         rec["assoc_sweeps"] = sweeps["riccati_backward_assoc"]
+    rec["solver"] = solver
     return rec
 
 
@@ -839,6 +867,7 @@ def mpc_phase(card):
                                  f"{len(rec['ms'])} updates")
     mpc_compare(a, b)
     mpc_compare(b, c)
+    KEPT["mpc_solver"] = c["solver"]
 
     prob_b, state_b, _ = trot_batch(torch, 1, torch.float32)
     args = dense_kernel_inputs(torch, prob_b, state_b, None)
@@ -1276,6 +1305,260 @@ def service_phase(card):
     return {"service_launches": launches}
 
 
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_solve(torch, card, mesh, batch=BATCH):
+    """Phase 10 (a): solve_sharded on the NCCL group of one process, on
+    phase 3's inputs, against solve_batch on them. Returns K1's launches
+    over the sharded solve."""
+    from hkdmpc_tpu_torch.ops import riccati_hkd
+    from hkdmpc_tpu_torch.parallel.batch import solve_sharded
+    from hkdmpc_tpu_torch.solver import ddp
+    prob_b, state_b, opt = trot_batch(torch, batch, torch.float32)
+    optr = opt.runtime()
+    ref = ddp.solve_batch(prob_b, state_b, optr, kernel_jac=True)
+    riccati_hkd.LAUNCHES = 0
+    res, agg = solve_sharded(prob_b, state_b, optr, mesh, kernel_jac=True)
+    torch.cuda.synchronize()
+    launches = riccati_hkd.LAUNCHES
+    check_solve(torch, res, batch, prob_b.T)
+    rel = float(((res.cost - ref.cost).abs() / ref.cost.abs()).max())
+    host = {"mean_cost": float(res.cost.double().mean()),
+            "max_tconstr": float(res.max_tconstr.max()),
+            "max_feas": float(res.dyn_feas.max()),
+            "n_failed": int(res.solve_failed.sum())}
+    agg_err = max(abs(agg[k] - host[k]) / max(1.0, abs(host[k]))
+                  for k in host)
+    sharded = lambda: solve_sharded(prob_b, state_b, optr, mesh,
+                                    kernel_jac=True)
+    plain = lambda: ddp.solve_batch(prob_b, state_b, optr, kernel_jac=True)
+    ms = [cuda_ms(torch, f, 3) for f in (sharded, plain, plain, sharded)]
+    print(f"phase 10 (a) solve_sharded, {torch.distributed.get_backend()}, "
+          f"world size {mesh.size} (rank "
+          f"{mesh.rank}, {mesh.device}): B={batch} T={prob_b.T} f32 runtime "
+          f"caps kernel_jac; K1 launches {launches}; final costs vs "
+          f"solve_batch on the same inputs max {rel:.3e} rel (limit 1e-6); "
+          f"agg {json.dumps(agg)} vs the host reductions of the result max "
+          f"{agg_err:.3e} rel; ms per solve (CUDA events, median of 3, "
+          f"sharded / solve_batch / solve_batch / sharded): "
+          + " / ".join(f"{m:.3f}" for m in ms)
+          + f"; phase 3 {KEPT['phase3_ms']:.3f} ms; on {card}", flush=True)
+    if launches < 2:
+        raise AssertionError(f"phase 10 (a): K1 launched {launches} times")
+    if not rel <= 1e-6 or not agg_err <= 1e-6 or agg["n_failed"]:
+        raise AssertionError(f"phase 10 (a): costs {rel:.3e} rel, agg "
+                             f"{agg} vs {host}")
+    return launches
+
+
+def sharded_fleet(torch, card, mesh, n=FLEET_N, steps=SHARDED_FLEET_STEPS):
+    """Phase 10 (b): FleetMPC(mesh=) against an unsharded fleet on the same
+    measurement stream, FLEET_WARMUP + steps steps (the timed ones with
+    keep_bundles=True); every step's commands within 1e-5. Returns K1's
+    launches over the sharded fleet's timed steps."""
+    import tempfile
+    from hkdmpc_tpu_torch.mpc.fleet import FleetConfig, FleetMPC
+    from hkdmpc_tpu_torch.ops import riccati_hkd
+    from hkdmpc_tpu_torch.workload import gait_file, meas_stream
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as d:
+        ref = gait_file("trot", d)
+        for label, m in (("sharded", mesh), ("unsharded", None)):
+            f = FleetMPC(ref, n, config=FleetConfig(), dtype=torch.float32,
+                         device="cuda", mesh=m)
+            init = f.initialize()
+            stream = meas_stream(n, SEED)
+            f.rollout_steps(FLEET_WARMUP, stream)
+            riccati_hkd.LAUNCHES = 0
+            t0 = time.perf_counter()
+            bundles = f.rollout_steps(steps, stream,
+                                      mpc_time0=0.01 * FLEET_WARMUP,
+                                      keep_bundles=True)
+            runs[label] = dict(
+                init=init, launches=riccati_hkd.LAUNCHES,
+                ms=(time.perf_counter() - t0) * 1e3 / steps,
+                out=[f.unpack(b) for b in bundles], rows=f.rows)
+    sh, un = runs["sharded"], runs["unsharded"]
+    worst = 0.0
+    for a, b in zip(sh["out"], un["out"]):
+        for name in ("controls", "body", "gains"):
+            if not np.isfinite(a[name]).all():
+                raise AssertionError(f"phase 10 (b): {name} not finite")
+            worst = max(worst, float(np.max(np.abs(a[name] - b[name][
+                sh["rows"]])) / max(1.0, np.max(np.abs(b[name])))))
+    failed = int((sh["out"][-1]["scalars"][:, 5] > 0).sum())
+    mine = sh["rows"].stop - sh["rows"].start
+    print(f"phase 10 (b) FleetMPC(mesh=) N={n} ({mine} on this rank) trot plan 0.6 s f32: cold solve through "
+          f"solve_sharded, agg mean cost {sh['init']['mean_cost']:.6g} "
+          f"(unsharded {un['init']['mean_cost']:.6g}), n_failed "
+          f"{sh['init']['n_failed']}; {steps} steps after {FLEET_WARMUP} "
+          f"warm-up (rollout_steps, keep_bundles=True): commands vs the "
+          f"unsharded fleet max {worst:.3e} of their magnitude (limit 1e-5); "
+          f"K1 launches {sh['launches']} ({sh['launches'] / steps:.2f}/step)"
+          f"; {sh['ms']:.3f} ms/step sharded, {un['ms']:.3f} unsharded (host"
+          f" clock); last step {failed}/{n} failed; on {card}", flush=True)
+    if not worst <= 1e-5 or failed or sh["init"]["n_failed"]:
+        raise AssertionError(f"phase 10 (b): commands {worst:.3e}, "
+                             f"{failed} failed")
+    if sh["launches"] < 2 * steps:
+        raise AssertionError(f"phase 10 (b): K1 launched {sh['launches']} "
+                             f"times in {steps} steps")
+    return sh["launches"]
+
+
+def profile_phase(torch, card, batch=BATCH):
+    """Phase 10 (c): utils.timing.profile_solve at full batch on the
+    default model, runtime caps. Returns K2's launches over it."""
+    from hkdmpc_tpu_torch.ops import riccati_dense
+    from hkdmpc_tpu_torch.utils.timing import StageTimer, profile_solve
+    prob_b, state_b, opt = trot_batch(torch, batch, torch.float32)
+    timer = StageTimer()
+    riccati_dense.LAUNCHES = 0
+    t0 = time.perf_counter()
+    st = profile_solve(prob_b, state_b, opt.runtime(), timer)
+    torch.cuda.synchronize()
+    total = (time.perf_counter() - t0) * 1e3
+    launches = riccati_dense.LAUNCHES
+    s = timer.summary()
+    if not bool(torch.isfinite(st.Ubar).all()) or not bool(
+            torch.isfinite(st.Xbar).all()):
+        raise AssertionError("phase 10 (c): the profiled state is not finite")
+    n_bws = sum(r.n_bws for r in timer.records)
+    print(f"phase 10 (c) utils.timing.profile_solve: B={batch} T={prob_b.T} "
+          f"f32 default model, {s['iterations']} iterations (runtime caps), "
+          f"sequential rollout, dense LQ, K2 backward: {total:.3f} ms in all "
+          f"(host clock, a device synchronize at each stage's end); "
+          f"StageTimer summary (ms): rollout {s['time_rollout_ms']:.3f}, "
+          f"partial {s['time_partial_ms']:.3f}, backward "
+          f"{s['time_bws_ms']:.3f} ({n_bws} sweeps), line search "
+          f"{s['time_fit_ms']:.3f}; K2 launches {launches}; on {card}",
+          flush=True)
+    if launches < n_bws or n_bws != s["iterations"]:
+        raise AssertionError(f"phase 10 (c): K2 launched {launches} times "
+                             f"in {n_bws} backward stages")
+    return launches
+
+
+def log_phase(torch, card):
+    """Phase 10 (d): utils.logging.log_solution of phase 8's classic
+    single-robot solver on the card (f32) against the same state's log
+    computed on the CPU in f64."""
+    import tempfile
+    from hkdmpc_tpu_torch.solver.structs import tree_map
+    from hkdmpc_tpu_torch.utils.logging import load_log, log_solution
+    solver = KEPT["mpc_solver"]
+    pb = solver.problem
+    prob, state = pb.build(pb.phases[0].Xbar[0])
+    cpu = lambda a: (a.double() if a.is_floating_point() else a).cpu()
+    rows = sum(ph.horizon + 1 for ph in pb.phases)
+    blocks = sum(ph.horizon for ph in pb.phases)
+    worst = {}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        log_solution(os.path.join(d, "card"), pb, prob, state, solver.opt)
+        ms = (time.perf_counter() - t0) * 1e3
+        log_solution(os.path.join(d, "cpu"), pb, tree_map(cpu, prob),
+                     tree_map(cpu, state), solver.opt)
+        for name, width in (("state_log.txt", 24), ("control_log.txt", 24),
+                            ("value_grad_log.txt", 24), ("cost_log.txt", 1)):
+            g = load_log(os.path.join(d, "card", name))
+            w = load_log(os.path.join(d, "cpu", name))
+            if g.shape != (rows, width) or w.shape != (rows, width):
+                raise AssertionError(f"phase 10 (d): {name} {g.shape}, "
+                                     f"expected ({rows}, {width})")
+            worst[name] = float(np.max(np.abs(g - w))
+                                / max(1.0, np.max(np.abs(w))))
+        for name in ("dynamics_partial_A.txt", "dynamics_partial_B.txt"):
+            g = np.loadtxt(os.path.join(d, "card", name))
+            w = np.loadtxt(os.path.join(d, "cpu", name))
+            if g.shape != (24 * blocks, 24) or g.shape != w.shape:
+                raise AssertionError(f"phase 10 (d): {name} {g.shape}")
+            worst[name] = float(np.max(np.abs(g - w))
+                                / max(1.0, np.max(np.abs(w))))
+    print(f"phase 10 (d) utils.logging.log_solution of phase 8's classic "
+          f"solver (f32 on the card, {len(pb.phases)} phases, {rows} rows, "
+          f"{blocks} A / B blocks) in {ms:.3f} ms (host clock) vs the same "
+          f"state's log in f64 on the CPU: max |diff| of magnitude "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" (limit 1e-3); on {card}", flush=True)
+    if not max(worst.values()) <= 1e-3:
+        raise AssertionError(f"phase 10 (d): {worst}")
+
+
+def examples_phase(torch, card, steps=EXAMPLE_STEPS, robots=EXAMPLE_ROBOTS):
+    """Phase 10 (e): the two examples' loops on the card, no plot."""
+    import tempfile
+    from hkdmpc_tpu_torch.examples.closed_loop_demo import closed_loop
+    from hkdmpc_tpu_torch.examples.fleet_demo import fleet_loop
+    from hkdmpc_tpu_torch.ops import riccati_dense, riccati_hkd
+    from hkdmpc_tpu_torch.utils.logging import load_log
+    from hkdmpc_tpu_torch.workload import gait_file
+    quiet = lambda *_: None
+    with tempfile.TemporaryDirectory() as d:
+        ref = gait_file("trot", d)
+        riccati_dense.LAUNCHES = 0
+        t0 = time.perf_counter()
+        one = closed_loop(ref, steps, os.path.join(d, "one"), device="cuda",
+                          log=quiet)
+        one_s = time.perf_counter() - t0
+        k2 = riccati_dense.LAUNCHES
+        riccati_hkd.LAUNCHES = 0
+        t0 = time.perf_counter()
+        many = fleet_loop(ref, robots, steps, os.path.join(d, "fleet"),
+                          device="cuda", log=quiet)
+        many_s = time.perf_counter() - t0
+        k1 = riccati_hkd.LAUNCHES
+        n_rows = sum(ph.horizon + 1 for ph in one["solver"].problem.phases)
+        logs = [load_log(os.path.join(d, "one", "state_log.txt"))] + [
+            load_log(os.path.join(d, "fleet", f"robot{i}", "state_log.txt"))
+            for i in range(robots)]
+    h1, hn = one["heights"], many["heights"]
+    print(f"phase 10 (e) examples on the card, no plot (plot_solution and "
+          f"replay_matplotlib need matplotlib, which this machine need not "
+          f"have: the CPU tests run them): closed_loop_demo trot {steps} "
+          f"steps in {one_s:.3f} s ({one['solver'].dtype}, K2 launches "
+          f"{k2}), heights "
+          f"[{h1.min():.4f}, {h1.max():.4f}] m, log {logs[0].shape[0]} rows;"
+          f" fleet_demo {robots} robots {steps} steps in {many_s:.3f} s "
+          f"(K1 launches {k1}), cold solve {many['stats']['n_failed']} "
+          f"failed, heights [{hn.min():.4f}, {hn.max():.4f}] m, logs "
+          f"{[l.shape[0] for l in logs[1:]]} rows; on {card}", flush=True)
+    if not (np.isfinite(h1).all() and np.isfinite(hn).all()
+            and all(np.isfinite(l).all() for l in logs)):
+        raise AssertionError("phase 10 (e): heights or logs not finite")
+    if logs[0].shape != (n_rows, 24) or any(
+            l.shape != (steps, 24) for l in logs[1:]):
+        raise AssertionError("phase 10 (e): log rows")
+    if k2 < 2 * steps or k1 < 2 * steps or many["stats"]["n_failed"]:
+        raise AssertionError(f"phase 10 (e): K2 {k2}, K1 {k1} launches")
+
+
+def scale_out_phase(card):
+    """Phase 10: scale-out on NCCL at world size 1 ((a), (b); the group is
+    destroyed after them), the stage timer, the logs and the examples.
+    Returns the additions to the kernels' JSON records."""
+    torch = _torch()
+    import torch.distributed as dist
+    from hkdmpc_tpu_torch.parallel.batch import init_multihost
+    mesh = init_multihost(f"127.0.0.1:{_free_port()}", 1, 0,
+                          device="cuda:0")
+    try:
+        sharded = sharded_solve(torch, card, mesh)
+        sharded_fleet(torch, card, mesh)
+    finally:
+        dist.destroy_process_group()
+    profile = profile_phase(torch, card)
+    log_phase(torch, card)
+    examples_phase(torch, card)
+    return {"sharded_launches": sharded}, {"profile_launches": profile}
+
+
 def main():
     torch = _torch()
     card = build_phase()
@@ -1287,6 +1570,9 @@ def main():
     hkd["fleet_launches"] = fleet_phase(card)
     dense.update(mpc_phase(card))
     dense.update(service_phase(card))
+    hkd_more, dense_more = scale_out_phase(card)
+    hkd.update(hkd_more)
+    dense.update(dense_more)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     print(json.dumps({"kernels": [hkd, dense]}))

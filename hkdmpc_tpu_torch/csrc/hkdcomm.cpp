@@ -54,6 +54,11 @@ class UdpmTransport {
         recv_fd_ = socket(AF_INET, SOCK_DGRAM, 0);
         int one = 1;
         setsockopt(recv_fd_, SOL_SOCKET, SO_REUSEADDR, &one, sizeof(one));
+        // a few 64 KB fragments back to back overflow the default receive
+        // buffer (about 208 KB) and UDP drops the rest; ask for 2 MB as LCM
+        // does (the kernel caps it at net.core.rmem_max)
+        int rcvbuf = 2 * 1024 * 1024;
+        setsockopt(recv_fd_, SOL_SOCKET, SO_RCVBUF, &rcvbuf, sizeof(rcvbuf));
         setsockopt(send_fd_, IPPROTO_IP, IP_MULTICAST_TTL, &ttl, sizeof(ttl));
         unsigned char loop = 1;
         setsockopt(send_fd_, IPPROTO_IP, IP_MULTICAST_LOOP, &loop, sizeof(loop));

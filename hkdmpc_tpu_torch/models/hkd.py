@@ -1,8 +1,9 @@
 """Hybrid kino-dynamic (HKD) quadruped model — PyTorch port of
 `hkdmpc_tpu/models/hkd.py`: rotation, forward kinematics, dynamics, reset
-map, and the closed-form foot, dynamics and reset-map Jacobians. (The
-jacfwd variants `dynamics_jacobians` / `reset_map_jacobian_ad` are not
-ported.)
+map, the closed-form foot, dynamics and reset-map Jacobians, their
+forward-mode AD references (`dynamics_jacobians`, `reset_map_jacobian_ad`,
+by `torch.func.jacfwd` per sample) and the batched conveniences
+`dynamics_vmap_steps` / `dynamics_jacobians_vmap`.
 
 Every function takes tensors with any leading batch shape: x (..., 24),
 u (..., 24), contact (..., 4), dt broadcastable to the leading shape.
@@ -203,6 +204,27 @@ def dynamics(x, u, contact, dt):
     return x + dt[..., None] * dynamics_continuous(x, u, contact)
 
 
+def _per_sample_jacobian(fn, argnums, args, event_dims):
+    """`torch.func.jacfwd(fn, argnums)` of one sample, mapped over the
+    broadcast leading shape of `args` (each with `event_dims` trailing
+    dimensions); every Jacobian is returned with that leading shape."""
+    lead = torch.broadcast_shapes(*(a.shape[:a.dim() - d]
+                                    for a, d in zip(args, event_dims)))
+    flat = [a.expand(lead + a.shape[a.dim() - d:]).reshape(
+        (-1,) + a.shape[a.dim() - d:]) for a, d in zip(args, event_dims)]
+    jacs = torch.func.vmap(torch.func.jacfwd(fn, argnums=argnums))(*flat)
+    return tuple(j.reshape(lead + j.shape[1:]) for j in jacs)
+
+
+def dynamics_jacobians(x, u, contact, dt):
+    """(A, B) = (d xnext/dx, d xnext/du), each (..., 24, 24), by forward-mode
+    AD of `dynamics` — parity with `hkinodyn_par`. The reference
+    implementation of `dynamics_jacobians_analytic`, which the solver uses."""
+    dt = torch.as_tensor(dt, dtype=x.dtype, device=x.device)
+    return _per_sample_jacobian(dynamics, (0, 1), (x, u, contact, dt),
+                                (1, 1, 1, 0))
+
+
 def _cross_mat(v):
     """[v]x (..., 3, 3)."""
     z = torch.zeros_like(v[..., 0])
@@ -342,3 +364,24 @@ def reset_map_jacobian(x, c_cur, c_next):
         ident[..., :, r0:r0 + 3] = eye3
         Px[..., r0:r0 + 3, :] = keep * ident + to_stance[..., None, None] * blk
     return Px
+
+
+def reset_map_jacobian_ad(x, c_cur, c_next):
+    """d reset_map / dx (..., 24, 24) by forward-mode AD: the reference
+    implementation of the closed-form `reset_map_jacobian`."""
+    return _per_sample_jacobian(reset_map, (0,), (x, c_cur, c_next),
+                                (1, 1, 1))[0]
+
+
+# ---- batched conveniences: the JAX package's vmaps with in_axes=(0, 0, 0,
+# None), over steps (N, ...) at one dt; both functions broadcast any leading
+# shape themselves
+
+def dynamics_vmap_steps(X, U, contact, dt):
+    """`dynamics` of N steps: X, U (N, 24), contact (N, 4), one dt."""
+    return dynamics(X, U, contact, dt)
+
+
+def dynamics_jacobians_vmap(X, U, contact, dt):
+    """`dynamics_jacobians` of N steps: (A, B), each (N, 24, 24)."""
+    return dynamics_jacobians(X, U, contact, dt)

@@ -16,6 +16,13 @@ versions. Every step passes `problem.all_shooting()` as the solve's
 `parallel_rollout`, so the steps after a back-phase append (whose last phase
 is too short to shoot) take the sequential rollout.
 
+With a mesh (`parallel.batch.init_multihost` / `make_mesh`: one process per
+device on `torch.distributed`) the robots shard over the processes: each
+owns the contiguous block of n_robots / world-size robots, runs the shared
+schedule's host bookkeeping as every other process does, and steps its own
+robots. Per-robot solves are independent, so a step has no collectives; the
+cold solve reduces its metrics over the group (`solve_sharded`).
+
 Reference analog, per robot: HKDMPC/HKDMPC.cpp:96-166 (the re-solve loop) +
 HKD-TrajOpt/HKDProblem.cpp:116-222 (the receding-horizon update).
 """
@@ -34,7 +41,8 @@ from hkdmpc_tpu_torch.config import (ConstraintParams, HSDDPOption,
                                      load_ddp_setting)
 from hkdmpc_tpu_torch.mpc import fused
 from hkdmpc_tpu_torch.mpc.solver import MPCCommand, default_stand_state
-from hkdmpc_tpu_torch.parallel.batch import replicate_problem
+from hkdmpc_tpu_torch.parallel.batch import (local_block, replicate_problem,
+                                             solve_metrics, solve_sharded)
 from hkdmpc_tpu_torch.solver import ddp
 from hkdmpc_tpu_torch.reference.quad_reference import QuadReference
 from hkdmpc_tpu_torch.solver.problem import HKDProblem
@@ -74,15 +82,26 @@ class FleetMPC:
 
     All robots track one gait schedule (one QuadReference window, one
     HKDProblem doing the host bookkeeping); each robot has its own
-    measurements, trajectories, gains and multipliers on the device."""
+    measurements, trajectories, gains and multipliers on the device.
+
+    mesh: a `parallel.batch.Mesh` to shard the robots over (its axis name
+    `mesh_axis`); this process then owns the robots `self.rows` of the
+    n_robots (`n_local` of them) and its device should be the mesh's. A
+    world size that does not divide n_robots raises ValueError."""
 
     def __init__(self, reference_file: str, n_robots: int,
                  ddp_settings: Optional[str] = None,
                  constraint_params: Optional[str] = None,
                  config: Optional[FleetConfig] = None, *,
-                 dtype: torch.dtype = torch.float32, device="cuda"):
+                 dtype: torch.dtype = torch.float32, device="cuda",
+                 mesh=None, mesh_axis: str = "scenario"):
         self.cfg = config or FleetConfig()
         self.n = int(n_robots)
+        self.mesh = mesh
+        self._axis = mesh_axis
+        self.rows = (slice(0, self.n) if mesh is None
+                     else local_block(self.n, mesh))
+        self.n_local = self.rows.stop - self.rows.start
         self.opt = (load_ddp_setting(ddp_settings) if ddp_settings
                     else HSDDPOption())
         self.cparams = (load_constraint_params(constraint_params)
@@ -109,14 +128,16 @@ class FleetMPC:
         self.solve_time = 0.0
         self._pending = None
         self._last = None
-        self._pf = np.zeros((self.n, 4, 3))
+        self._pf = np.zeros((self.n_local, 4, 3))
 
     # ------------------------------------------------------------------
 
     def initialize(self, x0_b: Optional[np.ndarray] = None) -> dict:
         """Cold-solve the whole fleet with the full option set. x0_b: (N, 24)
-        per-robot HKD states (default: the stand pose for every robot,
-        HKDMPC.cpp:44-54). Returns aggregate stats."""
+        per-robot HKD states of the whole fleet (default: the stand pose for
+        every robot, HKDMPC.cpp:44-54). Returns aggregate stats over the
+        whole fleet (with a mesh, the cold solve runs through
+        `solve_sharded` and these are its reductions over the group)."""
         pb = self.problem
         pb.initialization()
         if x0_b is None:
@@ -128,27 +149,27 @@ class FleetMPC:
                              f"({self.n}, 24)")
 
         prob, state = pb.build(x0_b[0])
-        prob_b, state_b = replicate_problem(prob, state, self.n)
+        prob_b, state_b = replicate_problem(prob, state, self.n_local)
         prob_b = dataclasses.replace(prob_b, x0=torch.as_tensor(
-            x0_b, dtype=self.dtype, device=self.device))
+            x0_b[self.rows], dtype=self.dtype, device=self.device))
+        flags = dict(kernel_jac=self._kernel_jac,
+                     parallel_rollout=pb.all_shooting(),
+                     assoc_linear=self.cfg.assoc_linear,
+                     assoc_backward=self.cfg.assoc_backward)
         t0 = time.perf_counter()
-        res = ddp.solve_batch(prob_b, state_b, self.opt,
-                              kernel_jac=self._kernel_jac,
-                              parallel_rollout=pb.all_shooting(),
-                              assoc_linear=self.cfg.assoc_linear,
-                              assoc_backward=self.cfg.assoc_backward)
+        if self.mesh is not None:
+            res, agg = solve_sharded(prob_b, state_b, self.opt, self.mesh,
+                                     self._axis, local=True, **flags)
+        else:
+            res = ddp.solve_batch(prob_b, state_b, self.opt, **flags)
+            agg = solve_metrics(res)
         self._sync()
         self.solve_time = (time.perf_counter() - t0) * 1e3
         self._state_dev = res.state
         self._tables = fused.make_tables(pb, self.dtype, self.device)
         self._offsets = pb.flat_offsets()
         self.mpc_iter = 0
-        return {
-            "mean_cost": float(res.cost.mean()),
-            "max_feas": float(res.dyn_feas.max()),
-            "n_failed": int(res.solve_failed.sum()),
-            "solve_ms": self.solve_time,
-        }
+        return dict(agg, solve_ms=self.solve_time)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -157,11 +178,13 @@ class FleetMPC:
     # ------------------------------------------------------------------
 
     def _meas_batch(self, rpy_b, p_b, v_b, omega_b, qJ_b) -> np.ndarray:
-        """(N, 28) measurement pack; rpy arrives (roll, pitch, yaw) and is
-        flipped to (yaw, pitch, roll) as in HKDMPC.cpp:118."""
-        f = lambda a, w: np.asarray(a, self._np_dtype).reshape(self.n, w)
+        """(n_local, 28) measurement pack of this process's robots from the
+        whole fleet's (N, ...) measurements; rpy arrives (roll, pitch, yaw)
+        and is flipped to (yaw, pitch, roll) as in HKDMPC.cpp:118."""
+        f = lambda a, w: np.asarray(a, self._np_dtype).reshape(
+            self.n, w)[self.rows]
         fc = np.tile(np.asarray(self.problem.phases[0].contact,
-                                self._np_dtype), (self.n, 1))
+                                self._np_dtype), (self.n_local, 1))
         return np.concatenate([f(rpy_b, 3)[:, ::-1], f(p_b, 3),
                                f(omega_b, 3), f(v_b, 3), f(qJ_b, 12), fc],
                               axis=1)
@@ -195,8 +218,9 @@ class FleetMPC:
 
     def step_async(self, rpy_b, p_b, v_b, omega_b, qJ_b,
                    mpc_time: float = 0.0) -> None:
-        """Dispatch one fleet receding-horizon step; complete() fetches
-        it."""
+        """Dispatch one fleet receding-horizon step from the whole fleet's
+        (N, ...) measurements (with a mesh, this process steps its robots);
+        complete() fetches it."""
         self._check_idle("step_async")
         bundle, aux, t0 = self._dispatch(
             dict(rpy=rpy_b, p=p_b, v=v_b, omega=omega_b, qJ=qJ_b), mpc_time)
@@ -218,7 +242,8 @@ class FleetMPC:
         (N, n_cmd, 24), body (N, n_cmd, 12), gains (N, n_cmd, 12, 12),
         pf (N, 4, 3), scalars (N, 6) and the four (N, trace_len) traces, the
         shared times / contacts / status, and foot_placement (N, 4, 3), the
-        last planned foot placement of each leg."""
+        last planned foot placement of each leg. With a mesh N is n_local:
+        this process's robots."""
         pend = self._pending
         if pend is None:
             raise RuntimeError("complete() without a dispatched step")
@@ -242,24 +267,29 @@ class FleetMPC:
         self.step_async(rpy_b, p_b, v_b, omega_b, qJ_b, mpc_time)
         return self.complete()
 
-    def rollout_steps(self, n_steps: int, meas_fn, mpc_time0: float = 0.0):
+    def rollout_steps(self, n_steps: int, meas_fn, mpc_time0: float = 0.0,
+                      keep_bundles: bool = False):
         """Dispatch n_steps fleet steps back to back without fetching
         between them; meas_fn(k) gives step k's measurements as a dict of
-        (N, ...) arrays rpy / p / v / omega / qJ. Waits for the device at
-        the end and returns the last bundle (a device tensor). As in the JAX
-        package, the foot placements of complete() are not updated by these
-        steps."""
+        the whole fleet's (N, ...) arrays rpy / p / v / omega / qJ. Waits for
+        the device at the end and returns the last bundle (a device tensor),
+        or with keep_bundles=True the list of every step's bundle. As in the
+        JAX package, the foot placements of complete() are not updated by
+        these steps."""
         self._check_idle("rollout_steps")
+        bundles = []
         for k in range(n_steps):
             bundle, _, _ = self._dispatch(meas_fn(k),
                                           mpc_time0 + k * self.cfg.timestep)
+            bundles.append(bundle)
         self._sync()
-        return bundle
+        return bundles if keep_bundles else bundles[-1]
 
     # ------------------------------------------------------------------
 
     def save(self, path: str) -> None:
-        """Checkpoint the fleet (utils.checkpoint.save_fleet)."""
+        """Checkpoint the fleet (utils.checkpoint.save_fleet); with a mesh,
+        this process's robots."""
         from hkdmpc_tpu_torch.utils.checkpoint import save_fleet
         self._check_idle("save")
         save_fleet(path, self)
@@ -267,7 +297,8 @@ class FleetMPC:
     def resume(self, path: str) -> None:
         """Restore from save() (or from the JAX package's save_fleet): no
         solve is run, the next step continues where the saved fleet left
-        off."""
+        off. With a mesh, from a file that holds this process's rows: its
+        own shard's or the whole fleet's."""
         from hkdmpc_tpu_torch.utils.checkpoint import load_fleet
         load_fleet(path, self)
 
@@ -281,7 +312,9 @@ class FleetMPC:
 
     def command(self, i: int) -> MPCCommand:
         """Robot i's MPCCommand from the last completed fleet step, the
-        output contract of the single-robot solver (hkd_command_lcmt)."""
+        output contract of the single-robot solver (hkd_command_lcmt). With
+        a mesh, i counts this process's robots: robot rows.start + i of the
+        fleet."""
         out = self._last
         if out is None:
             raise RuntimeError("command() before any completed fleet step")

@@ -1,1 +1,2 @@
-"""Sub-package of the PyTorch port; see the package docstring."""
+from hkdmpc_tpu_torch.parallel.batch import (make_mesh, perturb_scenarios,
+                                             replicate_problem, solve_sharded)

@@ -1,14 +1,20 @@
-"""Reference-trajectory generation — port of the parts of
-`hkdmpc_tpu/reference/refgen.py` that build the in-repo gait workloads.
+"""Reference-trajectory generation — port of
+`hkdmpc_tpu/reference/refgen.py`: the exact ports of the reference's MATLAB
+post-processing (`induce_status_durations`, `grf_heuristic`,
+`write_quad_reference`), the converters of raw trajectory CSVs into
+quad_reference.csv (`from_preprocessed`, `from_post_csv`), closed-form leg
+IK and the `GaitSynthesizer`.
 
 Host numpy code, as in the JAX package; `foot_ik` takes its rotation from the
 port's own `models.hkd.euler_zyx_to_rotmat`. `tests/test_torch_problem.py`
 synthesizes the same gait in both packages and finds the arrays equal and the
-written CSV files identical.
+written CSV files identical; `tests/test_torch_refgen.py` does the same for
+the converters.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Sequence
 
 import numpy as np
@@ -72,6 +78,73 @@ def write_quad_reference(path: str, dt: float, body_states, qJ,
             f.write("status_dur\n" + fmt(status_dur[i]) + "\n")
 
 
+def from_preprocessed(dirname: str, out_path: str, mass: float = 9.0,
+                      g: float = 10.0) -> None:
+    """Convert the MATLAB pipeline's raw inputs (body_state, contact, ee_pos,
+    jnt and time CSVs, as `scripts.record_motion.write_traj_to_file` writes
+    them) to quad_reference.csv."""
+    rd = lambda f: np.atleast_2d(np.loadtxt(os.path.join(dirname, f),
+                                            delimiter=","))
+    body_states = rd("body_state.csv")
+    contacts = rd("contact.csv")
+    foot_placements = rd("ee_pos.csv")
+    qJs = rd("jnt.csv")
+    t = np.loadtxt(os.path.join(dirname, "time.csv"), delimiter=",").ravel()
+    dt = float(t[1] - t[0])
+    n = body_states.shape[0]
+    write_quad_reference(
+        out_path, dt, body_states, qJs, foot_placements,
+        grf_heuristic(contacts, mass, g), np.zeros((n, 12)), contacts,
+        induce_status_durations(contacts, dt))
+
+
+def from_post_csv(dirname: str, out_path: str, mass: float = 9.0,
+                  g: float = 10.0) -> str:
+    """Convert a gaitLib-style pair (state_post.csv + contact_post.csv) into
+    quad_reference.csv; returns out_path.
+
+    state_post rows: [phase_idx, eul(3), pos(3), omega(3), v(3),
+    per-leg(12)] where per-leg holds joint angles for swing legs and
+    *CoM-relative* foot positions for stance legs (the HKD qdummy
+    convention). contact_post: a header line, then rows [c(4), startTime,
+    endTime, horizon]."""
+    states = np.loadtxt(os.path.join(dirname, "state_post.csv"),
+                        delimiter=",")
+    with open(os.path.join(dirname, "contact_post.csv")) as f:
+        lines = [l for l in f.read().splitlines()[1:] if l.strip()]
+    phases = []
+    for l in lines:
+        vals = [float(w) for w in l.replace(",", " ").split()]
+        phases.append(dict(contact=np.array(vals[:4], int),
+                           start=vals[4], end=vals[5], horizon=int(vals[6])))
+    dt = round((phases[0]["end"] - phases[0]["start"]) / phases[0]["horizon"], 6)
+
+    n = states.shape[0]
+    body = states[:, 1:13]
+    legdata = states[:, 13:25]
+    phase_idx = states[:, 0].astype(int)
+    contacts = np.zeros((n, 4), int)
+    for k in range(n):
+        contacts[k] = phases[min(phase_idx[k], len(phases) - 1)]["contact"]
+
+    qJ = np.zeros((n, 12))
+    fp = np.zeros((n, 12))
+    for k in range(n):
+        pos, eul = body[k, 3:6], body[k, 0:3]
+        for leg in range(4):
+            d = legdata[k, 3 * leg:3 * leg + 3]
+            if contacts[k, leg]:
+                pf_world = pos + d
+                fp[k, 3 * leg:3 * leg + 3] = pf_world
+                qJ[k, 3 * leg:3 * leg + 3] = foot_ik(pos, eul, pf_world, leg)
+            else:
+                qJ[k, 3 * leg:3 * leg + 3] = d
+    write_quad_reference(out_path, dt, body, qJ, fp,
+                         grf_heuristic(contacts, mass, g), np.zeros((n, 12)),
+                         contacts, induce_status_durations(contacts, dt))
+    return out_path
+
+
 def leg_inverse_kinematics(p_hip: np.ndarray, side_sign: float) -> np.ndarray:
     """IK for one leg: hip-frame foot position -> (abad, hip, knee).
     Elbow-back configuration (knee angle > 0)."""
@@ -101,7 +174,7 @@ def foot_ik(pos, eul_zyx, pf_world, leg: int) -> np.ndarray:
     """World-frame foot position -> leg joint angles."""
     from hkdmpc_tpu_torch.models.hkd import euler_zyx_to_rotmat
     R = euler_zyx_to_rotmat(
-        torch.as_tensor(np.asarray(eul_zyx, np.float64))).numpy()
+        torch.as_tensor(np.ascontiguousarray(eul_zyx, np.float64))).numpy()
     p_hip = R.T @ (np.asarray(pf_world) - np.asarray(pos)) - mc.HIP_OFFSETS[leg]
     return leg_inverse_kinematics(p_hip, mc.SIDE_SIGNS[leg])
 

@@ -92,9 +92,12 @@ def _restore_problem(data, meta, pb, Phase):
 def save_fleet(path: str, fleet) -> None:
     """Persist a FleetMPC: the shared schedule and the (N, ...) batched
     warm-start state, copied from the device, with the last foot placements
-    and mpc_iter."""
+    and mpc_iter. A fleet sharded over a mesh saves this process's robots
+    (N = its n_local) and records which rows of the whole fleet they are."""
     arrays, meta = _problem_payload(fleet.problem)
-    meta["fleet_n"] = fleet.n
+    meta["fleet_n"] = fleet.n_local
+    meta["fleet_rows"] = [fleet.rows.start, fleet.rows.stop]
+    meta["fleet_n_total"] = fleet.n
     meta["mpc_iter"] = fleet.mpc_iter
     st = fleet._state_dev
     host = lambda t: t.detach().cpu().numpy()
@@ -108,7 +111,10 @@ def save_fleet(path: str, fleet) -> None:
 
 def load_fleet(path: str, fleet) -> None:
     """Restore into a FleetMPC built with the same reference file and
-    n_robots, on its dtype and device. No solve is run: the next step
+    n_robots, on its dtype and device. A sharded fleet takes its own rows
+    from a file that holds them: the whole fleet's (a JAX checkpoint, or an
+    unsharded fleet's) or its own shard's; a file of other rows, or of a
+    fleet of another size, raises ValueError. No solve is run: the next step
     continues where the saved fleet left off."""
     from hkdmpc_tpu_torch.mpc import fused
     from hkdmpc_tpu_torch.solver.problem import Phase
@@ -116,18 +122,26 @@ def load_fleet(path: str, fleet) -> None:
 
     with np.load(path) as data:
         meta = json.loads(bytes(data["_meta"]).decode())
-        if meta.get("fleet_n") != fleet.n:
-            raise ValueError(f"fleet checkpoint holds {meta.get('fleet_n')} "
-                             f"robots, the fleet has {fleet.n}")
+        n_file = meta.get("fleet_n")
+        start, stop = meta.get("fleet_rows", [0, n_file])
+        total = meta.get("fleet_n_total", n_file)
+        if total != fleet.n:
+            raise ValueError(f"fleet checkpoint of {total} robots, the fleet "
+                             f"has {fleet.n}")
+        if not start <= fleet.rows.start < fleet.rows.stop <= stop:
+            raise ValueError(f"fleet checkpoint holds robots {start}:{stop}, "
+                             f"this process owns {fleet.rows.start}:"
+                             f"{fleet.rows.stop}")
+        take = slice(fleet.rows.start - start, fleet.rows.stop - start)
         _restore_problem(data, meta, fleet.problem, Phase)
-        dev = lambda n: torch.as_tensor(data[n], dtype=fleet.dtype,
+        dev = lambda n: torch.as_tensor(data[n][take], dtype=fleet.dtype,
                                         device=fleet.device)
         fleet._state_dev = SolverState(
             constr=ConstraintState(**{n: dev(f"fc_{n}")
                                       for n in _CONSTR_FIELDS}),
             **{n: dev(f"fs_{n}") for n in _STATE_FIELDS})
         if "fs__pf" in data:
-            fleet._pf = np.asarray(data["fs__pf"]).copy()
+            fleet._pf = np.asarray(data["fs__pf"])[take].copy()
     fleet._tables = fused.make_tables(fleet.problem, fleet.dtype,
                                       fleet.device)
     fleet._offsets = fleet.problem.flat_offsets()

@@ -78,24 +78,55 @@ _LCM_SCHEMAS = {
         int32_t N;
         float qdummy[N][12];
         int32_t contacts[N][4];""",
+    # the replay trajectory `utils.visualize.publish_replay` writes and
+    # `scripts.visualize_motion` reads
+    "visualize_quadTraj_lcmt": """
+        int32_t len;
+        float WB_plan_dur;
+        float SRB_plan_dur;
+        float WB_dt;
+        float SRB_dt;
+        float pos[len][3];
+        float eul[len][3];
+        float vWorld[len][3];
+        float eulrate[len][3];
+        float qJ[len][12];
+        float pFoot[len][12];
+        float torque[len][12];
+        float grf[len][12];
+        float feas[len];""",
+    # the TOWR trajectory `scripts.record_motion.towr_msg_to_traj` reads
+    "mc_towr_data_t": """
+        int32_t len;
+        int64_t microtime[len];
+        double base_pos[len][3];
+        double base_vel[len][3];
+        double eul[len][3];
+        double eulrate[len][3];
+        double ee_pos[len][12];
+        int16_t contact[len][4];""",
 }
 
 
 def lcmtypes_dir(directory: str) -> str:
-    """Write stand-in `.lcm` schemas of the five message types the MPC
-    service reads and writes into `directory` (one file per struct) and
-    return it: the directory `MPCService(lcmtypes_dir=)` and
+    """Write stand-in `.lcm` schemas of the seven message types the port
+    reads and writes into `directory` (one file per struct) and return it:
+    the directory `MPCService(lcmtypes_dir=)`,
+    `utils.visualize.publish_replay`, the scripts' `--lcmtypes` and
     `comm.lcm_types.load_reference_types` take, as `gait_file` writes the
-    gait a solver takes.
+    gait a solver takes. Five are the MPC service's; visualize_quadTraj_lcmt
+    is the replay trajectory, mc_towr_data_t the TOWR trajectory the
+    recorder reads.
 
     The member names, array shapes and length members are the ones the code
     uses (`mpc/runtime.py`, `MPCCommand.to_lcm_dict`: 10 command slots, 24
-    controls, 12 body states, 12 x 12 gains). **Not verified** against the
-    reference's own lcmtypes/*.lcm, which are not in this repository: each
-    member's primitive type (float or double, int32_t or int8_t) and the
-    order of the members. Both enter the type hash, so the fingerprints of
-    these stand-ins need not be those on the reference's wire; a robot-side
-    controller needs the real files."""
+    controls, 12 body states, 12 x 12 gains; `publish_replay`;
+    `towr_msg_to_traj`). **Not verified** against the reference's own
+    lcmtypes/*.lcm and scripts/PyBullet/lcmtypes/*.lcm, which are not in this
+    repository: each member's primitive type (float or double, int32_t or
+    int8_t) and the order of the members. Both enter the type hash, so the
+    fingerprints of these stand-ins need not be those on the reference's
+    wire; a robot-side controller or replayer needs the real files."""
     os.makedirs(directory, exist_ok=True)
     for name, body in _LCM_SCHEMAS.items():
         with open(os.path.join(directory, f"{name}.lcm"), "w") as f:

@@ -189,6 +189,24 @@ def problem_pair(gait, plan_duration, directory):
     return jpb, tpb
 
 
+def solved_pair(gait, plan_duration, directory):
+    """problem_pair's two problems holding one solution: the port's cold
+    solve (kernel_jac path, HSDDPOption(), f64 on the CPU) from the stand
+    pose, written into both packages' per-phase arrays. Returns (JAX
+    HKDProblem, port HKDProblem, x0, the port's SolveResult)."""
+    from hkdmpc_tpu_torch.solver import ddp
+    jpb, tpb = problem_pair(gait, plan_duration, directory)
+    x0 = tsolver.default_stand_state(tpb.phases[0].contact)
+    prob, state = tpb.build(x0)
+    res = ddp.solve(prob, state, port_option(HSDDPOption()), kernel_jac=True,
+                    parallel_rollout=tpb.all_shooting())
+    tpb.unflatten(res.state)
+    for jph, tph in zip(jpb.phases, tpb.phases):
+        for name in PHASE_ARRAYS:
+            setattr(jph, name, np.array(getattr(tph, name)))
+    return jpb, tpb, x0, res
+
+
 def fleet_meas(n_robots, n_steps):
     """Per step, a dict of (n_robots, ...) measurement arrays: robot i draws
     from the stream of tests/test_fleet.py:20-30 seeded 100 + i."""

@@ -575,3 +575,71 @@ def test_narrow_model_takes_the_scan_route_on_card(cuda):
     assert not bool(got.solve_failed.any()) and int(want.n_iters.min()) >= 1
     rel = (got.cost.cpu().double() - want.cost).abs() / want.cost.abs()
     assert float(rel.max()) < 1e-4, rel
+
+
+def test_nccl_solve_sharded_at_world_one_equals_solve_batch(cuda):
+    """An NCCL group of one process on the card (TCP store on 127.0.0.1,
+    bound to cuda:0): `solve_sharded` on 32 perturbed trot scenarios equals
+    `solve_batch` on them (the same kernels on the same rows), launches K1,
+    and its aggregates are the host reductions of the result. The group is
+    destroyed at the end."""
+    import socket
+
+    import torch.distributed as dist
+
+    from hkdmpc_tpu_torch.parallel import batch
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mesh = batch.init_multihost(f"127.0.0.1:{port}", 1, 0, device="cuda:0")
+    try:
+        assert dist.get_backend() == "nccl" and mesh.device.type == "cuda"
+        nb = 32
+        _, prob, state, opt = trot_problem(dtype=torch.float32, device="cuda")
+        prob_b, state_b = replicate_problem(prob, state, nb)
+        prob_b = perturb_scenarios(prob_b, noise=np.random.default_rng(
+            1).standard_normal((nb, 24)))
+        before = riccati_hkd.LAUNCHES
+        res, agg = batch.solve_sharded(prob_b, state_b, opt.runtime(), mesh,
+                                       kernel_jac=True)
+        assert riccati_hkd.LAUNCHES - before >= 2
+        ref = ddp.solve_batch(prob_b, state_b, opt.runtime(), kernel_jac=True)
+        torch.testing.assert_close(res.cost, ref.cost, rtol=1e-6, atol=0)
+        assert abs(agg["mean_cost"] - float(res.cost.double().mean())) <= (
+            1e-9 * abs(agg["mean_cost"]))
+        assert agg["max_feas"] == float(res.dyn_feas.max())
+        assert agg["max_tconstr"] == float(res.max_tconstr.max())
+        assert agg["n_failed"] == int(res.solve_failed.sum()) == 0
+    finally:
+        dist.destroy_process_group()
+    assert not dist.is_initialized()
+
+
+def test_profile_solve_on_card_matches_cpu(cuda):
+    """`utils.timing.profile_solve` (runtime caps, 2 iterations) on 16
+    perturbed trot scenarios: f32 on the card, whose backward stage is K2,
+    against f64 on the CPU: final Ubar within 1e-3 of its magnitude and
+    finite; K2 launched in each backward stage; every stage bucket
+    filled."""
+    from hkdmpc_tpu_torch.utils.timing import StageTimer, profile_solve
+
+    nb = 16
+    noise = np.random.default_rng(2).standard_normal((nb, 24))
+    out = {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        _, prob, state, opt = trot_problem(dtype=dtype, device=dev)
+        prob_b, state_b = replicate_problem(prob, state, nb)
+        prob_b = perturb_scenarios(prob_b, noise=noise)
+        timer = StageTimer()
+        before = riccati_dense.LAUNCHES
+        st = profile_solve(prob_b, state_b, opt.runtime(), timer)
+        if dev == "cuda":
+            assert timer.device.type == "cuda"
+            assert riccati_dense.LAUNCHES - before >= 2
+            assert all(v > 0 for k, v in timer.summary().items()
+                       if k.endswith("_ms"))
+        out[dev] = st.Ubar.cpu().double()
+    assert bool(torch.isfinite(out["cuda"]).all())
+    scale = max(1.0, float(out["cpu"].abs().max()))
+    assert float((out["cuda"] - out["cpu"]).abs().max()) <= 1e-3 * scale

@@ -8,7 +8,10 @@ step a small fleet and carry it through a checkpoint (`mpc.fleet`,
 `mpc.fused`, `utils.checkpoint`), initialize and update the single-robot
 solver on both step paths with the parallel-in-time recursions
 (`mpc.solver`, `ops.assoc`), serve three requests through the MPC service
-(`comm`, `mpc.runtime`), then check that neither `jax` nor `hkdmpc_tpu` (nor any
+(`comm`, `mpc.runtime`), run the utilities (`utils.logging`, `utils.timing`,
+`utils.visualize`), the AD Jacobians, the examples' loops, the recorder's
+conversion and a world-size-1 gloo group (`parallel.batch.solve_sharded`,
+`FleetMPC(mesh=)`), then check that neither `jax` nor `hkdmpc_tpu` (nor any
 `hkdmpc_tpu.*`) is in sys.modules. A source scan refuses `import jax`,
 `import hkdmpc_tpu` and `from hkdmpc_tpu...` in every module of the port and
 in `chip_smoke.py`."""
@@ -97,6 +100,55 @@ with tempfile.TemporaryDirectory() as d:
     assert np.isfinite(cmd["hkd_controls"]).all() and not s.opt.MS
     assert types["solver_info_lcmt"].decode(tx.out[-1][1])["n_iter"] >= 1
     s.close()
+    # the utilities, the AD Jacobians, the converters, scale-out at world
+    # size 1 (gloo), the examples' loops and the recorder's conversion
+    from hkdmpc_tpu_torch.examples.closed_loop_demo import closed_loop
+    from hkdmpc_tpu_torch.examples.fleet_demo import fleet_loop
+    from hkdmpc_tpu_torch.models import hkd
+    from hkdmpc_tpu_torch.mpc.fleet import FleetConfig
+    from hkdmpc_tpu_torch.parallel import batch
+    from hkdmpc_tpu_torch.reference import refgen
+    from hkdmpc_tpu_torch.scripts.record_motion import towr_msg_to_traj
+    from hkdmpc_tpu_torch.utils import logging as ulog, timing, visualize
+    x = torch.zeros(2, 24, dtype=torch.float64)
+    A, B = hkd.dynamics_jacobians(x, x, torch.ones(2, 4, dtype=torch.float64), 0.01)
+    assert A.shape == (2, 24, 24)
+    run = closed_loop(gait_file("trot", d), 1, os.path.join(d, "logs"),
+                      device="cpu", config=MPCConfig(plan_duration=0.3,
+                                                     assoc_backward=False),
+                      log=lambda *_: None)
+    assert ulog.load_log(os.path.join(d, "logs", "state_log.txt")).shape[1] == 24
+    visualize.publish_replay(run["solver"].problem.phases, tx, os.path.join(d, "lcmtypes"))
+    assert tx.out[-1][0] == "visualize_mc_motion"
+    from hkdmpc_tpu_torch.solver.structs import tree_map
+    one = lambda a: a[None]
+    prob, state = run["solver"].problem.build(np.zeros(24))
+    timing.profile_solve(tree_map(one, prob), tree_map(one, state),
+                         opt.runtime(), timing.StageTimer(), max_iters=1)
+    fleet_loop(gait_file("trot", d), 2, 2, os.path.join(d, "fleet"), device="cpu",
+               config=FleetConfig(plan_duration=0.3), log=lambda *_: None)
+    g = refgen.GaitSynthesizer().synthesize((("trot", 0.3, 0.5),))
+    towr_msg_to_traj({"len": 2, "microtime": [0, 10000],
+                      "base_pos": [[0, 0, 0.27]] * 2, "base_vel": [[0, 0, 0]] * 2,
+                      "eul": np.zeros((2, 3)), "eulrate": np.zeros((2, 3)),
+                      "ee_pos": g["foot_placements"][:2], "contact": np.ones((2, 4))})
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    mesh = batch.init_multihost(f"127.0.0.1:{port}", 1, 0, device="cpu")
+    try:
+        _, prob, state, opt = trot_problem(dtype=torch.float64, device="cpu")
+        prob_b, state_b = replicate_problem(prob, state, 2)
+        res, agg = batch.solve_sharded(prob_b, state_b, opt.runtime(), mesh,
+                                       kernel_jac=True)
+        assert agg["n_failed"] == 0 and batch.host_local_batch(2) == 2
+        f = fleet.FleetMPC(gait_file("trot", d), 2, config=cfg,
+                           dtype=torch.float64, device="cpu", mesh=mesh)
+        f.initialize()
+        assert len(f.rollout_steps(2, meas_stream(2, 0), keep_bundles=True)) == 2
+    finally:
+        torch.distributed.destroy_process_group()
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 reference_pkg = sorted(m for m in sys.modules
                        if m == "hkdmpc_tpu" or m.startswith("hkdmpc_tpu."))
