@@ -5,7 +5,14 @@ card, drives both batched solve paths once at full width, steps the fleet
 MPC at full width, steps the single-robot MPC on its three paths, serves
 requests through the MPC service, scripted and at 100 Hz over the native
 transport, and runs the sharded solve and fleet on an NCCL group, the stage
-timer, the reference-format logs and the examples' loops.
+timer, the reference-format logs and the examples' loops; then holds the
+eager bodies against the CUDA graphs that the entry points replay.
+
+Graphs are the card's default: `solve_batch` (unroll_caps), the fleet and
+single-robot steps replay a CUDA graph per key (hkdmpc_tpu_torch/solver/
+graphs.py), captured at their first call. Phases 3 and 5 to 10 print the
+graph replays of their path and fail where none ran; the plain-sweep
+reference runs of phases 3, 5 and 7 run the eager body.
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
 
@@ -26,7 +33,11 @@ Phases, one line each:
      its bytes over 3.35 TB/s and its operations over 67 TFLOP/s, each
      input and output byte once, K1's products on the non-zeros of A and
      B) and which of the two sets it. No single PyTorch call computes a
-     Riccati recursion with a PSD gate, so there is no library time;
+     Riccati recursion with a PSD gate, so there is no library time. A
+     retry launch (an `active` mask, the first sweep's outputs as `out`)
+     with every other scenario active must write exactly those rows, bit
+     for bit the full sweep's; with none active it must write nothing, and
+     its time is printed;
   3. the default model's path, solve_batch(kernel_jac=True), at B = 4096,
      f32, runtime caps: K1 must have been launched, every cost finite, no
      scenario failed, and the first 8 scenarios' final costs must match a
@@ -121,12 +132,26 @@ Phases, one line each:
      finite heights and logs, K2 / K1 launched; no plot (matplotlib is not
      needed on the card's machine; the CPU tests run the plots). A failed
      NCCL initialization or collective fails the run.
+ 11. the graphs against the eager bodies, in one call, in turns (eager,
+     graph, graph, eager) on the same inputs: (a) phase 3's and phase 5's
+     B = 4096 solves (`ddp._solve_batch` against `ddp.solve_batch`); (b)
+     the N = 1024 fleet, 2 + 6 steps (steps 3 and 4 of the trot take the
+     sequential rollout), `fused.fleet_step_eager` against the graphs; (c)
+     phase 8's single robot (fused step) with the assoc defaults and with
+     assoc off (K2 at B = 1), 2 + 12 updates. Prints the largest difference
+     of costs, states and commands (it must be 0: the same kernels run in
+     the same order), the same path's difference between its two turns,
+     K1 / K2 first-sweep and masked launches per solve, step or update,
+     each graph's capture time and node count, ms eager against graph, and
+     torch.cuda.max_memory_allocated with the graphs held.
 Each solve path runs with its kernel's launch count set to 0 just before it
 and read just after. Then one JSON line with both kernels (name, route,
-source, replaces, launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
-library_ms, ms_b1024, threads_per_block, smem_bytes, blocks_per_sm; K1 also
-fleet_launches, sharded_launches; K2 also mpc_launches, service_launches,
-profile_launches, ms_b1, plain_ms_b1, bound_ms_b1), the card's name and power limit, and the result line. Any
+source, replaces, launches, retry_launches, max_abs_err, ms, plain_ms,
+bound_ms, bound_by, library_ms, ms_b1024, ms_all_inactive,
+threads_per_block, smem_bytes, blocks_per_sm; K1 also fleet_launches,
+sharded_launches; K2 also mpc_launches, service_launches, profile_launches,
+ms_b1, plain_ms_b1, bound_ms_b1), the card's name and power limit, and the
+result line. Any
 failure raises and exits non-zero. No CUDA device: exit 1.
 """
 
@@ -209,6 +234,48 @@ def cuda_ms(torch, fn, reps):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_replays():
+    """Replays of every CUDA graph so far (solver/graphs.py)."""
+    from hkdmpc_tpu_torch.solver import graphs
+    return graphs.REPLAYS
+
+
+def replays_by_label():
+    """{graph label: replays so far}, one entry per captured graph."""
+    from hkdmpc_tpu_torch.solver import graphs
+    out = {}
+    for st in graphs.stats():
+        out[st["label"]] = out.get(st["label"], 0) + st["replays"]
+    return out
+
+
+def replayed_since(before):
+    """{label: replays} of the graphs replayed since the replays_by_label()
+    snapshot `before`."""
+    now = replays_by_label()
+    return {k: v - before.get(k, 0) for k, v in now.items()
+            if v > before.get(k, 0)}
+
+
+def require_replays(phase, n):
+    """A phase whose path replayed no graph fails."""
+    if n < 1:
+        raise AssertionError(f"phase {phase}: no CUDA graph was replayed")
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """The fleet and single-robot steps run eagerly while inside (the
+    reference runs of phases 7 and 11; the main paths replay graphs)."""
+    from hkdmpc_tpu_torch.mpc import fused
+    saved = fused.fleet_step
+    fused.fleet_step = fused.fleet_step_eager
+    try:
+        yield
+    finally:
+        fused.fleet_step = saved
 
 
 def trot_batch(torch, batch, dtype, model=None):
@@ -330,6 +397,7 @@ def kernel_vs_plain(torch, phase, name, cuda_fn, plain_fn, args, small_args,
 
     ms = cuda_ms(torch, lambda: cuda_fn(*args), 10)
     plain_ms = cuda_ms(torch, lambda: plain_fn(*args), 10)
+    masked = masked_launches(torch, name, cuda_fn, args, out_k, batch)
     at_small, small_record = "", {}
     if small_args is not None:
         small = cuda_fn(*small_args)
@@ -347,7 +415,7 @@ def kernel_vs_plain(torch, phase, name, cuda_fn, plain_fn, args, small_args,
           + f"; ok agree {ok_agree:.4%} (ok {int(out_k[4].sum())}/{batch}); "
           f"max |kernel - plain f32| {max_abs_err:.3e}; "
           f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (median of 10); "
-          f"{at_small}bound "
+          f"{at_small}{masked['text']}; bound "
           f"{bound['bound_ms']:.6f} ms set by {bound['bound_by']} "
           f"({work['bytes'] / 1e9:.6f} GB = {bound['bytes_ms']:.6f} ms at "
           f"3.35 TB/s, {work['flops'] / 1e9:.6f} GFLOP = "
@@ -356,7 +424,40 @@ def kernel_vs_plain(torch, phase, name, cuda_fn, plain_fn, args, small_args,
           flush=True)
     return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-            "library_ms": None, **small_record, **info}
+            "library_ms": None, **small_record,
+            "ms_all_inactive": masked["ms_all_inactive"], **info}
+
+
+def masked_launches(torch, name, cuda_fn, args, full, batch):
+    """A retry launch of the kernel (`active` mask, `out` buffers): with
+    every other scenario active it writes exactly those rows, bit for bit
+    the full sweep's, and leaves the others as they were; with none active
+    it writes nothing. Times the all-inactive launch (median of 10)."""
+    lanes = torch.arange(batch, device="cuda")
+    active = lanes % 2 == 0
+    out = tuple(torch.full_like(f, float("nan")) if f.is_floating_point()
+                else torch.zeros_like(f) for f in full)
+    blank = tuple(o.clone() for o in out)
+    cuda_fn(*args, active=active, out=out)
+    torch.cuda.synchronize()
+    for o, f, b in zip(out, full, blank):
+        if not (torch.equal(o[active], f[active])
+                and torch.equal(o[~active].nan_to_num(7.0),
+                                b[~active].nan_to_num(7.0))):
+            raise AssertionError(f"{name}: a masked launch wrote other rows "
+                                 "than the active ones, or other values")
+    none = torch.zeros(batch, dtype=torch.bool, device="cuda")
+    kept = tuple(o.clone() for o in out)
+    cuda_fn(*args, active=none, out=out)
+    torch.cuda.synchronize()
+    if not all(torch.equal(o.nan_to_num(7.0), k.nan_to_num(7.0))
+               for o, k in zip(out, kept)):
+        raise AssertionError(f"{name}: an all-inactive launch wrote")
+    ms = cuda_ms(torch, lambda: cuda_fn(*args, active=none, out=out), 10)
+    return {"ms_all_inactive": ms,
+            "text": (f"masked retry launch: every other scenario written "
+                     f"bit-equal, the rest untouched; all-inactive launch "
+                     f"{ms:.4f} ms (median of 10)")}
 
 
 def kernel_phase(batch=BATCH):
@@ -423,19 +524,25 @@ def check_solve(torch, res, batch, T):
         raise AssertionError(f"{n_failed} scenarios failed")
 
 
-def slice_run(torch, phase, label, run, counter, plain_route, card, batch,
-              model=None, min_launches=1):
+def slice_run(torch, phase, label, run, eager_run, counter, plain_route,
+              card, batch, model=None, min_launches=1):
     """One solve path at full width: the launch count of its kernel over
-    one run (set to 0 just before, read just after), the result checks, the
-    first scenarios against the plain-path solve, and the timing. Returns
-    the launch count."""
+    one run (set to 0 just before, read just after; the run replays the
+    solve's CUDA graph, captured by a first call before it), the result
+    checks, the first scenarios against the plain-path solve (eager), and
+    the timing. Returns (launches, retry launches)."""
     from hkdmpc_tpu_torch.solver.structs import tree_map
     prob_b, state_b, opt = trot_batch(torch, batch, torch.float32, model)
     optr = opt.runtime()
-    counter.LAUNCHES = 0
+    run(prob_b, state_b, optr)          # captures the graph
+    torch.cuda.synchronize()
+    counter.LAUNCHES = counter.RETRY_LAUNCHES = 0
+    replays = graph_replays()
     res = run(prob_b, state_b, optr)
     torch.cuda.synchronize()
-    launches = counter.LAUNCHES
+    launches, retries = counter.LAUNCHES, counter.RETRY_LAUNCHES
+    replays = graph_replays() - replays
+    require_replays(phase, replays)
     if launches < min_launches:
         raise AssertionError(f"the {label} solve launched its kernel "
                              f"{launches} times, expected >= {min_launches}")
@@ -443,7 +550,7 @@ def slice_run(torch, phase, label, run, counter, plain_route, card, batch,
 
     head = lambda a: a[:PLAIN_CHECK_LANES].contiguous()
     with plain_sweep_on_card(*plain_route):
-        ref = run(tree_map(head, prob_b), tree_map(head, state_b), optr)
+        ref = eager_run(tree_map(head, prob_b), tree_map(head, state_b), optr)
     rel = ((res.cost[:PLAIN_CHECK_LANES] - ref.cost).abs()
            / ref.cost.abs()).max().item()
     if not rel <= 1e-3:
@@ -453,14 +560,16 @@ def slice_run(torch, phase, label, run, counter, plain_route, card, batch,
     ms = cuda_ms(torch, lambda: run(prob_b, state_b, optr), 5)
     KEPT[f"phase{phase}_ms"] = ms
     print(f"phase {phase} {label}: B={batch} T={prob_b.T} f32 runtime caps"
-          f" (AL {optr.max_AL_iter} x DDP {optr.max_DDP_iter}); kernel "
-          f"launches {launches}; 0/{batch} failed; mean cost "
+          f" (AL {optr.max_AL_iter} x DDP {optr.max_DDP_iter}); graph "
+          f"replays {replays}; kernel launches {launches}, masked retry "
+          f"launches {retries}; 0/{batch} failed; mean cost "
           f"{float(res.cost.mean()):.6g}; n_iters "
           f"{sorted(set(res.n_iters.tolist()))}; first {PLAIN_CHECK_LANES} "
-          f"costs vs plain-path solve {rel:.3e} rel; {ms:.3f} ms per solve "
+          f"costs vs the eager plain-path solve {rel:.3e} rel; {ms:.3f} ms "
+          f"per solve (graph replay) "
           f"(median of 5) = {batch / ms * 1e3:.1f} solves/s on {card}",
           flush=True)
-    return launches
+    return launches, retries
 
 
 def slice_phase(card, batch=BATCH):
@@ -472,8 +581,12 @@ def slice_phase(card, batch=BATCH):
     def run(p, s, optr):
         return ddp.solve_batch(p, s, optr, kernel_jac=True)
 
+    def eager_run(p, s, optr):
+        return ddp._solve_batch(p, s, optr, kernel_jac=True)
+
     return slice_run(torch, 3, "solve_batch(kernel_jac=True)", run,
-                     riccati_hkd, (riccati_hkd, "backward_sweep_hkd",
+                     eager_run, riccati_hkd,
+                     (riccati_hkd, "backward_sweep_hkd",
                                    riccati_hkd.backward_sweep_hkd_plain),
                      card, batch)
 
@@ -489,8 +602,11 @@ def dense_slice_phase(card, batch=BATCH):
     def run(p, s, optr):
         return ddp.solve_batch(p, s, optr, kernel_jac=False, model=spec)
 
+    def eager_run(p, s, optr):
+        return ddp._solve_batch(p, s, optr, kernel_jac=False, model=spec)
+
     return slice_run(torch, 5, "solve_batch(kernel_jac=False, swing model)",
-                     run, riccati_dense,
+                     run, eager_run, riccati_dense,
                      (riccati_dense, "backward_sweep_dense",
                       riccati_dense.backward_sweep_dense_plain),
                      card, batch, model=spec, min_launches=2)
@@ -502,42 +618,24 @@ def k2_vs_k1_phase(batch=BATCH):
     from hkdmpc_tpu_torch.solver import ddp
     prob_b, state_b, opt = trot_batch(torch, batch, torch.float32)
     optr = opt.runtime()
+    replays = graph_replays()
     r1 = ddp.solve_batch(prob_b, state_b, optr, kernel_jac=True)
     r2 = ddp.solve_batch(prob_b, state_b, optr, kernel_jac=False)
     torch.cuda.synchronize()
+    replays = graph_replays() - replays
     f1, f2 = int(r1.solve_failed.sum()), int(r2.solve_failed.sum())
     rel = ((r2.cost - r1.cost).abs() / r1.cost.abs()).double()
     agree = float((rel <= 1e-3).double().mean())
     print(f"phase 6 K2 vs K1: default model B={batch} f32 runtime caps, "
           f"kernel_jac=True vs False; final cost rel diff max "
           f"{float(rel.max()):.3e}, p99 {float(torch.quantile(rel, 0.99)):.3e}"
-          f", {agree:.4%} within 1e-3; n_failed {f1} / {f2}", flush=True)
+          f", {agree:.4%} within 1e-3; n_failed {f1} / {f2}; graph replays "
+          f"{replays}", flush=True)
     if f1 or f2:
         raise AssertionError(f"failed scenarios: {f1} (K1) / {f2} (K2)")
     if not bool(torch.isfinite(rel).all()) or agree < 0.99:
         raise AssertionError(f"only {agree:.4%} of final costs agree within "
                              "1e-3")
-
-
-@contextlib.contextmanager
-def counting_calls(module, names):
-    """Count the calls of module.<name> for each name while inside."""
-    counts = dict.fromkeys(names, 0)
-    saved = {n: getattr(module, n) for n in names}
-
-    def counted(name):
-        def call(*args, **kw):
-            counts[name] += 1
-            return saved[name](*args, **kw)
-        return call
-
-    for n in names:
-        setattr(module, n, counted(n))
-    try:
-        yield counts
-    finally:
-        for n in names:
-            setattr(module, n, saved[n])
 
 
 def _rate(ms_list, n):
@@ -555,7 +653,6 @@ def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
     import tempfile
     from hkdmpc_tpu_torch.mpc.fleet import FleetConfig, FleetMPC
     from hkdmpc_tpu_torch.ops import riccati_hkd
-    from hkdmpc_tpu_torch.solver import rollout as ro_mod
     from hkdmpc_tpu_torch.workload import gait_file, meas_stream
 
     with tempfile.TemporaryDirectory() as d:
@@ -571,27 +668,26 @@ def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
         stream = meas_stream(n, SEED)
         fleet.rollout_steps(FLEET_WARMUP, stream)
 
-        # per step: the host clock and the rollout calls at each step's
+        # per step: the host clock and the graphs' replays at each step's
         # start (meas_fn is called first), all_shooting() after its update
         stamps, shooting, calls = [], [], []
-        names = ("hybrid_rollout", "hybrid_rollout_parallel")
-        with counting_calls(ro_mod, names) as counts:
-            def meas_fn(k):
-                if k:
-                    shooting.append(fleet.problem.all_shooting())
-                calls.append(dict(counts))
-                stamps.append(time.perf_counter())
-                return stream(k)
 
-            riccati_hkd.LAUNCHES = 0
-            t0 = time.perf_counter()
-            last = fleet.rollout_steps(steps, meas_fn,
-                                       mpc_time0=0.01 * FLEET_WARMUP)
-            t1 = time.perf_counter()
-            launches = riccati_hkd.LAUNCHES
-            shooting.append(fleet.problem.all_shooting())
-            calls.append(dict(counts))
-            stamps.append(t1)
+        def meas_fn(k):
+            if k:
+                shooting.append(fleet.problem.all_shooting())
+            calls.append(replays_by_label())
+            stamps.append(time.perf_counter())
+            return stream(k)
+
+        riccati_hkd.LAUNCHES = riccati_hkd.RETRY_LAUNCHES = 0
+        t0 = time.perf_counter()
+        last = fleet.rollout_steps(steps, meas_fn,
+                                   mpc_time0=0.01 * FLEET_WARMUP)
+        t1 = time.perf_counter()
+        launches, retries = riccati_hkd.LAUNCHES, riccati_hkd.RETRY_LAUNCHES
+        shooting.append(fleet.problem.all_shooting())
+        calls.append(replays_by_label())
+        stamps.append(t1)
 
         out = fleet.unpack(last)
     if launches < 2 * steps:
@@ -608,13 +704,15 @@ def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
     step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
     n_seq = 0
     for k in range(steps):
-        seq = calls[k + 1]["hybrid_rollout"] - calls[k]["hybrid_rollout"]
-        par = (calls[k + 1]["hybrid_rollout_parallel"]
-               - calls[k]["hybrid_rollout_parallel"])
-        if shooting[k] == (seq > 0) or shooting[k] != (par > 0):
+        went = {lab: n - calls[k].get(lab, 0)
+                for lab, n in calls[k + 1].items()
+                if n > calls[k].get(lab, 0)}
+        want = f"parallel_rollout={shooting[k]}"
+        if len(went) != 1 or sum(went.values()) != 1 or not all(
+                lab.startswith("fleet_step") and want in lab for lab in went):
             raise AssertionError(
-                f"step {k}: all_shooting() {shooting[k]} but {seq} "
-                f"sequential and {par} parallel rollouts")
+                f"step {k}: all_shooting() {shooting[k]} but the graphs "
+                f"replayed were {went}")
         n_seq += not shooting[k]
     total_ms = (t1 - t0) * 1e3
     par_ms = [m for m, s in zip(step_ms, shooting) if s]
@@ -624,8 +722,11 @@ def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
           f"solve mean cost {init['mean_cost']:.6g}, 0/{n} failed, "
           f"{init['solve_ms']:.3f} ms; {steps} steps after {FLEET_WARMUP} "
           f"warm-up in {total_ms:.3f} ms (host clock around rollout_steps)"
-          f" = {_rate([total_ms / steps], n)}; K1 launches {launches} "
-          f"({launches / steps:.2f}/step); {n_seq} of {steps} steps not "
+          f" = {_rate([total_ms / steps], n)}; graph replays {steps} (one a "
+          f"step: parallel- or sequential-rollout graph as all_shooting() "
+          f"says); K1 launches {launches} ({launches / steps:.2f}/step), "
+          f"masked retry launches {retries} ({retries / steps:.2f}/step); "
+          f"{n_seq} of {steps} steps not "
           f"all-shooting took the sequential rollout; parallel-rollout "
           f"steps: {_rate(par_ms, n)}; sequential-rollout steps: "
           f"{_rate(seq_ms, n)}; last step 0/{n} failed, mean cost "
@@ -637,8 +738,9 @@ def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
 
 def fleet_vs_plain(torch, card, n=PLAIN_CHECK_LANES,
                    steps=FLEET_CHECK_STEPS):
-    """An n-robot fleet with the plain sweep on the card beside an n-robot
-    K1 fleet, same measurements: per-step final costs within 1e-3."""
+    """An n-robot fleet with the plain sweep on the card, stepped eagerly,
+    beside an n-robot K1 fleet (graphs), same measurements: per-step final
+    costs within 1e-3."""
     import tempfile
     from hkdmpc_tpu_torch.mpc.fleet import FleetConfig, FleetMPC
     from hkdmpc_tpu_torch.ops import riccati_hkd
@@ -650,9 +752,12 @@ def fleet_vs_plain(torch, card, n=PLAIN_CHECK_LANES,
     with tempfile.TemporaryDirectory() as d:
         ref = gait_file("trot", d)
         for label in ("kernel", "plain"):
-            route = (plain_sweep_on_card(riccati_hkd, "backward_sweep_hkd",
-                                         riccati_hkd.backward_sweep_hkd_plain)
-                     if label == "plain" else contextlib.nullcontext())
+            route = contextlib.ExitStack()
+            if label == "plain":
+                route.enter_context(plain_sweep_on_card(
+                    riccati_hkd, "backward_sweep_hkd",
+                    riccati_hkd.backward_sweep_hkd_plain))
+                route.enter_context(eager_steps())
             with route:
                 f = FleetMPC(ref, n, config=FleetConfig(),
                              dtype=torch.float32, device="cuda")
@@ -679,10 +784,11 @@ def fleet_vs_plain(torch, card, n=PLAIN_CHECK_LANES,
 def mpc_run(torch, ref, label, stream, **cfg):
     """One single-robot MPC run: cold solve, MPC_WARMUP updates, then
     MPC_UPDATES timed updates of `stream`'s measurements. Counts K2's
-    launches and the calls of the parallel-in-time sweep over the timed
-    updates. Returns a record of per-update times, costs and commands."""
+    launches and retry launches and the graphs replayed (by label) over the
+    timed updates. Returns a record of per-update times, costs and
+    commands."""
     from hkdmpc_tpu_torch.mpc.solver import HKDMPCSolver, MPCConfig
-    from hkdmpc_tpu_torch.ops import assoc, riccati_dense
+    from hkdmpc_tpu_torch.ops import riccati_dense
 
     solver = HKDMPCSolver(ref, config=MPCConfig(**cfg), dtype=torch.float32,
                           device="cuda")
@@ -693,45 +799,46 @@ def mpc_run(torch, ref, label, stream, **cfg):
     rec = dict(label=label, cold_ms=solver.solve_time, ms=[], dispatch=[],
                wait=[], ready=[], shooting=[], cost=[], cmds=[],
                assoc_bw=solver._assoc_bw)
-    with counting_calls(assoc, ("riccati_backward_assoc",)) as sweeps:
-        for k in range(MPC_WARMUP + MPC_UPDATES):
-            if k == MPC_WARMUP:
-                riccati_dense.LAUNCHES = 0
-                sweeps["riccati_backward_assoc"] = 0
-            m = {name: v[0] for name, v in stream(k).items()}
-            args = (m["rpy"], m["p"], m["v"], m["omega"], m["qJ"])
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            if solver.cfg.fused_step:
-                solver.update_async(*args, mpc_time=0.01 * k)
-                t1 = time.perf_counter()
-                ready = solver.fused_ready()
-                cmd = solver.update_fused_complete()
-            else:
-                cmd = solver.update(*args, mpc_time=0.01 * k)
-                t1, ready = None, None
-            t2 = time.perf_counter()
-            res = solver.last_result
-            if bool(res.solve_failed):
-                raise AssertionError(f"{label}: update {k} failed")
-            if cmd.hkd_controls.shape != (solver.n_cmd, 24) or not (
-                    np.isfinite(cmd.hkd_controls).all()
-                    and np.isfinite(cmd.feedback).all()
-                    and np.isfinite(cmd.des_body_state).all()):
-                raise AssertionError(f"{label}: update {k}: command not "
-                                     "finite")
-            if k < MPC_WARMUP:
-                continue
-            rec["ms"].append((t2 - t0) * 1e3)
-            if t1 is not None:
-                rec["dispatch"].append((t1 - t0) * 1e3)
-                rec["wait"].append((t2 - t1) * 1e3)
-                rec["ready"].append(ready)
-            rec["shooting"].append(solver.problem.all_shooting())
-            rec["cost"].append(float(res.cost))
-            rec["cmds"].append(cmd)
-        rec["k2_launches"] = riccati_dense.LAUNCHES
-        rec["assoc_sweeps"] = sweeps["riccati_backward_assoc"]
+    replays = None
+    for k in range(MPC_WARMUP + MPC_UPDATES):
+        if k == MPC_WARMUP:
+            riccati_dense.LAUNCHES = riccati_dense.RETRY_LAUNCHES = 0
+            replays = replays_by_label()
+        m = {name: v[0] for name, v in stream(k).items()}
+        args = (m["rpy"], m["p"], m["v"], m["omega"], m["qJ"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if solver.cfg.fused_step:
+            solver.update_async(*args, mpc_time=0.01 * k)
+            t1 = time.perf_counter()
+            ready = solver.fused_ready()
+            cmd = solver.update_fused_complete()
+        else:
+            cmd = solver.update(*args, mpc_time=0.01 * k)
+            t1, ready = None, None
+        t2 = time.perf_counter()
+        res = solver.last_result
+        if bool(res.solve_failed):
+            raise AssertionError(f"{label}: update {k} failed")
+        if cmd.hkd_controls.shape != (solver.n_cmd, 24) or not (
+                np.isfinite(cmd.hkd_controls).all()
+                and np.isfinite(cmd.feedback).all()
+                and np.isfinite(cmd.des_body_state).all()):
+            raise AssertionError(f"{label}: update {k}: command not "
+                                 "finite")
+        if k < MPC_WARMUP:
+            continue
+        rec["ms"].append((t2 - t0) * 1e3)
+        if t1 is not None:
+            rec["dispatch"].append((t1 - t0) * 1e3)
+            rec["wait"].append((t2 - t1) * 1e3)
+            rec["ready"].append(ready)
+        rec["shooting"].append(solver.problem.all_shooting())
+        rec["cost"].append(float(res.cost))
+        rec["cmds"].append(cmd)
+    rec["k2_launches"] = riccati_dense.LAUNCHES
+    rec["k2_retries"] = riccati_dense.RETRY_LAUNCHES
+    rec["graphs"] = replayed_since(replays)
     rec["solver"] = solver
     return rec
 
@@ -744,7 +851,7 @@ def mpc_report(rec, card):
     n = len(rec["ms"])
     par = [m for m, s in zip(rec["ms"], rec["shooting"]) if s]
     seq = [m for m, s in zip(rec["ms"], rec["shooting"]) if not s]
-    sweeps = rec["assoc_sweeps"] if rec["assoc_bw"] else rec["k2_launches"]
+    replays = sum(rec["graphs"].values())
     split = ""
     if rec["dispatch"]:
         total = sum(rec["ms"])
@@ -759,10 +866,14 @@ def mpc_report(rec, card):
           f"{_mean(rec['ms']):.3f} ms = {1e3 / _mean(rec['ms']):.3f} "
           f"updates/s (budget 10 ms, HKDMPC.cpp:26-29); {len(par)} "
           f"parallel-rollout updates {_mean(par):.3f} ms, {len(seq)} "
-          f"sequential-rollout updates {_mean(seq):.3f} ms{split}; backward "
-          f"sweeps {sweeps} ({sweeps / n:.2f}/update, "
-          f"{'ops/assoc' if rec['assoc_bw'] else 'K2'}); K2 launches "
-          f"{rec['k2_launches']} ({rec['k2_launches'] / n:.2f}/update); 0 "
+          f"sequential-rollout updates {_mean(seq):.3f} ms{split}; graph "
+          f"replays {replays} ("
+          + "; ".join(f"{v} of {k}" for k, v in rec["graphs"].items())
+          + f"); backward sweep "
+          f"{'ops/assoc' if rec['assoc_bw'] else 'K2'}; K2 launches "
+          f"{rec['k2_launches']} ({rec['k2_launches'] / n:.2f}/update), "
+          f"masked retry launches {rec['k2_retries']} "
+          f"({rec['k2_retries'] / n:.2f}/update); 0 "
           f"failed, last cost {rec['cost'][-1]:.6g}; on {card}", flush=True)
 
 
@@ -852,16 +963,24 @@ def mpc_phase(card):
             mpc_report(rec, card)
             runs.append(rec)
     a, b, c = runs
-    if not a["assoc_bw"] or a["k2_launches"] or a["assoc_sweeps"] < 2 * len(
-            a["ms"]):
+    for rec in runs:
+        require_replays(8, sum(rec["graphs"].values()))
+        if sum(rec["graphs"].values()) != len(rec["ms"]):
+            raise AssertionError(f"{rec['label']}: {rec['graphs']} replays "
+                                 f"in {len(rec['ms'])} updates")
+        want = f"assoc_backward={rec['assoc_bw']}"
+        if not all(want in lab for lab in rec["graphs"]):
+            raise AssertionError(f"{rec['label']}: replayed {rec['graphs']}"
+                                 f", expected {want}")
+    if not a["assoc_bw"] or a["k2_launches"]:
         raise AssertionError("(a) did not take the parallel-in-time sweep "
-                             f"({a['assoc_sweeps']} sweeps, "
-                             f"{a['k2_launches']} K2 launches)")
+                             f"({a['graphs']}, {a['k2_launches']} K2 "
+                             "launches)")
     if not any(a["shooting"]) or all(a["shooting"]):
         raise AssertionError("the timed updates do not hold both rollout "
                              "kinds")
     for rec in (b, c):
-        if rec["k2_launches"] < 2 * len(rec["ms"]) or rec["assoc_sweeps"]:
+        if rec["k2_launches"] < 2 * len(rec["ms"]) or rec["assoc_bw"]:
             raise AssertionError(f"{rec['label']}: K2 launched "
                                  f"{rec['k2_launches']} times in "
                                  f"{len(rec['ms'])} updates")
@@ -974,6 +1093,7 @@ def service_scripted(torch, card, ref, lcm_dir, lcm):
     ms of the timed multiple-shooting updates by rollout kind, as text)."""
     from hkdmpc_tpu_torch.mpc.runtime import MPCService
     from hkdmpc_tpu_torch.ops import riccati_dense
+    from hkdmpc_tpu_torch.solver import graphs
     from hkdmpc_tpu_torch.workload import meas_stream
 
     data_t, cmd_t, info_t = (lcm["hkd_data_lcmt"], lcm["hkd_command_lcmt"],
@@ -991,11 +1111,13 @@ def service_scripted(torch, card, ref, lcm_dir, lcm):
 
     def timed_handle(msg):
         before = riccati_dense.LAUNCHES
+        held = len(graphs.stats())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         handle(msg)
         per.append(dict(ms=(time.perf_counter() - t0) * 1e3,
                         launches=riccati_dense.LAUNCHES - before,
+                        captures=len(graphs.stats()) - held,
                         failed=bool(solver.last_result.solve_failed),
                         shooting=solver.problem.all_shooting(),
                         ms_mode=bool(solver.opt.MS)))
@@ -1003,8 +1125,11 @@ def service_scripted(torch, card, ref, lcm_dir, lcm):
     svc.handle = timed_handle
     svc.run(max_messages=SERVICE_WARMUP)
     riccati_dense.LAUNCHES = 0
+    replays = graph_replays()
     svc.run(max_messages=SERVICE_REQUESTS)
     launches = riccati_dense.LAUNCHES
+    replays = graph_replays() - replays
+    require_replays("9 (a)", replays)
     solver.close()
 
     cmds = [cmd_t.decode(b) for c, b in tx.published if c == "mpc_command"]
@@ -1051,10 +1176,15 @@ def service_scripted(torch, card, ref, lcm_dir, lcm):
              cost=[bare_cost[k] for k in updates]), phase=9)
 
     upd = [per[k] for k in updates]
-    bad = [p["launches"] for p in upd if p["launches"] != 2]
+    # an update that captures a graph (the first of its kind after a
+    # reset) also launches K2 twice in the capture's eager warm-up
+    bad = [(p["launches"], p["captures"]) for p in upd
+           if p["launches"] != 2 * (1 + p["captures"])]
     if bad or launches < 2 * len(updates):
-        raise AssertionError(f"phase 9 (a): K2 launches per update {bad} "
-                             f"(expected 2), {launches} in all")
+        raise AssertionError(f"phase 9 (a): K2 launches per update (and "
+                             f"captures) {bad} (expected 2 a replay and 2 "
+                             f"a capture's warm-up), {launches} in all")
+    captures = sum(p["captures"] for p in upd)
     ms_upd = [p["ms"] for p in upd if p["ms_mode"] and p["shooting"]]
     ms_seq = [p["ms"] for p in upd if p["ms_mode"] and not p["shooting"]]
     ss_upd = [p["ms"] for p in upd if not p["ms_mode"]]
@@ -1063,8 +1193,11 @@ def service_scripted(torch, card, ref, lcm_dir, lcm):
           f"{SERVICE_REQUESTS} requests after {SERVICE_WARMUP} warm-up "
           f"({len(updates)} updates, reset_mpc with MS=true and MS=false), "
           f"{n_all} mpc_command and solver_info decoded, finite, n_iter >= "
-          f"1, 0 failed; K2 launches {launches} "
-          f"({sum(p['launches'] for p in upd) / len(upd):.2f} per update; "
+          f"1, 0 failed; graph replays {replays}, captures in the updates "
+          f"{captures} (the first update of each rollout kind after a reset: "
+          f"a reset makes a new resident state); K2 launches {launches} "
+          f"({sum(p['launches'] for p in upd) / len(upd):.2f} per update, "
+          f"2.00 per replay; "
           f"resets {cold[True]['launches']} and {cold[False]['launches']}); "
           f"multiple shooting: {len(ms_upd)} parallel-rollout updates "
           f"{_mean(ms_upd):.3f} ms, {len(ms_seq)} sequential-rollout "
@@ -1165,6 +1298,7 @@ def service_async(torch, card, ref, lcm_dir, lcm, sync_ms):
 
     sender = threading.Thread(target=send_stream, name="mpc-data-sender")
     riccati_dense.LAUNCHES = 0
+    replays = graph_replays()
     t0 = time.perf_counter()
     sender.start()
     try:
@@ -1173,6 +1307,8 @@ def service_async(torch, card, ref, lcm_dir, lcm, sync_ms):
         sender.join()
     wall = time.perf_counter() - t0
     launches = riccati_dense.LAUNCHES
+    replays = graph_replays() - replays
+    require_replays("9 (b)", replays)
     solver.close()
     answers = heard()
     close()
@@ -1214,7 +1350,7 @@ def service_async(torch, card, ref, lcm_dir, lcm, sync_ms):
                       for m, k in zip(solve_ms, kinds))
           + f" (synchronous updates in (a): {sync_ms}); "
           f"{stats['polls']} polls = {stats['polls'] / stats['solved']:.1f} "
-          f"per solve; K2 launches {launches} "
+          f"per solve; graph replays {replays}; K2 launches {launches} "
           f"({launches / stats['solved']:.2f} per solve); {wall:.3f} s wall;"
           f" on {card}", flush=True)
     return launches
@@ -1232,6 +1368,7 @@ def service_poller_cost(torch, card, ref, lcm_dir, lcm):
 
     data_t, cmd_t = lcm["hkd_data_lcmt"], lcm["hkd_command_lcmt"]
     out = {}
+    replays = graph_replays()
     for mode in ("run", "run_async"):
         solver = service_solver(torch, ref)
         stream = meas_stream(1, SEED)
@@ -1270,6 +1407,8 @@ def service_poller_cost(torch, card, ref, lcm_dir, lcm):
         out[mode] = (times, polls)
     run_ms, (async_ms, polls) = out["run"][0], out["run_async"]
     ratio = _mean(async_ms) / _mean(run_ms)
+    replays = graph_replays() - replays
+    require_replays("9 (c)", replays)
     print(f"phase 9 (c) the poller's cost: {SERVICE_POLLER_REQUESTS} "
           f"requests in lockstep after {SERVICE_WARMUP} warm-up, solve_time "
           f"of each command; run (no poller): mean {_mean(run_ms):.3f} ms = "
@@ -1280,7 +1419,8 @@ def service_poller_cost(torch, card, ref, lcm_dir, lcm):
           f"{_mean(async_ms):.3f} ms = {1e3 / _mean(async_ms):.3f} updates/s ("
           + ", ".join(f"{t:.1f}" for t in async_ms)
           + f"); ratio {ratio:.3f} (gate < {SERVICE_POLLER_MAX_RATIO:g}); "
-          f"on {card}", flush=True)
+          f"graph replays {replays} (warm-up included); on {card}",
+          flush=True)
     if not ratio < SERVICE_POLLER_MAX_RATIO:
         raise AssertionError(
             f"phase 9 (c): the solve beside the polling loop takes {ratio:.3f}"
@@ -1323,9 +1463,12 @@ def sharded_solve(torch, card, mesh, batch=BATCH):
     optr = opt.runtime()
     ref = ddp.solve_batch(prob_b, state_b, optr, kernel_jac=True)
     riccati_hkd.LAUNCHES = 0
+    replays = graph_replays()
     res, agg = solve_sharded(prob_b, state_b, optr, mesh, kernel_jac=True)
     torch.cuda.synchronize()
     launches = riccati_hkd.LAUNCHES
+    replays = graph_replays() - replays
+    require_replays("10 (a)", replays)
     check_solve(torch, res, batch, prob_b.T)
     rel = float(((res.cost - ref.cost).abs() / ref.cost.abs()).max())
     host = {"mean_cost": float(res.cost.double().mean()),
@@ -1341,7 +1484,8 @@ def sharded_solve(torch, card, mesh, batch=BATCH):
     print(f"phase 10 (a) solve_sharded, {torch.distributed.get_backend()}, "
           f"world size {mesh.size} (rank "
           f"{mesh.rank}, {mesh.device}): B={batch} T={prob_b.T} f32 runtime "
-          f"caps kernel_jac; K1 launches {launches}; final costs vs "
+          f"caps kernel_jac; graph replays {replays}; K1 launches "
+          f"{launches}; final costs vs "
           f"solve_batch on the same inputs max {rel:.3e} rel (limit 1e-6); "
           f"agg {json.dumps(agg)} vs the host reductions of the result max "
           f"{agg_err:.3e} rel; ms per solve (CUDA events, median of 3, "
@@ -1376,15 +1520,18 @@ def sharded_fleet(torch, card, mesh, n=FLEET_N, steps=SHARDED_FLEET_STEPS):
             stream = meas_stream(n, SEED)
             f.rollout_steps(FLEET_WARMUP, stream)
             riccati_hkd.LAUNCHES = 0
+            replays = graph_replays()
             t0 = time.perf_counter()
             bundles = f.rollout_steps(steps, stream,
                                       mpc_time0=0.01 * FLEET_WARMUP,
                                       keep_bundles=True)
             runs[label] = dict(
                 init=init, launches=riccati_hkd.LAUNCHES,
+                replays=graph_replays() - replays,
                 ms=(time.perf_counter() - t0) * 1e3 / steps,
                 out=[f.unpack(b) for b in bundles], rows=f.rows)
     sh, un = runs["sharded"], runs["unsharded"]
+    require_replays("10 (b)", sh["replays"])
     worst = 0.0
     for a, b in zip(sh["out"], un["out"]):
         for name in ("controls", "body", "gains"):
@@ -1400,6 +1547,7 @@ def sharded_fleet(torch, card, mesh, n=FLEET_N, steps=SHARDED_FLEET_STEPS):
           f"{sh['init']['n_failed']}; {steps} steps after {FLEET_WARMUP} "
           f"warm-up (rollout_steps, keep_bundles=True): commands vs the "
           f"unsharded fleet max {worst:.3e} of their magnitude (limit 1e-5); "
+          f"graph replays {sh['replays']}; "
           f"K1 launches {sh['launches']} ({sh['launches'] / steps:.2f}/step)"
           f"; {sh['ms']:.3f} ms/step sharded, {un['ms']:.3f} unsharded (host"
           f" clock); last step {failed}/{n} failed; on {card}", flush=True)
@@ -1437,8 +1585,9 @@ def profile_phase(torch, card, batch=BATCH):
           f"StageTimer summary (ms): rollout {s['time_rollout_ms']:.3f}, "
           f"partial {s['time_partial_ms']:.3f}, backward "
           f"{s['time_bws_ms']:.3f} ({n_bws} sweeps), line search "
-          f"{s['time_fit_ms']:.3f}; K2 launches {launches}; on {card}",
-          flush=True)
+          f"{s['time_fit_ms']:.3f}; K2 launches {launches}; no graph (the "
+          f"stage timer synchronizes at every stage: eager by design); on "
+          f"{card}", flush=True)
     if launches < n_bws or n_bws != s["iterations"]:
         raise AssertionError(f"phase 10 (c): K2 launched {launches} times "
                              f"in {n_bws} backward stages")
@@ -1503,6 +1652,7 @@ def examples_phase(torch, card, steps=EXAMPLE_STEPS, robots=EXAMPLE_ROBOTS):
     with tempfile.TemporaryDirectory() as d:
         ref = gait_file("trot", d)
         riccati_dense.LAUNCHES = 0
+        replays = graph_replays()
         t0 = time.perf_counter()
         one = closed_loop(ref, steps, os.path.join(d, "one"), device="cuda",
                           log=quiet)
@@ -1514,6 +1664,8 @@ def examples_phase(torch, card, steps=EXAMPLE_STEPS, robots=EXAMPLE_ROBOTS):
                           device="cuda", log=quiet)
         many_s = time.perf_counter() - t0
         k1 = riccati_hkd.LAUNCHES
+        replays = graph_replays() - replays
+        require_replays("10 (e)", replays)
         n_rows = sum(ph.horizon + 1 for ph in one["solver"].problem.phases)
         logs = [load_log(os.path.join(d, "one", "state_log.txt"))] + [
             load_log(os.path.join(d, "fleet", f"robot{i}", "state_log.txt"))
@@ -1528,7 +1680,8 @@ def examples_phase(torch, card, steps=EXAMPLE_STEPS, robots=EXAMPLE_ROBOTS):
           f" fleet_demo {robots} robots {steps} steps in {many_s:.3f} s "
           f"(K1 launches {k1}), cold solve {many['stats']['n_failed']} "
           f"failed, heights [{hn.min():.4f}, {hn.max():.4f}] m, logs "
-          f"{[l.shape[0] for l in logs[1:]]} rows; on {card}", flush=True)
+          f"{[l.shape[0] for l in logs[1:]]} rows; graph replays {replays};"
+          f" on {card}", flush=True)
     if not (np.isfinite(h1).all() and np.isfinite(hn).all()
             and all(np.isfinite(l).all() for l in logs)):
         raise AssertionError("phase 10 (e): heights or logs not finite")
@@ -1559,13 +1712,271 @@ def scale_out_phase(card):
     return {"sharded_launches": sharded}, {"profile_launches": profile}
 
 
+def _max_diff(pairs):
+    """Max |a - b| over pairs of tensors or arrays (NaN where both are)."""
+    worst = 0.0
+    for a, b in pairs:
+        a = np.nan_to_num(np.asarray(a, np.float64), nan=7.0)
+        b = np.nan_to_num(np.asarray(b, np.float64), nan=7.0)
+        worst = max(worst, float(np.max(np.abs(a - b))) if a.size else 0.0)
+    return worst
+
+
+def _launch_counts():
+    from hkdmpc_tpu_torch.ops import riccati_dense, riccati_hkd
+    return (riccati_hkd.LAUNCHES, riccati_hkd.RETRY_LAUNCHES,
+            riccati_dense.LAUNCHES, riccati_dense.RETRY_LAUNCHES)
+
+
+def _launch_text(before, after, n, unit):
+    k1, k1r, k2, k2r = (b - a for a, b in zip(before, after))
+    return (f"K1 {k1 / n:.2f} + {k1r / n:.2f} masked, K2 {k2 / n:.2f} + "
+            f"{k2r / n:.2f} masked per {unit}")
+
+
+def _graph_text(labels):
+    """Capture seconds (after the warm-up run) and node count of each
+    graph whose label starts with one of `labels`."""
+    from hkdmpc_tpu_torch.solver import graphs
+    return "; ".join(
+        f"{st['label']}: capture {st['capture_s']:.3f} s, "
+        f"{st['nodes'] if st['nodes'] is not None else 'not measured'} "
+        "nodes" for st in graphs.stats()
+        if any(st["label"].startswith(l) for l in labels))
+
+
+def graph_solves(torch, card):
+    """Phase 11 (a): phase 3's and phase 5's solves, the eager body against
+    the graph on the same inputs, in turns (eager, graph, graph, eager)."""
+    from hkdmpc_tpu_torch.solver import ddp
+    from hkdmpc_tpu_torch.solver.model_api import hkd_model_spec
+    worst_all = 0.0
+    for label, kj, spec in (
+            ("kernel_jac", True, None),
+            ("dense swing model", False,
+             hkd_model_spec(swing_constraint=True))):
+        prob_b, state_b, opt = trot_batch(torch, BATCH, torch.float32, spec)
+        optr = opt.runtime()
+        eager = lambda: ddp._solve_batch(prob_b, state_b, optr,
+                                         kernel_jac=kj, model=spec)
+        graph = lambda: ddp.solve_batch(prob_b, state_b, optr,
+                                        kernel_jac=kj, model=spec)
+        graph()                       # the capture
+        torch.cuda.synchronize()
+        res, ms, counts = {}, {"eager": [], "graph": []}, {}
+        for turn in ("eager", "graph", "graph", "eager"):
+            before = _launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = eager() if turn == "eager" else graph()
+            end.record()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            ms[turn].append((start.elapsed_time(end), host_ms))
+            counts[turn] = _launch_text(before, _launch_counts(), 1,
+                                        "solve")
+            res.setdefault(turn, []).append(out)
+        e, g = res["eager"][0], res["graph"][0]
+        pairs = lambda a, b: [(a.cost.cpu(), b.cost.cpu()),
+                              (a.state.Xbar.cpu(), b.state.Xbar.cpu()),
+                              (a.state.Ubar.cpu(), b.state.Ubar.cpu()),
+                              (a.state.K.cpu(), b.state.K.cpu())]
+        worst = _max_diff(pairs(e, g))
+        rerun = max(_max_diff(pairs(*res["eager"])),
+                    _max_diff(pairs(*res["graph"])))
+        worst_all = max(worst_all, worst)
+        fmt = lambda xs: ", ".join(f"{d:.3f} ({h:.3f})" for d, h in xs)
+        print(f"phase 11 (a) {label} solve, B={BATCH} T={prob_b.T} f32 "
+              f"runtime caps, eager body vs graph in turns (eager, graph, "
+              f"graph, eager): max |eager - graph| of costs, Xbar, Ubar, K "
+              f"{worst:.3e} (the same path run twice: {rerun:.3e}); ms per "
+              f"solve, CUDA events (host clock around it): eager "
+              f"{fmt(ms['eager'])}, graph {fmt(ms['graph'])}; launches: "
+              f"eager {counts['eager']}, graph {counts['graph']}; "
+              f"{_graph_text(['solve_batch(B=' + str(BATCH)])}; on {card}",
+              flush=True)
+    return worst_all
+
+
+def _fleet_run(torch, ref, eager, steps):
+    """A FleetMPC N = FLEET_N on the trot, f32, FleetConfig(): cold solve,
+    FLEET_WARMUP + steps blocking steps of meas_stream(FLEET_N, SEED).
+    Returns per timed step: (ms, all_shooting, unpacked output), and the
+    launch text."""
+    from hkdmpc_tpu_torch.mpc.fleet import FleetConfig, FleetMPC
+    from hkdmpc_tpu_torch.workload import meas_stream
+    route = eager_steps() if eager else contextlib.nullcontext()
+    out = []
+    with route:
+        f = FleetMPC(ref, FLEET_N, config=FleetConfig(), dtype=torch.float32,
+                     device="cuda")
+        f.initialize()
+        stream = meas_stream(FLEET_N, SEED)
+        for k in range(FLEET_WARMUP + steps):
+            if k == FLEET_WARMUP:
+                before = _launch_counts()
+            m = stream(k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o = f.step(m["rpy"], m["p"], m["v"], m["omega"], m["qJ"],
+                       mpc_time=0.01 * k)
+            if k >= FLEET_WARMUP:
+                out.append(((time.perf_counter() - t0) * 1e3,
+                            f.problem.all_shooting(), o))
+    return out, _launch_text(before, _launch_counts(), steps, "step")
+
+
+def graph_fleet(torch, card, ref, steps=6):
+    """Phase 11 (b): the fleet of phase 7, eager steps against graph steps
+    in turns (eager, graph, graph, eager), FLEET_WARMUP + steps steps each,
+    both rollout kinds among them."""
+    runs, texts = {"eager": [], "graph": []}, {}
+    for turn in ("eager", "graph", "graph", "eager"):
+        out, texts[turn] = _fleet_run(torch, ref, turn == "eager", steps)
+        runs[turn].append(out)
+    kinds = [s for _, s, _ in runs["graph"][0]]
+    if all(kinds) or not any(kinds):
+        raise AssertionError("phase 11 (b): the timed steps do not hold "
+                             "both rollout kinds")
+    fields = ("scalars", "controls", "body", "gains", "pf")
+    pairs = lambda a, b: [(x[2][n], y[2][n]) for x, y in zip(a, b)
+                          for n in fields]
+    worst = _max_diff(pairs(runs["eager"][0], runs["graph"][0]))
+    rerun = max(_max_diff(pairs(*runs["eager"])),
+                _max_diff(pairs(*runs["graph"])))
+
+    def by_kind(turn, shooting):
+        return statistics.median([m for run in runs[turn]
+                                  for m, s, _ in run if s == shooting])
+    print(f"phase 11 (b) fleet N={FLEET_N} trot f32 FleetConfig(), eager "
+          f"steps vs graph steps in turns (eager, graph, graph, eager), "
+          f"{FLEET_WARMUP} + {steps} steps each ({kinds.count(False)} of "
+          f"{steps} timed steps sequential): max |eager - graph| of the "
+          f"bundles (costs, traces, controls, body states, gains, foot "
+          f"placements) {worst:.3e} (the same path run twice: "
+          f"{rerun:.3e}); ms per step (host clock around the blocking step, "
+          f"median): parallel rollout eager {by_kind('eager', True):.3f}, "
+          f"graph {by_kind('graph', True):.3f}; sequential rollout eager "
+          f"{by_kind('eager', False):.3f}, graph "
+          f"{by_kind('graph', False):.3f}; launches: eager {texts['eager']},"
+          f" graph {texts['graph']}; {_graph_text(['fleet_step(N=' + str(FLEET_N)])}"
+          f"; on {card}", flush=True)
+    return worst
+
+
+def _robot_run(torch, ref, eager, **cfg):
+    """One single-robot run of phase 8 (HKDMPCSolver, fused step), eager
+    steps or graphs. Returns per timed update (ms, all_shooting, cost,
+    command) and the launch text."""
+    from hkdmpc_tpu_torch.mpc.solver import HKDMPCSolver, MPCConfig
+    from hkdmpc_tpu_torch.workload import meas_stream
+    route = eager_steps() if eager else contextlib.nullcontext()
+    out = []
+    with route:
+        solver = HKDMPCSolver(ref, config=MPCConfig(fused_step=True, **cfg),
+                              dtype=torch.float32, device="cuda")
+        solver.initialize()
+        stream = meas_stream(1, SEED)
+        for k in range(MPC_WARMUP + MPC_UPDATES):
+            if k == MPC_WARMUP:
+                before = _launch_counts()
+            m = {name: v[0] for name, v in stream(k).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cmd = solver.update(m["rpy"], m["p"], m["v"], m["omega"],
+                                m["qJ"], mpc_time=0.01 * k)
+            if k >= MPC_WARMUP:
+                out.append(((time.perf_counter() - t0) * 1e3,
+                            solver.problem.all_shooting(),
+                            float(solver.last_result.cost), cmd))
+        solver.close()
+    return out, _launch_text(before, _launch_counts(), MPC_UPDATES,
+                             "update")
+
+
+def graph_robot(torch, card, ref):
+    """Phase 11 (c): phase 8's single robot with the assoc defaults and
+    with assoc off (K2 at B = 1), eager updates against graph updates in
+    turns."""
+    worst_all = 0.0
+    for label, cfg in (("assoc defaults", {}),
+                       ("assoc off (K2 at B=1)",
+                        dict(assoc_linear=False, assoc_backward=False))):
+        runs, texts = {"eager": [], "graph": []}, {}
+        for turn in ("eager", "graph", "graph", "eager"):
+            out, texts[turn] = _robot_run(torch, ref, turn == "eager", **cfg)
+            runs[turn].append(out)
+        pairs = lambda a, b: [
+            (np.array([x[2]]), np.array([y[2]])) for x, y in zip(a, b)] + [
+            (getattr(x[3], n), getattr(y[3], n)) for x, y in zip(a, b)
+            for n in ("hkd_controls", "des_body_state", "feedback",
+                      "foot_placement")]
+        worst = _max_diff(pairs(runs["eager"][0], runs["graph"][0]))
+        rerun = max(_max_diff(pairs(*runs["eager"])),
+                    _max_diff(pairs(*runs["graph"])))
+        worst_all = max(worst_all, worst)
+        kinds = [s for _, s, _, _ in runs["graph"][0]]
+
+        def by_kind(turn, shooting):
+            ms = [m for run in runs[turn] for m, s, _, _ in run
+                  if s == shooting]
+            return statistics.median(ms) if ms else float("nan")
+        print(f"phase 11 (c) single robot, {label}, HKDMPCSolver("
+              f"fused_step=True) f32, eager updates vs graph updates in "
+              f"turns (eager, graph, graph, eager), {MPC_WARMUP} + "
+              f"{MPC_UPDATES} updates each ({kinds.count(False)} of "
+              f"{MPC_UPDATES} timed updates sequential): max |eager - graph|"
+              f" of costs, controls, body states, gains, foot placements "
+              f"{worst:.3e} (the same path run twice: {rerun:.3e}); ms per "
+              f"update (host clock around the blocking update, median): "
+              f"parallel rollout eager {by_kind('eager', True):.3f}, graph "
+              f"{by_kind('graph', True):.3f}; sequential rollout eager "
+              f"{by_kind('eager', False):.3f}, graph "
+              f"{by_kind('graph', False):.3f} (budget 10 ms); launches: "
+              f"eager {texts['eager']}, graph {texts['graph']}; "
+              f"{_graph_text(['fleet_step(N=1,'])}; on {card}", flush=True)
+    return worst_all
+
+
+def graph_phase(card):
+    """Phase 11: the eager bodies against the graphs on the same inputs, in
+    one call, in turns; the graphs' capture times, node counts and the
+    memory they hold. Their results must be equal: the same kernels run in
+    the same order."""
+    torch = _torch()
+    import tempfile
+    from hkdmpc_tpu_torch.solver import graphs
+    from hkdmpc_tpu_torch.workload import gait_file
+    graphs.clear_graphs()
+    torch.cuda.reset_peak_memory_stats()
+    worst = {"solves": graph_solves(torch, card)}
+    with tempfile.TemporaryDirectory() as d:
+        ref = gait_file("trot", d)
+        worst["fleet"] = graph_fleet(torch, card, ref)
+        worst["single robot"] = graph_robot(torch, card, ref)
+    held = len(graphs.stats())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase 11 memory: {held} graphs held, "
+          f"torch.cuda.max_memory_allocated {peak:.3f} GiB, memory_allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB; max |eager - "
+          f"graph| " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" (gate: equal); on {card}", flush=True)
+    if any(v != 0.0 for v in worst.values()):
+        raise AssertionError(f"phase 11: eager and graph results differ: "
+                             f"{worst}")
+    graphs.clear_graphs()
+
+
 def main():
     torch = _torch()
+    t0 = time.perf_counter()
     card = build_phase()
     hkd = kernel_phase()
-    hkd["launches"] = slice_phase(card)
+    hkd["launches"], hkd["retry_launches"] = slice_phase(card)
     dense = dense_kernel_phase()
-    dense["launches"] = dense_slice_phase(card)
+    dense["launches"], dense["retry_launches"] = dense_slice_phase(card)
     k2_vs_k1_phase()
     hkd["fleet_launches"] = fleet_phase(card)
     dense.update(mpc_phase(card))
@@ -1573,6 +1984,9 @@ def main():
     hkd_more, dense_more = scale_out_phase(card)
     hkd.update(hkd_more)
     dense.update(dense_more)
+    graph_phase(card)
+    print(f"chip_smoke: phases 1-11 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     print(json.dumps({"kernels": [hkd, dense]}))

@@ -7,6 +7,12 @@
 // Wrapper, plain PyTorch version and launch counter:
 // hkdmpc_tpu_torch/ops/riccati_hkd.py.
 //
+// A retry of the regularization loop (solver/backward.py, a fixed number of
+// sweeps inside a CUDA graph) passes `active` (B bytes): the block of a
+// scenario that is done returns before its first load and writes nothing,
+// so the first sweep's outputs stay; a retry then costs a launch (about
+// 0.06 ms at B = 4096 on the H100) where no scenario needs it.
+//
 // What it computes, per scenario, for t = T-1 .. 0 with the value carry
 // (G 24, H 24x24) held in shared memory:
 //   - seed G/H with the terminal partials phi(last) of the scenario's last
@@ -771,7 +777,9 @@ riccati_hkd_kernel(const int* __restrict__ kind, const float* __restrict__ X,
                    const float* __restrict__ defect,
                    const float* __restrict__ reg,
                    const int* __restrict__ last_node,
-                   const float* __restrict__ dt, float* __restrict__ dU,
+                   const float* __restrict__ dt,
+                   const unsigned char* __restrict__ active,
+                   float* __restrict__ dU,
                    float* __restrict__ K, float* __restrict__ dv1_out,
                    float* __restrict__ dv2_out,
                    unsigned char* __restrict__ ok_out, int T, int u_rows,
@@ -780,6 +788,9 @@ riccati_hkd_kernel(const int* __restrict__ kind, const float* __restrict__ X,
   Smem& s = *reinterpret_cast<Smem*>(smem_raw);
   const int tid = threadIdx.x;
   const size_t b = blockIdx.x;
+  // a retry sweep: a scenario that is done returns before its first load
+  // and writes nothing (its outputs stay those of an earlier sweep)
+  if (active != nullptr && !active[b]) return;
   const size_t Tn = (size_t)T + 1;
   constexpr size_t M = NX * NX;
   const int* kind_b = kind + b * T;
@@ -913,10 +924,18 @@ riccati_hkd_kernel(const int* __restrict__ kind, const float* __restrict__ X,
   }
 }
 
+// the shared-memory opt-in, once per device (a launch may be captured
+// into a CUDA graph, where only launches belong)
 cudaError_t configure() {
-  return cudaFuncSetAttribute(riccati_hkd_kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)sizeof(Smem));
+  static unsigned long long done = 0;  // bit d: device d configured
+  int dev = 0;
+  cudaError_t st = cudaGetDevice(&dev);
+  if (st != cudaSuccess || (dev < 64 && (done >> dev) & 1ull)) return st;
+  st = cudaFuncSetAttribute(riccati_hkd_kernel,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            (int)sizeof(Smem));
+  if (st == cudaSuccess && dev < 64) done |= 1ull << dev;
+  return st;
 }
 
 }  // namespace
@@ -927,9 +946,10 @@ extern "C" int riccati_hkd_launch(
     const float* foot_r, const float* reb_delta, const float* reb_eps,
     const float* term_contact, const float* td_mask, const float* al_sigma,
     const float* al_lambda, const float* term_mask, const float* defect,
-    const float* reg, const int* last_node, const float* dt, float* dU,
-    float* K, float* dv1, float* dv2, unsigned char* ok, int B, int T,
-    int u_rows, int ur_rows, void* stream) {
+    const float* reg, const int* last_node, const float* dt,
+    const unsigned char* active, float* dU, float* K, float* dv1,
+    float* dv2, unsigned char* ok, int B, int T, int u_rows, int ur_rows,
+    void* stream) {
   if (B <= 0 || T <= 0) return 0;
   const cudaError_t st = configure();
   if (st != cudaSuccess) return static_cast<int>(st);
@@ -937,7 +957,7 @@ extern "C" int riccati_hkd_launch(
                        static_cast<cudaStream_t>(stream)>>>(
       kind, X, U, contact, contact_next, xr, ur, foot_r, reb_delta, reb_eps,
       term_contact, td_mask, al_sigma, al_lambda, term_mask, defect, reg,
-      last_node, dt, dU, K, dv1, dv2, ok, T, u_rows, ur_rows);
+      last_node, dt, active, dU, K, dv1, dv2, ok, T, u_rows, ur_rows);
   return static_cast<int>(cudaGetLastError());
 }
 

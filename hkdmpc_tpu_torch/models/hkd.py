@@ -23,6 +23,21 @@ import torch
 
 from hkdmpc_tpu_torch.models import mini_cheetah as mc
 from hkdmpc_tpu_torch.ops import precise
+from hkdmpc_tpu_torch.ops.consts import Consts
+
+_CONSTS = Consts(hip=mc.HIP_OFFSETS, side_signs=mc.SIDE_SIGNS,
+                 inertia=mc.INERTIA_DIAG,
+                 inertia_inv=mc.INERTIA_INV_DIAG,
+                 gravity=[0.0, 0.0, -mc.GRAVITY], qleg=mc.QLEG_DEFAULT,
+                 cmap=[1.0, 1.0, 0.0])
+
+
+def _dt_col(dt, like, trailing: int):
+    """dt with `trailing` unit axes appended, to scale `like`: a tensor
+    in like's dtype, or a Python number as it is (a number only scales)."""
+    if isinstance(dt, torch.Tensor):
+        return dt.to(like.dtype).reshape(dt.shape + (1,) * trailing)
+    return float(dt)
 
 
 def euler_zyx_to_rotmat(eul):
@@ -72,8 +87,7 @@ def leg_forward_kinematics(qleg, side_sign: float):
 def foot_position(pos, eul, qleg, leg: int):
     """World-frame foot position (..., 3) of `leg` (int 0..3)."""
     R = euler_zyx_to_rotmat(eul)
-    hip = torch.as_tensor(mc.HIP_OFFSETS[leg], dtype=pos.dtype,
-                          device=pos.device)
+    hip = _CONSTS.get("hip", pos.dtype, pos.device)[leg]
     p_hip = leg_forward_kinematics(qleg, float(mc.SIDE_SIGNS[leg]))
     return pos + precise.mv(R, hip + p_hip)
 
@@ -131,8 +145,7 @@ def foot_jacobian_analytic(pos, eul, qleg, leg: int):
     """(d pf/d eul (..., 3, 3), d pf/d qleg (..., 3, 3)) for
     pf = pos + R (hip + p_leg); d pf/d pos is the identity."""
     R, dRy_, dRp_, dRr_ = _euler_zyx_rotmat_derivs(eul)
-    p = (torch.as_tensor(mc.HIP_OFFSETS[leg], dtype=eul.dtype,
-                         device=eul.device)
+    p = (_CONSTS.get("hip", eul.dtype, eul.device)[leg]
          + leg_forward_kinematics(qleg, float(mc.SIDE_SIGNS[leg])))
     d_eul = torch.stack([precise.mv(dRy_, p), precise.mv(dRp_, p),
                          precise.mv(dRr_, p)], dim=-1)
@@ -185,12 +198,12 @@ def dynamics_continuous(x, u, contact):
     f_body = precise.mm(grf, R)
     tau_body = torch.sum(c * torch.linalg.cross(r_body, f_body), dim=-2)
 
-    I_diag = torch.as_tensor(mc.INERTIA_DIAG, dtype=dtype, device=dev)
-    I_inv = torch.as_tensor(mc.INERTIA_INV_DIAG, dtype=dtype, device=dev)
+    I_diag = _CONSTS.get("inertia", dtype, dev)
+    I_inv = _CONSTS.get("inertia_inv", dtype, dev)
     omega_dot = I_inv * (tau_body - torch.linalg.cross(omega, I_diag * omega))
 
     f_total = torch.sum(c * grf, dim=-2)
-    g_vec = torch.tensor([0.0, 0.0, -mc.GRAVITY], dtype=dtype, device=dev)
+    g_vec = _CONSTS.get("gravity", dtype, dev)
     v_dot = f_total / mc.MASS + g_vec
 
     qdummy_dot = ((1.0 - c) * qJd).reshape(lead + (12,))
@@ -200,8 +213,7 @@ def dynamics_continuous(x, u, contact):
 def dynamics(x, u, contact, dt):
     """Forward-Euler discrete step — parity with reference `hkinodyn`.
     dt: scalar or a tensor of the leading shape."""
-    dt = torch.as_tensor(dt, dtype=x.dtype, device=x.device)
-    return x + dt[..., None] * dynamics_continuous(x, u, contact)
+    return x + _dt_col(dt, x, 1) * dynamics_continuous(x, u, contact)
 
 
 def _per_sample_jacobian(fn, argnums, args, event_dims):
@@ -241,7 +253,7 @@ def dynamics_jacobians_analytic(x, u, contact, dt):
     derivative reduces to dR^T/d(angle) @ m."""
     dtype, dev = x.dtype, x.device
     lead = x.shape[:-1]
-    dt = torch.as_tensor(dt, dtype=dtype, device=dev)
+    dt = _dt_col(dt, x, 2)
     eul, pos, omega = x[..., 0:3], x[..., 3:6], x[..., 6:9]
     grf = u[..., 0:12].reshape(lead + (4, 3))
     c = contact
@@ -272,8 +284,8 @@ def dynamics_jacobians_analytic(x, u, contact, dt):
                              precise.mv(dR_roll.transpose(-1, -2), m)], dim=-1)
     dtau_dpos = precise.mm(Rt, _cross_mat(F_c))
 
-    I_diag = torch.as_tensor(mc.INERTIA_DIAG, dtype=dtype, device=dev)
-    I_inv = torch.as_tensor(mc.INERTIA_INV_DIAG, dtype=dtype, device=dev)
+    I_diag = _CONSTS.get("inertia", dtype, dev)
+    I_inv = _CONSTS.get("inertia_inv", dtype, dev)
     # d/dw [ -w x (I w) ] = -( [w]x I - [I w]x )
     gyro = -(precise.mm(_cross_mat(omega), torch.diag(I_diag))
              - _cross_mat(I_diag * omega))
@@ -301,7 +313,7 @@ def dynamics_jacobians_analytic(x, u, contact, dt):
     A[..., 6:9, 3:6] = Iinv_col * dtau_dpos
     A[..., 6:9, 6:9] = Iinv_col * gyro
     A[..., 6:9, 12:24] = Iinv_col * dtau_dqd
-    A = dt[..., None, None] * A + torch.eye(24, dtype=dtype, device=dev)
+    A = dt * A + torch.eye(24, dtype=dtype, device=dev)
 
     B = torch.zeros(lead + (24, 24), dtype=dtype, device=dev)
     for l in range(4):
@@ -311,7 +323,7 @@ def dynamics_jacobians_analytic(x, u, contact, dt):
         B[..., 9:12, 3 * l:3 * l + 3] = (cl / mc.MASS) * eye3
     B[..., 12:24, 12:24] = torch.diag_embed(
         1.0 - torch.repeat_interleave(c, 3, dim=-1))
-    B = dt[..., None, None] * B
+    B = dt * B
     return A, B
 
 
@@ -320,22 +332,24 @@ def reset_map(x, c_cur, c_next):
 
     stance -> swing: qdummy_leg := default leg pose.
     swing -> stance: qdummy_leg := (pf_x, pf_y, 0) from FK at the pre-impact
-    pose. Otherwise identity."""
+    pose. Otherwise identity. The four legs are one (..., 4, 3) block: the
+    values of `foot_position` leg by leg, in about a third of the
+    operations."""
     dtype, dev = x.dtype, x.device
     eul, pos = x[..., 0:3], x[..., 3:6]
     qd = x[..., 12:24].reshape(x.shape[:-1] + (4, 3))
-    qleg_default = torch.as_tensor(mc.QLEG_DEFAULT, dtype=dtype, device=dev)
-    cmap = torch.tensor([1.0, 1.0, 0.0], dtype=dtype, device=dev)
-
-    new_legs = []
-    for l in range(4):
-        to_swing = (c_cur[..., l] * (1.0 - c_next[..., l]))[..., None]
-        to_stance = ((1.0 - c_cur[..., l]) * c_next[..., l])[..., None]
-        pf = foot_position(pos, eul, qd[..., l, :], l) * cmap
-        keep = 1.0 - to_swing - to_stance
-        new_legs.append(keep * qd[..., l, :] + to_swing * qleg_default
-                        + to_stance * pf)
-    return torch.cat([x[..., 0:12]] + new_legs, dim=-1)
+    qleg_default = _CONSTS.get("qleg", dtype, dev)
+    cmap = _CONSTS.get("cmap", dtype, dev)
+    R = euler_zyx_to_rotmat(eul)[..., None, :, :]
+    p_hip = leg_forward_kinematics(qd, _CONSTS.get("side_signs", dtype, dev))
+    pf = (pos[..., None, :] + precise.mv(
+        R, _CONSTS.get("hip", dtype, dev) + p_hip)) * cmap
+    to_swing = (c_cur * (1.0 - c_next))[..., None]
+    to_stance = ((1.0 - c_cur) * c_next)[..., None]
+    keep = 1.0 - to_swing - to_stance
+    legs = keep * qd + to_swing * qleg_default + to_stance * pf
+    return torch.cat([x[..., 0:12], legs.reshape(x.shape[:-1] + (12,))],
+                     dim=-1)
 
 
 def reset_map_jacobian(x, c_cur, c_next):

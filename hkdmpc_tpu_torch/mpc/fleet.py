@@ -16,6 +16,13 @@ versions. Every step passes `problem.all_shooting()` as the solve's
 `parallel_rollout`, so the steps after a back-phase append (whose last phase
 is too short to shoot) take the sequential rollout.
 
+On a CUDA device a step replays one of the fleet's two CUDA graphs (parallel
+and sequential rollout, `fused.fleet_step`), each captured at its first
+step, with the robots' state resident in the fleet's buffers: the graph
+reads it and writes the new state over it. The cold solve (`initialize`)
+runs once, eagerly, with the loops that stop (`unroll_caps=False`), as the
+JAX package's does.
+
 With a mesh (`parallel.batch.init_multihost` / `make_mesh`: one process per
 device on `torch.distributed`) the robots shard over the processes: each
 owns the contiguous block of n_robots / world-size robots, runs the shared
@@ -152,10 +159,13 @@ class FleetMPC:
         prob_b, state_b = replicate_problem(prob, state, self.n_local)
         prob_b = dataclasses.replace(prob_b, x0=torch.as_tensor(
             x0_b[self.rows], dtype=self.dtype, device=self.device))
+        # the cold solve: the loops that stop (the JAX package's while_loop
+        # solve), eager on every device
         flags = dict(kernel_jac=self._kernel_jac,
                      parallel_rollout=pb.all_shooting(),
                      assoc_linear=self.cfg.assoc_linear,
-                     assoc_backward=self.cfg.assoc_backward)
+                     assoc_backward=self.cfg.assoc_backward,
+                     unroll_caps=False)
         t0 = time.perf_counter()
         if self.mesh is not None:
             res, agg = solve_sharded(prob_b, state_b, self.opt, self.mesh,
@@ -201,11 +211,9 @@ class FleetMPC:
             mpc_time, self.cfg.timestep, self._np_dtype)
         meas_b = self._meas_batch(meas["rpy"], meas["p"], meas["v"],
                                   meas["omega"], meas["qJ"])
-        dev = lambda a, dt: torch.as_tensor(a, dtype=dt, device=self.device)
         t0 = time.perf_counter()
         self._state_dev, bundle = fused.fleet_step(
-            self._tables, self._state_dev, dev(ints, torch.int32),
-            dev(floats, self.dtype), dev(meas_b, self.dtype),
+            self._tables, self._state_dev, ints, floats, meas_b,
             self.opt.runtime(), pb.all_shooting(), self.n_cmd,
             self._kernel_jac, self.cfg.assoc_linear, self.cfg.assoc_backward)
         self.mpc_iter += 1

@@ -22,10 +22,15 @@ array in, and one (N, L) float bundle out (command, traces, scalars).
 
 The JAX package writes the core for one robot and vmaps it; here
 `_fused_core` is batched over robots from the start: the shared index
-vectors gather every robot's rows at once (`state.Xbar[:, gidx]`), and
-`fleet_step` is the core itself and `fused_step`, the single robot's entry
-point, one call of it at N = 1. The previous state is not donated: the step
-returns a new state and the caller drops the old reference.
+vectors gather every robot's rows at once (`state.Xbar[:, gidx]`).
+`_fused_core` is the eager body (the JAX package's un-jitted core);
+`fleet_step` is the compiled entry point and `fused_step`, the single
+robot's, one call of it at N = 1. On a CUDA device a step replays its CUDA
+graph (`solver/graphs.py`, one per (`parallel_rollout`, flags, shapes),
+two per fleet: parallel and sequential rollout), and the previous state is
+donated as in the JAX package (`donate_argnums=(1,)`): the graph writes the
+new state over it, and the state returned is the one passed in. On the
+CPU the step runs `_fused_core` eagerly and returns a new state.
 """
 
 from __future__ import annotations
@@ -223,15 +228,17 @@ def host_step(pb, old_offsets, nsteps, n_cmd, mpc_time, timestep, np_dtype):
 # ---------------------------------------------------------------------------
 
 def _fused_core(tables, state, ints, floats, meas, opt, parallel_rollout,
-                n_cmd, kernel_jac, assoc_linear=False, assoc_backward=False):
+                n_cmd, kernel_jac, assoc_linear=False, assoc_backward=False,
+                capturable=False):
     """The receding-horizon step of N robots as a function of device
     tensors: tables (make_tables), state (the batched SolverState of the
     previous step), ints / floats (the shared host_step vectors on the
     device), meas (N, 28). parallel_rollout is the problem's
     `all_shooting()`; kernel_jac picks the solve path (True: K1, False: the
     dense path with K2), assoc_linear / assoc_backward the dense path's
-    parallel-in-time recursions (`ddp.solve_batch`). Returns (new state,
-    bundle (N, L))."""
+    parallel-in-time recursions (`ddp.solve_batch`); capturable, the solve
+    body that reads nothing on the host (`ddp._solve_batch`). Returns (new
+    state, bundle (N, L))."""
     N, T = state.Ubar.shape[0], state.Ubar.shape[1]
     dtype = state.Xbar.dtype
     iv = _unpack(ints.long(), _int_layout(T, n_cmd))
@@ -296,10 +303,13 @@ def _fused_core(tables, state, ints, floats, meas, opt, parallel_rollout,
                             defect_bar=defect, constr=constr)
 
     # ---- 4. solve ----------------------------------------------------------
-    res = ddp.solve_batch(prob, new_state, opt, kernel_jac=kernel_jac,
-                          parallel_rollout=parallel_rollout,
-                          assoc_linear=assoc_linear,
-                          assoc_backward=assoc_backward)
+    ddp._check_flags(kernel_jac, None, assoc_linear, assoc_backward, False,
+                     False)
+    res = ddp._solve_batch(prob, new_state, opt, kernel_jac=kernel_jac,
+                           parallel_rollout=parallel_rollout and opt.MS,
+                           assoc_linear=assoc_linear,
+                           assoc_backward=assoc_backward,
+                           capturable=capturable)
 
     # ---- 5. command extraction (make_command walk, HKDMPC.cpp:242-298) ----
     ci = iv["cmd_idx"]
@@ -324,19 +334,53 @@ def _fused_core(tables, state, ints, floats, meas, opt, parallel_rollout,
     return res.state, bundle
 
 
-# the batched fleet step: tables and the schedule vectors shared, state and
-# measurements per robot (reference analog, per robot: HKDMPC.cpp:96-166 +
-# HKDProblem.cpp:116-222)
-fleet_step = _fused_core
+def fleet_step(tables, state, ints, floats, meas, opt, parallel_rollout,
+               n_cmd, kernel_jac, assoc_linear=False, assoc_backward=False):
+    """The batched fleet step: tables and the schedule vectors shared,
+    state and measurements per robot (reference analog, per robot:
+    HKDMPC.cpp:96-166 + HKDProblem.cpp:116-222). ints, floats and meas are
+    host arrays (`host_step`'s vectors, the (N, 28) measurements) or
+    tensors. Host I/O per step on the card: those three in, the bundle out.
+
+    On CUDA the step replays its graph (`graphs.fused_step`) and donates
+    `state`: the new state is written over it and `state` itself is
+    returned. On the CPU `_fused_core` runs eagerly and returns a new state.
+    Returns (new state, bundle (N, L))."""
+    if state.Xbar.device.type == "cuda":
+        from hkdmpc_tpu_torch.solver import graphs
+        return graphs.fused_step(
+            tables, state, ints, floats, meas, opt=opt,
+            parallel_rollout=parallel_rollout, n_cmd=n_cmd,
+            kernel_jac=kernel_jac, assoc_linear=assoc_linear,
+            assoc_backward=assoc_backward)
+    return fleet_step_eager(tables, state, ints, floats, meas, opt,
+                            parallel_rollout, n_cmd, kernel_jac,
+                            assoc_linear, assoc_backward)
+
+
+def fleet_step_eager(tables, state, ints, floats, meas, opt,
+                     parallel_rollout, n_cmd, kernel_jac,
+                     assoc_linear=False, assoc_backward=False):
+    """`fleet_step` as its eager body on any device (the retry loop stops
+    on the host), the host arrays made into tensors first: the CPU's step, and on
+    the card the yardstick of the graphs (`chip_smoke.py` phase 11,
+    `profile_solve`). Returns (new state, bundle (N, L))."""
+    dev, dtype = state.Xbar.device, state.Xbar.dtype
+    on = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev)
+    return _fused_core(tables, state, on(ints, torch.int32),
+                       on(floats, dtype), on(meas, dtype), opt,
+                       parallel_rollout, n_cmd, kernel_jac, assoc_linear,
+                       assoc_backward)
 
 
 def fused_step(tables, state, ints, floats, meas, opt, parallel_rollout,
                n_cmd, *, kernel_jac, assoc_linear, assoc_backward):
     """The batch-1 entry point: one robot's step, `state` and `meas` (28,)
-    without a robot axis; one call of the core at N = 1. Returns (new state,
-    bundle (L,))."""
-    new_state, bundle = _fused_core(
-        tables, tree_map(lambda a: a[None], state), ints, floats, meas[None],
-        opt, parallel_rollout, n_cmd, kernel_jac, assoc_linear,
-        assoc_backward)
+    without a robot axis; one call of `fleet_step` at N = 1 (on the card
+    the state is donated, as there). Returns (new state, bundle (L,))."""
+    new_state, bundle = fleet_step(
+        tables, tree_map(lambda a: a[None], state), ints, floats,
+        np.asarray(meas)[None] if not isinstance(meas, torch.Tensor)
+        else meas[None], opt, parallel_rollout, n_cmd, kernel_jac,
+        assoc_linear, assoc_backward)
     return tree_map(lambda a: a[0], new_state), bundle[0]

@@ -19,6 +19,10 @@ solve time — lcmtypes/hkd_command_lcmt.lcm).
   (`MPCConfig.fused_step`) keeps the SolverState on the device and runs
   `fused.fused_step`; its two halves `update_async` /
   `update_fused_complete` let a service loop do other work between them.
+  On a CUDA device an update replays a CUDA graph (the fused step's, or the
+  classic solve's through `ddp.solve`), captured at the first update of its
+  kind after `initialize()`, in whichever thread runs it; the cold solve
+  runs once, eagerly, with the loops that stop (`unroll_caps=False`).
 
 The reference solves in a detached thread per message, guarded by a mutex
 (HKDMPC.cpp:168-200). Here `update_fused_dispatch` hands the device step to
@@ -216,9 +220,11 @@ class HKDMPCSolver:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _solve(self, x0, opt):
+    def _solve(self, x0, opt, cold: bool = False):
         """Build the problem at x0, solve it with option set `opt`, write
-        the result into the per-phase arrays; times the solve."""
+        the result into the per-phase arrays; times the solve. The cold
+        solve, and every solve on the CPU, takes the loops that stop; an
+        update on the card replays its graph."""
         prob, state = self.problem.build(x0)
         t0 = time.perf_counter()
         res = ddp.solve(prob, state, opt, kernel_jac=False,
@@ -226,7 +232,7 @@ class HKDMPCSolver:
                         assoc_linear=self.cfg.assoc_linear,
                         assoc_backward=self._assoc_bw,
                         scan_backward=self._on_cpu and not self._assoc_bw,
-                        unroll_caps=not self._on_cpu)
+                        unroll_caps=not (self._on_cpu or cold))
         self._sync()
         self.solve_time = (time.perf_counter() - t0) * 1e3
         self.problem.unflatten(res.state)
@@ -251,7 +257,7 @@ class HKDMPCSolver:
         self.problem.initialization()
         if x0 is None:
             x0 = default_stand_state(self.problem.phases[0].contact)
-        res = self._solve(x0, self.opt)
+        res = self._solve(x0, self.opt, cold=True)
         self.mpc_iter = 0
         if self.cfg.fused_step:
             self._arm_fused(res.state)
@@ -353,13 +359,11 @@ class HKDMPCSolver:
         non-blocking copy of the bundle into pinned host memory with an
         event behind it on that stream. Returns (new state, bundle on the
         host, event or None)."""
-        dev = lambda a, dt: torch.as_tensor(a, dtype=dt, device=self.device)
         on_card = self.device.type == "cuda"
         with (torch.cuda.device(self.device) if on_card
               else contextlib.nullcontext()):
             new_state, bundle = fused.fused_step(
-                self._tables, state, dev(ints, torch.int32),
-                dev(floats, self.dtype), dev(meas, self.dtype),
+                self._tables, state, ints, floats, meas,
                 self.opt.runtime(), parallel_rollout, self.n_cmd,
                 kernel_jac=False, assoc_linear=self.cfg.assoc_linear,
                 assoc_backward=self._assoc_bw)
@@ -422,10 +426,12 @@ class HKDMPCSolver:
         return self.fused_ready()
 
     def discard_pending(self) -> None:
-        """Drop an in-flight dispatch: its result is never read and the
-        device-resident state stays the one from before it, while the host
-        schedule has already advanced, so follow with resume() or
-        initialize(). The worker runs it to its end all the same: a later
+        """Drop an in-flight dispatch: its result is never read, while the
+        host schedule has already advanced and the device-resident state
+        is the one from before it (the CPU) or the dropped step's own (on
+        the card the step writes it over the donated state), so follow with
+        resume() or initialize(). The worker runs it to its end all the
+        same: a later
         dispatch queues behind it, and update(), initialize() and resume()
         wait for it before they touch the device."""
         if self._pending is not None \

@@ -44,9 +44,9 @@ _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 # ctypes signature of each kernel's `<name>_launch`: the tensor pointers,
 # then the int sizes, then the stream
 _LAUNCH_ARGTYPES = {
-    "riccati_hkd": [ctypes.c_void_p] * 24 + [ctypes.c_int] * 4
+    "riccati_hkd": [ctypes.c_void_p] * 25 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p],
-    "riccati_dense": [ctypes.c_void_p] * 17 + [ctypes.c_int] * 2
+    "riccati_dense": [ctypes.c_void_p] * 18 + [ctypes.c_int] * 2
                      + [ctypes.c_void_p],
 }
 
@@ -256,3 +256,22 @@ def check_tensor(name, t, shape, dtype, device, align=1) -> None:
     if t.data_ptr() % align:
         raise ValueError(f"{name}: data pointer {t.data_ptr():#x} is not "
                          f"{align}-byte aligned")
+
+
+def outputs(out, active, spec, device) -> tuple:
+    """A sweep's output tensors: new ones (`torch.empty`) for a first sweep
+    (`out` and `active` None), or a retry's `out`, the first sweep's
+    outputs, checked against `spec` ((name, shape, dtype), ...) beside its
+    `active` mask ((B,) bool)."""
+    if (out is None) != (active is None):
+        raise ValueError("a retry sweep takes both active= and out=, a "
+                         "first sweep neither")
+    if out is None:
+        return tuple(torch.empty(shape, dtype=dtype, device=device)
+                     for _, shape, dtype in spec)
+    check_tensor("active", active, spec[-1][1], torch.bool, device)
+    if len(out) != len(spec):
+        raise ValueError(f"out: {len(out)} tensors, expected {len(spec)}")
+    for t, (name, shape, dtype) in zip(out, spec):
+        check_tensor(name, t, shape, dtype, device)
+    return tuple(out)

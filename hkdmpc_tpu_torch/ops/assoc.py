@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import torch
 
-from hkdmpc_tpu_torch.ops import precise
+from hkdmpc_tpu_torch.ops import consts, precise
 from hkdmpc_tpu_torch.ops.linalg import sweep_inverse
 from hkdmpc_tpu_torch.solver.structs import DYN, RESET, LQData
 
@@ -127,7 +127,7 @@ def linear_rollout_assoc(prob, state, lq: LQData, defect, eps):
     from hkdmpc_tpu_torch.solver.rollout import last_active_node
 
     dtype, dev = lq.lx.dtype, lq.lx.device
-    eps = torch.as_tensor(eps, dtype=dtype, device=dev)
+    eps = consts.scale(eps, dtype)
     nx = lq.A.shape[-1]
     is_dyn = prob.kind == DYN
     is_rst = prob.kind == RESET
@@ -272,8 +272,7 @@ def riccati_backward_assoc(prob, lq: LQData, defect, reg, last_node):
     nu = lq.lu.shape[-1]
     eye_x = torch.eye(nx, dtype=dtype, device=dev)
     eye_u = torch.eye(nu, dtype=dtype, device=dev)
-    reg4 = torch.broadcast_to(torch.as_tensor(reg, dtype=dtype, device=dev),
-                              (nb,)).reshape(nb, 1, 1, 1)
+    reg4 = consts.per_scenario(reg, nb, dtype, dev).reshape(nb, 1, 1, 1)
 
     is_dyn = prob.kind == DYN
     is_rst = prob.kind == RESET

@@ -21,14 +21,30 @@ _IDIAG = [float(v) for v in mc.INERTIA_DIAG]
 _HIP = [[float(v) for v in row] for row in mc.HIP_OFFSETS]
 
 
+# flat positions of an entry pattern, one index tensor per (pattern,
+# device): made once, outside any CUDA graph capture
+_POSITIONS: dict = {}
+
+
+def _entry(v, like):
+    """An entry broadcast to like's shape: a tensor, or a Python number made
+    on the device by a fill (no copy from the host)."""
+    if isinstance(v, torch.Tensor):
+        return torch.broadcast_to(v.to(like.dtype), like.shape)
+    return torch.full(like.shape, float(v), dtype=like.dtype,
+                      device=like.device)
+
+
 def _assemble(entries: dict, like, n: int = 24):
-    """entries {(i, j): tensor of shape like} -> (..., n, n)."""
+    """entries {(i, j): tensor of shape like, or a number} -> (..., n, n)."""
     M = torch.zeros(like.shape + (n * n,), dtype=like.dtype, device=like.device)
-    idx = torch.tensor([i * n + j for (i, j) in entries], device=like.device)
-    vals = torch.stack([torch.broadcast_to(torch.as_tensor(v, dtype=like.dtype,
-                                                           device=like.device),
-                                           like.shape)
-                        for v in entries.values()], dim=-1)
+    key = (tuple(entries), n, like.device)
+    idx = _POSITIONS.get(key)
+    if idx is None:
+        idx = torch.tensor([i * n + j for (i, j) in entries],
+                           device=like.device)
+        _POSITIONS[key] = idx
+    vals = torch.stack([_entry(v, like) for v in entries.values()], dim=-1)
     M[..., idx] = vals
     return M.reshape(like.shape + (n, n))
 

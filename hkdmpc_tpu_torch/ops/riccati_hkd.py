@@ -12,11 +12,17 @@ Pallas kernel `_kernel_hkd`). Same inputs and returns:
   reg, dt (B,); last_node (B,) int32.
   Returns (dU (B, T, 24), K (B, T, 24, 24), dv1 (B,), dv2 (B,), ok (B,) bool).
 
+A retry sweep of the regularization loop (`solver/backward.py`) also passes
+`active` (B,) bool and `out`, the first sweep's five outputs: only the
+active scenarios are swept, their results written into `out`, which is
+returned; the other rows of `out` stay as they were (the kernel's block of
+an inactive scenario returns before its first load).
+
 `backward_sweep_hkd` dispatches on the tensors' device: CPU tensors go to
 `backward_sweep_hkd_plain`, CUDA tensors to the kernel
 (`csrc/riccati_hkd.cu`, f32 only), which raises on anything it does not
-take. There is no fallback from one to the other. `LAUNCHES` counts kernel
-launches.
+take. There is no fallback from one to the other. `LAUNCHES` counts the
+kernel's first-sweep launches, `RETRY_LAUNCHES` its masked retry launches.
 """
 
 from __future__ import annotations
@@ -26,36 +32,41 @@ import types
 
 import torch
 
-from hkdmpc_tpu_torch.ops import hkd_tminor, precise
+from hkdmpc_tpu_torch.ops import consts, hkd_tminor, precise
 from hkdmpc_tpu_torch.ops.jac_tminor import build_AB_tminor
 from hkdmpc_tpu_torch.solver.structs import DYN
 
 LAUNCHES = 0
+RETRY_LAUNCHES = 0
 
 
 def backward_sweep_hkd(kind, X, U, contact, contact_next, xr, ur, foot_r,
                        reb_delta, reb_eps, term_contact, td_mask, al_sigma,
-                       al_lambda, term_mask, defect, reg, last_node, dt):
+                       al_lambda, term_mask, defect, reg, last_node, dt,
+                       active=None, out=None):
     """Dispatch by device: the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors."""
     args = (kind, X, U, contact, contact_next, xr, ur, foot_r, reb_delta,
             reb_eps, term_contact, td_mask, al_sigma, al_lambda, term_mask,
             defect, reg, last_node, dt)
     if X.device.type == "cuda":
-        return backward_sweep_hkd_cuda(*args)
+        return backward_sweep_hkd_cuda(*args, active=active, out=out)
     if X.device.type == "cpu":
-        return backward_sweep_hkd_plain(*args)
+        return backward_sweep_hkd_plain(*args, active=active, out=out)
     raise ValueError(f"no Riccati sweep for device {X.device}")
 
 
 def backward_sweep_hkd_plain(kind, X, U, contact, contact_next, xr, ur,
                              foot_r, reb_delta, reb_eps, term_contact,
                              td_mask, al_sigma, al_lambda, term_mask, defect,
-                             reg, last_node, dt):
+                             reg, last_node, dt, active=None, out=None):
     """Plain PyTorch version: assemble A/B and every cost partial from the
     shared entry formulas, then run the faithful sweep
-    (`solver.backward.backward_sweep_arrays`). Any device, any float dtype."""
-    from hkdmpc_tpu_torch.solver.backward import backward_sweep_arrays
+    (`solver.backward.backward_sweep_arrays`). Any device, any float dtype.
+    With `active` and `out`, the active rows of the result are written into
+    `out` and the rest of `out` is kept."""
+    from hkdmpc_tpu_torch.solver.backward import (backward_sweep_arrays,
+                                                  write_active)
 
     precise.pin_full_f32()
     T = kind.shape[-1]
@@ -73,20 +84,20 @@ def backward_sweep_hkd_plain(kind, X, U, contact, contact_next, xr, ur,
                                                       al_active=True)
     dU, K, _, _, dv1, dv2, ok = backward_sweep_arrays(
         kind, A, B, lx, lu, lxx, luu, phix, phixx, defect,
-        torch.broadcast_to(torch.as_tensor(reg, dtype=X.dtype,
-                                           device=X.device), kind.shape[:1]),
+        consts.per_scenario(reg, kind.shape[0], X.dtype, X.device),
         last_node)
-    return dU, K, dv1, dv2, ok
+    return write_active((dU, K, dv1, dv2, ok), active, out)
 
 
 def backward_sweep_hkd_cuda(kind, X, U, contact, contact_next, xr, ur,
                             foot_r, reb_delta, reb_eps, term_contact,
                             td_mask, al_sigma, al_lambda, term_mask, defect,
-                            reg, last_node, dt):
+                            reg, last_node, dt, active=None, out=None):
     """Launch the CUDA kernel on the current stream. Every tensor must lie
     on one CUDA device, be contiguous, and be float32 (kind and last_node
-    int32)."""
-    global LAUNCHES
+    int32). A retry (`active` (B,) bool) sweeps the active scenarios only,
+    into `out`, the first sweep's outputs."""
+    global LAUNCHES, RETRY_LAUNCHES
     from hkdmpc_tpu_torch.ops import _build
 
     dev = X.device
@@ -122,12 +133,11 @@ def backward_sweep_hkd_cuda(kind, X, U, contact, contact_next, xr, ur,
             ("dt", dt, (nb,), f32)):
         _build.check_tensor(name, t, shape, dtype, dev)
 
-    dU = torch.empty((nb, T, 24), dtype=f32, device=dev)
-    K = torch.empty((nb, T, 24, 24), dtype=f32, device=dev)
-    dv1 = torch.empty((nb,), dtype=f32, device=dev)
-    dv2 = torch.empty((nb,), dtype=f32, device=dev)
-    ok = torch.empty((nb,), dtype=torch.bool, device=dev)
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    dU, K, dv1, dv2, ok = _build.outputs(
+        out, active, (("dU", (nb, T, 24), f32), ("K", (nb, T, 24, 24), f32),
+                      ("dv1", (nb,), f32), ("dv2", (nb,), f32),
+                      ("ok", (nb,), torch.bool)), dev)
+    ptr = lambda t: ctypes.c_void_p(0 if t is None else t.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.launch(
@@ -136,7 +146,10 @@ def backward_sweep_hkd_cuda(kind, X, U, contact, contact_next, xr, ur,
             ptr(reb_eps),
             ptr(term_contact), ptr(td_mask), ptr(al_sigma), ptr(al_lambda),
             ptr(term_mask), ptr(defect), ptr(reg), ptr(last_node), ptr(dt),
-            ptr(dU), ptr(K), ptr(dv1), ptr(dv2), ptr(ok),
+            ptr(active), ptr(dU), ptr(K), ptr(dv1), ptr(dv2), ptr(ok),
             nb, T, U.shape[1], ur.shape[1], ctypes.c_void_p(stream))
-    LAUNCHES += 1
+    if active is None:
+        LAUNCHES += 1
+    else:
+        RETRY_LAUNCHES += 1
     return dU, K, dv1, dv2, ok

@@ -13,20 +13,23 @@ model's `solve_batch(kernel_jac=True)`, `dense` the swing-constraint model's
 `solve_batch(kernel_jac=False)`, `sequential` the kernel_jac path on the
 trot after two receding-horizon updates, whose appended last phase is too
 short to shoot, so the solve takes the sequential rollout
-(`parallel_rollout=False`, as a fleet step there does). Warms one solve,
-then:
-  1. stage wall times: the solver's stages are wrapped with a synchronize on
-     both sides (initial/line-search rollouts, cost evaluation, the LQ
-     approximation of the dense path, backward sweep with its retry loop,
-     the CUDA kernel inside it, the linear rollout), and their host-clock
-     times summed over 3 solves, beside the unwrapped solve time from CUDA
-     events;
-  2. one solve under torch.profiler: device time by kernel name (top 15),
-     and the device-busy share of the solve's wall time.
+(`parallel_rollout=False`, as a fleet step there does). Warms one solve of
+the eager body (`ddp._solve_batch`) and one of the CUDA graph
+(`ddp.solve_batch`, captured there), then:
+  1. stage wall times of the eager body: the solver's stages are wrapped
+     with a synchronize on both sides (initial/line-search rollouts, cost
+     evaluation, the LQ approximation of the dense path, backward sweep
+     with its retry loop, the CUDA kernel inside it, the linear rollout),
+     and their host-clock times summed over 3 solves, beside the unwrapped
+     eager and graph solve times from CUDA events;
+  2. one eager solve and one graph replay under torch.profiler: device time
+     by kernel name (top 15), and the device-busy share of the wall time.
 `mpc1` is one warm update of the single-robot `HKDMPCSolver` (B = 1, dense
 LQ, the fused step; parallel-rollout updates only) with the same two
-measurements; `mpc1 dense` turns the solver's parallel-in-time recursions
-off (the CUDA kernel of the dense sweep at batch 1).
+measurements, eager (`fused.fleet_step_eager`) for the stages and beside
+the graph for the times and profiles; `mpc1 dense` turns the solver's
+parallel-in-time recursions off (the CUDA kernel of the dense sweep at
+batch 1).
 Prints the card's name and power limit. Needs a CUDA device.
 """
 
@@ -154,19 +157,17 @@ def main(path: str = "kernel_jac", flags: str = "assoc"):
                                .standard_normal((BATCH, 24)))
     optr = opt.runtime()
 
-    def solve():
-        return ddp.solve_batch(prob_b, state_b, optr, kernel_jac=not dense,
-                               model=model, parallel_rollout=not sequential)
+    flags = dict(kernel_jac=not dense, model=model,
+                 parallel_rollout=not sequential)
 
-    solve()
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(3):
-        solve()
-    end.record()
-    torch.cuda.synchronize()
-    solve_ms = start.elapsed_time(end) / 3
+    def solve():
+        return ddp._solve_batch(prob_b, state_b, optr, **flags)
+
+    def graph_solve():
+        return ddp.solve_batch(prob_b, state_b, optr, **flags)
+
+    solve_ms, graph_ms = (cuda_mean_ms(torch, fn, 3)
+                          for fn in (solve, graph_solve))
 
     stages = [
         (rollout,
@@ -194,10 +195,25 @@ def main(path: str = "kernel_jac", flags: str = "assoc"):
     print(f"{path} path ({'swing-constraint' if dense else 'default'} "
           f"model): B={BATCH} T={prob.T} f32 runtime caps, parallel_rollout "
           f"{not sequential} on {card}")
-    print(f"solve: {solve_ms:.3f} ms (CUDA events, mean of 3); with stage "
+    print(f"solve: eager body {solve_ms:.3f} ms, graph replay "
+          f"{graph_ms:.3f} ms (CUDA events, mean of 3); eager with stage "
           f"syncs {wrapped_ms:.3f} ms")
     print_stages(wrapped_ms, times, "solve")
-    profile_once(torch, solve, "solve")
+    profile_once(torch, solve, "eager solve")
+    profile_once(torch, graph_solve, "graph replay")
+
+
+def cuda_mean_ms(torch, fn, reps):
+    """Mean ms of fn() over reps calls after one warm call, CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def mpc1(torch, flags):
@@ -224,6 +240,7 @@ def mpc1(torch, flags):
                               dtype=torch.float32, device="cuda")
     solver.initialize()
     step = [0]
+    graph_step = fused.fleet_step
 
     def update(warm_up=False):
         m = {k: v[0] for k, v in stream(step[0]).items()}
@@ -238,13 +255,20 @@ def mpc1(torch, flags):
 
     # the trot's updates 2 and 3 follow a back-phase append and take the
     # sequential rollout; the ten after them are all-shooting
+    def timed(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            update()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    # eager updates first (an eager step returns a new state, whose
+    # addresses a graph then captures anew), then the graphs: one update
+    # captures, the next ones replay
+    fused.fleet_step = fused.fleet_step_eager
     for _ in range(MPC1_WARMUP):
         update(warm_up=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        update()
-    update_ms = (time.perf_counter() - t0) / 3 * 1e3
+    update_ms = timed(2)
 
     stages = [
         (fused, "host_step", "host half (update, descriptors)"),
@@ -263,15 +287,22 @@ def mpc1(torch, flags):
         stages += [(riccati_dense, "backward_sweep_dense_cuda",
                     "  of which the CUDA kernel"),
                    (rollout, "linear_rollout", "dense linear rollout + dV")]
-    wrapped_ms, times = stage_times(torch, stages, update, 2)
+    try:
+        wrapped_ms, times = stage_times(torch, stages, update, 2)
+        profile_once(torch, update, "eager update")
+    finally:
+        fused.fleet_step = graph_step
+    update()
+    graph_ms = timed(2)
     print(f"mpc1 ({flags}): HKDMPCSolver fused update, B=1 T="
           f"{solver.problem.T} f32 runtime caps, assoc_linear "
           f"{cfg.assoc_linear} assoc_backward {solver._assoc_bw}, "
           f"parallel rollout, on {card}")
-    print(f"update: {update_ms:.3f} ms (host clock around the blocking "
-          f"update, mean of 3); with stage syncs {wrapped_ms:.3f} ms")
+    print(f"update: eager {update_ms:.3f} ms, graph replay {graph_ms:.3f} "
+          f"ms (host clock around the blocking update, mean of 2); eager "
+          f"with stage syncs {wrapped_ms:.3f} ms")
     print_stages(wrapped_ms, times, "update")
-    profile_once(torch, update, "update")
+    profile_once(torch, update, "graph update")
 
 
 if __name__ == "__main__":

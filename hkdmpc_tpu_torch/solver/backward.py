@@ -20,6 +20,9 @@ scenarios — port of `hkdmpc_tpu/solver/backward.py` (main path).
   per-scenario `reg` (the JAX package's vmapped while_loop), around any of
   these sweeps, or around the parallel-in-time one
   (`ops/assoc.riccati_backward_assoc`, plain tensor code on any device).
+  Each retry sweeps the scenarios still active (the kernels take the mask
+  and skip the others); the loop stops on the host once none is active, or,
+  inside a CUDA graph (`bounded_retry`), runs its `retry_sweeps` bound.
 
 Parity: SinglePhase::backward_sweep (SinglePhase.cpp:299-367),
 MultiPhaseDDP::impact_aware_step (MultiPhaseDDP.cpp:480-484),
@@ -28,9 +31,11 @@ MultiPhaseDDP::backward_sweep_regularized (MultiPhaseDDP.cpp:141-181).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from hkdmpc_tpu_torch.ops import assoc, precise, riccati_dense, riccati_hkd
+from hkdmpc_tpu_torch.ops import (assoc, consts, precise, riccati_dense,
+                                  riccati_hkd)
 from hkdmpc_tpu_torch.ops.linalg import sweep_inverse
 from hkdmpc_tpu_torch.solver.structs import DYN, RESET
 
@@ -193,9 +198,8 @@ def backward_sweep(prob, lq, defect, regularization, last_node,
     with `lq.lux` (when not None) added to Qux. Returns
     `backward_sweep_arrays`' tuple."""
     precise.pin_full_f32()
-    reg = torch.broadcast_to(
-        torch.as_tensor(regularization, dtype=defect.dtype,
-                        device=defect.device), prob.kind.shape[:1])
+    reg = consts.per_scenario(regularization, prob.kind.shape[0],
+                              defect.dtype, defect.device)
     return backward_sweep_arrays(
         prob.kind, lq.A, lq.B, lq.lx, lq.lu, lq.lxx, lq.luu, lq.phix,
         lq.phixx, defect, reg, last_node, lux=lq.lux, aug_sweep=aug_sweep,
@@ -245,15 +249,59 @@ def _dense_route(lq) -> str:
     return "kernel"
 
 
+def write_active(new, active, out):
+    """A retry sweep's outputs: `new` where `active` (B,) is true and `out`
+    (the outputs so far) elsewhere, written into `out` in place; `new` as
+    it is for a first sweep (`active` and `out` None)."""
+    if (active is None) != (out is None):
+        raise ValueError("a retry sweep takes both active= and out=, a "
+                         "first sweep neither")
+    if active is None:
+        return new
+    for o, n in zip(out, new):
+        o.copy_(torch.where(active.reshape((-1,) + (1,) * (n.dim() - 1)),
+                            n, o))
+    return out
+
+
+def retry_sweeps(update_regularization) -> int:
+    """The most sweeps `backward_sweep_regularized` runs for one scenario:
+    the first, at any reg, then one per growth of reg from REG_MIN_STEP
+    (the least reg after a failed sweep) while the next reg stays within
+    REG_MAX; counted in float32 and float64 and the larger kept. 18 with
+    the default growth of 2."""
+    if not update_regularization > 1.0:
+        raise ValueError(f"update_regularization {update_regularization}: "
+                         "the retry loop ends only if reg grows (> 1)")
+    most = 0
+    for f in (np.float32, np.float64):
+        reg, n = f(REG_MIN_STEP), 2
+        while max(reg * f(update_regularization), f(REG_MIN_STEP)) \
+                <= f(REG_MAX):
+            reg = max(reg * f(update_regularization), f(REG_MIN_STEP))
+            n += 1
+        most = max(most, n)
+    return most
+
+
+def _grow(reg, failed, grow, update_regularization):
+    """After a sweep: the scenarios in `grow` (not PSD) take the next reg,
+    and fail where it passes REG_MAX. Returns (reg, failed)."""
+    reg_next = torch.clamp(reg * update_regularization, min=REG_MIN_STEP)
+    return (torch.where(grow, reg_next, reg),
+            failed | (grow & (reg_next > REG_MAX)))
+
+
 def backward_sweep_regularized(prob, defect, regularization,
                                update_regularization, last_node, *,
                                kernel_jac_XU=None, lq=None,
                                assoc_backward: bool = False,
-                               scan: bool = False, aug_sweep: bool = True):
+                               scan: bool = False, aug_sweep: bool = True,
+                               bounded_retry: bool = False):
     """Retry the sweep with growing per-scenario regularization until Quu is
     PSD everywhere or the regularization exceeds REG_MAX (then that
-    scenario's solve fails). The loop runs while any scenario is neither ok
-    nor failed; finished scenarios keep their outputs.
+    scenario's solve fails). A retry sweeps the scenarios that are neither
+    ok nor failed; the others keep their outputs.
 
     Exactly one of: kernel_jac_XU = (X, U, reb_delta, reb_eps, al_sigma,
     al_lambda) for the default HKD model's sweep (`riccati_backward_hkd`),
@@ -263,6 +311,15 @@ def backward_sweep_regularized(prob, defect, regularization,
     `riccati_backward` (`_dense_route`: on the CPU a cross term takes the
     scan route; on CUDA what the kernel does not take raises). Every route
     but the dense kernel's reads lq.lux.
+
+    The kernels take the active mask: a retry launches for every scenario
+    and the blocks of those that are done return at once, writing into the
+    first sweep's outputs. The tensor-code routes (assoc, scan) sweep every
+    scenario and keep the active rows. bounded_retry=False stops once no
+    scenario is active (a host read per retry); True runs
+    `retry_sweeps(update_regularization)` sweeps in all, with no host read,
+    as a CUDA graph needs: the same sweeps with the same reg for every
+    scenario, so the same outputs.
     Returns (dU, K, dV_1, dV_2, reg_out, success, solve_failed); reg_out is
     the post-success relaxation reg/20, zeroed below 1e-6."""
     if (kernel_jac_XU is None) == (lq is None):
@@ -273,56 +330,45 @@ def backward_sweep_regularized(prob, defect, regularization,
     if assoc_backward and scan:
         raise ValueError("give at most one of assoc_backward and scan")
     if assoc_backward:
-        def sweep(reg):
-            return assoc.riccati_backward_assoc(prob, lq, defect, reg,
-                                                last_node)
+        def sweep(reg, active=None, out=None):
+            return write_active(assoc.riccati_backward_assoc(
+                prob, lq, defect, reg, last_node), active, out)
     elif lq is not None and (scan or _dense_route(lq) == "scan"):
-        def sweep(reg):
+        def sweep(reg, active=None, out=None):
             dU, K, _, _, dv1, dv2, ok = backward_sweep(
                 prob, lq, defect, reg, last_node, aug_sweep)
-            return dU, K, dv1, dv2, ok
+            return write_active((dU, K, dv1, dv2, ok), active, out)
     elif lq is not None:
-        def sweep(reg):
+        def sweep(reg, active=None, out=None):
             return riccati_dense.backward_sweep_dense(
                 prob.kind, lq.A, lq.B, lq.lxx, lq.luu, lq.lx, lq.lu, defect,
-                lq.phix, lq.phixx, reg, last_node)
+                lq.phix, lq.phixx, reg, last_node, active=active, out=out)
     else:
         X, U, rbd, rbe, sig, lam = kernel_jac_XU
 
-        def sweep(reg):
+        def sweep(reg, active=None, out=None):
             return riccati_hkd.backward_sweep_hkd(
                 prob.kind, X, U, prob.contact, prob.contact_next, prob.xr,
                 prob.ur, prob.foot_r, rbd, rbe, prob.term_contact,
                 prob.td_mask, sig, lam, prob.term_mask, defect, reg,
-                last_node, prob.dt)
+                last_node, prob.dt, active=active, out=out)
 
     nb = prob.kind.shape[0]
-    dev = defect.device
-    reg = torch.broadcast_to(torch.as_tensor(regularization, dtype=defect.dtype,
-                                             device=dev), (nb,))
-    ok = torch.zeros(nb, dtype=torch.bool, device=dev)
-    failed = torch.zeros(nb, dtype=torch.bool, device=dev)
-    out = None
-    while True:
-        active = ~ok & ~failed
-        if not bool(active.any()):
+    reg = consts.per_scenario(regularization, nb, defect.dtype,
+                              defect.device).contiguous()
+    # a retry writes into the first sweep's outputs
+    out = tuple(t.contiguous() for t in sweep(reg))
+    reg, failed = _grow(reg, torch.zeros_like(out[4]), ~out[4],
+                        update_regularization)
+    for _ in range(retry_sweeps(update_regularization) - 1):
+        active = ~out[4] & ~failed
+        if not bounded_retry and not bool(active.any()):
             break
-        new = sweep(reg.contiguous())
-        ok_new = new[4]
-        reg_next = torch.clamp(reg * update_regularization, min=REG_MIN_STEP)
-        failed_new = ~ok_new & (reg_next > REG_MAX)
-        reg_new = torch.where(ok_new, reg, reg_next)
-        if out is None:  # first pass: every scenario is active
-            out = new[:4]
-        else:
-            out = tuple(
-                torch.where(active.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
-                for a, b in zip(new[:4], out))
-        reg = torch.where(active, reg_new, reg)
-        ok = torch.where(active, ok_new, ok)
-        failed = torch.where(active, failed_new, failed)
+        out = tuple(sweep(reg, active, out))
+        reg, failed = _grow(reg, failed, active & ~out[4],
+                            update_regularization)
 
-    dU, K, dv1, dv2 = out
+    dU, K, dv1, dv2, ok = out
     reg_out = reg / 20.0
     reg_out = torch.where(reg_out < 1e-6, torch.zeros_like(reg_out), reg_out)
     return dU, K, dv1, dv2, reg_out, ok, failed

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from hkdmpc_tpu_torch.models import hkd_weights as W
+from hkdmpc_tpu_torch.ops.consts import Consts
 
 MU_FRICTION = W.MU_FRICTION  # reference: HKDConstraints.h:17
 
@@ -28,11 +29,22 @@ _A_LEG = [[0.0, 0.0, 1.0], [-1.0, 0.0, MU_FRICTION], [1.0, 0.0, MU_FRICTION],
           [0.0, -1.0, MU_FRICTION], [0.0, 1.0, MU_FRICTION]]
 
 
+def _grf_jac_rows():
+    rows = [[0.0] * 24 for _ in range(20)]
+    for l in range(4):
+        for i, r in enumerate(_A_LEG):
+            rows[5 * l + i][3 * l: 3 * l + 3] = r
+    return rows
+
+
+_CONSTS = Consts(q_body=W.Q_BODY, qf_scale=_QF_SCALE,
+                 grf_jac=_grf_jac_rows())
+
+
 def q_diag(contact):
     """Running-state weight diagonal (..., 24); the qJ rows are active only
     for swing legs. contact (..., 4)."""
-    q_body = torch.as_tensor(W.Q_BODY, dtype=contact.dtype,
-                             device=contact.device)
+    q_body = _CONSTS.get("q_body", contact.dtype, contact.device)
     q_leg = torch.repeat_interleave(W.Q_SWING_LEG * (1.0 - contact), 3,
                                     dim=-1)
     return torch.cat([q_body.expand(contact.shape[:-1] + (12,)), q_leg],
@@ -41,8 +53,7 @@ def q_diag(contact):
 
 def qf_diag(contact):
     """Terminal-state weight diagonal (..., 24)."""
-    scale = torch.as_tensor(_QF_SCALE, dtype=contact.dtype,
-                            device=contact.device)
+    scale = _CONSTS.get("qf_scale", contact.dtype, contact.device)
     return W.QF_MULT * scale * q_diag(contact)
 
 
@@ -73,12 +84,9 @@ def _footreg_terms(x, contact, xr, foot_r):
 
 
 def grf_constraint_jac(dtype, device):
-    """gu rows (20, 24) — constant."""
-    A = torch.zeros((20, 24), dtype=dtype, device=device)
-    leg = torch.as_tensor(_A_LEG, dtype=dtype, device=device)
-    for l in range(4):
-        A[5 * l: 5 * l + 5, 3 * l: 3 * l + 3] = leg
-    return A
+    """gu rows (20, 24) — constant: one tensor per (device, dtype), which
+    the caller must not write to."""
+    return _CONSTS.get("grf_jac", dtype, device)
 
 
 def grf_constraints(u, contact):

@@ -24,11 +24,20 @@ The JAX package runs one scenario's solve under `vmap`; here every tensor
 has a leading scenario axis and each data-dependent branch is a per-scenario
 select: an AL or DDP iteration that a scenario would not have run is masked
 out for it, the line search runs for every scenario and is kept only where
-it would have run, and the regularization retry loop runs while any scenario
-still needs it. With `unroll_caps=True` the AL and DDP loops always run to
+it would have run, and the regularization retry sweeps the scenarios that
+still need it. With `unroll_caps=True` the AL and DDP loops always run to
 their caps (the JAX package's statically unrolled form); with False they
 stop once no scenario would run another iteration (its `while_loop` form),
 at one host read per iteration. The two give the same decisions and values.
+
+Compiled entry points, as the JAX package's `solve_jit` / jitted
+`solve_batch`: on a CUDA device, `solve_batch` with `unroll_caps=True` runs
+the solve as one CUDA graph, captured once per (options, flags, model,
+input shapes) and replayed (`solver/graphs.py`). `_solve_batch` is the
+eager body (the JAX package's un-jitted `_solve_batch`); its `capturable`
+form reads nothing on the host (the retry loop at its bound), which a
+capture needs. `unroll_caps=False` (the loops
+that stop, the cold solve's form) and every CPU solve run the body eagerly.
 """
 
 from __future__ import annotations
@@ -47,6 +56,18 @@ from hkdmpc_tpu_torch.solver.structs import (ConstraintState, ProblemData,
                                              tree_map, tree_where)
 
 TRACE_LEN = 64
+
+# the line search's step sizes, one tensor per (step sizes, dtype, device)
+_EPS: dict = {}
+
+
+def _eps_candidates(opt: HSDDPOption, dtype, device):
+    key = (tuple(opt.line_search_epsilons), dtype, torch.device(device))
+    t = _EPS.get(key)
+    if t is None:
+        t = torch.tensor(key[0], dtype=dtype, device=device)
+        _EPS[key] = t
+    return t
 
 
 def trace_len_for(opt: HSDDPOption) -> int:
@@ -144,7 +165,30 @@ def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
 
     unroll_caps: True runs the AL and DDP loops to their caps and masks;
     False stops a loop once no scenario would run its next iteration (one
-    host read per iteration). Same decisions and values."""
+    host read per iteration). Same decisions and values.
+
+    On CUDA with unroll_caps=True the solve replays its CUDA graph
+    (`graphs.solve_batch`, captured at the first call with this key) and
+    returns tensors the caller owns; otherwise it runs `_solve_batch`
+    eagerly. A failed capture raises: nothing falls back to eager."""
+    _check_flags(kernel_jac, model, assoc_linear, assoc_backward,
+                 scan_backward, jvp_linear)
+    parallel_rollout = parallel_rollout and bool(opt.MS)
+    if parallel_rollout:
+        _refuse_wrong_parallel_rollout(prob)
+    flags = dict(kernel_jac=kernel_jac, model=model,
+                 parallel_rollout=parallel_rollout,
+                 assoc_linear=assoc_linear, assoc_backward=assoc_backward,
+                 scan_backward=scan_backward, aug_sweep=aug_sweep,
+                 jvp_linear=jvp_linear)
+    if unroll_caps and prob.xr.device.type == "cuda":
+        from hkdmpc_tpu_torch.solver import graphs
+        return graphs.solve_batch(prob, state, opt, **flags)
+    return _solve_batch(prob, state, opt, unroll_caps=unroll_caps, **flags)
+
+
+def _check_flags(kernel_jac, model, assoc_linear, assoc_backward,
+                 scan_backward, jvp_linear) -> None:
     if kernel_jac and (assoc_linear or assoc_backward or scan_backward
                        or jvp_linear):
         raise ValueError("assoc_linear / assoc_backward / scan_backward / "
@@ -155,18 +199,31 @@ def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
                          "pass model=None or kernel_jac=False")
     if assoc_linear and jvp_linear:
         raise ValueError("give at most one of assoc_linear and jvp_linear")
+
+
+def _solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
+                 kernel_jac: bool, model=None, parallel_rollout: bool = True,
+                 assoc_linear: bool = False, assoc_backward: bool = False,
+                 scan_backward: bool = False, aug_sweep: bool = True,
+                 jvp_linear: bool = False, unroll_caps: bool = True,
+                 capturable: bool = False) -> SolveResult:
+    """The solve's body, run eagerly: `solve_batch`'s arguments after its
+    checks (parallel_rollout already False under single shooting, and
+    decided on the host). capturable=True (with unroll_caps) reads nothing
+    on the host: the retry loop runs its bound (`bounded_retry`) where the
+    eager body stops it once no scenario needs a retry. Same decisions and
+    values either way."""
+    if capturable and not unroll_caps:
+        raise ValueError("a capturable solve runs its loops to their caps: "
+                         "unroll_caps=True")
     ms = bool(opt.MS)
-    parallel_rollout = parallel_rollout and ms
-    if parallel_rollout:
-        _refuse_wrong_parallel_rollout(prob)
     model = None if kernel_jac else (model or hkd_model_spec())
     precise.pin_full_f32()
 
     dtype, dev = prob.xr.dtype, prob.xr.device
     nb = prob.kind.shape[0]
     al_on, reb_on = bool(opt.AL_active), bool(opt.ReB_active)
-    eps_candidates = torch.tensor(opt.line_search_epsilons, dtype=dtype,
-                                  device=dev)
+    eps_candidates = _eps_candidates(opt, dtype, dev)
     n_eps = eps_candidates.shape[0]
     last_node = ro_mod.last_active_node(prob)
     lanes = torch.arange(nb, device=dev)
@@ -250,7 +307,8 @@ def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
                     prob, c["defect"], reg, opt.update_regularization,
                     last_node, kernel_jac_XU=(c["X"], c["U"],
                                               st.constr.reb_delta, rbe, sig,
-                                              lam))
+                                              lam),
+                    bounded_retry=capturable)
             st = _replace(st, dU=dU, K=K)
             if ms:
                 dX, dv1, dv2 = ro_mod.linear_rollout_jvp(
@@ -264,7 +322,8 @@ def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
                 backward.backward_sweep_regularized(
                     prob, c["defect"], reg, opt.update_regularization,
                     last_node, lq=lqd, assoc_backward=assoc_backward,
-                    scan=scan_backward, aug_sweep=aug_sweep)
+                    scan=scan_backward, aug_sweep=aug_sweep,
+                    bounded_retry=capturable)
             st = _replace(st, dU=dU, K=K)
             if ms and jvp_linear:
                 dX, dv1, dv2 = ro_mod.linear_rollout_jvp(
@@ -291,7 +350,7 @@ def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
         (ls_ok, X_s, U_s, d_s, g_s, h_s, cost_s, feas_s,
          merit_s) = line_search(st, dv1, dv2, merit_rho, merit_prev, feas)
         st_ls = tree_where(ls_ok, _replace(st, Xbar=X_s, Ubar=U_s,
-                                           defect_bar=d_s), st)
+                                      defect_bar=d_s), st)
         ls_out = (st_ls, X_s, U_s, d_s, g_s, h_s,
                   torch.where(ls_ok, cost_s, cost_prev), feas_s,
                   torch.where(ls_ok, merit_s, merit_prev))
@@ -376,7 +435,8 @@ def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
 def solve(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
           kernel_jac: bool, **flags) -> SolveResult:
     """One scenario's solve: prob/state without a batch axis. Takes the
-    same keywords as solve_batch."""
+    same keywords as solve_batch, and goes through it (on CUDA with
+    unroll_caps, its graph), as the JAX package's `solve_jit`."""
     res = solve_batch(tree_map(lambda a: a[None], prob),
                       tree_map(lambda a: a[None], state), opt,
                       kernel_jac=kernel_jac, **flags)

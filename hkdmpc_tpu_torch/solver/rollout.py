@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from hkdmpc_tpu_torch.ops import hkd_tminor, precise
+from hkdmpc_tpu_torch.ops import consts, hkd_tminor, precise
 from hkdmpc_tpu_torch.ops.jac_tminor import build_AB_tminor
 from hkdmpc_tpu_torch.solver import costs
 from hkdmpc_tpu_torch.solver.model_api import hkd_model_spec
@@ -70,15 +70,15 @@ def hybrid_rollout(prob: ProblemData, state: SolverState, eps,
     terminal states. A DYN step applies u = Ubar + eps dU + K (x - Xbar);
     a node with ss_mask set (ss_mask * start_mask with ms=False, the
     reference's asymmetric check) restarts from Xbar + eps dX. Kind masks
-    take the place of the JAX package's `lax.switch`; the model's generic
-    `dynamics` / `reset_map` run at a transition only where some scenario
-    takes that branch (the kinds are copied to the host once per call).
-    eps: a float or a (B,) tensor."""
+    take the place of the JAX package's `lax.switch` under `vmap`: the
+    model's `dynamics` and `reset_map` both run at every transition and the
+    kind selects, so the launches do not depend on the kind pattern and no
+    kind is read on the host.
+    eps: a float, a 0-dim tensor or a (B,) tensor."""
     model = model or hkd_model_spec()
-    dtype, dev = prob.xr.dtype, prob.xr.device
-    eps = torch.as_tensor(eps, dtype=dtype, device=dev)
-    e2 = eps[..., None] if eps.dim() else eps
-    e3 = e2[..., None] if eps.dim() else eps
+    eps = consts.scale(eps, prob.xr.dtype)
+    batched = isinstance(eps, torch.Tensor) and eps.dim()
+    e3 = eps[..., None, None] if batched else eps
     ss = (prob.ss_mask if ms else prob.ss_mask * prob.start_mask) > 0
     Xbar = state.Xbar
     X_shoot = Xbar + e3 * state.dX
@@ -87,9 +87,6 @@ def hybrid_rollout(prob: ProblemData, state: SolverState, eps,
     is_rst_all = (prob.kind == RESET)[..., None]
     is_pad_all = prob.kind == PAD
     shoot_all = (ss[:, 1:] & ~is_pad_all)[..., None]
-    kinds = prob.kind.cpu()
-    any_dyn = (kinds == DYN).any(dim=0).tolist()
-    any_rst = (kinds == RESET).any(dim=0).tolist()
 
     x0 = prob.x0
     xsim = x0
@@ -98,20 +95,18 @@ def hybrid_rollout(prob: ProblemData, state: SolverState, eps,
     Xs, Xsims, Us, oks = [x], [xsim], [], []
     for t in range(prob.T):
         c, cn = prob.contact[:, t], prob.contact_next[:, t]
-        x_prop, xsim_next, u = x, xsim, u_zero
-        if any_rst[t]:
-            is_rst = is_rst_all[:, t]
-            x_prop = torch.where(is_rst, model.reset_map(x, c, cn), x_prop)
-            xsim_next = torch.where(is_rst, model.reset_map(xsim, c, cn),
-                                    xsim_next)
-        if any_dyn[t]:
-            is_dyn = is_dyn_all[:, t]
-            u = U_ff[:, t] + precise.mv(state.K[:, t], x - Xbar[:, t])
-            sim = model.dynamics(x, u, c, prob.dt)
-            x_prop = torch.where(is_dyn, sim, x_prop)
-            xsim_next = torch.where(is_dyn, sim, xsim_next)
-            u = torch.where(is_dyn, u, u_zero)
-        xsim = xsim_next
+        is_rst, is_dyn = is_rst_all[:, t], is_dyn_all[:, t]
+        # one reset-map call for the node state and the simulation state
+        both = lambda a: a.expand((2,) + a.shape)
+        x_rst, xsim_rst = model.reset_map(torch.stack([x, xsim]), both(c),
+                                          both(cn))
+        x_prop = torch.where(is_rst, x_rst, x)
+        xsim_next = torch.where(is_rst, xsim_rst, xsim)
+        u = U_ff[:, t] + precise.mv(state.K[:, t], x - Xbar[:, t])
+        sim = model.dynamics(x, u, c, prob.dt)
+        x_prop = torch.where(is_dyn, sim, x_prop)
+        xsim = torch.where(is_dyn, sim, xsim_next)
+        u = torch.where(is_dyn, u, u_zero)
         x = torch.where(shoot_all[:, t], X_shoot[:, t + 1], x_prop)
         oks.append(is_pad_all[:, t]
                    | (torch.linalg.vector_norm(xsim, dim=-1) <= DIVERGE_NORM))
@@ -137,9 +132,9 @@ def hybrid_rollout_parallel(prob: ProblemData, state: SolverState, eps,
     dU + K @ dX[:-1] (B, T, us), shared by every line-search trial. A model
     without `dynamics_tbatch` / `reset_tbatch` has its `dynamics` /
     `reset_map` called on all transitions at once."""
-    dtype = prob.xr.dtype
-    eps = torch.as_tensor(eps, dtype=dtype, device=prob.xr.device)
-    e3 = eps.reshape(eps.shape + (1, 1)) if eps.dim() else eps
+    eps = consts.scale(eps, prob.xr.dtype)
+    e3 = (eps.reshape(eps.shape + (1, 1))
+          if isinstance(eps, torch.Tensor) else eps)
 
     X = state.Xbar + e3 * state.dX
     if du_eff is None:
@@ -288,8 +283,7 @@ def linear_rollout_jvp(prob: ProblemData, state: SolverState, X, U, defect,
         raise ValueError("the closed-form expected cost change is the "
                          "default HKD model's: give lq= for another model")
     last = last_active_node(prob)
-    dtype = X.dtype
-    eps = torch.as_tensor(eps, dtype=dtype, device=X.device)
+    eps = consts.scale(eps, X.dtype)
     A, B = build_AB_tminor(prob, X, U)
     kind = prob.kind
     dx = eps * defect[..., 0, :]
@@ -340,13 +334,9 @@ def _linear_rollout_sums(prob, lq, dxs, dv1s, dv2s):
 def _linear_rollout_jvp_generic(prob, state, X, U, lq, defect, eps, model):
     """linear_rollout_jvp's lq= form. The model's functions take leading
     batch dimensions and act per scenario, so one `torch.func.jvp` call per
-    transition gives every scenario's tangent; a branch is evaluated at a
-    transition only where some scenario takes it (the kinds are copied to
-    the host once per call)."""
-    eps = torch.as_tensor(eps, dtype=lq.lx.dtype, device=lq.lx.device)
-    kinds = prob.kind.cpu()
-    any_dyn = (kinds == DYN).any(dim=0).tolist()
-    any_rst = (kinds == RESET).any(dim=0).tolist()
+    transition gives every scenario's tangent; both branches run at every
+    transition and the kind selects (no kind is read on the host)."""
+    eps = consts.scale(eps, lq.lx.dtype)
     dx = eps * defect[..., 0, :]
     dxs, dv1s, dv2s = [dx], [], []
     for t in range(prob.T):
@@ -356,19 +346,15 @@ def _linear_rollout_jvp_generic(prob, state, X, U, lq, defect, eps, model):
         dv1_dyn, dv2_dyn, dv1_rst, dv2_rst = _step_dv(lq, t, dx, du)
         is_dyn = prob.kind[..., t] == DYN
         is_rst = prob.kind[..., t] == RESET
-        dx_next = dx
-        if any_rst[t]:
-            _, jr = torch.func.jvp(lambda xx: model.reset_map(xx, c, cn),
-                                   (x,), (dx,))
-            dx_next = torch.where(is_rst[..., None],
-                                  jr + eps * defect[..., t + 1, :], dx_next)
-        if any_dyn[t]:
-            _, jd = torch.func.jvp(
-                lambda xx, uu: model.dynamics(xx, uu, c, prob.dt),
-                (x, u), (dx, du))
-            dx_next = torch.where(is_dyn[..., None],
-                                  jd + eps * defect[..., t + 1, :], dx_next)
-        dx = dx_next
+        _, jr = torch.func.jvp(lambda xx: model.reset_map(xx, c, cn),
+                               (x,), (dx,))
+        _, jd = torch.func.jvp(
+            lambda xx, uu: model.dynamics(xx, uu, c, prob.dt),
+            (x, u), (dx, du))
+        dx = torch.where(is_rst[..., None], jr + eps * defect[..., t + 1, :],
+                         dx)
+        dx = torch.where(is_dyn[..., None], jd + eps * defect[..., t + 1, :],
+                         dx)
         zero = torch.zeros_like(dv1_dyn)
         dv1s.append(torch.where(is_dyn, dv1_dyn,
                                 torch.where(is_rst, dv1_rst, zero)))
@@ -385,7 +371,7 @@ def linear_rollout(prob: ProblemData, state: SolverState, lq: LQData,
     expected cost change (dV_1, dV_2) (B,), from lq.A/B and the cost
     partials (parity: MultiPhaseDDP.cpp:20-50, SinglePhase.cpp:145-178).
     Returns (dX, dV_1, dV_2)."""
-    eps = torch.as_tensor(eps, dtype=lq.lx.dtype, device=lq.lx.device)
+    eps = consts.scale(eps, lq.lx.dtype)
     dx = eps * defect[..., 0, :]
     dxs, dv1s, dv2s = [dx], [], []
     for t in range(prob.T):

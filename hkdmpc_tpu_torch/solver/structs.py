@@ -34,23 +34,18 @@ def tree_map(fn, obj):
 def tree_where(pred, a, b):
     """Per-scenario select between two structs (or tensors, dicts, tuples)
     of the same layout: pred (B,) bool picks a's lane where true. A
-    uniform pred returns a or b as they are, without copying."""
-    if bool(pred.all()):
-        return a
-    if not bool(pred.any()):
-        return b
-    return _where(pred, a, b)
-
-
-def _where(pred, a, b):
+    `torch.where` per leaf and no host read (a CUDA graph captures it), as
+    the JAX package's `tree_where` (a `jnp.where` per leaf)."""
     if dataclasses.is_dataclass(a):
-        return type(a)(**{f.name: _where(pred, getattr(a, f.name),
-                                         getattr(b, f.name))
+        return type(a)(**{f.name: tree_where(pred, getattr(a, f.name),
+                                              getattr(b, f.name))
                           for f in dataclasses.fields(a)})
     if isinstance(a, dict):
-        return {k: _where(pred, a[k], b[k]) for k in a}
+        return {k: tree_where(pred, a[k], b[k]) for k in a}
     if isinstance(a, tuple):
-        return tuple(_where(pred, x, y) for x, y in zip(a, b))
+        return tuple(tree_where(pred, x, y) for x, y in zip(a, b))
+    if a is None or isinstance(a, bool):
+        return a
     p = pred.reshape(pred.shape + (1,) * (a.dim() - pred.dim()))
     return torch.where(p, a, b)
 

@@ -4,6 +4,7 @@ numpy noise, and the carry of structs between the two packages as numpy
 arrays. Both packages run on the CPU in float64 (tests/conftest.py pins JAX
 to CPU f64)."""
 
+import contextlib
 import dataclasses
 import os
 import tempfile
@@ -410,3 +411,59 @@ def assert_phase_arrays_match(got, want, rtol=1e-9, atol=1e-10):
             np.testing.assert_allclose(
                 g[n], w[n], rtol=rtol, atol=atol if n != "K" else 1e-8,
                 err_msg=f"phase {i} {n}")
+
+
+# ---------------------------------------------------------------------------
+# the host-read guard of the capturable bodies' tests
+# ---------------------------------------------------------------------------
+#
+# Inside `no_host_reads()`, every way a tensor's value reaches the host
+# (`Tensor.__bool__`, `__int__`, `__float__`, `.item`, `.tolist`, `.cpu`,
+# `.numpy`) and every tensor made from host data (`torch.tensor`, and
+# `torch.as_tensor` of anything but a tensor) raises `HostRead`. On the card
+# each of them is a stream synchronization or a pageable copy, which a CUDA
+# graph capture refuses; on the CPU the guard finds them first.
+
+
+class HostRead(RuntimeError):
+    pass
+
+
+def _refuse(what):
+    def call(*args, **kwargs):
+        raise HostRead(f"{what} inside a body that a CUDA graph captures")
+    return call
+
+
+@contextlib.contextmanager
+def no_host_reads():
+    saved_methods = {name: getattr(torch.Tensor, name)
+                     for name in ("__bool__", "__int__", "__float__", "item",
+                                  "tolist", "cpu", "numpy")}
+    saved_tensor, saved_as_tensor = torch.tensor, torch.as_tensor
+
+    def as_tensor(data, *args, **kwargs):
+        if isinstance(data, torch.Tensor):
+            return saved_as_tensor(data, *args, **kwargs)
+        raise HostRead("torch.as_tensor of host data inside a body that a "
+                       "CUDA graph captures")
+
+    try:
+        for name in saved_methods:
+            setattr(torch.Tensor, name, _refuse(f"Tensor.{name}"))
+        torch.tensor = _refuse("torch.tensor")
+        torch.as_tensor = as_tensor
+        yield
+    finally:
+        for name, fn in saved_methods.items():
+            setattr(torch.Tensor, name, fn)
+        torch.tensor, torch.as_tensor = saved_tensor, saved_as_tensor
+
+
+def captured(fn):
+    """fn() as a CUDA graph capture runs its body: once outside the guard
+    (the warm-up, which makes the cached constants), then under
+    `no_host_reads`."""
+    fn()
+    with no_host_reads():
+        return fn()

@@ -643,3 +643,171 @@ def test_profile_solve_on_card_matches_cpu(cuda):
     assert bool(torch.isfinite(out["cuda"]).all())
     scale = max(1.0, float(out["cpu"].abs().max()))
     assert float((out["cuda"] - out["cpu"]).abs().max()) <= 1e-3 * scale
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs (solver/graphs.py): the compiled entry points
+# ---------------------------------------------------------------------------
+
+def _trot_batch(nb, dtype, device, model=None, seed=6):
+    _, prob, state, opt = trot_problem(dtype=dtype, device=device,
+                                       model=model)
+    prob_b, state_b = replicate_problem(prob, state, nb)
+    prob_b = perturb_scenarios(prob_b, noise=np.random.default_rng(
+        seed).standard_normal((nb, 24)))
+    return prob_b, state_b, opt.runtime()
+
+
+def _assert_same(a, b):
+    from hkdmpc_tpu_torch.solver.graphs import leaves
+    for x, y in zip(leaves(a), leaves(b)):
+        assert torch.equal(x.nan_to_num(), y.nan_to_num())
+
+
+@pytest.mark.parametrize("kernel_jac", [True, False], ids=["K1", "K2"])
+def test_graph_replay_equals_eager_body(cuda, kernel_jac):
+    """solve_batch on the card replays its graph: the result equals the
+    eager body's (`ddp._solve_batch`) bit for bit, on both paths, at every
+    replay; the graph is captured once and the caller owns the result."""
+    from hkdmpc_tpu_torch.solver import graphs
+    prob, state, optr = _trot_batch(24, torch.float32, cuda)
+    eager = ddp._solve_batch(prob, state, optr, kernel_jac=kernel_jac)
+    before = graphs.REPLAYS
+    first = ddp.solve_batch(prob, state, optr, kernel_jac=kernel_jac)
+    second = ddp.solve_batch(prob, state, optr, kernel_jac=kernel_jac)
+    torch.cuda.synchronize()
+    assert graphs.REPLAYS == before + 2
+    _assert_same(first, eager)
+    _assert_same(second, eager)
+    assert first.cost.data_ptr() != second.cost.data_ptr()
+
+
+def test_graph_launch_counters_count_per_replay(cuda):
+    """A replay adds the launches recorded at capture: 2 first sweeps and
+    2 x 17 masked retries of K1 per solve (runtime caps, the retry bound
+    at a growth of 2), whatever the capture itself did."""
+    from hkdmpc_tpu_torch.solver import backward
+    prob, state, optr = _trot_batch(20, torch.float32, cuda)
+    ddp.solve_batch(prob, state, optr, kernel_jac=True)
+    for _ in range(3):
+        l0, r0 = riccati_hkd.LAUNCHES, riccati_hkd.RETRY_LAUNCHES
+        ddp.solve_batch(prob, state, optr, kernel_jac=True)
+        assert riccati_hkd.LAUNCHES - l0 == 2
+        assert riccati_hkd.RETRY_LAUNCHES - r0 == 2 * (
+            backward.retry_sweeps(optr.update_regularization) - 1)
+
+
+def test_graph_fleet_steps_equal_eager_steps(cuda, tmp_path, monkeypatch):
+    """Two fleet steps (8 robots, trot, f32) replaying the fleet's graphs
+    equal the same steps of the eager body bit for bit; the state stays in
+    the fleet's buffers (donated)."""
+    from hkdmpc_tpu_torch.mpc import fused
+    from hkdmpc_tpu_torch.mpc.fleet import FleetConfig, FleetMPC
+    from hkdmpc_tpu_torch.workload import gait_file, meas_stream
+
+    ref = gait_file("trot", str(tmp_path))
+
+    def run():
+        stream = meas_stream(8, 3)    # one draw a call: a stream per run
+        f = FleetMPC(ref, 8, config=FleetConfig(), dtype=torch.float32,
+                     device="cuda")
+        f.initialize()
+        ptr = f._state_dev.K.data_ptr()
+        outs = []
+        for s in range(2):
+            m = stream(s)
+            outs.append(f.step(m["rpy"], m["p"], m["v"], m["omega"],
+                               m["qJ"], mpc_time=0.01 * s))
+        return outs, ptr, f._state_dev.K.data_ptr()
+
+    graph, ptr0, ptr1 = run()
+    assert ptr0 == ptr1
+
+    def eager(tables, state, ints, floats, meas, opt, parallel_rollout,
+              n_cmd, kernel_jac, assoc_linear=False, assoc_backward=False):
+        on = lambda a, dt: torch.as_tensor(a, dtype=dt, device="cuda")
+        return fused._fused_core(tables, state, on(ints, torch.int32),
+                                 on(floats, torch.float32),
+                                 on(meas, torch.float32), opt,
+                                 parallel_rollout, n_cmd, kernel_jac,
+                                 assoc_linear, assoc_backward)
+
+    monkeypatch.setattr(fused, "fleet_step", eager)
+    want, _, _ = run()
+    for g, w in zip(graph, want):
+        for name in ("scalars", "controls", "body", "gains", "pf"):
+            np.testing.assert_array_equal(g[name], w[name], err_msg=name)
+
+
+def test_graph_capture_refuses_a_host_read(cuda, monkeypatch):
+    """A body that reads the host (a forced `.item()`) runs in the eager
+    warm-up but raises at capture, naming the capture; nothing is cached
+    and nothing falls back to eager. The next solve captures and runs."""
+    from hkdmpc_tpu_torch.solver import graphs
+    real = ro.dynamics_feasibility
+
+    def reading(defect, norm_id=2):
+        defect.abs().max().item()
+        return real(defect, norm_id)
+
+    prob, state, optr = _trot_batch(11, torch.float32, cuda)
+    monkeypatch.setattr(ro, "dynamics_feasibility", reading)
+    held, replays = len(graphs.stats()), graphs.REPLAYS
+    with pytest.raises(RuntimeError, match="CUDA graph capture of "
+                       "solve_batch"):
+        ddp.solve_batch(prob, state, optr, kernel_jac=True)
+    assert len(graphs.stats()) == held and graphs.REPLAYS == replays
+    monkeypatch.setattr(ro, "dynamics_feasibility", real)
+    res = ddp.solve_batch(prob, state, optr, kernel_jac=True)
+    assert bool(torch.isfinite(res.cost).all())
+    assert graphs.REPLAYS == replays + 1
+
+
+def test_kernels_with_no_active_scenario_write_nothing(mixed):
+    """K1 and K2 with an all-false `active` mask: no output is touched;
+    with every other scenario active, those rows get the full sweep's
+    values bit for bit and the others are untouched."""
+    prob, state = mixed
+    cases = ((riccati_hkd.backward_sweep_hkd,
+              _args(prob, state, torch.float32)),
+             (riccati_dense.backward_sweep_dense,
+              _dense_args(prob, state, torch.float32)))
+    nb = prob.kind.shape[0]
+    for fn, args in cases:
+        full = fn(*args)
+        out = tuple(torch.full_like(f, float("nan")) if f.is_floating_point()
+                    else torch.zeros_like(f) for f in full)
+        blank = tuple(o.clone() for o in out)
+        fn(*args, active=torch.zeros(nb, dtype=torch.bool, device="cuda"),
+           out=out)
+        torch.cuda.synchronize()
+        for o, b in zip(out, blank):
+            assert torch.equal(o.nan_to_num(7.0), b.nan_to_num(7.0))
+        half = torch.arange(nb, device="cuda") % 2 == 0
+        got = fn(*args, active=half, out=out)
+        torch.cuda.synchronize()
+        for g, o, f, b in zip(got, out, full, blank):
+            assert g is o
+            assert torch.equal(o[half], f[half])
+            assert torch.equal(o[~half].nan_to_num(7.0),
+                               b[~half].nan_to_num(7.0))
+
+
+def test_graph_with_retries_equals_eager_body(cuda):
+    """Scenarios that need regularization retries (a negative ReB weight on
+    odd lanes) through the graph and through the eager body, bit for bit:
+    on K1's path (masked kernel retries) and on the dense path with the
+    parallel-in-time sweep (tensor-code retries: every scenario swept, the
+    active rows kept)."""
+    prob, state, optr = _trot_batch(6, torch.float32, cuda, seed=8)
+    state = tree_map(lambda x: x.clone(), state)
+    state.constr.reb_eps[1::2] = -2.0
+    for flags in (dict(kernel_jac=True),
+                  dict(kernel_jac=False, assoc_linear=True,
+                       assoc_backward=True)):
+        eager = ddp._solve_batch(prob, state, optr, **flags)
+        graph = ddp.solve_batch(prob, state, optr, **flags)
+        again = ddp.solve_batch(prob, state, optr, **flags)
+        torch.cuda.synchronize()
+        _assert_same(graph, eager)
+        _assert_same(again, eager)
