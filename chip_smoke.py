@@ -6,7 +6,9 @@ MPC at full width, steps the single-robot MPC on its three paths, serves
 requests through the MPC service, scripted and at 100 Hz over the native
 transport, and runs the sharded solve and fleet on an NCCL group, the stage
 timer, the reference-format logs and the examples' loops; then holds the
-eager bodies against the CUDA graphs that the entry points replay.
+eager bodies against the CUDA graphs that the entry points replay; then
+brings up the bench's mixed trot + flytrot batch and 2.0 s plan and runs
+the bench program (`python -m hkdmpc_tpu_torch.bench`).
 
 Graphs are the card's default: `solve_batch` (unroll_caps), the fleet and
 single-robot steps replay a CUDA graph per key (hkdmpc_tpu_torch/solver/
@@ -144,12 +146,30 @@ Phases, one line each:
      K1 / K2 first-sweep and masked launches per solve, step or update,
      each graph's capture time and node count, ms eager against graph, and
      torch.cuda.max_memory_allocated with the graphs held.
+ 12. the bench's configurations and program. (a) the mixed batch of
+     `bench.mixed_layouts`: B = 1024, T = 75, f32, 512 trot + 512 flytrot
+     scenarios (the rows follow different schedules), lanes interleaved
+     or sorted by gait, beside 1024 trot: K1 against its plain version and
+     the f64 oracle on the interleaved batch's first rollout (phase 2's
+     gates); each layout's solve_batch(kernel_jac=True) graph replay with
+     K1 launched, no scenario failed, finite costs, ms (median of 5); the
+     interleaved and sorted final costs within 1e-3 relative of the same
+     scenarios solved in a uniform batch of their gait on 99% of rows.
+     (b) the 2.0 s plan (T = 250) at B = 256: K1 against plain and the
+     oracle, its ms beside its bound at T = 250; the solve's graph replay
+     (K1 launched, 0 failed, finite), the first 8 final costs within 1e-3
+     of an eager plain-path f32 solve, ms per solve, the graph's capture
+     time and nodes and torch.cuda.max_memory_allocated. (c) `python -m
+     hkdmpc_tpu_torch.bench` in a process of its own with BENCH_MIXED=1
+     BENCH_LONGT=1 BENCH_REPS=2 BENCH_FLEET_STEPS=10: exit 0, one JSON line
+     with every key present and finite, no vs_baseline,
+     fleet_failed_last_step 0; its stderr lines are printed.
 Each solve path runs with its kernel's launch count set to 0 just before it
 and read just after. Then one JSON line with both kernels (name, route,
 source, replaces, launches, retry_launches, max_abs_err, ms, plain_ms,
 bound_ms, bound_by, library_ms, ms_b1024, ms_all_inactive,
 threads_per_block, smem_bytes, blocks_per_sm; K1 also fleet_launches,
-sharded_launches; K2 also mpc_launches, service_launches, profile_launches,
+sharded_launches, mixed_launches, longt_ms, longt_bound_ms; K2 also mpc_launches, service_launches, profile_launches,
 ms_b1, plain_ms_b1, bound_ms_b1), the card's name and power limit, and the
 result line. Any
 failure raises and exits non-zero. No CUDA device: exit 1.
@@ -202,6 +222,21 @@ SERVICE_POLLER_REQUESTS = 8     # phase 9 (c)
 SHARDED_FLEET_STEPS = 8         # phase 10 (b): after FLEET_WARMUP
 EXAMPLE_STEPS = 10              # phase 10 (e)
 EXAMPLE_ROBOTS = 4
+MIXED_BATCH = 1024               # phase 12 (a): half trot, half flytrot
+MIXED_CLOSE = 1e-3              # a mixed row against its uniform-gait solve
+MIXED_SHARE = 0.99
+LONGT_BATCH = 256               # phase 12 (b)
+LONGT_PLAN = 2.0                # s: T = 250
+BENCH_ENV = {"BENCH_MIXED": "1", "BENCH_LONGT": "1", "BENCH_REPS": "2",
+             "BENCH_FLEET_STEPS": "10"}     # phase 12 (c)
+BENCH_TIMEOUT_S = 400
+BENCH_KEYS = ("metric", "value", "unit", "per_fleet_wall_ms",
+              "per_fleet_solves_per_s", "latency_ms_p50", "latency_ms_p90",
+              "latency_floor_ms_p50", "latency_budget_ms", "fleet_robots",
+              "fleet_mpc_steps", "fleet_step_ms", "fleet_robot_steps_per_s",
+              "fleet_failed_last_step", "mixed_uniform_ms",
+              "mixed_interleaved_ms", "mixed_sorted_ms", "longT_T",
+              "longT_batch", "longT_ms", "longT_solves_per_s")
 # what later phases read of earlier ones: the ms per solve of phases 3 and
 # 5, and phase 8's classic single-robot solver
 KEPT = {}
@@ -359,7 +394,7 @@ def dense_kernel_inputs(torch, prob_b, state_b, model):
 
 
 def kernel_vs_plain(torch, phase, name, cuda_fn, plain_fn, args, small_args,
-                    work, batch, T, label=None):
+                    work, batch, T, label=None, plain_reps=10):
     """Kernel against its plain version (f32) and the f64 oracle on the
     card, timed at `batch` and (the kernel only, on `small_args`, where
     given) at KERNEL_SMALL_BATCH, beside the bound of `work`
@@ -396,7 +431,7 @@ def kernel_vs_plain(torch, phase, name, cuda_fn, plain_fn, args, small_args,
                       for k, p in zip(out_k[:4], out_p[:4]))
 
     ms = cuda_ms(torch, lambda: cuda_fn(*args), 10)
-    plain_ms = cuda_ms(torch, lambda: plain_fn(*args), 10)
+    plain_ms = cuda_ms(torch, lambda: plain_fn(*args), plain_reps)
     masked = masked_launches(torch, name, cuda_fn, args, out_k, batch)
     at_small, small_record = "", {}
     if small_args is not None:
@@ -414,7 +449,8 @@ def kernel_vs_plain(torch, phase, name, cuda_fn, plain_fn, args, small_args,
           + ", ".join(f"{n} {a:.3e} / {b:.3e}" for n, a, b in errs)
           + f"; ok agree {ok_agree:.4%} (ok {int(out_k[4].sum())}/{batch}); "
           f"max |kernel - plain f32| {max_abs_err:.3e}; "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (median of 10); "
+          f"kernel {ms:.3f} ms (median of 10), plain {plain_ms:.3f} ms "
+          f"(median of {plain_reps}); "
           f"{at_small}{masked['text']}; bound "
           f"{bound['bound_ms']:.6f} ms set by {bound['bound_by']} "
           f"({work['bytes'] / 1e9:.6f} GB = {bound['bytes_ms']:.6f} ms at "
@@ -1969,6 +2005,187 @@ def graph_phase(card):
     graphs.clear_graphs()
 
 
+def _counted_replay(torch, counter, run):
+    """run() with the counter's launches set to 0 just before and read just
+    after; returns (result, first-sweep launches, graph replays)."""
+    torch.cuda.synchronize()
+    counter.LAUNCHES = 0
+    replays = graph_replays()
+    res = run()
+    torch.cuda.synchronize()
+    return res, counter.LAUNCHES, graph_replays() - replays
+
+
+def _close_rows(cost, ref):
+    """(share of rows within MIXED_CLOSE of ref, max relative difference)."""
+    rel = ((cost.double() - ref.double()).abs() / ref.double().abs())
+    return float((rel <= MIXED_CLOSE).double().mean()), float(rel.max())
+
+
+def mixed_phase(card):
+    """Phase 12 (a): the mixed trot + flytrot batch, B = MIXED_BATCH, in
+    the bench's three layouts. Returns K1's launches over the three layouts'
+    counted replays."""
+    torch = _torch()
+    from hkdmpc_tpu_torch import bench
+    from hkdmpc_tpu_torch.ops import riccati_bound, riccati_hkd
+    from hkdmpc_tpu_torch.solver import ddp
+    cases, opt = bench.mixed_layouts("cuda", MIXED_BATCH)
+    prob_i, state_i = cases["interleaved"]
+    args = kernel_inputs(torch, prob_i, state_i)
+    kernel_vs_plain(
+        torch, "12 (a)", "riccati_hkd", riccati_hkd.backward_sweep_hkd_cuda,
+        riccati_hkd.backward_sweep_hkd_plain, args, None,
+        riccati_bound.hkd_sweep_work(args[0], args[2].shape[1],
+                                     args[6].shape[1]),
+        MIXED_BATCH, prob_i.T, label="riccati_hkd (interleaved trot + "
+        "flytrot, first rollout)", plain_reps=1)
+    solve = lambda p, s: ddp.solve_batch(p, s, opt, kernel_jac=True)
+    half = MIXED_BATCH // 2
+    fly_p, fly_s, _ = bench.scenarios("flytrot", half, 1, "cuda")
+    fly = solve(fly_p, fly_s)
+    results, launches, texts = {}, 0, []
+    for name, (prob_b, state_b) in cases.items():
+        solve(prob_b, state_b)          # the capture (one key for all three)
+        res, k1, replays = _counted_replay(
+            torch, riccati_hkd, lambda: solve(prob_b, state_b))
+        require_replays("12 (a)", replays)
+        if k1 < 1:
+            raise AssertionError(f"phase 12 (a) {name}: K1 not launched")
+        check_solve(torch, res, MIXED_BATCH, prob_b.T)
+        ms = cuda_ms(torch, lambda: solve(prob_b, state_b), 5)
+        results[name] = res
+        launches += k1
+        texts.append(f"{name} {ms:.3f} ms (K1 {k1}, replays {replays}, "
+                     f"mean cost {float(res.cost.mean()):.6g})")
+    trot = results["uniform"].cost[:half]
+    rows = {"interleaved": (results["interleaved"].cost[0::2],
+                            results["interleaved"].cost[1::2]),
+            "sorted": (results["sorted"].cost[:half],
+                       results["sorted"].cost[half:])}
+    worst = []
+    for name, (t, f) in rows.items():
+        share, rel = _close_rows(torch.cat([t, f]),
+                                 torch.cat([trot, fly.cost]))
+        worst.append(f"{name} {share:.2%} of rows within {MIXED_CLOSE:g} "
+                     f"(max {rel:.3e})")
+        if share < MIXED_SHARE:
+            raise AssertionError(f"phase 12 (a) {name}: {share:.2%} of rows "
+                                 f"within {MIXED_CLOSE} of the uniform-gait "
+                                 "solves")
+    print(f"phase 12 (a) mixed batch: B={MIXED_BATCH} T={prob_i.T} f32 "
+          f"runtime caps, solve_batch(kernel_jac=True) graph replays, "
+          f"{half} trot + {half} flytrot; ms per solve (CUDA events, median "
+          f"of 5): " + "; ".join(texts) + "; 0 failed, finite; final costs "
+          "against the same scenarios solved in a uniform batch of their "
+          "gait: " + "; ".join(worst) + f"; "
+          f"{_graph_text(['solve_batch(B=' + str(MIXED_BATCH)])}; on {card}",
+          flush=True)
+    return launches
+
+
+def longt_phase(card):
+    """Phase 12 (b): the 2.0 s plan (T = 250) at B = LONGT_BATCH: K1
+    against plain and the oracle, the solve's graph, the first costs
+    against a plain-path solve. Returns K1's record additions."""
+    torch = _torch()
+    from hkdmpc_tpu_torch import bench
+    from hkdmpc_tpu_torch.ops import riccati_bound, riccati_hkd
+    from hkdmpc_tpu_torch.solver import ddp, graphs
+    from hkdmpc_tpu_torch.solver.structs import tree_map
+    prob_b, state_b, opt = bench.scenarios("trot", LONGT_BATCH, 0, "cuda",
+                                           LONGT_PLAN)
+    T = prob_b.T
+    args = kernel_inputs(torch, prob_b, state_b)
+    measured = kernel_vs_plain(
+        torch, "12 (b)", "riccati_hkd", riccati_hkd.backward_sweep_hkd_cuda,
+        riccati_hkd.backward_sweep_hkd_plain, args, None,
+        riccati_bound.hkd_sweep_work(args[0], args[2].shape[1],
+                                     args[6].shape[1]),
+        LONGT_BATCH, T, label=f"riccati_hkd (T={T})", plain_reps=1)
+    solve = lambda: ddp.solve_batch(prob_b, state_b, opt, kernel_jac=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    solve()                             # the capture
+    res, k1, replays = _counted_replay(torch, riccati_hkd, solve)
+    require_replays("12 (b)", replays)
+    if k1 < 1:
+        raise AssertionError("phase 12 (b): K1 not launched")
+    check_solve(torch, res, LONGT_BATCH, T)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    head = lambda a: a[:PLAIN_CHECK_LANES].contiguous()
+    with plain_sweep_on_card(riccati_hkd, "backward_sweep_hkd",
+                             riccati_hkd.backward_sweep_hkd_plain):
+        ref = ddp._solve_batch(tree_map(head, prob_b),
+                               tree_map(head, state_b), opt, kernel_jac=True)
+    rel = ((res.cost[:PLAIN_CHECK_LANES] - ref.cost).abs()
+           / ref.cost.abs()).max().item()
+    if not rel <= 1e-3:
+        raise AssertionError(f"phase 12 (b): first {PLAIN_CHECK_LANES} final "
+                             f"costs differ from the plain-path solve by "
+                             f"{rel:.3e} rel")
+    ms = cuda_ms(torch, solve, 5)
+    print(f"phase 12 (b) long plan: solve_batch(kernel_jac=True) B="
+          f"{LONGT_BATCH} T={T} f32 runtime caps, graph replays {replays}, "
+          f"K1 launches {k1}, 0 failed, mean cost "
+          f"{float(res.cost.mean()):.6g}; first {PLAIN_CHECK_LANES} costs vs "
+          f"the eager plain-path solve {rel:.3e} rel; {ms:.3f} ms per solve "
+          f"(median of 5) = {LONGT_BATCH / ms * 1e3:.1f} solves/s; K1 "
+          f"{measured['ms']:.3f} ms beside its bound "
+          f"{measured['bound_ms']:.6f} ms ({measured['bound_by']}): "
+          f"{measured['bound_ms'] / measured['ms']:.3%}; "
+          f"{_graph_text(['solve_batch(B=' + str(LONGT_BATCH) + ', T=' + str(T)])}"
+          f"; torch.cuda.max_memory_allocated over the capture and replay "
+          f"{peak:.3f} GiB, with {len(graphs.stats())} graphs held; on "
+          f"{card}", flush=True)
+    return {"longt_ms": measured["ms"], "longt_bound_ms": measured["bound_ms"]}
+
+
+def bench_phase(card):
+    """Phase 12 (c): `python -m hkdmpc_tpu_torch.bench` in a process of its
+    own with the mixed and long-plan axes on and short windows."""
+    env = dict(os.environ, **BENCH_ENV)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "hkdmpc_tpu_torch.bench"],
+                          cwd=HERE, env=env, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    notes = [l for l in proc.stderr.splitlines() if l.startswith("#")]
+    print("phase 12 (c) bench stderr:\n" + "\n".join(
+        "    " + l for l in notes), flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 12 (c): the bench exited "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    lines = [l for l in proc.stdout.splitlines() if l.strip()]
+    if len(lines) != 1:
+        raise AssertionError(f"phase 12 (c): {len(lines)} stdout lines")
+    out = json.loads(lines[0])
+    missing = [k for k in BENCH_KEYS if k not in out]
+    bad = [k for k in BENCH_KEYS if k in out and k not in ("metric", "unit")
+           and not np.isfinite(out[k])]
+    if missing or bad or "vs_baseline" in out:
+        raise AssertionError(f"phase 12 (c): keys missing {missing}, not "
+                             f"finite {bad}, vs_baseline "
+                             f"{'vs_baseline' in out}")
+    if out["fleet_failed_last_step"] != 0:
+        raise AssertionError("phase 12 (c): failed robots in the fleet")
+    print(f"phase 12 (c) python -m hkdmpc_tpu_torch.bench with "
+          f"{' '.join(f'{k}={v}' for k, v in BENCH_ENV.items())}: exit 0 in "
+          f"{secs:.1f} s, every key present and finite, no vs_baseline, "
+          f"fleet_failed_last_step 0: {lines[0]}; on {card}", flush=True)
+
+
+def mixed_longt_phase(card):
+    """Phase 12: the mixed batch, the 2.0 s plan and the bench program.
+    Returns K1's record additions."""
+    t0 = time.perf_counter()
+    more = {"mixed_launches": mixed_phase(card)}
+    more.update(longt_phase(card))
+    bench_phase(card)
+    print(f"phase 12 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return more
+
+
 def main():
     torch = _torch()
     t0 = time.perf_counter()
@@ -1985,7 +2202,8 @@ def main():
     hkd.update(hkd_more)
     dense.update(dense_more)
     graph_phase(card)
-    print(f"chip_smoke: phases 1-11 in {time.perf_counter() - t0:.1f} s",
+    hkd.update(mixed_longt_phase(card))
+    print(f"chip_smoke: phases 1-12 in {time.perf_counter() - t0:.1f} s",
           flush=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

@@ -19,16 +19,21 @@ import torch
 PAD, DYN, RESET = 0, 1, 2
 
 
-def tree_map(fn, obj):
-    """Apply fn to every tensor leaf of a (nested) struct dataclass. A leaf
-    that is None or a bool is a host-side note (`ProblemData.all_shooting`)
-    and passes through as it is."""
+def tree_map(fn, obj, *rest):
+    """Apply fn to every tensor leaf of a (nested) struct dataclass, or,
+    given more structs of the same layout, to the leaves at one place in
+    each (`fn(a, b, ...)`, as `jax.tree_util.tree_map`). A leaf that is None
+    or a bool is a host-side note (`ProblemData.all_shooting`) and passes
+    through as it is where the structs agree on it, else becomes None (not
+    known)."""
     if dataclasses.is_dataclass(obj):
-        return type(obj)(**{f.name: tree_map(fn, getattr(obj, f.name))
+        return type(obj)(**{f.name: tree_map(fn, getattr(obj, f.name),
+                                             *(getattr(r, f.name)
+                                               for r in rest))
                             for f in dataclasses.fields(obj)})
     if obj is None or isinstance(obj, bool):
-        return obj
-    return fn(obj)
+        return obj if all(r == obj for r in rest) else None
+    return fn(obj, *rest)
 
 
 def tree_where(pred, a, b):

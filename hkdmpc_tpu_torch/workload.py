@@ -1,5 +1,5 @@
-"""The in-repo workloads: a GaitSynthesizer trot from the stand pose
-(`mpc.solver.default_stand_state`) with the HSDDPOption and
+"""The in-repo workloads: GaitSynthesizer gaits (trot, flytrot) from the
+stand pose (`mpc.solver.default_stand_state`) with the HSDDPOption and
 ConstraintParams defaults, gait files for the fleet, the fleet's seeded
 measurement stream, and what the MPC service needs beside a gait: stand-in
 LCM type files and request messages.
@@ -162,19 +162,29 @@ def meas_stream(n_robots: int, seed: int):
     return meas_fn
 
 
-def trot_reference() -> QuadReference:
-    """Synthesize the trot, write it in the reference's CSV format and load
-    it back, as a user loads a gait file."""
+def gait_reference(gait: str) -> QuadReference:
+    """Synthesize the gait ("trot" or "flytrot"), write it in the
+    reference's CSV format and load it back, as a user loads a gait file."""
     with tempfile.TemporaryDirectory() as d:
-        return QuadReference.from_file(gait_file("trot", d))
+        return QuadReference.from_file(gait_file(gait, d))
 
 
-def trot_problem(plan_duration: float = 0.6, *, dtype: torch.dtype, device,
-                 model=None):
-    """(HKDProblem, ProblemData, SolverState, HSDDPOption) of the trot, for
-    `model` (None: the default HKD model)."""
-    pb = HKDProblem(trot_reference(), plan_duration=plan_duration,
+def gait_problem(gait: str, plan_duration: float = 0.6, *,
+                 dtype: torch.dtype, device, model=None):
+    """(HKDProblem, ProblemData, SolverState, HSDDPOption) of the in-repo
+    gait ("trot" or "flytrot") from the stand pose, for `model` (None: the
+    default HKD model). Both gaits give problems of one shape at a plan
+    (0.6 s: T = 75, the trot 60 DYN, 4 RESET, 11 PAD, the flytrot 60 DYN,
+    5 RESET, 10 PAD; 2.0 s: T = 250), so their scenarios share a batch."""
+    pb = HKDProblem(gait_reference(gait), plan_duration=plan_duration,
                     dtype=dtype, device=device, model=model)
     pb.initialization()
     prob, state = pb.build(default_stand_state(pb.phases[0].contact))
     return pb, prob, state, HSDDPOption()
+
+
+def trot_problem(plan_duration: float = 0.6, *, dtype: torch.dtype, device,
+                 model=None):
+    """gait_problem of the trot."""
+    return gait_problem("trot", plan_duration, dtype=dtype, device=device,
+                        model=model)
