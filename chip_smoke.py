@@ -7,19 +7,23 @@ requests through the MPC service, scripted and at 100 Hz over the native
 transport, and runs the sharded solve and fleet on an NCCL group, the stage
 timer, the reference-format logs and the examples' loops; then holds the
 eager bodies against the CUDA graphs that the entry points replay; then
-brings up the bench's mixed trot + flytrot batch and 2.0 s plan and runs
-the bench program (`python -m hkdmpc_tpu_torch.bench`).
+the loops that stop as one graph with conditional while nodes and the
+resets that reuse the resident buffers; then brings up the bench's mixed
+trot + flytrot batch and 2.0 s plan and runs the bench program (`python -m
+hkdmpc_tpu_torch.bench`).
 
-Graphs are the card's default: `solve_batch` (unroll_caps), the fleet and
-single-robot steps replay a CUDA graph per key (hkdmpc_tpu_torch/solver/
-graphs.py), captured at their first call. Phases 3 and 5 to 10 print the
+Graphs are the card's default: `solve_batch` (unroll_caps, or the while
+graph of the loops that stop), the fleet and single-robot steps replay a
+CUDA graph per key (hkdmpc_tpu_torch/solver/graphs.py), captured at their
+first call. Phases 3 and 5 to 10 print the
 graph replays of their path and fail where none ran; the plain-sweep
 reference runs of phases 3, 5 and 7 run the eager body.
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
 
 Phases, one line each:
-  1. build both kernels from hkdmpc_tpu_torch/csrc (one nvcc per source,
+  1. build both kernels and the while graphs' native assembly
+     (csrc/graph_while.cu) from hkdmpc_tpu_torch/csrc (one nvcc per source,
      started together, sm_90a) and print the build time, each kernel's
      ptxas registers, spills and barriers, its threads per block, dynamic
      shared memory and resident blocks per SM, and the card's name and
@@ -82,7 +86,8 @@ Phases, one line each:
      retry); no failed solve, finite commands. (a) against (b) and (b)
      against (c), update by update: final cost within 1e-4 relative and
      controls and body states within 1e-3 of their magnitude in at least
-     90% of the updates, and within 5e-3 and 1e-1 in every update (in f32 a
+     90% of the updates, and within 5e-3 and 1e-1 in every update; each
+     cold solve replays one `solve_while` graph (in f32 a
      marginal line-search accept can fall the other way: that update's
      controls then differ by a few percent and its cost by up to 1e-3, and
      the next ones, warm-started from it, by less and less). Then K2 at B = 1 against its plain version and the f64
@@ -100,6 +105,9 @@ Phases, one line each:
      finite with n_iter >= 1, no solve may fail, K2 must be launched 2.00
      times per update, and the commands of the updates must lie within
      phase 8's limits of a bare HKDMPCSolver fed the same decoded requests.
+     A reset of a shooting mode already served (the MS = true one: the
+     service's own initialize was the first) reuses the resident state and
+     graphs: neither its cold solve nor the updates after it capture.
      (b) MPCService.run_async over the native transport (csrc/hkdcomm.cpp,
      built with g++ in phase 1; a failed build fails the run) on multicast
      loopback, a sender thread publishing 100 mpc_data at 100 Hz: received
@@ -140,12 +148,35 @@ Phases, one line each:
      the N = 1024 fleet, 2 + 6 steps (steps 3 and 4 of the trot take the
      sequential rollout), `fused.fleet_step_eager` against the graphs; (c)
      phase 8's single robot (fused step) with the assoc defaults and with
-     assoc off (K2 at B = 1), 2 + 12 updates. Prints the largest difference
+     assoc off (K2 at B = 1), 2 + 6 updates (one timed update takes the
+     sequential rollout). Prints the largest difference
      of costs, states and commands (it must be 0: the same kernels run in
      the same order), the same path's difference between its two turns,
      K1 / K2 first-sweep and masked launches per solve, step or update,
      each graph's capture time and node count, ms eager against graph, and
-     torch.cuda.max_memory_allocated with the graphs held.
+     torch.cuda.max_memory_allocated with the graphs held, which stay for
+     phase 13.
+ 13. (run after phase 11, before phase 12) the loops that stop as one CUDA
+     graph with two nested conditional while nodes (`graphs.solve_while`,
+     csrc/graph_while.cu), and resets that reuse the resident buffers.
+     (a) `solve_batch(unroll_caps=False)` at B = 4096, cold caps (2 AL x 3
+     DDP): the kernel_jac trot (K1) and the dense swing solve (K2), the
+     eager body (`ddp._solve_batch(unroll_caps=False)`) against the graph
+     in turns (eager, graph, graph, eager): every result tensor bit-equal,
+     n_iters equal, the kernel launched once per inner iteration the
+     graph's loop counters report; ms, iterations, each piece's nodes and
+     capture s, the native nodes; then an option set under which every
+     scenario stops after one inner iteration (cost and feasibility
+     thresholds 1e9, caps 3 x 4): bit-equal, fewer inner iterations than
+     the caps. (b) one robot, `HKDMPCSolver(fused_step=True)`, assoc
+     defaults and assoc off (K2): a cold solve, a checkpoint, one update,
+     then 3 `initialize` calls and a `resume`, each followed by the same
+     update, beside the same sequence run eagerly (`eager_steps`): no graph
+     added after the set-up, the update after each reset replays, its cost
+     and command bit-equal to the eager run's; cold solve ms eager against
+     graph. (c) `FleetMPC` N = 1024 (K1): the same with 2 `initialize`
+     calls and `save_fleet` / `load_fleet`, bundles bit-equal. Then every
+     graph is freed.
  12. the bench's configurations and program. (a) the mixed batch of
      `bench.mixed_layouts`: B = 1024, T = 75, f32, 512 trot + 512 flytrot
      scenarios (the rows follow different schedules), lanes interleaved
@@ -167,10 +198,14 @@ Phases, one line each:
 Each solve path runs with its kernel's launch count set to 0 just before it
 and read just after. Then one JSON line with both kernels (name, route,
 source, replaces, launches, retry_launches, max_abs_err, ms, plain_ms,
-bound_ms, bound_by, library_ms, ms_b1024, ms_all_inactive,
-threads_per_block, smem_bytes, blocks_per_sm; K1 also fleet_launches,
-sharded_launches, mixed_launches, longt_ms, longt_bound_ms; K2 also mpc_launches, service_launches, profile_launches,
-ms_b1, plain_ms_b1, bound_ms_b1), the card's name and power limit, and the
+bound_ms, bound_by, library_ms, ms_b1024, bound_ms_b1024, ms_all_inactive,
+threads_per_block, smem_bytes, blocks_per_sm, while_launches,
+while_retry_launches (phase 13 (a), one replay); K1 also fleet_launches,
+sharded_launches, mixed_launches, longt_ms, longt_bound_ms,
+while_fleet_launches (phase 13 (c)); K2 also mpc_launches,
+service_launches, profile_launches, ms_b1, plain_ms_b1, bound_ms_b1,
+while_mpc_launches (phase 13 (b), assoc off)), the card's name and power
+limit, and the
 result line. Any
 failure raises and exits non-zero. No CUDA device: exit 1.
 """
@@ -200,6 +235,8 @@ FLEET_CHECK_STEPS = 5
 SEED = 0
 PLAIN_CHECK_LANES = 8
 MPC_UPDATES = 12
+GRAPH_MPC_UPDATES = 6     # phase 11 (c): timed updates a turn (one of them
+                          # takes the sequential rollout)
 MPC_WARMUP = 2
 # two single-robot runs, update by update: final cost (relative) and
 # controls / body states (of their magnitude) this close in MPC_SHARE of the
@@ -208,6 +245,8 @@ MPC_CLOSE = {"cost": 1e-4, "cmd": 1e-3}
 MPC_WORST = {"cost": 5e-3, "cmd": 1e-1}
 MPC_SHARE = 0.9
 KERNELS = ("riccati_hkd", "riccati_dense")
+# the native assembly of the while graphs (set_cond: no TPU kernel)
+GRAPH_SOURCES = ("graph_while",)
 SERVICE_WARMUP = 2
 # the 12 timed requests of phase 9 (a): index -> MS flag of a reset_mpc
 SERVICE_REQUESTS = 12
@@ -300,17 +339,27 @@ def require_replays(phase, n):
         raise AssertionError(f"phase {phase}: no CUDA graph was replayed")
 
 
+def _eager_while(prob, state, opt, **flags):
+    """The loops that stop as the eager body (`ddp._solve_batch`), in the
+    place of their while graph (`graphs.solve_while`)."""
+    from hkdmpc_tpu_torch.solver import ddp
+    return ddp._solve_batch(prob, state, opt, unroll_caps=False, **flags)
+
+
 @contextlib.contextmanager
 def eager_steps():
-    """The fleet and single-robot steps run eagerly while inside (the
-    reference runs of phases 7 and 11; the main paths replay graphs)."""
+    """The fleet and single-robot steps, and the cold solves (the loops
+    that stop), run eagerly while inside (the reference runs of phases 7,
+    11 and 13; the main paths replay graphs)."""
     from hkdmpc_tpu_torch.mpc import fused
-    saved = fused.fleet_step
+    from hkdmpc_tpu_torch.solver import graphs
+    saved = fused.fleet_step, graphs.solve_while
     fused.fleet_step = fused.fleet_step_eager
+    graphs.solve_while = _eager_while
     try:
         yield
     finally:
-        fused.fleet_step = saved
+        fused.fleet_step, graphs.solve_while = saved
 
 
 def trot_batch(torch, batch, dtype, model=None):
@@ -338,25 +387,30 @@ def build_phase():
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+    sources = KERNELS + GRAPH_SOURCES
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
         host = pool.submit(timed_host_build)
-        built = dict(zip(KERNELS, pool.map(timed_build, KERNELS)))
+        built = dict(zip(sources, pool.map(timed_build, sources)))
         host_s = host.result()
     for name in KERNELS:
         _build.library(name)
+    for name in GRAPH_SOURCES:
+        _build.load(name)
     secs = time.perf_counter() - t0
     reports = []
     for name, (path, build_s) in built.items():
         log = (path.parent / f"{name}.build.log").read_text()
-        info = _build.kernel_info(name)
-        reports.append(f"{name} {build_s:.3f} s: " + " | ".join(
+        report = f"{name} {build_s:.3f} s: " + " | ".join(
             l.strip() for l in log.splitlines()
             if "registers" in l or "spill" in l)
-            + f" | {info['threads_per_block']} threads, "
-            f"{info['smem_bytes']} B dynamic shared memory per block, "
-            f"{info['blocks_per_sm']} blocks per SM")
+        if name in KERNELS:
+            info = _build.kernel_info(name)
+            report += (f" | {info['threads_per_block']} threads, "
+                       f"{info['smem_bytes']} B dynamic shared memory per "
+                       f"block, {info['blocks_per_sm']} blocks per SM")
+        reports.append(report)
     card = card_line()
-    print(f"phase 1 build: {', '.join(KERNELS)} and the native transport "
+    print(f"phase 1 build: {', '.join(sources)} and the native transport "
           f"hkdcomm (g++, {host_s:.3f} s) built in parallel in "
           f"{secs:.3f} s; {'; '.join(reports)}; card: {card}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
@@ -394,12 +448,13 @@ def dense_kernel_inputs(torch, prob_b, state_b, model):
 
 
 def kernel_vs_plain(torch, phase, name, cuda_fn, plain_fn, args, small_args,
-                    work, batch, T, label=None, plain_reps=10):
+                    work, batch, T, label=None, plain_reps=10,
+                    small_work=None):
     """Kernel against its plain version (f32) and the f64 oracle on the
     card, timed at `batch` and (the kernel only, on `small_args`, where
-    given) at KERNEL_SMALL_BATCH, beside the bound of `work`
-    (riccati_bound); prints the phase line and returns the measured part of
-    the kernel's JSON record."""
+    given) at KERNEL_SMALL_BATCH, beside the bound of `work` (and of
+    `small_work` at KERNEL_SMALL_BATCH; riccati_bound); prints the phase
+    line and returns the measured part of the kernel's JSON record."""
     from hkdmpc_tpu_torch.ops import _build, riccati_bound
     info = _build.kernel_info(name)
     name = label or name
@@ -441,8 +496,13 @@ def kernel_vs_plain(torch, phase, name, cuda_fn, plain_fn, args, small_args,
             raise AssertionError(f"{name} at B={KERNEL_SMALL_BATCH}: "
                                  "non-finite values")
         ms_small = cuda_ms(torch, lambda: cuda_fn(*small_args), 10)
-        at_small = f"kernel at B={KERNEL_SMALL_BATCH} {ms_small:.3f} ms; "
-        small_record = {"ms_b1024": ms_small}
+        b_small = riccati_bound.bound_ms(small_work)
+        at_small = (f"kernel at B={KERNEL_SMALL_BATCH} {ms_small:.3f} ms, "
+                    f"bound {b_small['bound_ms']:.6f} ms set by "
+                    f"{b_small['bound_by']}: "
+                    f"{b_small['bound_ms'] / ms_small:.3%} of it; ")
+        small_record = {"ms_b1024": ms_small,
+                        "bound_ms_b1024": b_small["bound_ms"]}
     bound = riccati_bound.bound_ms(work)
     print(f"phase {phase} {name} kernel vs plain: B={batch} T={T} f32; max "
           "|err| vs f64 oracle (kernel / plain f32): "
@@ -503,13 +563,14 @@ def kernel_phase(batch=BATCH):
     from hkdmpc_tpu_torch.ops import riccati_bound, riccati_hkd
     prob_b, state_b, _ = trot_batch(torch, batch, torch.float32)
     args = kernel_inputs(torch, prob_b, state_b)
+    small = kernel_inputs(torch, *trot_batch(torch, KERNEL_SMALL_BATCH,
+                                             torch.float32)[:2])
+    work = lambda a: riccati_bound.hkd_sweep_work(a[0], a[2].shape[1],
+                                                  a[6].shape[1])
     measured = kernel_vs_plain(
         torch, 2, "riccati_hkd", riccati_hkd.backward_sweep_hkd_cuda,
-        riccati_hkd.backward_sweep_hkd_plain, args,
-        kernel_inputs(torch, *trot_batch(torch, KERNEL_SMALL_BATCH,
-                                         torch.float32)[:2]),
-        riccati_bound.hkd_sweep_work(args[0], args[2].shape[1],
-                                     args[6].shape[1]), batch, prob_b.T)
+        riccati_hkd.backward_sweep_hkd_plain, args, small, work(args), batch,
+        prob_b.T, small_work=work(small))
     return {"name": "riccati_hkd", "route": "cuda",
             "source": "hkdmpc_tpu_torch/csrc/riccati_hkd.cu",
             "replaces": "hkdmpc_tpu/ops/pallas_backward.py:358", **measured}
@@ -524,13 +585,13 @@ def dense_kernel_phase(batch=BATCH):
     spec = hkd_model_spec(swing_constraint=True)
     prob_b, state_b, _ = trot_batch(torch, batch, torch.float32, spec)
     args = dense_kernel_inputs(torch, prob_b, state_b, spec)
+    small = dense_kernel_inputs(torch, *trot_batch(
+        torch, KERNEL_SMALL_BATCH, torch.float32, spec)[:2], spec)
     measured = kernel_vs_plain(
         torch, 4, "riccati_dense", riccati_dense.backward_sweep_dense_cuda,
-        riccati_dense.backward_sweep_dense_plain, args,
-        dense_kernel_inputs(torch, *trot_batch(torch, KERNEL_SMALL_BATCH,
-                                               torch.float32, spec)[:2],
-                            spec),
-        riccati_bound.dense_sweep_work(args[0]), batch, prob_b.T)
+        riccati_dense.backward_sweep_dense_plain, args, small,
+        riccati_bound.dense_sweep_work(args[0]), batch, prob_b.T,
+        small_work=riccati_bound.dense_sweep_work(small[0]))
     return {"name": "riccati_dense", "route": "cuda",
             "source": "hkdmpc_tpu_torch/csrc/riccati_dense.cu",
             "replaces": "hkdmpc_tpu/ops/pallas_backward.py:57", **measured}
@@ -828,13 +889,15 @@ def mpc_run(torch, ref, label, stream, **cfg):
 
     solver = HKDMPCSolver(ref, config=MPCConfig(**cfg), dtype=torch.float32,
                           device="cuda")
+    cold_replays = replays_by_label()
     cmd = solver.initialize()
     if bool(solver.last_result.solve_failed) or not np.isfinite(
             cmd.hkd_controls).all():
         raise AssertionError(f"{label}: the cold solve failed")
     rec = dict(label=label, cold_ms=solver.solve_time, ms=[], dispatch=[],
                wait=[], ready=[], shooting=[], cost=[], cmds=[],
-               assoc_bw=solver._assoc_bw)
+               assoc_bw=solver._assoc_bw,
+               cold_graphs=replayed_since(cold_replays))
     replays = None
     for k in range(MPC_WARMUP + MPC_UPDATES):
         if k == MPC_WARMUP:
@@ -897,7 +960,10 @@ def mpc_report(rec, card):
                  f" ms ({sum(rec['wait']) / total:.2%}), bundle ready at the "
                  f"dispatch's return in {sum(rec['ready'])} of {n}")
     print(f"phase 8 single-robot MPC {rec['label']}: cold solve "
-          f"{rec['cold_ms']:.3f} ms; {n} updates after {MPC_WARMUP} warm-up:"
+          f"{rec['cold_ms']:.3f} ms ("
+          + "; ".join(f"{v} replay of {k}" for k, v in
+                      rec["cold_graphs"].items())
+          + f"); {n} updates after {MPC_WARMUP} warm-up:"
           f" median {statistics.median(rec['ms']):.3f} ms, mean "
           f"{_mean(rec['ms']):.3f} ms = {1e3 / _mean(rec['ms']):.3f} "
           f"updates/s (budget 10 ms, HKDMPC.cpp:26-29); {len(par)} "
@@ -1001,6 +1067,13 @@ def mpc_phase(card):
     a, b, c = runs
     for rec in runs:
         require_replays(8, sum(rec["graphs"].values()))
+        # the cold solve replays the while graph (captured by the first
+        # solver of its key: (c) replays (b)'s)
+        if list(rec["cold_graphs"].values()) != [1] or not next(
+                iter(rec["cold_graphs"])).startswith("solve_while(B=1,"):
+            raise AssertionError(f"{rec['label']}: the cold solve replayed "
+                                 f"{rec['cold_graphs']}, expected one "
+                                 "solve_while graph")
         if sum(rec["graphs"].values()) != len(rec["ms"]):
             raise AssertionError(f"{rec['label']}: {rec['graphs']} replays "
                                  f"in {len(rec['ms'])} updates")
@@ -1212,8 +1285,8 @@ def service_scripted(torch, card, ref, lcm_dir, lcm):
              cost=[bare_cost[k] for k in updates]), phase=9)
 
     upd = [per[k] for k in updates]
-    # an update that captures a graph (the first of its kind after a
-    # reset) also launches K2 twice in the capture's eager warm-up
+    # an update that captures a graph (the first of its kind under a
+    # shooting mode) also launches K2 twice in the capture's eager warm-up
     bad = [(p["launches"], p["captures"]) for p in upd
            if p["launches"] != 2 * (1 + p["captures"])]
     if bad or launches < 2 * len(updates):
@@ -1221,6 +1294,20 @@ def service_scripted(torch, card, ref, lcm_dir, lcm):
                              f"captures) {bad} (expected 2 a replay and 2 "
                              f"a capture's warm-up), {launches} in all")
     captures = sum(p["captures"] for p in upd)
+    # a reset reuses the resident state and the graphs keyed on it: after
+    # a reset of a shooting mode already served (the service's own
+    # initialize is the first with MS = true), neither the reset's cold
+    # solve nor any update until the next reset captures a graph
+    seen, repeat, late = {True}, False, []
+    for k in range(n_all):
+        if k in resets:
+            repeat = resets[k] in seen
+            seen.add(resets[k])
+        if repeat and per[k]["captures"]:
+            late.append((k, per[k]["captures"]))
+    if late:
+        raise AssertionError(f"phase 9 (a): captures after a repeated "
+                             f"reset (request, graphs): {late}")
     ms_upd = [p["ms"] for p in upd if p["ms_mode"] and p["shooting"]]
     ms_seq = [p["ms"] for p in upd if p["ms_mode"] and not p["shooting"]]
     ss_upd = [p["ms"] for p in upd if not p["ms_mode"]]
@@ -1230,8 +1317,9 @@ def service_scripted(torch, card, ref, lcm_dir, lcm):
           f"({len(updates)} updates, reset_mpc with MS=true and MS=false), "
           f"{n_all} mpc_command and solver_info decoded, finite, n_iter >= "
           f"1, 0 failed; graph replays {replays}, captures in the updates "
-          f"{captures} (the first update of each rollout kind after a reset: "
-          f"a reset makes a new resident state); K2 launches {launches} "
+          f"{captures} (the first update of each rollout kind under each "
+          f"shooting mode; none after the MS=true reset, which reuses the "
+          f"resident state); K2 launches {launches} "
           f"({sum(p['launches'] for p in upd) / len(upd):.2f} per update, "
           f"2.00 per replay; "
           f"resets {cold[True]['launches']} and {cold[False]['launches']}); "
@@ -1915,7 +2003,7 @@ def _robot_run(torch, ref, eager, **cfg):
                               dtype=torch.float32, device="cuda")
         solver.initialize()
         stream = meas_stream(1, SEED)
-        for k in range(MPC_WARMUP + MPC_UPDATES):
+        for k in range(MPC_WARMUP + GRAPH_MPC_UPDATES):
             if k == MPC_WARMUP:
                 before = _launch_counts()
             m = {name: v[0] for name, v in stream(k).items()}
@@ -1928,7 +2016,7 @@ def _robot_run(torch, ref, eager, **cfg):
                             solver.problem.all_shooting(),
                             float(solver.last_result.cost), cmd))
         solver.close()
-    return out, _launch_text(before, _launch_counts(), MPC_UPDATES,
+    return out, _launch_text(before, _launch_counts(), GRAPH_MPC_UPDATES,
                              "update")
 
 
@@ -1954,6 +2042,9 @@ def graph_robot(torch, card, ref):
                     _max_diff(pairs(*runs["graph"])))
         worst_all = max(worst_all, worst)
         kinds = [s for _, s, _, _ in runs["graph"][0]]
+        if all(kinds) or not any(kinds):
+            raise AssertionError(f"phase 11 (c) {label}: the timed updates "
+                                 "do not hold both rollout kinds")
 
         def by_kind(turn, shooting):
             ms = [m for run in runs[turn] for m, s, _, _ in run
@@ -1962,8 +2053,9 @@ def graph_robot(torch, card, ref):
         print(f"phase 11 (c) single robot, {label}, HKDMPCSolver("
               f"fused_step=True) f32, eager updates vs graph updates in "
               f"turns (eager, graph, graph, eager), {MPC_WARMUP} + "
-              f"{MPC_UPDATES} updates each ({kinds.count(False)} of "
-              f"{MPC_UPDATES} timed updates sequential): max |eager - graph|"
+              f"{GRAPH_MPC_UPDATES} updates each ({kinds.count(False)} of "
+              f"{GRAPH_MPC_UPDATES} timed updates sequential): max |eager - "
+              f"graph|"
               f" of costs, controls, body states, gains, foot placements "
               f"{worst:.3e} (the same path run twice: {rerun:.3e}); ms per "
               f"update (host clock around the blocking update, median): "
@@ -2002,7 +2094,8 @@ def graph_phase(card):
     if any(v != 0.0 for v in worst.values()):
         raise AssertionError(f"phase 11: eager and graph results differ: "
                              f"{worst}")
-    graphs.clear_graphs()
+    # the graphs stay for phase 13, which replays phase 11's while graphs
+    # of the cold solves (B = 1 and the fleet's N) and clears them all
 
 
 def _counted_replay(torch, counter, run):
@@ -2186,24 +2279,369 @@ def mixed_longt_phase(card):
     return more
 
 
+# phase 13 (a): an option set under which every scenario stops after its
+# first inner iteration (cost and feasibility thresholds met at once)
+WHILE_LOOSE = dict(cost_thresh=1e9, dynamics_feas_thresh=1e9,
+                   max_DDP_iter=4, max_AL_iter=3)
+ROBOT_RESETS = 3          # phase 13 (b): initialize calls, then a resume
+FLEET_RESETS = 2          # phase 13 (c): initialize calls, then load_fleet
+
+
+def _while_entry(kernel_jac, batch, opt):
+    """graphs.stats()'s record of the while graph of this key."""
+    from hkdmpc_tpu_torch.solver import graphs
+    head = f"solve_while(B={batch},"
+    tail = f"caps {opt.max_AL_iter}x{opt.max_DDP_iter})"
+    found = [st for st in graphs.stats() if st["label"].startswith(head)
+             and f"kernel_jac={kernel_jac}," in st["label"]
+             and st["label"].endswith(tail)]
+    if len(found) != 1:
+        raise AssertionError(f"phase 13: {len(found)} while graphs for "
+                             f"{head} kernel_jac={kernel_jac} {tail}")
+    return found[0]
+
+
+def _pieces_text(st):
+    p = st["pieces"]
+    return (", ".join(f"{n} {p[n]['nodes']} nodes ({p[n]['capture_s']:.3f}"
+                      " s)" for n in ("carry0", "head", "inner", "tail"))
+            + f"; {st['nodes']} nodes in all, capture {st['capture_s']:.3f}"
+            " s")
+
+
+def _same_results(a, b):
+    """Max |a - b| over every tensor of two SolveResults (on the card, NaN
+    where both are), and whether their n_iters agree."""
+    from hkdmpc_tpu_torch.solver import graphs
+    worst = 0.0
+    for x, y in zip(graphs.leaves(a), graphs.leaves(b)):
+        if not x.is_floating_point():
+            x, y = x.long(), y.long()
+        diff = (x.nan_to_num(7.0) - y.nan_to_num(7.0)).abs()
+        worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+    return worst, bool((a.n_iters == b.n_iters).all())
+
+
+def while_solves(torch, card):
+    """Phase 13 (a): solve_batch(unroll_caps=False) at B = 4096 on both
+    paths, cold caps, the eager body against the while graph in turns
+    (eager, graph, graph, eager), then an option set that stops early.
+    Returns {kernel: (first-sweep, masked) launches in one replay}."""
+    from hkdmpc_tpu_torch.ops import riccati_dense, riccati_hkd
+    from hkdmpc_tpu_torch.solver import ddp
+    from hkdmpc_tpu_torch.solver.model_api import hkd_model_spec
+    launches = {}
+    for label, kj, spec, counter in (
+            ("kernel_jac", True, None, riccati_hkd),
+            ("dense swing model", False,
+             hkd_model_spec(swing_constraint=True), riccati_dense)):
+        prob_b, state_b, opt = trot_batch(torch, BATCH, torch.float32, spec)
+        run = lambda o, eager: (ddp._solve_batch if eager else
+                                ddp.solve_batch)(
+            prob_b, state_b, o, kernel_jac=kj, model=spec,
+            unroll_caps=False)
+        run(opt, False)                 # the capture
+        torch.cuda.synchronize()
+        res, ms = {"eager": [], "graph": []}, {"eager": [], "graph": []}
+        for turn in ("eager", "graph", "graph", "eager"):
+            torch.cuda.synchronize()
+            counter.LAUNCHES = counter.RETRY_LAUNCHES = 0
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = run(opt, turn == "eager")
+            end.record()
+            torch.cuda.synchronize()
+            ms[turn].append(start.elapsed_time(end))
+            res[turn].append(out)
+            if turn == "graph":
+                launches[counter.__name__.rsplit(".", 1)[-1]] = (
+                    counter.LAUNCHES, counter.RETRY_LAUNCHES)
+        check_solve(torch, res["graph"][0], BATCH, prob_b.T)
+        worst, iters_equal = _same_results(res["eager"][0], res["graph"][0])
+        rerun = max(_same_results(*res["eager"])[0],
+                    _same_results(*res["graph"])[0])
+        st = _while_entry(kj, BATCH, opt)
+        outer, inner = st["iterations"]
+        k, r = launches[counter.__name__.rsplit(".", 1)[-1]]
+        if worst != 0.0 or not iters_equal or k != inner or k < 1:
+            raise AssertionError(
+                f"phase 13 (a) {label}: max |eager - graph| {worst:.3e}, "
+                f"n_iters equal {iters_equal}, kernel launches {k} in "
+                f"{inner} inner iterations")
+
+        loose = dataclasses.replace(opt, **WHILE_LOOSE)
+        run(loose, False)               # the capture of the loose key
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g_loose = run(loose, False)
+        torch.cuda.synchronize()
+        loose_ms = (time.perf_counter() - t0) * 1e3
+        e_loose = run(loose, True)
+        st_l = _while_entry(kj, BATCH, loose)
+        caps = loose.max_AL_iter * loose.max_DDP_iter
+        worst_l, equal_l = _same_results(e_loose, g_loose)
+        if worst_l != 0.0 or not equal_l or not st_l["iterations"][1] < caps:
+            raise AssertionError(
+                f"phase 13 (a) {label}, early stop: max |eager - graph| "
+                f"{worst_l:.3e}, n_iters equal {equal_l}, inner iterations "
+                f"{st_l['iterations'][1]} of {caps}")
+        fmt = lambda xs: ", ".join(f"{x:.3f}" for x in xs)
+        print(f"phase 13 (a) {label} solve_batch(unroll_caps=False), "
+              f"B={BATCH} T={prob_b.T} f32 cold caps (AL {opt.max_AL_iter} "
+              f"x DDP {opt.max_DDP_iter}), eager body vs while graph in "
+              f"turns (eager, graph, graph, eager): max |eager - graph| of "
+              f"every result tensor {worst:.3e}, n_iters equal (the same "
+              f"path run twice: {rerun:.3e}); ms per solve, CUDA events: "
+              f"eager {fmt(ms['eager'])}, graph {fmt(ms['graph'])}; "
+              f"iterations run: outer {outer}, inner {inner} (n_iters "
+              f"{sorted(set(res['graph'][0].n_iters.tolist()))}); "
+              f"{counter.__name__.rsplit('.', 1)[-1]} launches per replay "
+              f"{k} + {r} masked; pieces: {_pieces_text(st)}; native nodes "
+              f"parent / outer body / inner body "
+              f"{' / '.join(str(v) for v in st['native_nodes'])}; early "
+              f"stop (cost_thresh and dynamics_feas_thresh 1e9, caps AL "
+              f"{loose.max_AL_iter} x DDP {loose.max_DDP_iter}): inner "
+              f"iterations {st_l['iterations'][1]} of {caps}, bit-equal to "
+              f"the eager body, {loose_ms:.3f} ms (host clock); on {card}",
+              flush=True)
+    return launches
+
+
+def _cold_text(cold):
+    """Cold solves' ms, each marked where it captured a graph."""
+    return ", ".join(f"{ms:.3f}" + (" (capture)" if new else "")
+                     for ms, new in cold)
+
+
+def _reset_sequence(torch, solver_steps, resets):
+    """Drive one MPC object through its set-up (a cold solve, a checkpoint,
+    update 0) and then `resets` ((reset, update index), ...): every update
+    takes one rollout kind, so the set-up captures every graph the resets
+    need.
+    `solver_steps` = (setup(), update(k), stats labels()). Returns per
+    reset: reset ms, the update's result, graph replays in it and the
+    labels it added."""
+    setup, update, labels = solver_steps
+    setup()
+    held = labels()
+    out = []
+    for reset, k in resets:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reset()
+        torch.cuda.synchronize()
+        reset_ms = (time.perf_counter() - t0) * 1e3
+        replays = graph_replays()
+        got = update(k)
+        torch.cuda.synchronize()
+        out.append(dict(reset_ms=reset_ms, result=got,
+                        replays=graph_replays() - replays,
+                        added=[l for l in labels() if l not in held]))
+    return held, out
+
+
+def while_robot(torch, card, ref, d):
+    """Phase 13 (b): one robot (fused step, B = 1), the assoc defaults and
+    assoc off (K2): the cold solve eager against the while graph, then
+    ROBOT_RESETS initialize calls and a resume, each followed by one
+    update, beside the same sequence run eagerly. Returns K2's launches
+    over the resets of the assoc-off run."""
+    from hkdmpc_tpu_torch.mpc.solver import HKDMPCSolver, MPCConfig
+    from hkdmpc_tpu_torch.ops import riccati_dense
+    from hkdmpc_tpu_torch.solver import graphs
+    from hkdmpc_tpu_torch.utils.checkpoint import save_problem
+    from hkdmpc_tpu_torch.workload import meas_stream
+    stream = meas_stream(1, SEED)
+    meas = [{n: v[0] for n, v in stream(0).items()}]
+    labels = lambda: [st["label"] for st in graphs.stats()]
+    k2 = 0
+    for label, cfg in (("assoc defaults", {}),
+                       ("assoc off (K2 at B=1)",
+                        dict(assoc_linear=False, assoc_backward=False))):
+        runs = {}
+        for turn in ("graph", "eager"):
+            ckpt = os.path.join(d, f"robot_{turn}.npz")
+            s = HKDMPCSolver(ref, config=MPCConfig(fused_step=True, **cfg),
+                             dtype=torch.float32, device="cuda")
+            cold = []
+
+            def init():
+                held = len(labels())
+                s.initialize()
+                cold.append((s.solve_time, len(labels()) > held))
+
+            def setup():
+                init()
+                save_problem(ckpt, s.problem)
+                update(0)
+
+            def update(k):
+                m = meas[k]
+                cmd = s.update(m["rpy"], m["p"], m["v"], m["omega"],
+                               m["qJ"], mpc_time=0.01 * k)
+                return cmd, float(s.last_result.cost)
+
+            resets = [(init, 0)] * ROBOT_RESETS + [
+                (lambda: s.resume(ckpt), 0)]
+            route = eager_steps() if turn == "eager" else \
+                contextlib.nullcontext()
+            before = riccati_dense.LAUNCHES
+            with route:
+                held, out = _reset_sequence(torch, (setup, update, labels),
+                                            resets)
+            if turn == "graph" and cfg:
+                k2 += riccati_dense.LAUNCHES - before
+            s.close()
+            runs[turn] = dict(held=held, out=out, cold=cold)
+        g, e = runs["graph"], runs["eager"]
+        fields = ("hkd_controls", "des_body_state", "feedback",
+                  "foot_placement")
+        worst = _max_diff(
+            [(np.array([x["result"][1]]), np.array([y["result"][1]]))
+             for x, y in zip(g["out"], e["out"])]
+            + [(getattr(x["result"][0], n), getattr(y["result"][0], n))
+               for x, y in zip(g["out"], e["out"]) for n in fields])
+        added = [o["added"] for o in g["out"]]
+        replays = [o["replays"] for o in g["out"]]
+        if worst != 0.0 or any(added) or min(replays) < 1:
+            raise AssertionError(
+                f"phase 13 (b) {label}: max |graph - eager| {worst:.3e}, "
+                f"graphs added after a reset {added}, replays in the "
+                f"updates {replays}")
+        fmt = lambda xs: ", ".join(f"{x:.3f}" for x in xs)
+        print(f"phase 13 (b) single robot, {label}, HKDMPCSolver("
+              f"fused_step=True) f32: cold solve ms (host clock, "
+              f"`solve_time`): graph {_cold_text(g['cold'])}, eager "
+              f"{_cold_text(e['cold'])}; {ROBOT_RESETS} "
+              f"initialize and a resume, ms: graph "
+              f"{fmt(o['reset_ms'] for o in g['out'])}, eager "
+              f"{fmt(o['reset_ms'] for o in e['out'])}; graphs held "
+              f"{len(g['held'])} before the resets, added after them: "
+              f"none; graph replays in the update after each reset "
+              f"{replays}; max |graph - eager| of the updates' costs and "
+              f"commands {worst:.3e}; on {card}", flush=True)
+    return k2
+
+
+def while_fleet(torch, card, ref, d):
+    """Phase 13 (c): FleetMPC N = FLEET_N (K1): FLEET_RESETS initialize
+    calls, then save_fleet / load_fleet, each followed by one step, beside
+    the same sequence run eagerly. Returns K1's launches over the graph
+    run's resets."""
+    from hkdmpc_tpu_torch.mpc.fleet import FleetConfig, FleetMPC
+    from hkdmpc_tpu_torch.ops import riccati_hkd
+    from hkdmpc_tpu_torch.solver import graphs
+    from hkdmpc_tpu_torch.utils.checkpoint import load_fleet, save_fleet
+    from hkdmpc_tpu_torch.workload import meas_stream
+    meas = [meas_stream(FLEET_N, SEED)(0)]
+    labels = lambda: [st["label"] for st in graphs.stats()]
+    runs = {}
+    for turn in ("graph", "eager"):
+        path = os.path.join(d, f"fleet_{turn}.npz")
+        f = FleetMPC(ref, FLEET_N, config=FleetConfig(), dtype=torch.float32,
+                     device="cuda")
+        cold = []
+
+        def step(k):
+            m = meas[k]
+            return f.step(m["rpy"], m["p"], m["v"], m["omega"], m["qJ"],
+                          mpc_time=0.01 * k)
+
+        def init():
+            held = len(labels())
+            f.initialize()
+            cold.append((f.solve_time, len(labels()) > held))
+
+        def setup():
+            init()
+            save_fleet(path, f)
+            step(0)
+
+        resets = [(init, 0)] * FLEET_RESETS + [
+            (lambda: load_fleet(path, f), 0)]
+        route = eager_steps() if turn == "eager" else contextlib.nullcontext()
+        before = riccati_hkd.LAUNCHES
+        with route:
+            held, out = _reset_sequence(torch, (setup, step, labels), resets)
+        runs[turn] = dict(held=held, out=out, cold=cold,
+                          k1=riccati_hkd.LAUNCHES - before)
+    g, e = runs["graph"], runs["eager"]
+    fields = ("scalars", "controls", "body", "gains", "pf")
+    worst = _max_diff((x["result"][n], y["result"][n])
+                      for x, y in zip(g["out"], e["out"]) for n in fields)
+    added = [o["added"] for o in g["out"]]
+    replays = [o["replays"] for o in g["out"]]
+    if worst != 0.0 or any(added) or min(replays) < 1:
+        raise AssertionError(
+            f"phase 13 (c): max |graph - eager| {worst:.3e}, graphs added "
+            f"after a reset {added}, replays in the steps {replays}")
+    fmt = lambda xs: ", ".join(f"{x:.3f}" for x in xs)
+    print(f"phase 13 (c) FleetMPC N={FLEET_N} trot f32 FleetConfig() (K1): "
+          f"cold solve ms (host clock): graph {_cold_text(g['cold'])}, "
+          f"eager {_cold_text(e['cold'])}; {FLEET_RESETS} initialize "
+          f"and a load_fleet, ms: graph "
+          f"{fmt(o['reset_ms'] for o in g['out'])}, eager "
+          f"{fmt(o['reset_ms'] for o in e['out'])}; graphs added after the "
+          f"resets: none; graph replays in the step after each reset "
+          f"{replays}; max |graph - eager| of the bundles {worst:.3e}; K1 "
+          f"launches in the graph run {g['k1']}; on {card}", flush=True)
+    return g["k1"]
+
+
+def while_phase(card):
+    """Phase 13: the loops that stop as one CUDA graph with conditional
+    while nodes, and resets that reuse the resident buffers and graphs.
+    Returns (K1's, K2's) record additions."""
+    torch = _torch()
+    import tempfile
+    from hkdmpc_tpu_torch.solver import graphs
+    from hkdmpc_tpu_torch.workload import gait_file
+    t0 = time.perf_counter()
+    launches = while_solves(torch, card)
+    with tempfile.TemporaryDirectory() as d:
+        ref = gait_file("trot", d)
+        k2_robot = while_robot(torch, card, ref, d)
+        k1_fleet = while_fleet(torch, card, ref, d)
+    graphs.clear_graphs()
+    print(f"phase 13 in {time.perf_counter() - t0:.1f} s", flush=True)
+    k1, k1r = launches["riccati_hkd"]
+    k2, k2r = launches["riccati_dense"]
+    return ({"while_launches": k1, "while_retry_launches": k1r,
+             "while_fleet_launches": k1_fleet},
+            {"while_launches": k2, "while_retry_launches": k2r,
+             "while_mpc_launches": k2_robot})
+
+
 def main():
     torch = _torch()
     t0 = time.perf_counter()
+    mark = lambda n: print(f"chip_smoke: phases 1-{n} done at "
+                           f"{time.perf_counter() - t0:.1f} s", flush=True)
     card = build_phase()
     hkd = kernel_phase()
     hkd["launches"], hkd["retry_launches"] = slice_phase(card)
     dense = dense_kernel_phase()
     dense["launches"], dense["retry_launches"] = dense_slice_phase(card)
     k2_vs_k1_phase()
+    mark(6)
     hkd["fleet_launches"] = fleet_phase(card)
+    mark(7)
     dense.update(mpc_phase(card))
+    mark(8)
     dense.update(service_phase(card))
+    mark(9)
     hkd_more, dense_more = scale_out_phase(card)
     hkd.update(hkd_more)
     dense.update(dense_more)
+    mark(10)
     graph_phase(card)
+    mark(11)
+    hkd_more, dense_more = while_phase(card)
+    hkd.update(hkd_more)
+    dense.update(dense_more)
     hkd.update(mixed_longt_phase(card))
-    print(f"chip_smoke: phases 1-12 in {time.perf_counter() - t0:.1f} s",
+    print(f"chip_smoke: phases 1-13 in {time.perf_counter() - t0:.1f} s",
           flush=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

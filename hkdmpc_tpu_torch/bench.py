@@ -11,8 +11,8 @@ in-repo GaitSynthesizer trot (`workload.gait_problem`), the HSDDPOption
 defaults at their runtime caps (2 AL x 1 DDP iterations, the reference's
 MPC hot path, HKDMPC.cpp:102-103), the 0.6 s plan (T = 75), float32 on the
 card (float64 on the CPU). Solves go through `ddp.solve_batch`; on the card
-with `unroll_caps` each chunk shape replays its CUDA graph
-(`solver/graphs.py`).
+each chunk shape replays its CUDA graph (`solver/graphs.py`; with
+BENCH_UNROLL=0 the while graph of the loops that stop).
 
 stdout: one JSON line.
   - throughput: "metric" (hsddp_solves_per_s_per_chip), "value" (solves/s
@@ -110,7 +110,8 @@ def _memory(device) -> str:
 def _graph_text(batch: int, T: int) -> str:
     """Capture seconds and nodes of the solve graphs at this chunk shape."""
     recs = [st for st in graphs.stats()
-            if st["label"].startswith(f"solve_batch(B={batch}, T={T},")]
+            if st["label"].startswith((f"solve_batch(B={batch}, T={T},",
+                                       f"solve_while(B={batch}, T={T},"))]
     if not recs:
         return "no graph"
     return "; ".join(

@@ -20,8 +20,11 @@ On a CUDA device a step replays one of the fleet's two CUDA graphs (parallel
 and sequential rollout, `fused.fleet_step`), each captured at its first
 step, with the robots' state resident in the fleet's buffers: the graph
 reads it and writes the new state over it. The cold solve (`initialize`)
-runs once, eagerly, with the loops that stop (`unroll_caps=False`), as the
-JAX package's does.
+takes the loops that stop (`unroll_caps=False`), as the JAX package's does:
+on the card the solve's while graph (`graphs.solve_while`). A reset
+(`initialize` again, `utils.checkpoint.load_fleet`) copies the new tables
+and state into the resident buffers (`graphs.rearm`), so the step graphs
+keyed on their addresses replay on.
 
 With a mesh (`parallel.batch.init_multihost` / `make_mesh`: one process per
 device on `torch.distributed`) the robots shard over the processes: each
@@ -50,7 +53,7 @@ from hkdmpc_tpu_torch.mpc import fused
 from hkdmpc_tpu_torch.mpc.solver import MPCCommand, default_stand_state
 from hkdmpc_tpu_torch.parallel.batch import (local_block, replicate_problem,
                                              solve_metrics, solve_sharded)
-from hkdmpc_tpu_torch.solver import ddp
+from hkdmpc_tpu_torch.solver import ddp, graphs
 from hkdmpc_tpu_torch.reference.quad_reference import QuadReference
 from hkdmpc_tpu_torch.solver.problem import HKDProblem
 
@@ -135,6 +138,8 @@ class FleetMPC:
         self.solve_time = 0.0
         self._pending = None
         self._last = None
+        self._state_dev = None   # resident on the device from initialize
+        self._tables = None
         self._pf = np.zeros((self.n_local, 4, 3))
 
     # ------------------------------------------------------------------
@@ -160,7 +165,7 @@ class FleetMPC:
         prob_b = dataclasses.replace(prob_b, x0=torch.as_tensor(
             x0_b[self.rows], dtype=self.dtype, device=self.device))
         # the cold solve: the loops that stop (the JAX package's while_loop
-        # solve), eager on every device
+        # solve; on the card its graph)
         flags = dict(kernel_jac=self._kernel_jac,
                      parallel_rollout=pb.all_shooting(),
                      assoc_linear=self.cfg.assoc_linear,
@@ -175,8 +180,9 @@ class FleetMPC:
             agg = solve_metrics(res)
         self._sync()
         self.solve_time = (time.perf_counter() - t0) * 1e3
-        self._state_dev = res.state
-        self._tables = fused.make_tables(pb, self.dtype, self.device)
+        self._state_dev = graphs.rearm(self._state_dev, res.state)
+        self._tables = graphs.rearm(
+            self._tables, fused.make_tables(pb, self.dtype, self.device))
         self._offsets = pb.flat_offsets()
         self.mpc_iter = 0
         return dict(agg, solve_ms=self.solve_time)

@@ -21,8 +21,11 @@ solve time — lcmtypes/hkd_command_lcmt.lcm).
   `update_fused_complete` let a service loop do other work between them.
   On a CUDA device an update replays a CUDA graph (the fused step's, or the
   classic solve's through `ddp.solve`), captured at the first update of its
-  kind after `initialize()`, in whichever thread runs it; the cold solve
-  runs once, eagerly, with the loops that stop (`unroll_caps=False`).
+  kind, in whichever thread runs it; the cold solve takes the loops that
+  stop (`unroll_caps=False`), on the card as the solve's while graph. A
+  reset (`initialize`, `resume`) copies the new tables and state into the
+  resident ones (`graphs.rearm`), so the step graphs keyed on their
+  addresses replay on.
 
 The reference solves in a detached thread per message, guarded by a mutex
 (HKDMPC.cpp:168-200). Here `update_fused_dispatch` hands the device step to
@@ -55,7 +58,7 @@ from hkdmpc_tpu_torch.config import (ConstraintParams, HSDDPOption,
 from hkdmpc_tpu_torch.models import hkd
 from hkdmpc_tpu_torch.mpc import fused
 from hkdmpc_tpu_torch.reference.quad_reference import QuadReference
-from hkdmpc_tpu_torch.solver import ddp
+from hkdmpc_tpu_torch.solver import ddp, graphs
 from hkdmpc_tpu_torch.solver.problem import HKDProblem
 
 STAND_BODY_HEIGHT = 0.2486           # HKDMPC.cpp:44-54
@@ -213,6 +216,8 @@ class HKDMPCSolver:
         self._abandoned = None  # future of a discarded dispatch, while it runs
         self._worker = None     # the dispatch's thread, made at first use
         self._host_stale = False
+        self._tables = None     # resident on the device, fused path
+        self._state_dev = None
 
     # ------------------------------------------------------------------
 
@@ -223,8 +228,9 @@ class HKDMPCSolver:
     def _solve(self, x0, opt, cold: bool = False):
         """Build the problem at x0, solve it with option set `opt`, write
         the result into the per-phase arrays; times the solve. The cold
-        solve, and every solve on the CPU, takes the loops that stop; an
-        update on the card replays its graph."""
+        solve, and every solve on the CPU, takes the loops that stop (on
+        the card their while graph); an update on the card replays the
+        unroll_caps graph."""
         prob, state = self.problem.build(x0)
         t0 = time.perf_counter()
         res = ddp.solve(prob, state, opt, kernel_jac=False,
@@ -241,11 +247,19 @@ class HKDMPCSolver:
         return res
 
     def _arm_fused(self, state):
-        """(Re)start the device-resident path from `state` (no robot
-        axis)."""
-        self._tables = fused.make_tables(self.problem, self.dtype,
-                                         self.device)
-        self._state_dev = state
+        """(Re)start the device-resident path from `state` (no robot axis):
+        the new tables and state are copied into the resident ones where
+        their layout matches (`graphs.rearm`). The copies go to the
+        default stream, which every step also takes: they run after the
+        launches of any step already made. The callers settle an abandoned
+        dispatch first; a pending one is waited for here, so that none of
+        its launches comes after the copies."""
+        if self._pending is not None:
+            concurrent.futures.wait([self._pending["future"]])
+        self._tables = graphs.rearm(
+            self._tables, fused.make_tables(self.problem, self.dtype,
+                                            self.device))
+        self._state_dev = graphs.rearm(self._state_dev, state)
         self._offsets = self.problem.flat_offsets()
         self._host_stale = False
 

@@ -4,7 +4,8 @@ use.
 
 The sources live in `hkdmpc_tpu_torch/csrc/`: one `<name>.cu` per kernel,
 with a plain C interface (`<name>_launch`, `<name>_info`,
-`<name>_error_string`), and the
+`<name>_error_string`; `library`), the native assembly of the while graphs
+(`graph_while.cu`, whose caller sets its own signatures; `load`), and the
 `*.cuh` headers they include. `nvcc` compiles each `<name>.cu` for Hopper
 (`sm_90a`) into its own shared library, loaded with ctypes, in
 `build/hkdmpc_tpu_torch/` beside the package. The HKD constants and cost
@@ -51,6 +52,7 @@ _LAUNCH_ARGTYPES = {
 }
 
 _LIBS: dict = {}
+_SIGNED: set = set()   # kernels whose launch signatures are set
 
 
 def _f32(v) -> str:
@@ -193,12 +195,21 @@ def build_host(name: str) -> Path:
     return _compile(name, out_dir, [gxx, *GXX_FLAGS, str(src)])
 
 
-def library(name: str) -> ctypes.CDLL:
-    """Kernel `name`'s library, built and loaded once per process, with the
-    ctypes signatures of `<name>_launch` and `<name>_error_string` set."""
+def load(name: str) -> ctypes.CDLL:
+    """The library of csrc/<name>.cu, built and loaded once per process;
+    the caller sets the ctypes signatures of what it calls."""
     lib = _LIBS.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build(name)))
+        _LIBS[name] = lib
+    return lib
+
+
+def library(name: str) -> ctypes.CDLL:
+    """Kernel `name`'s library, built and loaded once per process, with the
+    ctypes signatures of `<name>_launch` and `<name>_error_string` set."""
+    lib = load(name)
+    if name not in _SIGNED:
         fn = getattr(lib, f"{name}_launch")
         fn.argtypes = _LAUNCH_ARGTYPES[name]
         fn.restype = ctypes.c_int
@@ -208,7 +219,7 @@ def library(name: str) -> ctypes.CDLL:
         errstr = getattr(lib, f"{name}_error_string")
         errstr.argtypes = [ctypes.c_int]
         errstr.restype = ctypes.c_char_p
-        _LIBS[name] = lib
+        _SIGNED.add(name)
     return lib
 
 

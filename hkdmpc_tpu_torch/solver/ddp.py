@@ -31,13 +31,15 @@ stop once no scenario would run another iteration (its `while_loop` form),
 at one host read per iteration. The two give the same decisions and values.
 
 Compiled entry points, as the JAX package's `solve_jit` / jitted
-`solve_batch`: on a CUDA device, `solve_batch` with `unroll_caps=True` runs
-the solve as one CUDA graph, captured once per (options, flags, model,
-input shapes) and replayed (`solver/graphs.py`). `_solve_batch` is the
-eager body (the JAX package's un-jitted `_solve_batch`); its `capturable`
-form reads nothing on the host (the retry loop at its bound), which a
-capture needs. `unroll_caps=False` (the loops
-that stop, the cold solve's form) and every CPU solve run the body eagerly.
+`solve_batch`: on a CUDA device, `solve_batch` runs the solve as one CUDA
+graph, captured once per (options, flags, model, input shapes, unroll_caps)
+and replayed (`solver/graphs.py`). `_solve_batch` is the eager body (the
+JAX package's un-jitted `_solve_batch`), `solve_pieces` the same solve cut
+at its loops: the eager body drives the pieces on the host, the
+`unroll_caps=False` graph runs them under two nested conditional while
+nodes (the JAX package's `lax.while_loop`s). The `capturable` pieces read
+nothing on the host (the retry loop at its bound), which a capture needs.
+Every CPU solve, and the stage timers on the card, run the eager body.
 """
 
 from __future__ import annotations
@@ -164,13 +166,15 @@ def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
     `torch.func.jvp` through the model (`rollout.linear_rollout_jvp(lq=)`).
 
     unroll_caps: True runs the AL and DDP loops to their caps and masks;
-    False stops a loop once no scenario would run its next iteration (one
-    host read per iteration). Same decisions and values.
+    False stops a loop once no scenario would run its next iteration (on
+    the CPU one host read per iteration). Same decisions and values.
 
-    On CUDA with unroll_caps=True the solve replays its CUDA graph
-    (`graphs.solve_batch`, captured at the first call with this key) and
-    returns tensors the caller owns; otherwise it runs `_solve_batch`
-    eagerly. A failed capture raises: nothing falls back to eager."""
+    On CUDA the solve replays its CUDA graph, captured at the first call
+    with this key, and returns tensors the caller owns: with unroll_caps
+    one captured body (`graphs.solve_batch`), without it the loops as two
+    nested conditional while nodes around captured pieces
+    (`graphs.solve_while`). On the CPU it runs `_solve_batch` eagerly. A
+    failed capture or graph build raises: nothing falls back to eager."""
     _check_flags(kernel_jac, model, assoc_linear, assoc_backward,
                  scan_backward, jvp_linear)
     parallel_rollout = parallel_rollout and bool(opt.MS)
@@ -181,9 +185,11 @@ def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
                  assoc_linear=assoc_linear, assoc_backward=assoc_backward,
                  scan_backward=scan_backward, aug_sweep=aug_sweep,
                  jvp_linear=jvp_linear)
-    if unroll_caps and prob.xr.device.type == "cuda":
+    if prob.xr.device.type == "cuda":
         from hkdmpc_tpu_torch.solver import graphs
-        return graphs.solve_batch(prob, state, opt, **flags)
+        if unroll_caps:
+            return graphs.solve_batch(prob, state, opt, **flags)
+        return graphs.solve_while(prob, state, opt, **flags)
     return _solve_batch(prob, state, opt, unroll_caps=unroll_caps, **flags)
 
 
@@ -209,13 +215,78 @@ def _solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
                  capturable: bool = False) -> SolveResult:
     """The solve's body, run eagerly: `solve_batch`'s arguments after its
     checks (parallel_rollout already False under single shooting, and
-    decided on the host). capturable=True (with unroll_caps) reads nothing
-    on the host: the retry loop runs its bound (`bounded_retry`) where the
-    eager body stops it once no scenario needs a retry. Same decisions and
-    values either way."""
+    decided on the host). The pieces of `solve_pieces`, driven to their
+    caps and masked (unroll_caps) or while a scenario would run on (one
+    host read per iteration). capturable=True (with unroll_caps) reads
+    nothing on the host: the retry loop runs its bound (`bounded_retry`)
+    where the eager body stops it once no scenario needs a retry. Same
+    decisions and values either way. The loops that stop are captured piece
+    by piece (`graphs.solve_while`), never as one body."""
     if capturable and not unroll_caps:
         raise ValueError("a capturable solve runs its loops to their caps: "
-                         "unroll_caps=True")
+                         "unroll_caps=True (the loops that stop are "
+                         "captured piece by piece, graphs.solve_while)")
+    p = solve_pieces(prob, state, opt, kernel_jac=kernel_jac, model=model,
+                     parallel_rollout=parallel_rollout,
+                     assoc_linear=assoc_linear,
+                     assoc_backward=assoc_backward,
+                     scan_backward=scan_backward, aug_sweep=aug_sweep,
+                     jvp_linear=jvp_linear, capturable=capturable)
+    c = p.carry0()
+    if unroll_caps:
+        for _ in range(p.max_outer):
+            ic = p.head(c)
+            for _ in range(p.max_inner):
+                ic = p.inner(ic)
+            c = p.tail(ic, c)
+    else:
+        while bool(p.outer_cond(c)):
+            ic = p.head(c)
+            while bool(p.inner_cond(ic)):
+                ic = p.inner(ic)
+            c = p.tail(ic, c)
+    return p.result(c)
+
+
+@dataclasses.dataclass(frozen=True)
+class SolvePieces:
+    """The solve cut at its loops, as functions of the carries: the outer
+    carry (a dict: state, trajectories, costs, violations, counters,
+    traces) and the inner carry (`head`'s dict: the outer carry being
+    iterated `c`, the regularization `reg`, the inner stop flags `stop`,
+    the inner iteration counts `iter`, and `run_ou`, the scenarios whose
+    outer iteration runs). Every function is a per-scenario select over its
+    carry and reads nothing on the host where the pieces are capturable.
+
+    carry0(): the initial rollout, cost and traces;
+    outer_cond(c) / inner_cond(ic): () bool tensors, whether any scenario
+      runs another outer / inner iteration;
+    head(c): the outer iteration's head (the inner carry);
+    inner(ic): one inner DDP iteration, kept where the scenario runs it;
+    tail(ic, c): the AL / ReB updates and the stop rule, kept where the
+      scenario ran the outer iteration, else c;
+    result(c): the SolveResult."""
+    carry0: object
+    outer_cond: object
+    head: object
+    inner_cond: object
+    inner: object
+    tail: object
+    result: object
+    max_outer: int
+    max_inner: int
+
+
+def solve_pieces(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
+                 kernel_jac: bool, model=None, parallel_rollout: bool = True,
+                 assoc_linear: bool = False, assoc_backward: bool = False,
+                 scan_backward: bool = False, aug_sweep: bool = True,
+                 jvp_linear: bool = False,
+                 capturable: bool = False) -> SolvePieces:
+    """The pieces of `_solve_batch` on (prob, state), which every piece
+    reads when it runs (a capture records reads of these tensors, so a
+    graph's static input buffers go in here). Nothing is computed here but
+    constants of the batch size."""
     ms = bool(opt.MS)
     model = None if kernel_jac else (model or hkd_model_spec())
     precise.pin_full_f32()
@@ -225,7 +296,6 @@ def _solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
     al_on, reb_on = bool(opt.AL_active), bool(opt.ReB_active)
     eps_candidates = _eps_candidates(opt, dtype, dev)
     n_eps = eps_candidates.shape[0]
-    last_node = ro_mod.last_active_node(prob)
     lanes = torch.arange(nb, device=dev)
     zeros_i = torch.zeros(nb, dtype=torch.int32, device=dev)
     falses = torch.zeros(nb, dtype=torch.bool, device=dev)
@@ -239,28 +309,30 @@ def _solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
     def cost_of(X, U, constr):
         return ro_mod.compute_cost(prob, X, U, constr, reb_on, al_on, model)
 
-    # ---- initial nominal rollout (MultiPhaseDDP.cpp:257-280) -------------
-    ro = rollout_fn(state, 0.0)
-    state = _replace(state, Xbar=ro.X, Ubar=ro.U, defect_bar=ro.defect)
-    cost0, (g0, h0) = cost_of(ro.X, ro.U, state.constr)
-    feas0 = ro_mod.dynamics_feasibility(ro.defect)
-    maxp0, maxt0 = ro_mod.max_violations(prob, g0, h0)
-
     trace_len = trace_len_for(opt)
-    nan = torch.full((nb, trace_len), float("nan"), dtype=dtype, device=dev)
-    traces0 = {
-        "cost": _set_at(nan, zeros_i, cost0),
-        "feas": _set_at(nan, zeros_i, feas0),
-        "eqn": _set_at(nan, zeros_i, maxt0),
-        "ineq": _set_at(nan, zeros_i, maxp0),
-        "n": torch.ones(nb, dtype=torch.int32, device=dev),
-    }
-    carry0 = dict(
-        state=state, X=ro.X, U=ro.U, defect=ro.defect, g=g0, h=h0,
-        cost=cost0, feas=feas0, maxp=maxp0, maxt=maxt0,
-        maxp_prev=maxp0, maxt_prev=maxt0, iter_ou=zeros_i, it_total=zeros_i,
-        stop=falses, failed=falses, traces=traces0,
-    )
+
+    # ---- initial nominal rollout (MultiPhaseDDP.cpp:257-280) -------------
+    def carry0():
+        ro = rollout_fn(state, 0.0)
+        st = _replace(state, Xbar=ro.X, Ubar=ro.U, defect_bar=ro.defect)
+        cost0, (g0, h0) = cost_of(ro.X, ro.U, st.constr)
+        feas0 = ro_mod.dynamics_feasibility(ro.defect)
+        maxp0, maxt0 = ro_mod.max_violations(prob, g0, h0)
+        nan = torch.full((nb, trace_len), float("nan"), dtype=dtype,
+                         device=dev)
+        traces0 = {
+            "cost": _set_at(nan, zeros_i, cost0),
+            "feas": _set_at(nan, zeros_i, feas0),
+            "eqn": _set_at(nan, zeros_i, maxt0),
+            "ineq": _set_at(nan, zeros_i, maxp0),
+            "n": torch.ones(nb, dtype=torch.int32, device=dev),
+        }
+        return dict(
+            state=st, X=ro.X, U=ro.U, defect=ro.defect, g=g0, h=h0,
+            cost=cost0, feas=feas0, maxp=maxp0, maxt=maxt0,
+            maxp_prev=maxp0, maxt_prev=maxt0, iter_ou=zeros_i,
+            it_total=zeros_i, stop=falses, failed=falses, traces=traces0,
+        )
 
     # ---- line search (every candidate step size, first Armijo pick) -------
     def line_search(st, dv1, dv2, merit_rho, merit_prev, feas_prev):
@@ -294,6 +366,7 @@ def _solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
         st = c["state"]
         cost, (g, h) = cost_of(c["X"], c["U"], st.constr)
         feas = ro_mod.dynamics_feasibility(c["defect"])
+        last_node = ro_mod.last_active_node(prob)
 
         if kernel_jac:
             rbe = (st.constr.reb_eps if reb_on
@@ -383,19 +456,27 @@ def _solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
                   failed=bw_failed, it_total=c["it_total"] + 1)
         return c2, reg_new, stop_inner
 
-    def outer_body(c):
+    def outer_run(c):
+        return (c["iter_ou"] < opt.max_AL_iter) & ~c["stop"]
+
+    def inner_run(ic):
+        return (ic["iter"] < opt.max_DDP_iter) & ~ic["stop"]
+
+    def head(c):
+        run = outer_run(c)
         c = dict(c, maxt_prev=c["maxt"], maxp_prev=c["maxp"],
                  iter_ou=c["iter_ou"] + 1)
-        ic = (c, torch.zeros(nb, dtype=dtype, device=dev), falses, zeros_i)
-        for _ in range(int(opt.max_DDP_iter)):
-            cc, reg, stop_in, iter_in = ic
-            run = (iter_in < opt.max_DDP_iter) & ~stop_in
-            if not unroll_caps and not bool(run.any()):
-                break
-            cc2, reg2, stop2 = inner_body(cc, reg)
-            ic = tree_where(run, (cc2, reg2, stop2, iter_in + 1), ic)
-        c = ic[0]
+        return dict(c=c, reg=torch.zeros(nb, dtype=dtype, device=dev),
+                    stop=falses, iter=zeros_i, run_ou=run)
 
+    def inner(ic):
+        cc2, reg2, stop2 = inner_body(ic["c"], ic["reg"])
+        return tree_where(inner_run(ic),
+                          dict(ic, c=cc2, reg=reg2, stop=stop2,
+                               iter=ic["iter"] + 1), ic)
+
+    def tail(ic, c_prev):
+        c = ic["c"]
         # AL / ReB parameter updates (skipped entirely on bad solve)
         constr = c["state"].constr
         constr_new = constr
@@ -415,21 +496,22 @@ def _solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
                      & (torch.abs(c["maxp"]) < opt.pconstr_thresh) & feas_ok)
         stalled = ((torch.abs(c["maxt"] - c["maxt_prev"]) < 1e-4)
                    & (torch.abs(c["maxp"] - c["maxp_prev"]) < 1e-4) & feas_ok)
-        return dict(c, stop=satisfied | stalled | c["failed"])
+        c = dict(c, stop=satisfied | stalled | c["failed"])
+        return tree_where(ic["run_ou"], c, c_prev)
 
-    c = carry0
-    for _ in range(int(opt.max_AL_iter)):
-        run = (c["iter_ou"] < opt.max_AL_iter) & ~c["stop"]
-        if not unroll_caps and not bool(run.any()):
-            break
-        c = tree_where(run, outer_body(c), c)
+    def result(c):
+        return SolveResult(
+            state=c["state"], cost=c["cost"], dyn_feas=c["feas"],
+            max_tconstr=c["maxt"], max_pconstr=c["maxp"],
+            n_iters=c["it_total"], solve_failed=c["failed"],
+            cost_trace=c["traces"]["cost"], feas_trace=c["traces"]["feas"],
+            eqn_trace=c["traces"]["eqn"], ineq_trace=c["traces"]["ineq"])
 
-    return SolveResult(
-        state=c["state"], cost=c["cost"], dyn_feas=c["feas"],
-        max_tconstr=c["maxt"], max_pconstr=c["maxp"],
-        n_iters=c["it_total"], solve_failed=c["failed"],
-        cost_trace=c["traces"]["cost"], feas_trace=c["traces"]["feas"],
-        eqn_trace=c["traces"]["eqn"], ineq_trace=c["traces"]["ineq"])
+    return SolvePieces(
+        carry0=carry0, outer_cond=lambda c: torch.any(outer_run(c)),
+        head=head, inner_cond=lambda ic: torch.any(inner_run(ic)),
+        inner=inner, tail=tail, result=result,
+        max_outer=int(opt.max_AL_iter), max_inner=int(opt.max_DDP_iter))
 
 
 def solve(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,

@@ -23,9 +23,19 @@ graph (`torch.cuda.CUDAGraph`) and replayed:
   `replay()`; the kernel launches recorded at capture are added to the
   kernels' counters once per replay, so that the counters count what ran.
 
+The loops that stop (`solve_batch` with unroll_caps=False, the JAX
+package's `lax.while_loop` solve) are one graph too (`solve_while`): torch
+captures each piece of the solve cut at its loops (`WhileSolve` over
+`ddp.solve_pieces`), and `csrc/graph_while.cu` puts the pieces under two
+nested conditional while nodes; a replay counts each piece's launches
+times the iterations it ran.
+
 A capture that fails raises RuntimeError naming the operation that was
 not allowed; nothing falls back to eager. `clear_graphs()` frees every
-graph, as `jax.clear_caches` frees the compiled programs.
+graph, as `jax.clear_caches` frees the compiled programs. A reset of an
+MPC object copies its new tables and state into the resident ones
+(`rearm`), so the step graphs keyed on their addresses replay on; tensors
+replaced for good take their graphs with them (`forget`).
 
 `solve_batch` returns tensors the caller owns (clones of the static
 outputs), as a jitted JAX function returns fresh arrays. `fused_step`
@@ -39,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import threading
 import time
 import traceback
@@ -55,6 +66,7 @@ REPLAYS = 0          # every replay of every graph
 
 _GRAPHS: dict = {}   # key -> _Graph
 _POOLS: dict = {}    # device -> memory pool handle shared by the graphs
+_STREAMS: dict = {}  # device -> the side stream of every capture
 _LOCK = threading.RLock()   # one capture at a time in the process
 
 
@@ -142,6 +154,10 @@ class _Graph:
     keep: tuple = ()      # objects the key names by identity
     host_inputs: tuple = ()
     replays: int = 0
+    addresses: frozenset = frozenset()   # data_ptr()s the key names
+    iterations: object = None   # while graphs: (outer, inner) of the last
+    pieces: tuple = ()          # while graphs: _Piece per captured piece
+    native_nodes: tuple = ()    # while graphs: parent, outer, inner body
 
 
 class _HostInput:
@@ -176,14 +192,27 @@ def _pool(device):
     return _POOLS[device]
 
 
+def _capture_stream(device):
+    """The one side stream of `device` that every warm-up and capture
+    takes: the allocator reuses a freed block only on the stream it was
+    used on, so one stream lets a capture reuse the pool memory that the
+    intermediates of earlier captures freed (their replays never overlap:
+    each goes to its caller's current stream)."""
+    if device not in _STREAMS:
+        _STREAMS[device] = torch.cuda.Stream(device=device)
+    return _STREAMS[device]
+
+
 def _capture(label, device, warmup, body) -> tuple:
-    """Warm up and capture `body()` on a side stream of `device`. Returns
-    (graph, outputs, launches recorded, capture seconds, nodes)."""
-    stream = torch.cuda.Stream(device=device)
+    """Warm up (unless warmup is None) and capture `body()` on a side
+    stream of `device`. Returns (graph, outputs, launches recorded, capture
+    seconds, nodes)."""
+    stream = _capture_stream(device)
     stream.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(stream):
-        warmup()
-    stream.synchronize()
+    if warmup is not None:
+        with torch.cuda.stream(stream):
+            warmup()
+        stream.synchronize()
     before = _counts()
     try:
         graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -241,17 +270,12 @@ def solve_batch(prob, state, opt, *, kernel_jac, model, parallel_rollout,
                  scan_backward=scan_backward, aug_sweep=aug_sweep,
                  jvp_linear=jvp_linear)
     ins = leaves((prob, state))
-    key = ("solve_batch", opt, device, None if model is None else id(model),
-           tuple(sorted((k, v) for k, v in flags.items() if k != "model")),
-           _layout(ins))
+    key = _solve_key(opt, device, flags, ins, unroll_caps=True)
     with torch.cuda.device(device):
         with _LOCK:
             g = _GRAPHS.get(key)
             if g is None:
-                static = [torch.empty(t.shape, dtype=t.dtype, device=device)
-                          for t in ins]
-                for s, t in zip(static, ins):
-                    s.copy_(t)
+                static = _static_copies(ins, device)
                 sp, ss = _rebuild((prob, state), static)
                 run = lambda: ddp._solve_batch(sp, ss, opt, capturable=True,
                                                **flags)
@@ -270,6 +294,258 @@ def solve_batch(prob, state, opt, *, kernel_jac, model, parallel_rollout,
                     s.copy_(t)
             _replay(g)
             return tree_map(lambda t: t.clone(), g.outputs)
+
+
+def _write(dst, src) -> None:
+    """Copy the struct `src` into the static struct `dst` leaf by leaf. A
+    source leaf that shares memory with a destination leaf is cloned first,
+    so no copy reads what an earlier copy wrote."""
+    dst_leaves = leaves(dst)
+    ptrs = {t.data_ptr() for t in dst_leaves}
+    srcs = [t.clone() if t.data_ptr() in ptrs else t for t in leaves(src)]
+    for d, t in zip(dst_leaves, srcs):
+        d.copy_(t)
+
+
+def _like(tree):
+    """Static buffers of tree's layout (`torch.empty_like` per leaf)."""
+    return _rebuild(tree, [torch.empty_like(t) for t in leaves(tree)])
+
+
+class WhileSolve:
+    """The loops that stop (`ddp.solve_pieces`, capturable) on static
+    buffers: the outer carry `c`, the inner carry `ic`, the two loop
+    conditions as device flags and the loop iterations run (`loops`:
+    outer, inner). Each piece reads and writes only those and the static
+    inputs (prob, state), so a CUDA graph of each piece can run in any
+    order a while node gives it:
+
+        carry0; while flag_ou: (head; while flag_in: inner; tail)
+
+    On the CPU the tests drive the pieces in that order, reading the flags
+    on the host. The buffers are made here, outside any capture, by one run
+    of carry0 and head."""
+
+    PIECES = ("carry0", "head", "inner", "tail")
+
+    def __init__(self, prob, state, opt, flags):
+        from hkdmpc_tpu_torch.solver import ddp
+        self.p = ddp.solve_pieces(prob, state, opt, capturable=True, **flags)
+        dev = prob.xr.device
+        c = self.p.carry0()
+        self.c = _like(c)
+        self.ic = _like(self.p.head(c))
+        self.flag_ou = torch.zeros((), dtype=torch.bool, device=dev)
+        self.flag_in = torch.zeros((), dtype=torch.bool, device=dev)
+        self.loops = torch.zeros(2, dtype=torch.int32, device=dev)
+
+    def carry0(self) -> None:
+        _write(self.c, self.p.carry0())
+        self.flag_ou.copy_(self.p.outer_cond(self.c))
+        self.loops.zero_()
+
+    def head(self) -> None:
+        _write(self.ic, self.p.head(self.c))
+        self.flag_in.copy_(self.p.inner_cond(self.ic))
+        self.loops.narrow(0, 0, 1).add_(1)
+
+    def inner(self) -> None:
+        _write(self.ic, self.p.inner(self.ic))
+        self.flag_in.copy_(self.p.inner_cond(self.ic))
+        self.loops.narrow(0, 1, 1).add_(1)
+
+    def tail(self) -> None:
+        _write(self.c, self.p.tail(self.ic, self.c))
+        self.flag_ou.copy_(self.p.outer_cond(self.c))
+
+    def warm_up(self) -> None:
+        """Each piece once, in order (the kernels, constants and handles a
+        capture needs are made in a first run)."""
+        for name in self.PIECES:
+            getattr(self, name)()
+
+    def result(self):
+        """The SolveResult on the static outer carry (views of it)."""
+        return self.p.result(self.c)
+
+    def iterations(self) -> tuple:
+        """(outer, inner) iterations the last run ran (a host read)."""
+        return tuple(int(v) for v in self.loops.tolist())
+
+
+@dataclasses.dataclass
+class _Piece:
+    name: str
+    graph: object         # torch.cuda.CUDAGraph, kept: its pool memory
+    launches: tuple       # per COUNTERS, recorded at capture
+    capture_s: float
+    nodes: object
+
+
+@functools.cache
+def _while_lib():
+    """The native assembly of the while graphs (csrc/graph_while.cu),
+    built and loaded at first use."""
+    from hkdmpc_tpu_torch.ops import _build
+    lib = _build.load("graph_while")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.graph_while_build.argtypes = [vp] * 6 + [
+        ctypes.POINTER(vp), ctypes.POINTER(ci), ctypes.c_char_p, ci]
+    lib.graph_while_build.restype = ci
+    lib.graph_while_launch.argtypes = [vp, vp]
+    lib.graph_while_launch.restype = ci
+    lib.graph_while_destroy.argtypes = [vp]
+    lib.graph_while_destroy.restype = ci
+    lib.graph_while_error_string.argtypes = [ci]
+    lib.graph_while_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+class _WhileExec:
+    """The instantiated parent graph of a while solve (a cudaGraphExec_t
+    made by csrc/graph_while.cu), destroyed with this object."""
+
+    def __init__(self, label, pieces, flag_ou, flag_in):
+        lib = _while_lib()
+        raws = []
+        for p in pieces:
+            try:
+                raws.append(p.graph.raw_cuda_graph())
+            except (AttributeError, RuntimeError) as exc:
+                raise RuntimeError(
+                    f"{label}: piece {p.name} has no kept cudaGraph_t "
+                    f"(torch.cuda.CUDAGraph(keep_graph=True) and "
+                    f"raw_cuda_graph() are needed): {exc}") from exc
+        handle = ctypes.c_void_p(0)
+        nodes = (ctypes.c_int * 3)()
+        msg = ctypes.create_string_buffer(512)
+        err = lib.graph_while_build(
+            *(ctypes.c_void_p(r) for r in raws),
+            ctypes.c_void_p(flag_ou.data_ptr()),
+            ctypes.c_void_p(flag_in.data_ptr()), ctypes.byref(handle),
+            nodes, msg, len(msg))
+        if err != 0:
+            raise RuntimeError(f"{label}: building the while graph failed "
+                               f"at {msg.value.decode()}")
+        self.lib, self.handle = lib, handle
+        self.nodes = tuple(nodes)   # parent, outer body, inner body
+
+    def launch(self, label) -> None:
+        stream = torch.cuda.current_stream().cuda_stream
+        err = self.lib.graph_while_launch(self.handle,
+                                          ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(
+                f"{label}: cudaGraphLaunch of the while graph failed: "
+                f"cudaError {err} "
+                f"({self.lib.graph_while_error_string(err).decode()})")
+
+    def __del__(self):
+        if getattr(self, "handle", None):
+            self.lib.graph_while_destroy(self.handle)
+            self.handle = None
+
+
+def solve_while(prob, state, opt, *, kernel_jac, model, parallel_rollout,
+                assoc_linear, assoc_backward, scan_backward, aug_sweep,
+                jvp_linear):
+    """`ddp.solve_batch` on CUDA with unroll_caps=False: the loops that
+    stop as one graph with two nested conditional while nodes, for this key
+    (the unroll_caps graph's key with unroll_caps=False), built at the
+    first call: a warm-up run of each piece (`WhileSolve.warm_up`), one
+    torch capture per piece, and the parent graph assembled and
+    instantiated by csrc/graph_while.cu, each piece a child graph node and
+    each condition set from its device flag by a one-thread kernel node.
+    A replay launches the parent on the current stream, then reads the
+    iterations it ran (one host read, after the graph) and adds the pieces'
+    launches times their runs to the kernels' counters. Returns a
+    SolveResult of tensors the caller owns."""
+    from hkdmpc_tpu_torch.solver.structs import tree_map
+
+    device = prob.xr.device
+    flags = dict(kernel_jac=kernel_jac, model=model,
+                 parallel_rollout=parallel_rollout,
+                 assoc_linear=assoc_linear, assoc_backward=assoc_backward,
+                 scan_backward=scan_backward, aug_sweep=aug_sweep,
+                 jvp_linear=jvp_linear)
+    ins = leaves((prob, state))
+    key = _solve_key(opt, device, flags, ins, unroll_caps=False)
+    with torch.cuda.device(device):
+        with _LOCK:
+            g = _GRAPHS.get(key)
+            if g is None:
+                label = (f"solve_while(B={prob.kind.shape[0]}, "
+                         f"T={prob.kind.shape[1]}, kernel_jac={kernel_jac}, "
+                         f"parallel_rollout={parallel_rollout}, "
+                         f"assoc_backward={assoc_backward}, caps "
+                         f"{opt.max_AL_iter}x{opt.max_DDP_iter})")
+                g = _capture_while(label, device, prob, state, opt, flags,
+                                   ins)
+                _GRAPHS[key] = g
+            else:
+                for s, t in zip(g.inputs, ins):
+                    s.copy_(t)
+            _replay_while(g)
+            return tree_map(lambda t: t.clone(), g.outputs.result())
+
+
+def _capture_while(label, device, prob, state, opt, flags, ins) -> _Graph:
+    static = _static_copies(ins, device)
+    sp, ss = _rebuild((prob, state), static)
+    ws = WhileSolve(sp, ss, opt, flags)
+    stream = _capture_stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        ws.warm_up()
+    stream.synchronize()
+    t0 = time.perf_counter()
+    pieces = []
+    for name in WhileSolve.PIECES:
+        graph, _, rec, secs, nodes = _capture(f"{label} piece {name}",
+                                              device, None,
+                                              getattr(ws, name))
+        pieces.append(_Piece(name, graph, rec, secs, nodes))
+    native = _WhileExec(label, pieces, ws.flag_ou, ws.flag_in)
+    known = [p.nodes for p in pieces]
+    nodes = (None if None in known
+             else sum(known) + sum(native.nodes))
+    return _Graph(label=label, graph=native, inputs=static, outputs=ws,
+                  launches=tuple(0 for _ in COUNTERS),
+                  capture_s=time.perf_counter() - t0, nodes=nodes,
+                  keep=(flags["model"],), pieces=tuple(pieces),
+                  native_nodes=native.nodes)
+
+
+def _replay_while(g: _Graph) -> None:
+    global REPLAYS
+    g.graph.launch(g.label)
+    n_outer, n_inner = g.outputs.iterations()
+    runs = dict(carry0=1, head=n_outer, inner=n_inner, tail=n_outer)
+    launches = [0] * len(COUNTERS)
+    for p in g.pieces:
+        for i, v in enumerate(p.launches):
+            launches[i] += runs[p.name] * v
+    _set_counts(tuple(a + b for a, b in zip(_counts(), launches)))
+    g.launches, g.iterations = tuple(launches), (n_outer, n_inner)
+    g.replays += 1
+    REPLAYS += 1
+
+
+def _solve_key(opt, device, flags, ins, unroll_caps) -> tuple:
+    """A solve graph's key: the option set, the device, the model object,
+    the other flags, unroll_caps and the inputs' layout."""
+    model = flags["model"]
+    return ("solve_batch", opt, device, None if model is None else id(model),
+            tuple(sorted((k, v) for k, v in flags.items() if k != "model")),
+            bool(unroll_caps), _layout(ins))
+
+
+def _static_copies(ins, device) -> list:
+    """Static input buffers holding copies of `ins`."""
+    static = [torch.empty(t.shape, dtype=t.dtype, device=device) for t in ins]
+    for s, t in zip(static, ins):
+        s.copy_(t)
+    return static
 
 
 def _rebuild(tree, tensors):
@@ -306,10 +582,10 @@ def fused_step(tables, state, ints, floats, meas, *, opt, parallel_rollout,
     host_shapes = ((_shape(ints), torch.int32),
                    (_shape(floats), state.Xbar.dtype),
                    (_shape(meas), state.Xbar.dtype))
+    addresses = tuple(t.data_ptr() for t in resident)
     key = ("fused_step", opt, device, parallel_rollout, int(n_cmd),
            bool(kernel_jac), bool(assoc_linear), bool(assoc_backward),
-           _layout(resident), tuple(t.data_ptr() for t in resident),
-           host_shapes)
+           _layout(resident), addresses, host_shapes)
     with torch.cuda.device(device):
         with _LOCK:
             g = _GRAPHS.get(key)
@@ -343,7 +619,8 @@ def fused_step(tables, state, ints, floats, meas, *, opt, parallel_rollout,
                                                         step_in_place)
                 g = _Graph(label=label, graph=graph, inputs=[],
                            outputs=out, launches=rec, capture_s=secs,
-                           nodes=nodes, host_inputs=host)
+                           nodes=nodes, host_inputs=host,
+                           addresses=frozenset(addresses))
                 _GRAPHS[key] = g
             _replay(g)
             return state, g.outputs.clone()
@@ -352,12 +629,67 @@ def fused_step(tables, state, ints, floats, meas, *, opt, parallel_rollout,
 def stats() -> list:
     """One record per graph: label, replays, capture seconds (warm-up
     excluded), nodes (None where not known) and the kernel launches per
-    replay by counter ('riccati_hkd.LAUNCHES', ...)."""
+    replay by counter ('riccati_hkd.LAUNCHES', ...). A while graph's
+    launches are its last replay's, `iterations` the (outer, inner) loop
+    iterations that replay ran (None for the other graphs), `pieces` each
+    captured piece's nodes, capture seconds and launches per run, and
+    `native_nodes` the nodes of its parent graph and of the outer and inner
+    while bodies (child graphs, set_cond kernels, while nodes)."""
+    name = lambda m, n: f"{m.__name__.rsplit('.', 1)[-1]}.{n}"
+    per = lambda launches: {name(m, n): v
+                            for (m, n), v in zip(COUNTERS, launches)}
     return [dict(label=g.label, replays=g.replays, capture_s=g.capture_s,
-                 nodes=g.nodes,
-                 launches={f"{m.__name__.rsplit('.', 1)[-1]}.{n}": v
-                           for (m, n), v in zip(COUNTERS, g.launches)})
+                 nodes=g.nodes, launches=per(g.launches),
+                 iterations=g.iterations, native_nodes=g.native_nodes,
+                 pieces={p.name: dict(nodes=p.nodes, capture_s=p.capture_s,
+                                      launches=per(p.launches))
+                         for p in g.pieces})
             for g in _GRAPHS.values()]
+
+
+def forget(tensors) -> int:
+    """Drop every graph whose key names the address of one of `tensors`;
+    returns how many. Their memory goes back to the allocator, so a graph
+    keyed on tensors that are replaced for good does not stay behind."""
+    ptrs = {t.data_ptr() for t in tensors}
+    with _LOCK:
+        drop = [k for k, g in _GRAPHS.items() if g.addresses & ptrs]
+        for k in drop:
+            del _GRAPHS[k]
+    return len(drop)
+
+
+def _signature(tree) -> tuple:
+    """The layout of a struct for `rearm`: its structure (dict keys,
+    dataclass types) and each leaf's shape, dtype and device."""
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape), tree.dtype, tree.device)
+    if dataclasses.is_dataclass(tree):
+        return (type(tree),) + tuple(
+            (f.name, _signature(getattr(tree, f.name)))
+            for f in dataclasses.fields(tree))
+    if isinstance(tree, dict):
+        return tuple((k, _signature(v)) for k, v in tree.items())
+    if isinstance(tree, (tuple, list)):
+        return tuple(_signature(v) for v in tree)
+    return (tree,)
+
+
+def rearm(resident, fresh):
+    """The MPC steps' resident tables or state after a reset: `fresh`
+    copied into `resident`'s tensors where both have one layout (the
+    graphs keyed on their addresses replay as before), else `fresh` itself,
+    after the graphs keyed on `resident` are dropped (`forget`). Returns
+    the struct to keep. The copies go to the current stream, behind any
+    step already launched there."""
+    if resident is None:
+        return fresh
+    if _signature(resident) == _signature(fresh):
+        for old, new in zip(leaves(resident), leaves(fresh)):
+            old.copy_(new)
+        return resident
+    forget(leaves(resident))
+    return fresh
 
 
 def clear_graphs() -> None:

@@ -117,6 +117,7 @@ def load_fleet(path: str, fleet) -> None:
     fleet of another size, raises ValueError. No solve is run: the next step
     continues where the saved fleet left off."""
     from hkdmpc_tpu_torch.mpc import fused
+    from hkdmpc_tpu_torch.solver import graphs
     from hkdmpc_tpu_torch.solver.problem import Phase
     from hkdmpc_tpu_torch.solver.structs import ConstraintState, SolverState
 
@@ -136,14 +137,16 @@ def load_fleet(path: str, fleet) -> None:
         _restore_problem(data, meta, fleet.problem, Phase)
         dev = lambda n: torch.as_tensor(data[n][take], dtype=fleet.dtype,
                                         device=fleet.device)
-        fleet._state_dev = SolverState(
+        # copied into the fleet's resident buffers where they match, so
+        # the step graphs keyed on them replay on (`graphs.rearm`)
+        fleet._state_dev = graphs.rearm(fleet._state_dev, SolverState(
             constr=ConstraintState(**{n: dev(f"fc_{n}")
                                       for n in _CONSTR_FIELDS}),
-            **{n: dev(f"fs_{n}") for n in _STATE_FIELDS})
+            **{n: dev(f"fs_{n}") for n in _STATE_FIELDS}))
         if "fs__pf" in data:
             fleet._pf = np.asarray(data["fs__pf"])[take].copy()
-    fleet._tables = fused.make_tables(fleet.problem, fleet.dtype,
-                                      fleet.device)
+    fleet._tables = graphs.rearm(fleet._tables, fused.make_tables(
+        fleet.problem, fleet.dtype, fleet.device))
     fleet._offsets = fleet.problem.flat_offsets()
     fleet.mpc_iter = int(meta.get("mpc_iter", 0))
     fleet._pending = None

@@ -811,3 +811,137 @@ def test_graph_with_retries_equals_eager_body(cuda):
         torch.cuda.synchronize()
         _assert_same(graph, eager)
         _assert_same(again, eager)
+
+
+@pytest.mark.parametrize("kernel_jac", [True, False], ids=["K1", "K2"])
+def test_while_graph_equals_eager_body(cuda, kernel_jac):
+    """solve_batch(unroll_caps=False) on the card replays one graph with
+    two nested conditional while nodes (csrc/graph_while.cu): the result
+    equals the eager body's (`ddp._solve_batch(unroll_caps=False)`) bit for
+    bit at every replay, cold caps, on both paths."""
+    from hkdmpc_tpu_torch.solver import graphs
+    prob, state, optr = _trot_batch(24, torch.float32, cuda)
+    opt = HSDDPOption()
+    eager = ddp._solve_batch(prob, state, opt, kernel_jac=kernel_jac,
+                             unroll_caps=False)
+    before = graphs.REPLAYS
+    first = ddp.solve_batch(prob, state, opt, kernel_jac=kernel_jac,
+                            unroll_caps=False)
+    second = ddp.solve_batch(prob, state, opt, kernel_jac=kernel_jac,
+                             unroll_caps=False)
+    torch.cuda.synchronize()
+    assert graphs.REPLAYS == before + 2
+    _assert_same(first, eager)
+    _assert_same(second, eager)
+    assert first.cost.data_ptr() != second.cost.data_ptr()
+    st = [s for s in graphs.stats()
+          if s["label"].startswith("solve_while(B=24,")
+          and f"kernel_jac={kernel_jac}," in s["label"]]
+    assert len(st) == 1 and st[0]["replays"] == 2
+    assert st[0]["iterations"][1] <= opt.max_AL_iter * opt.max_DDP_iter
+
+
+def test_while_graph_counters_count_iterations(cuda):
+    """A while graph's replay adds each piece's launches times the runs the
+    loop counters report: on K1's path one first sweep and 17 masked
+    retries per inner iteration, none in the other pieces."""
+    from hkdmpc_tpu_torch.solver import backward, graphs
+    prob, state, _ = _trot_batch(20, torch.float32, cuda)
+    opt = HSDDPOption()
+    ddp.solve_batch(prob, state, opt, kernel_jac=True, unroll_caps=False)
+    for _ in range(2):
+        l0, r0 = riccati_hkd.LAUNCHES, riccati_hkd.RETRY_LAUNCHES
+        res = ddp.solve_batch(prob, state, opt, kernel_jac=True,
+                              unroll_caps=False)
+        st = [s for s in graphs.stats()
+              if s["label"].startswith("solve_while(B=20,")][0]
+        n_outer, n_inner = st["iterations"]
+        assert n_inner == int(res.n_iters.max()) >= 1
+        assert 1 <= n_outer <= opt.max_AL_iter
+        assert riccati_hkd.LAUNCHES - l0 == n_inner
+        assert riccati_hkd.RETRY_LAUNCHES - r0 == n_inner * (
+            backward.retry_sweeps(opt.update_regularization) - 1)
+        pieces = st["pieces"]
+        assert pieces["inner"]["launches"]["riccati_hkd.LAUNCHES"] == 1
+        assert all(pieces[p]["launches"]["riccati_hkd.LAUNCHES"] == 0
+                   for p in ("carry0", "head", "tail"))
+
+
+def test_while_graph_build_error_raises(cuda, monkeypatch):
+    """A failed assembly of the while graph raises RuntimeError naming the
+    step; nothing is cached, nothing falls back to the eager body."""
+    from hkdmpc_tpu_torch.solver import graphs
+
+    class Refusing:
+        def graph_while_build(self, *args):
+            args[-2].value = b"cudaGraphInstantiate (parent): refused"
+            return 1
+
+    prob, state, _ = _trot_batch(7, torch.float32, cuda)
+    opt = HSDDPOption()
+    monkeypatch.setattr(graphs, "_while_lib", lambda: Refusing())
+    held, replays = len(graphs.stats()), graphs.REPLAYS
+    with pytest.raises(RuntimeError, match="building the while graph "
+                       "failed at cudaGraphInstantiate"):
+        ddp.solve_batch(prob, state, opt, kernel_jac=True, unroll_caps=False)
+    assert len(graphs.stats()) == held and graphs.REPLAYS == replays
+    monkeypatch.undo()
+    res = ddp.solve_batch(prob, state, opt, kernel_jac=True,
+                          unroll_caps=False)
+    assert bool(torch.isfinite(res.cost).all())
+    assert graphs.REPLAYS == replays + 1
+
+
+def test_resets_add_no_graph(cuda, tmp_path):
+    """The single robot (fused step, K2 at B = 1) and the fleet (8 robots):
+    after the first reset, k more resets (initialize, resume, load_fleet)
+    add no graph, the resident tables and state keep their addresses, and
+    the update after each reset replays without a capture (each rollout
+    kind that update takes was captured before the resets)."""
+    from hkdmpc_tpu_torch.mpc.fleet import FleetConfig, FleetMPC
+    from hkdmpc_tpu_torch.mpc.solver import HKDMPCSolver, MPCConfig
+    from hkdmpc_tpu_torch.solver import graphs
+    from hkdmpc_tpu_torch.utils.checkpoint import (load_fleet, save_fleet,
+                                                   save_problem)
+    from hkdmpc_tpu_torch.workload import gait_file, meas_stream
+
+    ref = gait_file("trot", str(tmp_path))
+    ptrs = lambda *trees: [t.data_ptr() for t in graphs.leaves(trees)]
+    s = HKDMPCSolver(ref, config=MPCConfig(fused_step=True,
+                                           assoc_linear=False,
+                                           assoc_backward=False),
+                     dtype=torch.float32, device="cuda")
+    m = {k: v[0] for k, v in meas_stream(1, 5)(0).items()}
+    update = lambda: s.update(m["rpy"], m["p"], m["v"], m["omega"], m["qJ"])
+    s.initialize()
+    update()
+    ckpt = str(tmp_path / "robot.npz")
+    save_problem(ckpt, s.problem)
+    update()     # the update after the resume: its rollout kind captured
+    labels = lambda: [st["label"] for st in graphs.stats()]
+    held, addr = labels(), ptrs(s._tables, s._state_dev)
+    for reset in (s.initialize, s.initialize, lambda: s.resume(ckpt)):
+        reset()
+        assert ptrs(s._tables, s._state_dev) == addr
+        update()
+        assert labels() == held
+    s.close()
+
+    f = FleetMPC(ref, 8, config=FleetConfig(), dtype=torch.float32,
+                 device="cuda")
+    stream = meas_stream(8, 3)
+    def step(k):
+        d = stream(k)
+        f.step(d["rpy"], d["p"], d["v"], d["omega"], d["qJ"])
+    f.initialize()
+    step(0)
+    path = str(tmp_path / "fleet.npz")
+    save_fleet(path, f)
+    step(1)
+    held, addr = labels(), ptrs(f._tables, f._state_dev)
+    for k, reset in enumerate((f.initialize, f.initialize,
+                               lambda: load_fleet(path, f))):
+        reset()
+        assert ptrs(f._tables, f._state_dev) == addr
+        step(k + 2)
+        assert labels() == held
