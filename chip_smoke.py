@@ -8,14 +8,18 @@ transport, and runs the sharded solve and fleet on an NCCL group, the stage
 timer, the reference-format logs and the examples' loops; then holds the
 eager bodies against the CUDA graphs that the entry points replay; then
 the loops that stop as one graph with conditional while nodes and the
-resets that reuse the resident buffers; then brings up the bench's mixed
-trot + flytrot batch and 2.0 s plan and runs the bench program (`python -m
+resets that reuse the resident buffers; then every device program, whose
+regularization retry loops are conditional while nodes, against its eager
+body, with forced retries; then brings up the bench's mixed trot +
+flytrot batch and 2.0 s plan and runs the bench program (`python -m
 hkdmpc_tpu_torch.bench`).
 
 Graphs are the card's default: `solve_batch` (unroll_caps, or the while
 graph of the loops that stop), the fleet and single-robot steps replay a
-CUDA graph per key (hkdmpc_tpu_torch/solver/graphs.py), captured at their
-first call. Phases 3 and 5 to 10 print the
+device program per key (hkdmpc_tpu_torch/solver/graphs.py: captured
+pieces assembled into one CUDA graph, every retry loop a conditional while
+node), built at their first call. A replay runs the retries its eager
+body runs, so the masked retry launches counted are the loop's. Phases 3 and 5 to 10 print the
 graph replays of their path and fail where none ran; the plain-sweep
 reference runs of phases 3, 5 and 7 run the eager body.
 
@@ -82,8 +86,9 @@ Phases, one line each:
      and the parallel- and sequential-rollout updates apart); for the fused
      runs the time inside update_async and the time waiting in
      update_fused_complete; backward sweeps per update (K2 launches in (b)
-     and (c): at least 2.00 per update, anything above is a regularization
-     retry); no failed solve, finite commands. (a) against (b) and (b)
+     and (c): one per inner iteration an update ran, its n_iters: every
+     update runs the loops that stop, as the JAX solver's; the masked
+     retry launches apart); no failed solve, finite commands. (a) against (b) and (b)
      against (c), update by update: final cost within 1e-4 relative and
      controls and body states within 1e-3 of their magnitude in at least
      90% of the updates, and within 5e-3 and 1e-1 in every update; each
@@ -102,8 +107,9 @@ Phases, one line each:
      workload.meas_stream(1, 0), one a reset_mpc with MS = true and one with
      MS = false (a single-shooting cold solve, and single-shooting updates
      after it); every mpc_command and solver_info is decoded and must be
-     finite with n_iter >= 1, no solve may fail, K2 must be launched 2.00
-     times per update, and the commands of the updates must lie within
+     finite with n_iter >= 1, no solve may fail, K2 must be launched once
+     per inner iteration an update ran (its n_iters; twice more in an
+     update that builds its program), and the commands of the updates must lie within
      phase 8's limits of a bare HKDMPCSolver fed the same decoded requests.
      A reset of a shooting mode already served (the MS = true one: the
      service's own initialize was the first) reuses the resident state and
@@ -155,7 +161,8 @@ Phases, one line each:
      K1 / K2 first-sweep and masked launches per solve, step or update,
      each graph's capture time and node count, ms eager against graph, and
      torch.cuda.max_memory_allocated with the graphs held, which stay for
-     phase 13.
+     phase 13; the fleet's and the robot's retry sweeps must be the same in
+     every turn.
  13. (run after phase 11, before phase 12) the loops that stop as one CUDA
      graph with two nested conditional while nodes (`graphs.solve_while`,
      csrc/graph_while.cu), and resets that reuse the resident buffers.
@@ -177,6 +184,32 @@ Phases, one line each:
      graph. (c) `FleetMPC` N = 1024 (K1): the same with 2 `initialize`
      calls and `save_fleet` / `load_fleet`, bundles bit-equal. Then every
      graph is freed.
+ 14. (run after phase 13, before phase 12) the device programs against
+     their eager bodies, every backward sweep's retry loop a conditional
+     while node. (a) in turns (eager, graph, graph, eager) on the same
+     inputs: the B = 4096 kernel_jac (K1) and dense swing (K2) solves with
+     unroll_caps=True (runtime caps) and False (cold caps), the scan route
+     (`scan_backward=True`) at B = 1024; the single robot's fused update
+     with its loops unrolled (`unroll_caps=True`), assoc defaults and assoc
+     off (phase 11 (c) runs HKDMPCSolver's loops that stop); the N = 1024
+     fleet with `FleetConfig(unroll_caps=False)` (phase 11 (b) runs the
+     default True): every result bit-equal, and the retry sweeps each
+     program replay ran (its pieces' device counts) equal to the eager
+     body's (`backward.RETRY_SWEEPS`); ms per solve or step, nodes run per
+     replay, each piece's nodes and runs, native nodes per level. (b)
+     forced retries: a scale of the ReB weight (K1) or a shift of luu (the
+     LQ routes) per row, (1, -1e-3, -0.1, -100) and (0, 1e-3, 1, 1000)
+     repeated, so rows need no retry, 1, 10-11, and one fails past
+     REG_MAX: the retry loop alone as a device program (the first sweep,
+     then a while node on `again` around the retry step) against
+     `backward_sweep_regularized` for K1 and K2 at B = 4096, the scan and
+     the assoc sweep at B = 256: dU, K, dv1, dv2, reg, ok,
+     failed bit-equal, the same retries (at least 10), the failing row
+     failed. (c) the K1 B = 4096 program's assembly time and device memory
+     at the runtime caps (2 x 1) and at the cold caps 3 x 4 unrolled (each
+     inner piece 12 times) and as while nodes, with a replay's ms.
+     The times against the parent commit's programs come from `python -m
+     hkdmpc_tpu_torch.compare_programs` (two trees, one call).
  12. the bench's configurations and program. (a) the mixed batch of
      `bench.mixed_layouts`: B = 1024, T = 75, f32, 512 trot + 512 flytrot
      scenarios (the rows follow different schedules), lanes interleaved
@@ -200,7 +233,8 @@ and read just after. Then one JSON line with both kernels (name, route,
 source, replaces, launches, retry_launches, max_abs_err, ms, plain_ms,
 bound_ms, bound_by, library_ms, ms_b1024, bound_ms_b1024, ms_all_inactive,
 threads_per_block, smem_bytes, blocks_per_sm, while_launches,
-while_retry_launches (phase 13 (a), one replay); K1 also fleet_launches,
+while_retry_launches (phase 13 (a), one replay), forced_retries (phase 14
+(b): retries of the forced-retry loop at B = 4096); K1 also fleet_launches,
 sharded_launches, mixed_launches, longt_ms, longt_bound_ms,
 while_fleet_launches (phase 13 (c)); K2 also mpc_launches,
 service_launches, profile_launches, ms_b1, plain_ms_b1, bound_ms_b1,
@@ -895,7 +929,7 @@ def mpc_run(torch, ref, label, stream, **cfg):
             cmd.hkd_controls).all():
         raise AssertionError(f"{label}: the cold solve failed")
     rec = dict(label=label, cold_ms=solver.solve_time, ms=[], dispatch=[],
-               wait=[], ready=[], shooting=[], cost=[], cmds=[],
+               wait=[], ready=[], shooting=[], iters=[], cost=[], cmds=[],
                assoc_bw=solver._assoc_bw,
                cold_graphs=replayed_since(cold_replays))
     replays = None
@@ -933,6 +967,7 @@ def mpc_run(torch, ref, label, stream, **cfg):
             rec["wait"].append((t2 - t1) * 1e3)
             rec["ready"].append(ready)
         rec["shooting"].append(solver.problem.all_shooting())
+        rec["iters"].append(int(res.n_iters))
         rec["cost"].append(float(res.cost))
         rec["cmds"].append(cmd)
     rec["k2_launches"] = riccati_dense.LAUNCHES
@@ -973,7 +1008,8 @@ def mpc_report(rec, card):
           + "; ".join(f"{v} of {k}" for k, v in rec["graphs"].items())
           + f"); backward sweep "
           f"{'ops/assoc' if rec['assoc_bw'] else 'K2'}; K2 launches "
-          f"{rec['k2_launches']} ({rec['k2_launches'] / n:.2f}/update), "
+          f"{rec['k2_launches']} ({rec['k2_launches'] / n:.2f}/update, "
+          f"inner iterations {sum(rec['iters'])}), "
           f"masked retry launches {rec['k2_retries']} "
           f"({rec['k2_retries'] / n:.2f}/update); 0 "
           f"failed, last cost {rec['cost'][-1]:.6g}; on {card}", flush=True)
@@ -1088,11 +1124,16 @@ def mpc_phase(card):
     if not any(a["shooting"]) or all(a["shooting"]):
         raise AssertionError("the timed updates do not hold both rollout "
                              "kinds")
+    # the updates run the loops that stop (as the JAX solver's): K2 once
+    # per inner iteration an update ran (its n_iters), 1 or 2 at the
+    # runtime caps
     for rec in (b, c):
-        if rec["k2_launches"] < 2 * len(rec["ms"]) or rec["assoc_bw"]:
+        if rec["k2_launches"] != sum(rec["iters"]) or rec["assoc_bw"] \
+                or rec["k2_launches"] < len(rec["ms"]):
             raise AssertionError(f"{rec['label']}: K2 launched "
                                  f"{rec['k2_launches']} times in "
-                                 f"{len(rec['ms'])} updates")
+                                 f"{len(rec['ms'])} updates of "
+                                 f"{sum(rec['iters'])} inner iterations")
     mpc_compare(a, b)
     mpc_compare(b, c)
     KEPT["mpc_solver"] = c["solver"]
@@ -1228,6 +1269,7 @@ def service_scripted(torch, card, ref, lcm_dir, lcm):
                         launches=riccati_dense.LAUNCHES - before,
                         captures=len(graphs.stats()) - held,
                         failed=bool(solver.last_result.solve_failed),
+                        iters=int(solver.last_result.n_iters),
                         shooting=solver.problem.all_shooting(),
                         ms_mode=bool(solver.opt.MS)))
 
@@ -1285,14 +1327,17 @@ def service_scripted(torch, card, ref, lcm_dir, lcm):
              cost=[bare_cost[k] for k in updates]), phase=9)
 
     upd = [per[k] for k in updates]
-    # an update that captures a graph (the first of its kind under a
-    # shooting mode) also launches K2 twice in the capture's eager warm-up
-    bad = [(p["launches"], p["captures"]) for p in upd
-           if p["launches"] != 2 * (1 + p["captures"])]
-    if bad or launches < 2 * len(updates):
-        raise AssertionError(f"phase 9 (a): K2 launches per update (and "
-                             f"captures) {bad} (expected 2 a replay and 2 "
-                             f"a capture's warm-up), {launches} in all")
+    # a replay launches K2 once per inner iteration it ran (the result's
+    # n_iters: the loops that stop); an update that builds a device program
+    # (the first of its kind under a shooting mode) also launches it twice
+    # in the build's eager runs of the first sweep
+    bad = [(p["launches"], p["iters"], p["captures"]) for p in upd
+           if p["launches"] != p["iters"] + 2 * p["captures"]]
+    if bad or launches < len(updates):
+        raise AssertionError(f"phase 9 (a): K2 launches, inner iterations "
+                             f"and builds per update {bad} (expected one a "
+                             f"inner iteration and 2 a build), {launches} "
+                             "in all")
     captures = sum(p["captures"] for p in upd)
     # a reset reuses the resident state and the graphs keyed on it: after
     # a reset of a shooting mode already served (the service's own
@@ -1321,7 +1366,7 @@ def service_scripted(torch, card, ref, lcm_dir, lcm):
           f"shooting mode; none after the MS=true reset, which reuses the "
           f"resident state); K2 launches {launches} "
           f"({sum(p['launches'] for p in upd) / len(upd):.2f} per update, "
-          f"2.00 per replay; "
+          f"one per inner iteration a replay ran; "
           f"resets {cold[True]['launches']} and {cold[False]['launches']}); "
           f"multiple shooting: {len(ms_upd)} parallel-rollout updates "
           f"{_mean(ms_upd):.3f} ms, {len(ms_seq)} sequential-rollout "
@@ -1443,7 +1488,7 @@ def service_async(torch, card, ref, lcm_dir, lcm, sync_ms):
     if stats["unserved"] or stats["abandoned"] or stats["queue_drops"] \
             or stats["solved"] < 2 or stats["received"] < 0.9 * SERVICE_STREAM:
         raise AssertionError(f"phase 9 (b): {stats}")
-    if launches < 2 * stats["solved"]:
+    if launches < stats["solved"]:
         raise AssertionError(f"phase 9 (b): K2 launched {launches} times for "
                              f"{stats['solved']} solves")
     if len(dispatch_ms) != stats["solved"] or len(wait_ms) != stats["solved"]:
@@ -1812,7 +1857,7 @@ def examples_phase(torch, card, steps=EXAMPLE_STEPS, robots=EXAMPLE_ROBOTS):
     if logs[0].shape != (n_rows, 24) or any(
             l.shape != (steps, 24) for l in logs[1:]):
         raise AssertionError("phase 10 (e): log rows")
-    if k2 < 2 * steps or k1 < 2 * steps or many["stats"]["n_failed"]:
+    if k2 < steps or k1 < 2 * steps or many["stats"]["n_failed"]:
         raise AssertionError(f"phase 10 (e): K2 {k2}, K1 {k1} launches")
 
 
@@ -1846,6 +1891,13 @@ def _max_diff(pairs):
     return worst
 
 
+def _retry_sweeps():
+    """Retry sweeps run so far on every route (`backward.RETRY_SWEEPS`;
+    the device programs' runs folded in when it is read)."""
+    from hkdmpc_tpu_torch.solver import backward
+    return backward.RETRY_SWEEPS
+
+
 def _launch_counts():
     from hkdmpc_tpu_torch.ops import riccati_dense, riccati_hkd
     return (riccati_hkd.LAUNCHES, riccati_hkd.RETRY_LAUNCHES,
@@ -1865,7 +1917,8 @@ def _graph_text(labels):
     return "; ".join(
         f"{st['label']}: capture {st['capture_s']:.3f} s, "
         f"{st['nodes'] if st['nodes'] is not None else 'not measured'} "
-        "nodes" for st in graphs.stats()
+        f"nodes, {st['nodes_run']} run in its last replay, "
+        f"{st['retries']} retries" for st in graphs.stats()
         if any(st["label"].startswith(l) for l in labels))
 
 
@@ -1924,23 +1977,24 @@ def graph_solves(torch, card):
     return worst_all
 
 
-def _fleet_run(torch, ref, eager, steps):
-    """A FleetMPC N = FLEET_N on the trot, f32, FleetConfig(): cold solve,
-    FLEET_WARMUP + steps blocking steps of meas_stream(FLEET_N, SEED).
-    Returns per timed step: (ms, all_shooting, unpacked output), and the
-    launch text."""
+def _fleet_run(torch, ref, eager, steps, **cfg):
+    """A FleetMPC N = FLEET_N on the trot, f32, FleetConfig(**cfg): cold
+    solve, FLEET_WARMUP + steps blocking steps of meas_stream(FLEET_N,
+    SEED). Returns per timed step: (ms, all_shooting, unpacked output), the
+    launch text, and the retry sweeps of the timed steps."""
     from hkdmpc_tpu_torch.mpc.fleet import FleetConfig, FleetMPC
     from hkdmpc_tpu_torch.workload import meas_stream
     route = eager_steps() if eager else contextlib.nullcontext()
     out = []
     with route:
-        f = FleetMPC(ref, FLEET_N, config=FleetConfig(), dtype=torch.float32,
-                     device="cuda")
+        f = FleetMPC(ref, FLEET_N, config=FleetConfig(**cfg),
+                     dtype=torch.float32, device="cuda")
         f.initialize()
         stream = meas_stream(FLEET_N, SEED)
         for k in range(FLEET_WARMUP + steps):
             if k == FLEET_WARMUP:
                 before = _launch_counts()
+                r0 = _retry_sweeps()
             m = stream(k)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1949,17 +2003,22 @@ def _fleet_run(torch, ref, eager, steps):
             if k >= FLEET_WARMUP:
                 out.append(((time.perf_counter() - t0) * 1e3,
                             f.problem.all_shooting(), o))
-    return out, _launch_text(before, _launch_counts(), steps, "step")
+    return (out, _launch_text(before, _launch_counts(), steps, "step"),
+            _retry_sweeps() - r0)
 
 
 def graph_fleet(torch, card, ref, steps=6):
     """Phase 11 (b): the fleet of phase 7, eager steps against graph steps
     in turns (eager, graph, graph, eager), FLEET_WARMUP + steps steps each,
     both rollout kinds among them."""
-    runs, texts = {"eager": [], "graph": []}, {}
+    runs, texts, retries = {"eager": [], "graph": []}, {}, []
     for turn in ("eager", "graph", "graph", "eager"):
-        out, texts[turn] = _fleet_run(torch, ref, turn == "eager", steps)
+        out, texts[turn], r = _fleet_run(torch, ref, turn == "eager", steps)
         runs[turn].append(out)
+        retries.append(r)
+    if len(set(retries)) != 1:
+        raise AssertionError(f"phase 11 (b): retry sweeps by turn {retries}"
+                             " (the graph runs the eager body's)")
     kinds = [s for _, s, _ in runs["graph"][0]]
     if all(kinds) or not any(kinds):
         raise AssertionError("phase 11 (b): the timed steps do not hold "
@@ -1985,20 +2044,40 @@ def graph_fleet(torch, card, ref, steps=6):
           f"graph {by_kind('graph', True):.3f}; sequential rollout eager "
           f"{by_kind('eager', False):.3f}, graph "
           f"{by_kind('graph', False):.3f}; launches: eager {texts['eager']},"
-          f" graph {texts['graph']}; {_graph_text(['fleet_step(N=' + str(FLEET_N)])}"
+          f" graph {texts['graph']}; retry sweeps {retries[0]} in each "
+          f"turn; {_graph_text(['fleet_step(N=' + str(FLEET_N)])}"
           f"; on {card}", flush=True)
     return worst
 
 
-def _robot_run(torch, ref, eager, **cfg):
+@contextlib.contextmanager
+def fused_unroll_caps(unroll_caps):
+    """`fused.fused_step` with unroll_caps set to `unroll_caps` while
+    inside (HKDMPCSolver passes the JAX solver's False)."""
+    from hkdmpc_tpu_torch.mpc import fused
+    real = fused.fused_step
+
+    def step(*args, **kwargs):
+        kwargs["unroll_caps"] = unroll_caps
+        return real(*args, **kwargs)
+
+    fused.fused_step = step
+    try:
+        yield
+    finally:
+        fused.fused_step = real
+
+
+def _robot_run(torch, ref, eager, unroll_caps=False, **cfg):
     """One single-robot run of phase 8 (HKDMPCSolver, fused step), eager
-    steps or graphs. Returns per timed update (ms, all_shooting, cost,
-    command) and the launch text."""
+    steps or graphs, the step's loops unrolled or stopped. Returns per
+    timed update (ms, all_shooting, cost, command), the launch text and
+    the retry sweeps of the timed updates."""
     from hkdmpc_tpu_torch.mpc.solver import HKDMPCSolver, MPCConfig
     from hkdmpc_tpu_torch.workload import meas_stream
     route = eager_steps() if eager else contextlib.nullcontext()
     out = []
-    with route:
+    with route, fused_unroll_caps(unroll_caps):
         solver = HKDMPCSolver(ref, config=MPCConfig(fused_step=True, **cfg),
                               dtype=torch.float32, device="cuda")
         solver.initialize()
@@ -2006,6 +2085,7 @@ def _robot_run(torch, ref, eager, **cfg):
         for k in range(MPC_WARMUP + GRAPH_MPC_UPDATES):
             if k == MPC_WARMUP:
                 before = _launch_counts()
+                r0 = _retry_sweeps()
             m = {name: v[0] for name, v in stream(k).items()}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2016,8 +2096,8 @@ def _robot_run(torch, ref, eager, **cfg):
                             solver.problem.all_shooting(),
                             float(solver.last_result.cost), cmd))
         solver.close()
-    return out, _launch_text(before, _launch_counts(), GRAPH_MPC_UPDATES,
-                             "update")
+    return (out, _launch_text(before, _launch_counts(), GRAPH_MPC_UPDATES,
+                              "update"), _retry_sweeps() - r0)
 
 
 def graph_robot(torch, card, ref):
@@ -2028,10 +2108,15 @@ def graph_robot(torch, card, ref):
     for label, cfg in (("assoc defaults", {}),
                        ("assoc off (K2 at B=1)",
                         dict(assoc_linear=False, assoc_backward=False))):
-        runs, texts = {"eager": [], "graph": []}, {}
+        runs, texts, retries = {"eager": [], "graph": []}, {}, []
         for turn in ("eager", "graph", "graph", "eager"):
-            out, texts[turn] = _robot_run(torch, ref, turn == "eager", **cfg)
+            out, texts[turn], r = _robot_run(torch, ref, turn == "eager",
+                                             **cfg)
             runs[turn].append(out)
+            retries.append(r)
+        if len(set(retries)) != 1:
+            raise AssertionError(f"phase 11 (c) {label}: retry sweeps by "
+                                 f"turn {retries}")
         pairs = lambda a, b: [
             (np.array([x[2]]), np.array([y[2]])) for x, y in zip(a, b)] + [
             (getattr(x[3], n), getattr(y[3], n)) for x, y in zip(a, b)
@@ -2063,7 +2148,8 @@ def graph_robot(torch, card, ref):
               f"{by_kind('graph', True):.3f}; sequential rollout eager "
               f"{by_kind('eager', False):.3f}, graph "
               f"{by_kind('graph', False):.3f} (budget 10 ms); launches: "
-              f"eager {texts['eager']}, graph {texts['graph']}; "
+              f"eager {texts['eager']}, graph {texts['graph']}; retry "
+              f"sweeps {retries[0]} in each turn; "
               f"{_graph_text(['fleet_step(N=1,'])}; on {card}", flush=True)
     return worst_all
 
@@ -2303,10 +2389,13 @@ def _while_entry(kernel_jac, batch, opt):
 
 def _pieces_text(st):
     p = st["pieces"]
-    return (", ".join(f"{n} {p[n]['nodes']} nodes ({p[n]['capture_s']:.3f}"
-                      " s)" for n in ("carry0", "head", "inner", "tail"))
-            + f"; {st['nodes']} nodes in all, capture {st['capture_s']:.3f}"
-            " s")
+    return (", ".join(f"{n} {v['nodes']} nodes x {v['runs']} runs "
+                      f"({v['capture_s']:.3f} s)" for n, v in p.items())
+            + f"; {st['nodes']} nodes captured, {st['nodes_run']} run in the"
+            f" last replay, {st['retries']} retries; capture and assembly "
+            f"{st['capture_s']:.3f} s (assembly {st['assembly_s']:.3f} s, "
+            f"{st['assembly_bytes'] / 2**20:.1f} MiB); native nodes per "
+            f"level {' / '.join(str(v) for v in st['native_nodes'])}")
 
 
 def _same_results(a, b):
@@ -2397,9 +2486,7 @@ def while_solves(torch, card):
               f"iterations run: outer {outer}, inner {inner} (n_iters "
               f"{sorted(set(res['graph'][0].n_iters.tolist()))}); "
               f"{counter.__name__.rsplit('.', 1)[-1]} launches per replay "
-              f"{k} + {r} masked; pieces: {_pieces_text(st)}; native nodes "
-              f"parent / outer body / inner body "
-              f"{' / '.join(str(v) for v in st['native_nodes'])}; early "
+              f"{k} + {r} masked; pieces: {_pieces_text(st)}; early "
               f"stop (cost_thresh and dynamics_feas_thresh 1e9, caps AL "
               f"{loose.max_AL_iter} x DDP {loose.max_DDP_iter}): inner "
               f"iterations {st_l['iterations'][1]} of {caps}, bit-equal to "
@@ -2612,6 +2699,320 @@ def while_phase(card):
             {"while_launches": k2, "while_retry_launches": k2r,
              "while_mpc_launches": k2_robot})
 
+RETRY_BATCH = 1024        # phase 14 (a): the scan route's solve
+LQ_RETRY_BATCH = 256      # phase 14 (b): the scan and assoc retry programs
+# phase 14 (b): per row, a scale of the ReB weight (K1) and a shift of luu
+# (the LQ routes): no retry, 1 retry, 10-11 retries, a failure past REG_MAX
+REB_PATTERN = (1.0, -1e-3, -0.1, -100.0)
+LUU_PATTERN = (0.0, 1e-3, 1.0, 1000.0)
+
+
+def _turns(torch, eager, graph):
+    """The eager body and the device program on the same inputs in turns
+    (eager, graph, graph, eager), after the program's build: results, ms
+    (CUDA events) and retry sweeps of each turn, by kind."""
+    graph()
+    torch.cuda.synchronize()
+    res, ms, retries = ({"eager": [], "graph": []} for _ in range(3))
+    for turn in ("eager", "graph", "graph", "eager"):
+        torch.cuda.synchronize()
+        r0 = _retry_sweeps()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = eager() if turn == "eager" else graph()
+        end.record()
+        torch.cuda.synchronize()
+        ms[turn].append(start.elapsed_time(end))
+        res[turn].append(out)
+        retries[turn].append(_retry_sweeps() - r0)
+    return res, ms, retries
+
+
+def _record(head, *parts):
+    """graphs.stats()'s record of the one program whose label starts with
+    `head` and holds every one of `parts`."""
+    from hkdmpc_tpu_torch.solver import graphs
+    found = [st for st in graphs.stats() if st["label"].startswith(head)
+             and all(p in st["label"] for p in parts)]
+    if len(found) != 1:
+        raise AssertionError(f"phase 14: {len(found)} programs {head} "
+                             f"{parts}")
+    return found[0]
+
+
+def retry_solves(torch, card):
+    """Phase 14 (a) and (c), the solves: B = 4096 K1 and the dense swing
+    solve with unroll_caps True (runtime caps) and False (cold caps), the
+    scan route at B = 1024; eager against program in turns, every result
+    tensor bit-equal, the program's retries those of the eager body; ms and
+    nodes run per replay. Returns {label: record} of the K1 runtime-caps
+    program (its assembly)."""
+    from hkdmpc_tpu_torch.solver import ddp
+    from hkdmpc_tpu_torch.solver.model_api import hkd_model_spec
+    swing = hkd_model_spec(swing_constraint=True)
+    kept = {}
+    for label, kj, spec, extra, batch in (
+            ("K1", True, None, {}, BATCH),
+            ("dense swing", False, swing, {}, BATCH),
+            ("scan, default model", False, None,
+             dict(scan_backward=True), RETRY_BATCH)):
+        prob_b, state_b, opt = trot_batch(torch, batch, torch.float32, spec)
+        for unroll in ((True, False) if not extra else (True,)):
+            o = opt.runtime() if unroll else opt
+            run = lambda f: f(prob_b, state_b, o, kernel_jac=kj, model=spec,
+                              unroll_caps=unroll, **extra)
+            res, ms, retries = _turns(torch, lambda: run(ddp._solve_batch),
+                                      lambda: run(ddp.solve_batch))
+            worst, equal = _same_results(res["eager"][0], res["graph"][0])
+            st = _record("solve_batch(B=" if unroll else "solve_while(B=",
+                         f"(B={batch},", f"kernel_jac={kj},",
+                         f"caps {o.max_AL_iter}x{o.max_DDP_iter})")
+            want = retries["eager"][0]
+            if worst != 0.0 or not equal or set(
+                    retries["eager"] + retries["graph"]) != {want} \
+                    or st["retries"] != want:
+                raise AssertionError(
+                    f"phase 14 (a) {label} unroll_caps={unroll}: max |eager "
+                    f"- graph| {worst:.3e}, n_iters equal {equal}, retries "
+                    f"{retries}, the program's last replay {st['retries']}")
+            fmt = lambda xs: ", ".join(f"{x:.3f}" for x in xs)
+            print(f"phase 14 (a) {label} solve, B={batch} T={prob_b.T} f32 "
+                  f"unroll_caps={unroll} (caps AL {o.max_AL_iter} x DDP "
+                  f"{o.max_DDP_iter}): eager body vs device program in turns"
+                  f" (eager, graph, graph, eager): every result tensor "
+                  f"bit-equal, n_iters equal; retry sweeps per solve {want}"
+                  f" eager, {st['retries']} in the program's replay; ms per "
+                  f"solve, CUDA events: eager {fmt(ms['eager'])}, program "
+                  f"{fmt(ms['graph'])}; iterations (outer, inner) "
+                  f"{st['iterations']}; pieces: {_pieces_text(st)}; on "
+                  f"{card}", flush=True)
+            if kj and unroll:
+                kept["runtime"] = st
+    return kept
+
+
+def retry_caps_build(torch, card, runtime):
+    """Phase 14 (c): the build of the K1 B = 4096 program unrolled at the
+    cold caps 3 x 4 (12 inner iterations: each inner piece 12 times) beside
+    the runtime caps' (2 x 1), and the while form at 3 x 4: assembly s and
+    device MiB, nodes captured and run, one replay's ms."""
+    from hkdmpc_tpu_torch.solver import ddp
+    prob_b, state_b, opt = trot_batch(torch, BATCH, torch.float32)
+    caps = dataclasses.replace(opt, max_AL_iter=3, max_DDP_iter=4)
+    text = []
+    for unroll in (True, False):
+        run = lambda: ddp.solve_batch(prob_b, state_b, caps, kernel_jac=True,
+                                      unroll_caps=unroll)
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        ms = cuda_ms(torch, run, 2)
+        st = _record("solve_batch(B=" if unroll else "solve_while(B=",
+                     f"(B={BATCH},", "kernel_jac=True,", "caps 3x4)")
+        text.append(f"unroll_caps={unroll}: first call {build_s:.3f} s, "
+                    f"assembly {st['assembly_s']:.3f} s and "
+                    f"{st['assembly_bytes'] / 2**20:.1f} MiB, "
+                    f"{st['nodes']} nodes captured, {st['nodes_run']} run, "
+                    f"{ms:.3f} ms a replay, iterations {st['iterations']}")
+    print(f"phase 14 (c) K1 B={BATCH} f32 program builds: runtime caps 2 x 1 "
+          f"unrolled: assembly {runtime['assembly_s']:.3f} s and "
+          f"{runtime['assembly_bytes'] / 2**20:.1f} MiB, {runtime['nodes']} "
+          f"nodes captured, {runtime['nodes_run']} run; caps 3 x 4: "
+          + "; ".join(text) + f"; on {card}", flush=True)
+
+
+def retry_steps(torch, card, ref):
+    """Phase 14 (a) and (c), the steps: the single robot's fused update
+    with its loops unrolled (assoc defaults and assoc off; phase 11 (c) ran
+    the loops that stop, HKDMPCSolver's), and the N = 1024 fleet with
+    FleetConfig(unroll_caps=False) (phase 11 (b) ran the default True):
+    eager against program in turns, bit-equal, the same retries."""
+    from hkdmpc_tpu_torch.solver import graphs
+    cases = [("single robot, assoc defaults, unroll_caps=True",
+              lambda e: _robot_run(torch, ref, e, unroll_caps=True),
+              "fleet_step(N=1,", "unroll_caps=True"),
+             ("single robot, assoc off (K2 at B=1), unroll_caps=True",
+              lambda e: _robot_run(torch, ref, e, unroll_caps=True,
+                                   assoc_linear=False, assoc_backward=False),
+              "fleet_step(N=1,", "unroll_caps=True"),
+             (f"fleet N={FLEET_N}, FleetConfig(unroll_caps=False)",
+              lambda e: _fleet_run(torch, ref, e, 4, unroll_caps=False),
+              f"fleet_step(N={FLEET_N},", "unroll_caps=False")]
+    for label, run, head, form in cases:
+        outs, ms, retries = {"eager": [], "graph": []}, {}, []
+        for turn in ("eager", "graph", "graph", "eager"):
+            out, _, r = run(turn == "eager")
+            outs[turn].append(out)
+            retries.append(r)
+            ms.setdefault(turn, []).extend(o[0] for o in out)
+        fields = ("scalars", "controls", "body", "gains", "pf")
+        flat = lambda o: ({n: o[2][n] for n in fields}
+                          if isinstance(o[2], dict) else
+                          {"cost": np.array([o[2]]),
+                           "controls": o[3].hkd_controls,
+                           "body": o[3].des_body_state,
+                           "gains": o[3].feedback})
+        worst = _max_diff([(flat(a)[n], flat(b)[n])
+                           for a, b in zip(outs["eager"][0],
+                                           outs["graph"][0])
+                           for n in flat(a)])
+        recs = [st for st in graphs.stats() if st["label"].startswith(head)
+                and form in st["label"] and st["replays"]]
+        if worst != 0.0 or len(set(retries)) != 1 or not recs:
+            raise AssertionError(f"phase 14 (a) {label}: max |eager - "
+                                 f"graph| {worst:.3e}, retry sweeps by turn "
+                                 f"{retries}, {len(recs)} programs")
+        print(f"phase 14 (a) {label}: eager steps vs device programs in "
+              f"turns (eager, graph, graph, eager): bit-equal; retry sweeps "
+              f"{retries[0]} in each turn's timed steps; ms per step (host "
+              f"clock around the blocking step, median): eager "
+              f"{statistics.median(ms['eager']):.3f}, program "
+              f"{statistics.median(ms['graph']):.3f}; "
+              + "; ".join(f"{st['label']}: {st['nodes_run']} nodes run in "
+                          f"its last replay, {st['retries']} retries, "
+                          f"{st['replays']} replays" for st in recs)
+              + f"; on {card}", flush=True)
+
+
+def _retry_program(prob, defect, last, route):
+    """The retry loop alone as a device program (`graphs.Program`): the
+    first sweep, then a while node on `again` around the retry step, on
+    static inputs."""
+    from hkdmpc_tpu_torch.solver import backward, graphs
+
+    class RetryProgram(graphs.Program):
+        PIECES = ("first", "retry")
+        FLAGS = ("retry",)
+
+        def __init__(self):
+            self.bw = graphs.like(self.sweep())
+            self._init(defect.device, ["first", ("retry", ["retry"])])
+
+        def sweep(self):
+            return backward.first_sweep(prob, defect, 0.0, 2.0, last,
+                                        **route)
+
+        def _first(self):
+            graphs.write(self.bw, self.sweep())
+            self.flag["retry"].copy_(self.bw["again"])
+
+        def _retry(self):
+            graphs.write(self.bw, backward.retry_sweep(prob, defect, 2.0,
+                                                       last, self.bw,
+                                                       **route))
+            self.flag["retry"].copy_(self.bw["again"])
+
+    return RetryProgram()
+
+
+def forced_retries(torch, card):
+    """Phase 14 (b): inputs whose first sweep is not PSD on some rows
+    (REB_PATTERN on the ReB weight for K1, LUU_PATTERN on luu for the LQ
+    routes, repeated over the batch): the retry loop as a device program
+    against `backward_sweep_regularized` on K1 and K2 (B = 4096), the scan
+    and the assoc sweep (B = 256): dU, K, dv1, dv2, reg,
+    ok, failed bit-equal, the retries the eager loop ran, a row that fails
+    past REG_MAX. Returns {kernel: retries a program replay ran}."""
+    import dataclasses as dc
+    from hkdmpc_tpu_torch.solver import backward, graphs, lq as lq_mod
+    from hkdmpc_tpu_torch.solver import rollout as ro
+    out = {}
+    for label, batch, kind in (("K1", BATCH, "hkd"),
+                               ("K2", BATCH, "dense"),
+                               ("scan", LQ_RETRY_BATCH, "scan"),
+                               ("assoc", LQ_RETRY_BATCH, "assoc")):
+        prob_b, state_b, _ = trot_batch(torch, batch, torch.float32)
+        r = ro.hybrid_rollout_parallel(prob_b, state_b, 0.0)
+        c = state_b.constr
+        last = ro.last_active_node(prob_b)
+        rows = lambda pat: torch.tensor(pat * (batch // len(pat)),
+                                        device="cuda")
+        if kind == "hkd":
+            route = dict(kernel_jac_XU=(
+                r.X, r.U, c.reb_delta,
+                (c.reb_eps * rows(REB_PATTERN)[:, None, None]).contiguous(),
+                c.al_sigma, c.al_lambda))
+        else:
+            lqd = lq_mod.lq_approximation(prob_b, r.X, r.U, c, True, True,
+                                          None)
+            shift = rows(LUU_PATTERN)[:, None, None, None]
+            lqd = dc.replace(lqd, luu=(lqd.luu - shift * torch.eye(
+                24, device="cuda")).contiguous())
+            route = dict(lq=lqd, scan=kind == "scan",
+                         assoc_backward=kind == "assoc")
+        prog = _retry_program(prob_b, r.defect, last, route)
+        g = graphs.build_program(f"retry loop ({label}, B={batch})", prog)
+        res, ms, sweeps = {}, {"eager": [], "graph": []}, []
+        for turn in ("eager", "graph", "graph", "eager"):
+            torch.cuda.synchronize()
+            r0 = backward.RETRY_SWEEPS
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            if turn == "eager":
+                got = backward.backward_sweep_regularized(
+                    prob_b, r.defect, 0.0, 2.0, last, **route)
+            else:
+                graphs.replay_program(g)
+                got = backward.finish(prog.bw)
+            end.record()
+            torch.cuda.synchronize()
+            ms[turn].append(start.elapsed_time(end))
+            got = tuple(t.clone() for t in got)
+            res.setdefault(turn, got)
+            if turn == "eager":
+                sweeps.append(backward.RETRY_SWEEPS - r0)
+            else:
+                sweeps.append(prog.counts(1)["retry"])
+        worst = _max_diff([(a.cpu(), b.cpu()) for a, b in
+                           zip(res["eager"], res["graph"])])
+        ok, failed = res["graph"][5], res["graph"][6]
+        n_retried = int(((res["graph"][4] > 0) & ok).sum())
+        if worst != 0.0 or len(set(sweeps)) != 1 or sweeps[0] < 10 \
+                or not bool(failed[3]) or bool(failed[0]):
+            raise AssertionError(
+                f"phase 14 (b) {label}: max |eager - graph| {worst:.3e}, "
+                f"retries by turn {sweeps}, failed rows "
+                f"{int(failed.sum())}")
+        fmt = lambda xs: ", ".join(f"{x:.3f}" for x in xs)
+        print(f"phase 14 (b) forced retries, {label} B={batch} T={prob_b.T} "
+              f"f32: the retry loop as a device program (first sweep; while "
+              f"node on `again`: retry step) vs backward_sweep_regularized "
+              f"in turns: dU, K, dv1, dv2, reg, ok, failed bit-equal; "
+              f"retries per loop {sweeps[0]} (eager and program); rows: "
+              f"{int(ok.sum())} ok ({n_retried} after retries), "
+              f"{int(failed.sum())} failed past REG_MAX; ms: eager "
+              f"{fmt(ms['eager'])}, program {fmt(ms['graph'])}; on {card}",
+              flush=True)
+        out[label] = sweeps[0]
+    return out
+
+
+def retry_phase(card):
+    """Phase 14: the device programs with every loop that stops as a
+    conditional while node (the retry loop of every backward sweep, and
+    the AL and DDP loops without unroll_caps) against their eager bodies:
+    (a) bit-equal, the eager body's retries; (b) forced retries; (c) times
+    and builds. Returns (K1's, K2's) record additions."""
+    torch = _torch()
+    import tempfile
+    from hkdmpc_tpu_torch.solver import graphs
+    from hkdmpc_tpu_torch.workload import gait_file
+    t0 = time.perf_counter()
+    graphs.clear_graphs()
+    kept = retry_solves(torch, card)
+    retry_caps_build(torch, card, kept["runtime"])
+    graphs.clear_graphs()
+    with tempfile.TemporaryDirectory() as d:
+        retry_steps(torch, card, gait_file("trot", d))
+    graphs.clear_graphs()
+    forced = forced_retries(torch, card)
+    print(f"phase 14 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return ({"forced_retries": forced["K1"]},
+            {"forced_retries": forced["K2"]})
+
 
 def main():
     torch = _torch()
@@ -2640,8 +3041,11 @@ def main():
     hkd_more, dense_more = while_phase(card)
     hkd.update(hkd_more)
     dense.update(dense_more)
+    hkd_more, dense_more = retry_phase(card)
+    hkd.update(hkd_more)
+    dense.update(dense_more)
     hkd.update(mixed_longt_phase(card))
-    print(f"chip_smoke: phases 1-13 in {time.perf_counter() - t0:.1f} s",
+    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - t0:.1f} s",
           flush=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

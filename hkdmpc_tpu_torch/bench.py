@@ -108,15 +108,18 @@ def _memory(device) -> str:
 
 
 def _graph_text(batch: int, T: int) -> str:
-    """Capture seconds and nodes of the solve graphs at this chunk shape."""
+    """Capture seconds and nodes of the solve graphs at this chunk shape:
+    captured, and run by the last replay with the retries it ran."""
     recs = [st for st in graphs.stats()
             if st["label"].startswith((f"solve_batch(B={batch}, T={T},",
                                        f"solve_while(B={batch}, T={T},"))]
     if not recs:
         return "no graph"
+    known = lambda v: "not measured" if v is None else v
     return "; ".join(
         f"graph {st['label']}: capture {st['capture_s']:.3f} s, "
-        f"{'not measured' if st['nodes'] is None else st['nodes']} nodes, "
+        f"{known(st['nodes'])} nodes captured, {known(st['nodes_run'])} run "
+        f"and {known(st['retries'])} retries in the last replay, "
         f"{st['replays']} replays" for st in recs)
 
 

@@ -1,34 +1,42 @@
-// The loops that stop of the HS-DDP solve as one CUDA graph with two nested
-// conditional while nodes: the port's counterpart of the JAX package's
-// `lax.while_loop` solve (hkdmpc_tpu/solver/ddp.py, `solve` with
-// unroll_caps=False, compiled by `solve_jit` / the jitted `solve_batch`).
+// The device programs of the HS-DDP solve and of the MPC steps: torch-captured
+// pieces assembled into one CUDA graph, each loop that stops a conditional
+// while node. The port's counterpart of the JAX package's compiled programs
+// with their `lax.while_loop`s (hkdmpc_tpu/solver/ddp.py and
+// hkdmpc_tpu/solver/backward.py: the AL and DDP loops with unroll_caps=False,
+// the regularization retry of every backward sweep).
 //
 // Not a port of a TPU kernel: the JAX package has no Pallas kernel here, XLA
-// builds the while loops itself. The pieces of the loop body are captured by
-// torch (hkdmpc_tpu_torch/solver/graphs.py, `WhileSolve`), each a cudaGraph_t
-// that reads and writes only static buffers; this file puts them into
-// one parent graph:
+// builds the while loops itself. The pieces are captured by torch
+// (hkdmpc_tpu_torch/solver/graphs.py, `SolveProgram`), each a cudaGraph_t
+// that reads and writes only static buffers and ends by writing its loop's
+// condition into a device flag (a bool). The program says in which order
+// they run, as int32 items:
 //
-//   carry0 -> set_cond(outer) -> while outer {
-//       head -> set_cond(inner) -> while inner { inner -> set_cond(inner) }
-//       -> tail -> set_cond(outer) }
+//   0 i        the piece i, a child graph node (a clone of torch's graph);
+//   1 j n ...  while flag j { the next n ints: items }, nested to any depth.
 //
-// Each piece is a child graph node (a clone of torch's graph). Each piece
-// ends by writing its loop's condition into a device flag (a bool), and the
-// one-thread kernel `set_cond` copies that flag into the conditional handle
-// (cudaGraphSetConditional). The set_cond nodes are kernel nodes of the body
-// graphs themselves, not of a child graph. A while node evaluates its handle
-// before each run of its body, so a flag set to false before the node runs
-// the body no time.
+// A piece may be named any number of times (the unrolled loops). For a while
+// item the builder adds, in the graph being built, a one-thread kernel node
+// `set_cond` that copies flag j into a new conditional handle, then the
+// while node on that handle; in the node's body graph the body's items and,
+// last, another `set_cond` of the same flag and handle. A while node
+// evaluates its handle before each run of its body, so a flag that is false
+// before the node runs the body no time. Conditional and set_cond nodes sit
+// only in the parent graph and in body graphs: a child graph node may not
+// hold a conditional node, and the pieces are only ever leaves.
 //
 // The graph calls use the runtime API of the toolkit this library is built
 // with; the pieces' graphs come from torch's runtime: both are CUgraph
 // objects of the device's primary context.
 //
 // C interface, bound with ctypes:
-//   graph_while_build(carry0, head, inner, tail, flag_ou, flag_in, &exec,
-//                     nodes[3], msg, msg_len): 0, or the cudaError_t of the
-//                     first step that failed, named in msg;
+//   graph_program_build(pieces[n_pieces], n_pieces, flags[n_flags], n_flags,
+//                       program[len], len, &exec, level_nodes[max_levels],
+//                       max_levels, msg, msg_len): 0, or the cudaError_t of
+//                       the first step that failed, named in msg (a
+//                       malformed program: cudaErrorInvalidValue);
+//                       level_nodes[d] the nodes of the graphs at nesting
+//                       depth d (0: the parent);
 //   graph_while_launch(exec, stream), graph_while_destroy(exec),
 //   graph_while_error_string(err).
 
@@ -43,37 +51,52 @@ __global__ void set_cond(cudaGraphConditionalHandle handle,
 
 namespace {
 
+int count_nodes(cudaGraph_t g) {
+  size_t n = 0;
+  return cudaGraphGetNodes(g, nullptr, &n) == cudaSuccess
+             ? static_cast<int>(n)
+             : -1;
+}
+
 struct Assembler {
+  cudaGraph_t* pieces;
+  int n_pieces;
+  const bool* const* flags;
+  int n_flags;
+  const int* prog;
+  int* level_nodes;
+  int max_levels;
   char* msg;
   int msg_len;
   cudaError_t err = cudaSuccess;
 
-  bool ok(cudaError_t e, const char* step) {
+  bool ok(cudaError_t e, const char* step, int at) {
     if (e != cudaSuccess && err == cudaSuccess) {
       err = e;
       if (msg != nullptr && msg_len > 0)
-        snprintf(msg, msg_len, "%s: %s (%s)", step, cudaGetErrorName(e),
-                 cudaGetErrorString(e));
+        snprintf(msg, msg_len, "%s (program item at %d): %s (%s)", step, at,
+                 cudaGetErrorName(e), cudaGetErrorString(e));
     }
     return err == cudaSuccess;
   }
 
   // `g`'s nodes in a chain: each node added depends on the one before
   // (`last`, null for the first).
-  bool child(cudaGraph_t g, cudaGraphNode_t* last, cudaGraph_t piece,
-             const char* step) {
+  bool child(cudaGraph_t g, cudaGraphNode_t* last, int i, int at) {
     cudaGraphNode_t n;
+    char step[96];
+    snprintf(step, sizeof step, "cudaGraphAddChildGraphNode (piece %d)", i);
     if (!ok(cudaGraphAddChildGraphNode(&n, g, *last ? last : nullptr,
-                                       *last ? 1 : 0, piece),
-            step))
+                                       *last ? 1 : 0, pieces[i]),
+            step, at))
       return false;
     *last = n;
     return true;
   }
 
   bool cond(cudaGraph_t g, cudaGraphNode_t* last,
-            cudaGraphConditionalHandle handle, const bool* flag,
-            const char* step) {
+            cudaGraphConditionalHandle handle, int j, int at) {
+    const bool* flag = flags[j];
     void* args[] = {&handle, &flag};
     cudaKernelNodeParams p = {};
     p.func = reinterpret_cast<void*>(set_cond);
@@ -83,9 +106,12 @@ struct Assembler {
     p.kernelParams = args;
     p.extra = nullptr;
     cudaGraphNode_t n;
+    char step[96];
+    snprintf(step, sizeof step, "cudaGraphAddKernelNode (set_cond, flag %d)",
+             j);
     if (!ok(cudaGraphAddKernelNode(&n, g, *last ? last : nullptr,
                                    *last ? 1 : 0, &p),
-            step))
+            step, at))
       return false;
     *last = n;
     return true;
@@ -93,82 +119,90 @@ struct Assembler {
 
   // a while node on `handle` after `last`; its (empty) body graph in *body
   bool loop(cudaGraph_t g, cudaGraphNode_t* last,
-            cudaGraphConditionalHandle handle, cudaGraph_t* body,
-            const char* step) {
+            cudaGraphConditionalHandle handle, cudaGraph_t* body, int j,
+            int at) {
     cudaGraphNodeParams p = {};
     p.type = cudaGraphNodeTypeConditional;
     p.conditional.handle = handle;
     p.conditional.type = cudaGraphCondTypeWhile;
     p.conditional.size = 1;
     cudaGraphNode_t n;
+    char step[96];
+    snprintf(step, sizeof step, "cudaGraphAddNode (while node, flag %d)", j);
     if (!ok(cudaGraphAddNode(&n, g, *last ? last : nullptr, *last ? 1 : 0,
                              &p),
-            step))
+            step, at))
       return false;
     *body = p.conditional.phGraph_out[0];
     *last = n;
     return true;
   }
-};
 
-int count_nodes(cudaGraph_t g) {
-  size_t n = 0;
-  return cudaGraphGetNodes(g, nullptr, &n) == cudaSuccess
-             ? static_cast<int>(n)
-             : -1;
-}
+  bool malformed(const char* what, int at) {
+    return ok(cudaErrorInvalidValue, what, at);
+  }
+
+  // the items prog[pos, end) into `g` (nesting depth `depth`), chained
+  // after *last
+  bool items(cudaGraph_t g, int pos, int end, int depth,
+             cudaGraphNode_t* last) {
+    while (pos < end) {
+      if (prog[pos] == 0 && pos + 2 <= end) {
+        int i = prog[pos + 1];
+        if (i < 0 || i >= n_pieces) return malformed("piece index", pos);
+        if (!child(g, last, i, pos)) return false;
+        pos += 2;
+      } else if (prog[pos] == 1 && pos + 3 <= end) {
+        int j = prog[pos + 1], n = prog[pos + 2];
+        if (j < 0 || j >= n_flags) return malformed("flag index", pos);
+        if (n < 0 || pos + 3 + n > end) return malformed("body length", pos);
+        if (depth + 1 >= max_levels) return malformed("nesting depth", pos);
+        cudaGraphConditionalHandle h = 0;
+        cudaGraph_t body = nullptr;
+        cudaGraphNode_t body_last = nullptr;
+        if (!ok(cudaGraphConditionalHandleCreate(&h, g, 0, 0),
+                "cudaGraphConditionalHandleCreate", pos) ||
+            !cond(g, last, h, j, pos) || !loop(g, last, h, &body, j, pos) ||
+            !items(body, pos + 3, pos + 3 + n, depth + 1, &body_last) ||
+            !cond(body, &body_last, h, j, pos))
+          return false;
+        level_nodes[depth + 1] += count_nodes(body);
+        pos += 3 + n;
+      } else {
+        return malformed("item code", pos);
+      }
+    }
+    return true;
+  }
+};
 
 }  // namespace
 
-extern "C" int graph_while_build(void* carry0, void* head, void* inner,
-                                 void* tail, const void* flag_ou,
-                                 const void* flag_in, void** exec_out,
-                                 int* nodes_out, char* msg, int msg_len) {
-  Assembler b{msg, msg_len};
-  const bool* f_ou = static_cast<const bool*>(flag_ou);
-  const bool* f_in = static_cast<const bool*>(flag_in);
-  cudaGraph_t parent = nullptr, body_ou = nullptr, body_in = nullptr;
-  cudaGraphConditionalHandle h_ou = 0, h_in = 0;
-  cudaGraphNode_t last = nullptr, last_ou = nullptr, last_in = nullptr;
+extern "C" int graph_program_build(void** pieces, int n_pieces,
+                                   const void** flags, int n_flags,
+                                   const int* program, int len,
+                                   void** exec_out, int* level_nodes,
+                                   int max_levels, char* msg, int msg_len) {
+  Assembler b{reinterpret_cast<cudaGraph_t*>(pieces),
+              n_pieces,
+              reinterpret_cast<const bool* const*>(flags),
+              n_flags,
+              program,
+              level_nodes,
+              max_levels,
+              msg,
+              msg_len};
   *exec_out = nullptr;
-
-  if (!b.ok(cudaGraphCreate(&parent, 0), "cudaGraphCreate (parent)"))
+  for (int d = 0; d < max_levels; ++d) level_nodes[d] = 0;
+  cudaGraph_t parent = nullptr;
+  if (!b.ok(cudaGraphCreate(&parent, 0), "cudaGraphCreate (parent)", 0))
     return b.err;
-  bool done =
-      b.ok(cudaGraphConditionalHandleCreate(&h_ou, parent, 0, 0),
-           "cudaGraphConditionalHandleCreate (outer)") &&
-      b.child(parent, &last, static_cast<cudaGraph_t>(carry0),
-              "cudaGraphAddChildGraphNode (carry0)") &&
-      b.cond(parent, &last, h_ou, f_ou,
-             "cudaGraphAddKernelNode (set_cond outer, parent)") &&
-      b.loop(parent, &last, h_ou, &body_ou,
-             "cudaGraphAddNode (outer while node)") &&
-      // the outer body
-      b.ok(cudaGraphConditionalHandleCreate(&h_in, body_ou, 0, 0),
-           "cudaGraphConditionalHandleCreate (inner)") &&
-      b.child(body_ou, &last_ou, static_cast<cudaGraph_t>(head),
-              "cudaGraphAddChildGraphNode (head)") &&
-      b.cond(body_ou, &last_ou, h_in, f_in,
-             "cudaGraphAddKernelNode (set_cond inner, outer body)") &&
-      b.loop(body_ou, &last_ou, h_in, &body_in,
-             "cudaGraphAddNode (inner while node)") &&
-      // the inner body
-      b.child(body_in, &last_in, static_cast<cudaGraph_t>(inner),
-              "cudaGraphAddChildGraphNode (inner)") &&
-      b.cond(body_in, &last_in, h_in, f_in,
-             "cudaGraphAddKernelNode (set_cond inner, inner body)") &&
-      // the outer body's tail
-      b.child(body_ou, &last_ou, static_cast<cudaGraph_t>(tail),
-              "cudaGraphAddChildGraphNode (tail)") &&
-      b.cond(body_ou, &last_ou, h_ou, f_ou,
-             "cudaGraphAddKernelNode (set_cond outer, outer body)");
-  if (done) {
-    nodes_out[0] = count_nodes(parent);
-    nodes_out[1] = count_nodes(body_ou);
-    nodes_out[2] = count_nodes(body_in);
+  cudaGraphNode_t last = nullptr;
+  if (b.items(parent, 0, len, 0, &last)) {
+    level_nodes[0] = count_nodes(parent);
     cudaGraphExec_t exec = nullptr;
     if (b.ok(cudaGraphInstantiate(&exec, parent, 0),
-             "cudaGraphInstantiate (parent)"))
+             "cudaGraphInstantiate (parent)", 0))
       *exec_out = exec;
   }
   cudaGraphDestroy(parent);  // the body graphs belong to their nodes

@@ -16,10 +16,12 @@ versions. Every step passes `problem.all_shooting()` as the solve's
 `parallel_rollout`, so the steps after a back-phase append (whose last phase
 is too short to shoot) take the sequential rollout.
 
-On a CUDA device a step replays one of the fleet's two CUDA graphs (parallel
-and sequential rollout, `fused.fleet_step`), each captured at its first
-step, with the robots' state resident in the fleet's buffers: the graph
-reads it and writes the new state over it. The cold solve (`initialize`)
+On a CUDA device a step replays one of the fleet's two device programs
+(parallel and sequential rollout, `fused.fleet_step`), each built at its
+first step, with the robots' state resident in the fleet's buffers: the
+program reads it and writes the new state over it. A step runs its AL and
+DDP loops to their caps (`FleetConfig.unroll_caps`, True as in the JAX
+fleet) or stopped, and its retry loop stopped. The cold solve (`initialize`)
 takes the loops that stop (`unroll_caps=False`), as the JAX package's does:
 on the card the solve's while graph (`graphs.solve_while`). A reset
 (`initialize` again, `utils.checkpoint.load_fleet`) copies the new tables
@@ -68,6 +70,9 @@ class FleetConfig:
     # solve path: True = K1 (default HKD model), False = dense path (K2);
     # None = True on a CUDA device in float32, False otherwise
     kernel_jac: Optional[bool] = None
+    # the steps' AL and DDP loops: run to their caps and masked (True, the
+    # batched-throughput form) or stopped once no robot runs on (False)
+    unroll_caps: bool = True
     # the parallel-in-time recursions of the batch-1 path (ops/assoc.py),
     # on the dense path only: they lose at a batch that fills the device
     assoc_linear: bool = False
@@ -221,7 +226,8 @@ class FleetMPC:
         self._state_dev, bundle = fused.fleet_step(
             self._tables, self._state_dev, ints, floats, meas_b,
             self.opt.runtime(), pb.all_shooting(), self.n_cmd,
-            self._kernel_jac, self.cfg.assoc_linear, self.cfg.assoc_backward)
+            self._kernel_jac, self.cfg.assoc_linear, self.cfg.assoc_backward,
+            unroll_caps=self.cfg.unroll_caps)
         self.mpc_iter += 1
         return bundle, aux, t0
 

@@ -25,12 +25,15 @@ The JAX package writes the core for one robot and vmaps it; here
 vectors gather every robot's rows at once (`state.Xbar[:, gidx]`).
 `_fused_core` is the eager body (the JAX package's un-jitted core);
 `fleet_step` is the compiled entry point and `fused_step`, the single
-robot's, one call of it at N = 1. On a CUDA device a step replays its CUDA
-graph (`solver/graphs.py`, one per (`parallel_rollout`, flags, shapes),
-two per fleet: parallel and sequential rollout), and the previous state is
-donated as in the JAX package (`donate_argnums=(1,)`): the graph writes the
-new state over it, and the state returned is the one passed in. On the
-CPU the step runs `_fused_core` eagerly and returns a new state.
+robot's, one call of it at N = 1; both take the JAX step's `model` and
+`unroll_caps`. On a CUDA device a step replays its device program
+(`solver/graphs.py`: the captured pieces `step_pre`, the solve's and
+`step_post` under the solve's while nodes; one per (`parallel_rollout`,
+flags, model, shapes), two per fleet: parallel and sequential rollout),
+and the previous state is donated as in the JAX package
+(`donate_argnums=(1,)`): the program writes the new state over it, and
+the state returned is the one passed in. On the CPU the step runs
+`_fused_core` eagerly and returns a new state.
 """
 
 from __future__ import annotations
@@ -227,18 +230,11 @@ def host_step(pb, old_offsets, nsteps, n_cmd, mpc_time, timestep, np_dtype):
 # the device step
 # ---------------------------------------------------------------------------
 
-def _fused_core(tables, state, ints, floats, meas, opt, parallel_rollout,
-                n_cmd, kernel_jac, assoc_linear=False, assoc_backward=False,
-                capturable=False):
-    """The receding-horizon step of N robots as a function of device
-    tensors: tables (make_tables), state (the batched SolverState of the
-    previous step), ints / floats (the shared host_step vectors on the
-    device), meas (N, 28). parallel_rollout is the problem's
-    `all_shooting()`; kernel_jac picks the solve path (True: K1, False: the
-    dense path with K2), assoc_linear / assoc_backward the dense path's
-    parallel-in-time recursions (`ddp.solve_batch`); capturable, the solve
-    body that reads nothing on the host (`ddp._solve_batch`). Returns (new
-    state, bundle (N, L))."""
+def step_pre(tables, state, ints, floats, meas, n_cmd):
+    """The step's device half up to the solve: the packed vectors unpacked,
+    the warm-start gathers over the previous state, the problem rebuilt
+    from the tables, x0 from the measurements. Reads `state` and writes
+    nothing. Returns the solve's (prob, new state)."""
     N, T = state.Ubar.shape[0], state.Ubar.shape[1]
     dtype = state.Xbar.dtype
     iv = _unpack(ints.long(), _int_layout(T, n_cmd))
@@ -302,14 +298,17 @@ def _fused_core(tables, state, ints, floats, meas, opt, parallel_rollout,
     new_state = SolverState(Xbar=Xbar, Ubar=Ubar, dU=dU, K=K, dX=dX,
                             defect_bar=defect, constr=constr)
 
-    # ---- 4. solve ----------------------------------------------------------
-    ddp._check_flags(kernel_jac, None, assoc_linear, assoc_backward, False,
-                     False)
-    res = ddp._solve_batch(prob, new_state, opt, kernel_jac=kernel_jac,
-                           parallel_rollout=parallel_rollout and opt.MS,
-                           assoc_linear=assoc_linear,
-                           assoc_backward=assoc_backward,
-                           capturable=capturable)
+    return prob, new_state
+
+
+def step_post(res, ints, n_cmd):
+    """The step's device half after the solve: the command gathers
+    (make_command walk, HKDMPC.cpp:242-298) and the bundle (N, L) of the
+    SolveResult `res`."""
+    N, T = res.state.Ubar.shape[0], res.state.Ubar.shape[1]
+    dtype = res.state.Xbar.dtype
+    iv = _unpack(ints.long(), _int_layout(T, n_cmd))
+    mask = lambda idx: (idx >= 0).to(dtype)
 
     # ---- 5. command extraction (make_command walk, HKDMPC.cpp:242-298) ----
     ci = iv["cmd_idx"]
@@ -331,50 +330,86 @@ def _fused_core(tables, state, ints, floats, meas, opt, parallel_rollout,
         scalars, res.cost_trace, res.feas_trace, res.eqn_trace,
         res.ineq_trace, controls.reshape(N, -1), body.reshape(N, -1),
         gains.reshape(N, -1), pf.reshape(N, -1)], dim=1)
-    return res.state, bundle
+    return bundle
+
+
+def _fused_core(tables, state, ints, floats, meas, opt, parallel_rollout,
+                n_cmd, kernel_jac, assoc_linear=False, assoc_backward=False,
+                *, model=None, unroll_caps=False):
+    """The receding-horizon step of N robots as a function of device
+    tensors: tables (make_tables), state (the batched SolverState of the
+    previous step), ints / floats (the shared host_step vectors on the
+    device), meas (N, 28). parallel_rollout is the problem's
+    `all_shooting()`; kernel_jac picks the solve path (True: K1, False: the
+    dense path for `model`, None meaning `hkd_model_spec()`, with K2),
+    assoc_linear / assoc_backward the dense path's parallel-in-time
+    recursions, unroll_caps the AL and DDP loops run to their caps (True)
+    or stopped (False), as `ddp.solve_batch`. The eager body: `step_pre`,
+    the solve's pieces (`ddp._solve_batch`), `step_post`, the order in
+    which the step's device program runs them (`graphs.fused_step`).
+    Returns (new state, bundle (N, L))."""
+    ddp._check_flags(kernel_jac, model, assoc_linear, assoc_backward, False,
+                     False)
+    prob, new_state = step_pre(tables, state, ints, floats, meas, n_cmd)
+    res = ddp._solve_batch(prob, new_state, opt, kernel_jac=kernel_jac,
+                           model=model,
+                           parallel_rollout=parallel_rollout and opt.MS,
+                           assoc_linear=assoc_linear,
+                           assoc_backward=assoc_backward,
+                           unroll_caps=unroll_caps)
+    return res.state, step_post(res, ints, n_cmd)
 
 
 def fleet_step(tables, state, ints, floats, meas, opt, parallel_rollout,
-               n_cmd, kernel_jac, assoc_linear=False, assoc_backward=False):
+               n_cmd, kernel_jac, assoc_linear=False, assoc_backward=False,
+               *, model=None, unroll_caps=False):
     """The batched fleet step: tables and the schedule vectors shared,
     state and measurements per robot (reference analog, per robot:
     HKDMPC.cpp:96-166 + HKDProblem.cpp:116-222). ints, floats and meas are
     host arrays (`host_step`'s vectors, the (N, 28) measurements) or
     tensors. Host I/O per step on the card: those three in, the bundle out.
+    model and unroll_caps as `_fused_core` (the JAX package's defaults:
+    the default model, the loops that stop).
 
-    On CUDA the step replays its graph (`graphs.fused_step`) and donates
-    `state`: the new state is written over it and `state` itself is
-    returned. On the CPU `_fused_core` runs eagerly and returns a new state.
-    Returns (new state, bundle (N, L))."""
+    On CUDA the step replays its device program (`graphs.fused_step`) and
+    donates `state`: the new state is written over it and `state` itself
+    is returned. On the CPU `_fused_core` runs eagerly and returns a new
+    state. Returns (new state, bundle (N, L))."""
     if state.Xbar.device.type == "cuda":
         from hkdmpc_tpu_torch.solver import graphs
+        ddp._check_flags(kernel_jac, model, assoc_linear, assoc_backward,
+                         False, False)
         return graphs.fused_step(
             tables, state, ints, floats, meas, opt=opt,
             parallel_rollout=parallel_rollout, n_cmd=n_cmd,
             kernel_jac=kernel_jac, assoc_linear=assoc_linear,
-            assoc_backward=assoc_backward)
+            assoc_backward=assoc_backward, model=model,
+            unroll_caps=unroll_caps)
     return fleet_step_eager(tables, state, ints, floats, meas, opt,
                             parallel_rollout, n_cmd, kernel_jac,
-                            assoc_linear, assoc_backward)
+                            assoc_linear, assoc_backward, model=model,
+                            unroll_caps=unroll_caps)
 
 
 def fleet_step_eager(tables, state, ints, floats, meas, opt,
                      parallel_rollout, n_cmd, kernel_jac,
-                     assoc_linear=False, assoc_backward=False):
-    """`fleet_step` as its eager body on any device (the retry loop stops
-    on the host), the host arrays made into tensors first: the CPU's step, and on
-    the card the yardstick of the graphs (`chip_smoke.py` phase 11,
-    `profile_solve`). Returns (new state, bundle (N, L))."""
+                     assoc_linear=False, assoc_backward=False, *,
+                     model=None, unroll_caps=False):
+    """`fleet_step` as its eager body on any device (the loops stop on the
+    host), the host arrays made into tensors first: the CPU's step, and on
+    the card the yardstick of the graphs (`chip_smoke.py` phases 11 and
+    14, `profile_solve`). Returns (new state, bundle (N, L))."""
     dev, dtype = state.Xbar.device, state.Xbar.dtype
     on = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev)
     return _fused_core(tables, state, on(ints, torch.int32),
                        on(floats, dtype), on(meas, dtype), opt,
                        parallel_rollout, n_cmd, kernel_jac, assoc_linear,
-                       assoc_backward)
+                       assoc_backward, model=model, unroll_caps=unroll_caps)
 
 
 def fused_step(tables, state, ints, floats, meas, opt, parallel_rollout,
-               n_cmd, *, kernel_jac, assoc_linear, assoc_backward):
+               n_cmd, *, kernel_jac, assoc_linear, assoc_backward,
+               model=None, unroll_caps=False):
     """The batch-1 entry point: one robot's step, `state` and `meas` (28,)
     without a robot axis; one call of `fleet_step` at N = 1 (on the card
     the state is donated, as there). Returns (new state, bundle (L,))."""
@@ -382,5 +417,5 @@ def fused_step(tables, state, ints, floats, meas, opt, parallel_rollout,
         tables, tree_map(lambda a: a[None], state), ints, floats,
         np.asarray(meas)[None] if not isinstance(meas, torch.Tensor)
         else meas[None], opt, parallel_rollout, n_cmd, kernel_jac,
-        assoc_linear, assoc_backward)
+        assoc_linear, assoc_backward, model=model, unroll_caps=unroll_caps)
     return tree_map(lambda a: a[0], new_state), bundle[0]

@@ -19,10 +19,11 @@ solve time — lcmtypes/hkd_command_lcmt.lcm).
   (`MPCConfig.fused_step`) keeps the SolverState on the device and runs
   `fused.fused_step`; its two halves `update_async` /
   `update_fused_complete` let a service loop do other work between them.
-  On a CUDA device an update replays a CUDA graph (the fused step's, or the
-  classic solve's through `ddp.solve`), captured at the first update of its
-  kind, in whichever thread runs it; the cold solve takes the loops that
-  stop (`unroll_caps=False`), on the card as the solve's while graph. A
+  Every solve takes the loops that stop (`unroll_caps=False`), as the JAX
+  solver's `solve_jit` and fused step do: on a CUDA device an update
+  replays a device program (the fused step's, or the classic solve's
+  through `ddp.solve`) whose loops are conditional while nodes, built at
+  the first update of its kind, in whichever thread runs it. A
   reset (`initialize`, `resume`) copies the new tables and state into the
   resident ones (`graphs.rearm`), so the step graphs keyed on their
   addresses replay on.
@@ -227,10 +228,9 @@ class HKDMPCSolver:
 
     def _solve(self, x0, opt, cold: bool = False):
         """Build the problem at x0, solve it with option set `opt`, write
-        the result into the per-phase arrays; times the solve. The cold
-        solve, and every solve on the CPU, takes the loops that stop (on
-        the card their while graph); an update on the card replays the
-        unroll_caps graph."""
+        the result into the per-phase arrays; times the solve. The loops
+        that stop (on the card the solve's while graph), cold or not, as
+        the JAX solver's `solve_jit`."""
         prob, state = self.problem.build(x0)
         t0 = time.perf_counter()
         res = ddp.solve(prob, state, opt, kernel_jac=False,
@@ -238,7 +238,7 @@ class HKDMPCSolver:
                         assoc_linear=self.cfg.assoc_linear,
                         assoc_backward=self._assoc_bw,
                         scan_backward=self._on_cpu and not self._assoc_bw,
-                        unroll_caps=not (self._on_cpu or cold))
+                        unroll_caps=False)
         self._sync()
         self.solve_time = (time.perf_counter() - t0) * 1e3
         self.problem.unflatten(res.state)

@@ -30,7 +30,8 @@ only; on CUDA anything else raises NotImplementedError here, and in the
 solver before it calls this function: neither has a fallback. The scan sweep
 (`scan_backward=True`) takes such LQ data where the caller asks for it.
 `LAUNCHES` counts the kernel's first-sweep launches, `RETRY_LAUNCHES` its
-masked retry launches.
+masked retry launches (a device program's launches are folded in when they
+are read, `ops/counters.py`).
 """
 
 from __future__ import annotations
@@ -39,10 +40,11 @@ import ctypes
 
 import torch
 
-from hkdmpc_tpu_torch.ops import consts, precise
+from hkdmpc_tpu_torch.ops import consts, counters, precise
 
 LAUNCHES = 0
 RETRY_LAUNCHES = 0
+counters.install(__name__, ("LAUNCHES", "RETRY_LAUNCHES"))
 NX = 24  # the kernel's state and control width
 BULK_COPY_ALIGN = 16  # bytes: source alignment of a bulk asynchronous copy
 

@@ -22,7 +22,9 @@ an inactive scenario returns before its first load).
 `backward_sweep_hkd_plain`, CUDA tensors to the kernel
 (`csrc/riccati_hkd.cu`, f32 only), which raises on anything it does not
 take. There is no fallback from one to the other. `LAUNCHES` counts the
-kernel's first-sweep launches, `RETRY_LAUNCHES` its masked retry launches.
+kernel's first-sweep launches, `RETRY_LAUNCHES` its masked retry launches
+(a device program's launches are folded in when they are read,
+`ops/counters.py`).
 """
 
 from __future__ import annotations
@@ -32,12 +34,13 @@ import types
 
 import torch
 
-from hkdmpc_tpu_torch.ops import consts, hkd_tminor, precise
+from hkdmpc_tpu_torch.ops import consts, counters, hkd_tminor, precise
 from hkdmpc_tpu_torch.ops.jac_tminor import build_AB_tminor
 from hkdmpc_tpu_torch.solver.structs import DYN
 
 LAUNCHES = 0
 RETRY_LAUNCHES = 0
+counters.install(__name__, ("LAUNCHES", "RETRY_LAUNCHES"))
 
 
 def backward_sweep_hkd(kind, X, U, contact, contact_next, xr, ur, foot_r,

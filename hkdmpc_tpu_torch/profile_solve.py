@@ -18,10 +18,12 @@ the eager body (`ddp._solve_batch`) and one of the CUDA graph
 (`ddp.solve_batch`, captured there), then:
   1. stage wall times of the eager body: the solver's stages are wrapped
      with a synchronize on both sides (initial/line-search rollouts, cost
-     evaluation, the LQ approximation of the dense path, backward sweep
-     with its retry loop, the CUDA kernel inside it, the linear rollout),
-     and their host-clock times summed over 3 solves, beside the unwrapped
-     eager and graph solve times from CUDA events;
+     evaluation, the LQ approximation of the dense path, the backward
+     sweep's first sweep and its retries apart, the CUDA kernel inside
+     them, the linear rollout), and their host-clock times summed over 3
+     solves, beside the unwrapped eager and graph solve times from CUDA
+     events, and the device program's nodes captured and the nodes and
+     retries its last replay ran;
   2. one eager solve and one graph replay under torch.profiler: device time
      by kernel name (top 15), and the device-busy share of the wall time.
 `mpc1` is one warm update of the single-robot `HKDMPCSolver` (B = 1, dense
@@ -30,6 +32,13 @@ measurements, eager (`fused.fleet_step_eager`) for the stages and beside
 the graph for the times and profiles; `mpc1 dense` turns the solver's
 parallel-in-time recursions off (the CUDA kernel of the dense sweep at
 batch 1).
+`forms` builds the solve of one robot's update (B = 1, the dense path with
+K2, runtime caps) 5 times as its device program (the pieces assembled, the
+retry loops as while nodes) and, beside each, the same pieces captured in
+the program's order as one plain torch graph (no child graph, no
+conditional node: the parent commit's form of a replay); prints each
+one's replay ms (CUDA events, median, min and max of 15) and the card's
+clocks and power (nvidia-smi) after the replays.
 Prints the card's name and power limit. Needs a CUDA device.
 """
 
@@ -45,7 +54,8 @@ PLAN = 0.6
 MPC1_WARMUP = 3
 
 
-PATHS = ("kernel_jac", "dense", "sequential", "mpc1")
+PATHS = ("kernel_jac", "dense", "sequential", "mpc1", "forms")
+FORM_INSTANCES = 5
 
 
 def card_line() -> str:
@@ -133,6 +143,8 @@ def main(path: str = "kernel_jac", flags: str = "assoc"):
         raise SystemExit("needs a CUDA device")
     if path == "mpc1":
         return mpc1(torch, flags)
+    if path == "forms":
+        return forms(torch)
     from hkdmpc_tpu_torch.mpc.solver import default_stand_state
     from hkdmpc_tpu_torch.ops import riccati_dense, riccati_hkd
     from hkdmpc_tpu_torch.parallel.batch import (perturb_scenarios,
@@ -178,16 +190,16 @@ def main(path: str = "kernel_jac", flags: str = "assoc"):
         stages += [
             (lq, "lq_approximation", "LQ approximation (dense)"),
             (rollout, "linear_rollout", "dense linear rollout + dV"),
-            (backward, "backward_sweep_regularized",
-             "backward sweep (retry loop)"),
+            (backward, "first_sweep", "backward sweep (first sweep)"),
+            (backward, "retry_sweep", "backward sweep (retries)"),
             (riccati_dense, "backward_sweep_dense_cuda",
              "  of which the CUDA kernel")]
     else:
         stages += [
             (rollout, "linear_rollout_jvp",
              "jvp linear rollout + closed-form dV"),
-            (backward, "backward_sweep_regularized",
-             "backward sweep (retry loop)"),
+            (backward, "first_sweep", "backward sweep (first sweep)"),
+            (backward, "retry_sweep", "backward sweep (retries)"),
             (riccati_hkd, "backward_sweep_hkd_cuda",
              "  of which the CUDA kernel")]
     wrapped_ms, times = stage_times(torch, stages, solve, 3)
@@ -199,8 +211,76 @@ def main(path: str = "kernel_jac", flags: str = "assoc"):
           f"{graph_ms:.3f} ms (CUDA events, mean of 3); eager with stage "
           f"syncs {wrapped_ms:.3f} ms")
     print_stages(wrapped_ms, times, "solve")
+    print(program_text(f"solve_batch(B={BATCH},"))
     profile_once(torch, solve, "eager solve")
     profile_once(torch, graph_solve, "graph replay")
+
+
+def program_text(head: str) -> str:
+    """The device programs whose label starts with `head`: nodes captured,
+    and the nodes and retries their last replay ran (`graphs.stats`)."""
+    from hkdmpc_tpu_torch.solver import graphs
+    return "\n".join(
+        f"program {st['label']}: {st['nodes']} nodes captured, "
+        f"{st['nodes_run']} run and {st['retries']} retries in the last "
+        f"replay, {st['replays']} replays" for st in graphs.stats()
+        if st["label"].startswith(head)) or f"no program {head}"
+
+
+def forms(torch):
+    """`forms`: the B = 1 K2 solve's device program against one torch
+    graph of the same pieces, FORM_INSTANCES instances each."""
+    import statistics
+    from hkdmpc_tpu_torch.parallel.batch import replicate_problem
+    from hkdmpc_tpu_torch.solver import graphs
+    from hkdmpc_tpu_torch.workload import trot_problem
+
+    card = card_line()
+    _, prob, state, opt = trot_problem(PLAN, dtype=torch.float32,
+                                       device="cuda")
+    prob, state = replicate_problem(prob, state, 1)
+    flags = dict(kernel_jac=False, model=None, parallel_rollout=True,
+                 assoc_linear=False, assoc_backward=False,
+                 scan_backward=False, aug_sweep=True, jvp_linear=False)
+
+    def times(fn, n=15):
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(n):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            out.append(a.elapsed_time(b))
+        return (f"{statistics.median(out):.3f} [{min(out):.3f}, "
+                f"{max(out):.3f}]")
+
+    clocks = lambda: subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,pstate,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(f"forms: B=1 T={prob.kind.shape[1]} f32 dense path (K2) runtime "
+          f"caps, ms per replay (CUDA events, median [min, max] of 15), on "
+          f"{card}")
+    for inst in range(FORM_INSTANCES):
+        prog = graphs.SolveProgram(prob, state, opt.runtime(), flags, True)
+        program = graphs.build_program("forms", prog)
+        assembled = times(lambda: graphs.replay_program(program))
+        stream = graphs._capture_stream(prob.xr.device)
+        stream.wait_stream(torch.cuda.current_stream())
+        plain = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(plain, pool=graphs._pool(prob.xr.device),
+                              stream=stream):
+            for name in prog.code:
+                if isinstance(name, str):   # no retry runs on this input
+                    prog.run(name)
+        print(f"instance {inst}: device program {assembled}, one torch "
+              f"graph of its pieces {times(plain.replay)}; clocks, pstate, "
+              f"power: {clocks()}", flush=True)
+        del program, plain, prog
+        graphs.clear_graphs()
 
 
 def cuda_mean_ms(torch, fn, reps):
@@ -276,8 +356,8 @@ def mpc1(torch, flags):
          "rollout (initial + line search)"),
         (rollout, "compute_cost", "cost + constraint rows"),
         (lq, "lq_approximation", "LQ approximation (dense)"),
-        (backward, "backward_sweep_regularized",
-         "backward sweep (retry loop)")]
+        (backward, "first_sweep", "backward sweep (first sweep)"),
+        (backward, "retry_sweep", "backward sweep (retries)")]
     if flags == "assoc":
         stages += [(assoc, "riccati_backward_assoc",
                     "  of which the parallel-in-time sweep"),
@@ -302,6 +382,7 @@ def mpc1(torch, flags):
           f"ms (host clock around the blocking update, mean of 2); eager "
           f"with stage syncs {wrapped_ms:.3f} ms")
     print_stages(wrapped_ms, times, "update")
+    print(program_text("fleet_step(N=1,"))
     profile_once(torch, update, "graph update")
 
 

@@ -21,8 +21,10 @@ scenarios — port of `hkdmpc_tpu/solver/backward.py` (main path).
   these sweeps, or around the parallel-in-time one
   (`ops/assoc.riccati_backward_assoc`, plain tensor code on any device).
   Each retry sweeps the scenarios still active (the kernels take the mask
-  and skip the others); the loop stops on the host once none is active, or,
-  inside a CUDA graph (`bounded_retry`), runs its `retry_sweeps` bound.
+  and skip the others). Its pieces, `first_sweep` and `retry_sweep`, each
+  end with the loop's condition on the device (`again`): the eager
+  composition reads it on the host, the device programs run the retries
+  under a conditional while node on it (`solver/graphs.py`).
 
 Parity: SinglePhase::backward_sweep (SinglePhase.cpp:299-367),
 MultiPhaseDDP::impact_aware_step (MultiPhaseDDP.cpp:480-484),
@@ -34,14 +36,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hkdmpc_tpu_torch.ops import (assoc, consts, precise, riccati_dense,
-                                  riccati_hkd)
+from hkdmpc_tpu_torch.ops import (assoc, consts, counters, precise,
+                                  riccati_dense, riccati_hkd)
 from hkdmpc_tpu_torch.ops.linalg import sweep_inverse
 from hkdmpc_tpu_torch.solver.structs import DYN, RESET
 
 REG_MIN_STEP = 1e-3   # reference: MultiPhaseDDP.cpp:157
 REG_MAX = 1e2         # reference: MultiPhaseDDP.cpp:160
 CHOL_SHIFT = 1e-9     # reference: SinglePhase.cpp:337
+
+RETRY_SWEEPS = 0      # retry sweeps run (`retry_sweep`), on every route
+counters.install(__name__, ("RETRY_SWEEPS",))
 
 
 def _riccati_step_aug_sweep(Qx, Qu, Qxx, Quu, Qux):
@@ -292,36 +297,12 @@ def _grow(reg, failed, grow, update_regularization):
             failed | (grow & (reg_next > REG_MAX)))
 
 
-def backward_sweep_regularized(prob, defect, regularization,
-                               update_regularization, last_node, *,
-                               kernel_jac_XU=None, lq=None,
-                               assoc_backward: bool = False,
-                               scan: bool = False, aug_sweep: bool = True,
-                               bounded_retry: bool = False):
-    """Retry the sweep with growing per-scenario regularization until Quu is
-    PSD everywhere or the regularization exceeds REG_MAX (then that
-    scenario's solve fails). A retry sweeps the scenarios that are neither
-    ok nor failed; the others keep their outputs.
-
-    Exactly one of: kernel_jac_XU = (X, U, reb_delta, reb_eps, al_sigma,
-    al_lambda) for the default HKD model's sweep (`riccati_backward_hkd`),
-    or lq = LQData. With lq: assoc_backward=True takes the parallel-in-time
-    sweep `ops/assoc.riccati_backward_assoc`; scan=True the scan route
-    `backward_sweep` (with `aug_sweep`); neither, the dense route
-    `riccati_backward` (`_dense_route`: on the CPU a cross term takes the
-    scan route; on CUDA what the kernel does not take raises). Every route
-    but the dense kernel's reads lq.lux.
-
-    The kernels take the active mask: a retry launches for every scenario
-    and the blocks of those that are done return at once, writing into the
-    first sweep's outputs. The tensor-code routes (assoc, scan) sweep every
-    scenario and keep the active rows. bounded_retry=False stops once no
-    scenario is active (a host read per retry); True runs
-    `retry_sweeps(update_regularization)` sweeps in all, with no host read,
-    as a CUDA graph needs: the same sweeps with the same reg for every
-    scenario, so the same outputs.
-    Returns (dU, K, dV_1, dV_2, reg_out, success, solve_failed); reg_out is
-    the post-success relaxation reg/20, zeroed below 1e-6."""
+def _route_sweep(prob, defect, last_node, kernel_jac_XU, lq,
+                 assoc_backward, scan, aug_sweep):
+    """The sweep of the route the arguments name, as
+    sweep(reg, active=None, out=None) -> (dU, K, dv1, dv2, ok): a first
+    sweep (no mask) or a retry into `out` (the kernels take the mask; the
+    tensor-code routes sweep every scenario and keep the active rows)."""
     if (kernel_jac_XU is None) == (lq is None):
         raise ValueError("give exactly one of kernel_jac_XU= and lq=")
     if lq is None and (assoc_backward or scan):
@@ -352,7 +333,32 @@ def backward_sweep_regularized(prob, defect, regularization,
                 prob.ur, prob.foot_r, rbd, rbe, prob.term_contact,
                 prob.td_mask, sig, lam, prob.term_mask, defect, reg,
                 last_node, prob.dt, active=active, out=out)
+    return sweep
 
+
+OUTS = ("dU", "K", "dv1", "dv2", "ok")
+
+
+def _carry(out, reg, failed) -> dict:
+    """The retry loop's carry: the five sweep outputs, the per-scenario reg
+    and failed flags, and `again`, the loop's condition as a () bool
+    tensor: whether a scenario is neither ok nor failed."""
+    bw = dict(zip(OUTS, out), reg=reg, failed=failed)
+    bw["again"] = (~bw["ok"] & ~failed).any()
+    return bw
+
+
+def first_sweep(prob, defect, regularization, update_regularization,
+                last_node, *, kernel_jac_XU=None, lq=None,
+                assoc_backward: bool = False, scan: bool = False,
+                aug_sweep: bool = True) -> dict:
+    """The retry loop's first piece: the first sweep at `regularization`
+    (a number or (B,)), then the reg of the scenarios that are not PSD
+    grows. Returns the loop's carry (`_carry`); reads nothing on the host.
+    The route keywords as `backward_sweep_regularized`."""
+    retry_sweeps(update_regularization)   # refuses a reg that cannot grow
+    sweep = _route_sweep(prob, defect, last_node, kernel_jac_XU, lq,
+                         assoc_backward, scan, aug_sweep)
     nb = prob.kind.shape[0]
     reg = consts.per_scenario(regularization, nb, defect.dtype,
                               defect.device).contiguous()
@@ -360,15 +366,73 @@ def backward_sweep_regularized(prob, defect, regularization,
     out = tuple(t.contiguous() for t in sweep(reg))
     reg, failed = _grow(reg, torch.zeros_like(out[4]), ~out[4],
                         update_regularization)
-    for _ in range(retry_sweeps(update_regularization) - 1):
-        active = ~out[4] & ~failed
-        if not bounded_retry and not bool(active.any()):
-            break
-        out = tuple(sweep(reg, active, out))
-        reg, failed = _grow(reg, failed, active & ~out[4],
-                            update_regularization)
+    return _carry(out, reg, failed)
 
-    dU, K, dv1, dv2, ok = out
-    reg_out = reg / 20.0
+
+def retry_sweep(prob, defect, update_regularization, last_node, bw, *,
+                kernel_jac_XU=None, lq=None, assoc_backward: bool = False,
+                scan: bool = False, aug_sweep: bool = True) -> dict:
+    """One step of the retry loop on its carry `bw`: the scenarios that are
+    neither ok nor failed are swept again at their grown reg, into bw's
+    outputs (in place), and the reg of those still not PSD grows (failed
+    past REG_MAX). Returns the new carry; reads nothing on the host."""
+    global RETRY_SWEEPS
+    sweep = _route_sweep(prob, defect, last_node, kernel_jac_XU, lq,
+                         assoc_backward, scan, aug_sweep)
+    active = ~bw["ok"] & ~bw["failed"]
+    out = tuple(sweep(bw["reg"], active, tuple(bw[k] for k in OUTS)))
+    reg, failed = _grow(bw["reg"], bw["failed"], active & ~out[4],
+                        update_regularization)
+    RETRY_SWEEPS += 1
+    return _carry(out, reg, failed)
+
+
+def finish(bw) -> tuple:
+    """The loop's result from its carry: (dU, K, dV_1, dV_2, reg_out,
+    success, solve_failed), reg_out the post-success relaxation reg/20,
+    zeroed below 1e-6."""
+    reg_out = bw["reg"] / 20.0
     reg_out = torch.where(reg_out < 1e-6, torch.zeros_like(reg_out), reg_out)
-    return dU, K, dv1, dv2, reg_out, ok, failed
+    return (bw["dU"], bw["K"], bw["dv1"], bw["dv2"], reg_out, bw["ok"],
+            bw["failed"])
+
+
+def backward_sweep_regularized(prob, defect, regularization,
+                               update_regularization, last_node, *,
+                               kernel_jac_XU=None, lq=None,
+                               assoc_backward: bool = False,
+                               scan: bool = False, aug_sweep: bool = True,
+                               bounded_retry: bool = False):
+    """Retry the sweep with growing per-scenario regularization until Quu is
+    PSD everywhere or the regularization exceeds REG_MAX (then that
+    scenario's solve fails). A retry sweeps the scenarios that are neither
+    ok nor failed; the others keep their outputs.
+
+    Exactly one of: kernel_jac_XU = (X, U, reb_delta, reb_eps, al_sigma,
+    al_lambda) for the default HKD model's sweep (`riccati_backward_hkd`),
+    or lq = LQData. With lq: assoc_backward=True takes the parallel-in-time
+    sweep `ops/assoc.riccati_backward_assoc`; scan=True the scan route
+    `backward_sweep` (with `aug_sweep`); neither, the dense route
+    `riccati_backward` (`_dense_route`: on the CPU a cross term takes the
+    scan route; on CUDA what the kernel does not take raises). Every route
+    but the dense kernel's reads lq.lux.
+
+    The host-driven composition of the loop's pieces: `first_sweep`, then
+    `retry_sweep` while the carry's `again` holds (a host read per retry),
+    at most `retry_sweeps(update_regularization)` sweeps in all. The device
+    programs run the same pieces under a conditional while node on
+    `again` (`solver/graphs.py`). bounded_retry=True runs the bound's
+    sweeps whatever `again` says: the same sweeps with the same reg for
+    every scenario, so the same outputs.
+    Returns `finish`'s tuple."""
+    route = dict(kernel_jac_XU=kernel_jac_XU, lq=lq,
+                 assoc_backward=assoc_backward, scan=scan,
+                 aug_sweep=aug_sweep)
+    bw = first_sweep(prob, defect, regularization, update_regularization,
+                     last_node, **route)
+    for _ in range(retry_sweeps(update_regularization) - 1):
+        if not bounded_retry and not bool(bw["again"]):
+            break
+        bw = retry_sweep(prob, defect, update_regularization, last_node, bw,
+                         **route)
+    return finish(bw)

@@ -32,14 +32,15 @@ at one host read per iteration. The two give the same decisions and values.
 
 Compiled entry points, as the JAX package's `solve_jit` / jitted
 `solve_batch`: on a CUDA device, `solve_batch` runs the solve as one CUDA
-graph, captured once per (options, flags, model, input shapes, unroll_caps)
+graph, built once per (options, flags, model, input shapes, unroll_caps)
 and replayed (`solver/graphs.py`). `_solve_batch` is the eager body (the
 JAX package's un-jitted `_solve_batch`), `solve_pieces` the same solve cut
-at its loops: the eager body drives the pieces on the host, the
-`unroll_caps=False` graph runs them under two nested conditional while
-nodes (the JAX package's `lax.while_loop`s). The `capturable` pieces read
-nothing on the host (the retry loop at its bound), which a capture needs.
-Every CPU solve, and the stage timers on the card, run the eager body.
+at its three loops (AL, DDP, and the regularization retry of the backward
+sweep): the eager body drives the pieces on the host, the graph runs each
+loop that stops as a conditional while node (the JAX package's
+`lax.while_loop`s) and, with unroll_caps, the AL and DDP loops unrolled to
+their caps. No piece reads the host. Every CPU solve, and the stage timers
+on the card, run the eager body.
 """
 
 from __future__ import annotations
@@ -169,12 +170,13 @@ def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
     False stops a loop once no scenario would run its next iteration (on
     the CPU one host read per iteration). Same decisions and values.
 
-    On CUDA the solve replays its CUDA graph, captured at the first call
-    with this key, and returns tensors the caller owns: with unroll_caps
-    one captured body (`graphs.solve_batch`), without it the loops as two
-    nested conditional while nodes around captured pieces
-    (`graphs.solve_while`). On the CPU it runs `_solve_batch` eagerly. A
-    failed capture or graph build raises: nothing falls back to eager."""
+    On CUDA the solve replays its CUDA graph, built at the first call
+    with this key from the captured pieces of `solve_pieces`, and returns
+    tensors the caller owns: with unroll_caps the AL and DDP loops
+    unrolled (`graphs.solve_batch`), without it as two nested conditional
+    while nodes (`graphs.solve_while`); the retry loop is a while node in
+    both. On the CPU it runs `_solve_batch` eagerly. A failed capture or
+    graph build raises: nothing falls back to eager."""
     _check_flags(kernel_jac, model, assoc_linear, assoc_backward,
                  scan_backward, jvp_linear)
     parallel_rollout = parallel_rollout and bool(opt.MS)
@@ -211,40 +213,35 @@ def _solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
                  kernel_jac: bool, model=None, parallel_rollout: bool = True,
                  assoc_linear: bool = False, assoc_backward: bool = False,
                  scan_backward: bool = False, aug_sweep: bool = True,
-                 jvp_linear: bool = False, unroll_caps: bool = True,
-                 capturable: bool = False) -> SolveResult:
+                 jvp_linear: bool = False,
+                 unroll_caps: bool = True) -> SolveResult:
     """The solve's body, run eagerly: `solve_batch`'s arguments after its
     checks (parallel_rollout already False under single shooting, and
-    decided on the host). The pieces of `solve_pieces`, driven to their
-    caps and masked (unroll_caps) or while a scenario would run on (one
-    host read per iteration). capturable=True (with unroll_caps) reads
-    nothing on the host: the retry loop runs its bound (`bounded_retry`)
-    where the eager body stops it once no scenario needs a retry. Same
-    decisions and values either way. The loops that stop are captured piece
-    by piece (`graphs.solve_while`), never as one body."""
-    if capturable and not unroll_caps:
-        raise ValueError("a capturable solve runs its loops to their caps: "
-                         "unroll_caps=True (the loops that stop are "
-                         "captured piece by piece, graphs.solve_while)")
+    decided on the host). The pieces of `solve_pieces`, the AL and DDP
+    loops driven to their caps and masked (unroll_caps) or while a scenario
+    would run on (one host read per iteration), the retry loop while a
+    scenario needs a retry (one host read per retry), as the device
+    programs run them under conditional while nodes (`solver/graphs.py`).
+    Same decisions and values either way."""
     p = solve_pieces(prob, state, opt, kernel_jac=kernel_jac, model=model,
                      parallel_rollout=parallel_rollout,
                      assoc_linear=assoc_linear,
                      assoc_backward=assoc_backward,
                      scan_backward=scan_backward, aug_sweep=aug_sweep,
-                     jvp_linear=jvp_linear, capturable=capturable)
+                     jvp_linear=jvp_linear)
     c = p.carry0()
     if unroll_caps:
         for _ in range(p.max_outer):
             ic = p.head(c)
             for _ in range(p.max_inner):
                 ic = p.inner(ic)
-            c = p.tail(ic, c)
+            c = tree_where(*p.tail(ic, c), c)
     else:
         while bool(p.outer_cond(c)):
             ic = p.head(c)
             while bool(p.inner_cond(ic)):
                 ic = p.inner(ic)
-            c = p.tail(ic, c)
+            c = tree_where(*p.tail(ic, c), c)
     return p.result(c)
 
 
@@ -252,41 +249,65 @@ def _solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
 class SolvePieces:
     """The solve cut at its loops, as functions of the carries: the outer
     carry (a dict: state, trajectories, costs, violations, counters,
-    traces) and the inner carry (`head`'s dict: the outer carry being
-    iterated `c`, the regularization `reg`, the inner stop flags `stop`,
-    the inner iteration counts `iter`, and `run_ou`, the scenarios whose
-    outer iteration runs). Every function is a per-scenario select over its
-    carry and reads nothing on the host where the pieces are capturable.
+    traces), the inner carry (`head`'s dict: the outer carry being iterated
+    `c`, the regularization `reg`, the inner stop flags `stop`, the inner
+    iteration counts `iter`, and `run_ou`, the scenarios whose outer
+    iteration runs) and the retry carry (`inner_a`'s dict: the iteration's
+    cost, violations, feasibility, `last_node`, the LQ data `lq` (dense
+    path) and the retry loop's carry `bw`, `backward.first_sweep`'s). Every
+    function is a per-scenario select over its carries and reads nothing on
+    the host.
 
     carry0(): the initial rollout, cost and traces;
-    outer_cond(c) / inner_cond(ic): () bool tensors, whether any scenario
-      runs another outer / inner iteration;
+    outer_cond(c) / inner_cond(ic) / retry_cond(ia): () bool tensors,
+      whether any scenario runs another outer / inner iteration / retry;
     head(c): the outer iteration's head (the inner carry);
-    inner(ic): one inner DDP iteration, kept where the scenario runs it;
-    tail(ic, c): the AL / ReB updates and the stop rule, kept where the
-      scenario ran the outer iteration, else c;
-    result(c): the SolveResult."""
+    inner_a(ic): an inner DDP iteration up to its first backward sweep;
+    retry(ic, ia): one retry of the backward sweep;
+    inner_b(ic, ia): the rest of the inner iteration, as (run, the new
+      inner carry): the new carry is kept where `run` holds (the scenario
+      runs the iteration), else ic;
+    inner(ic): inner_a, the retries while retry_cond holds (read on the
+      host; at most max_retry), inner_b's selection: the eager inner
+      iteration;
+    tail(ic, c): the AL / ReB updates and the stop rule, as (run, the new
+      outer carry), kept where `run` holds (the scenario ran the outer
+      iteration), else c;
+    result(c): the SolveResult.
+    The masks are returned, not applied, so that a device program can
+    select into its static carries in place."""
     carry0: object
     outer_cond: object
     head: object
     inner_cond: object
-    inner: object
+    inner_a: object
+    retry_cond: object
+    retry: object
+    inner_b: object
     tail: object
     result: object
     max_outer: int
     max_inner: int
+    max_retry: int
+
+    def inner(self, ic):
+        ia = self.inner_a(ic)
+        for _ in range(self.max_retry):
+            if not bool(self.retry_cond(ia)):
+                break
+            ia = self.retry(ic, ia)
+        return tree_where(*self.inner_b(ic, ia), ic)
 
 
 def solve_pieces(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
                  kernel_jac: bool, model=None, parallel_rollout: bool = True,
                  assoc_linear: bool = False, assoc_backward: bool = False,
                  scan_backward: bool = False, aug_sweep: bool = True,
-                 jvp_linear: bool = False,
-                 capturable: bool = False) -> SolvePieces:
+                 jvp_linear: bool = False) -> SolvePieces:
     """The pieces of `_solve_batch` on (prob, state), which every piece
     reads when it runs (a capture records reads of these tensors, so a
     graph's static input buffers go in here). Nothing is computed here but
-    constants of the batch size."""
+    constants of the batch size and the retry loop's bound."""
     ms = bool(opt.MS)
     model = None if kernel_jac else (model or hkd_model_spec())
     precise.pin_full_f32()
@@ -362,42 +383,52 @@ def solve_pieces(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
         return any_ok, X_s, U_s, d_s, g_s, h_s, cost_s, feas_s, merit_s
 
     # ---- inner DDP iteration (MultiPhaseDDP.cpp:304-382) ------------------
-    def inner_body(c, reg):
-        st = c["state"]
-        cost, (g, h) = cost_of(c["X"], c["U"], st.constr)
+    def sweep_route(c, lqd):
+        """The backward sweep's route keywords (`backward.first_sweep`)."""
+        if not kernel_jac:
+            return dict(lq=lqd, assoc_backward=assoc_backward,
+                        scan=scan_backward, aug_sweep=aug_sweep)
+        constr = c["state"].constr
+        off = lambda on, t: t if on else torch.zeros_like(t)
+        return dict(kernel_jac_XU=(
+            c["X"], c["U"], constr.reb_delta, off(reb_on, constr.reb_eps),
+            off(al_on, constr.al_sigma), off(al_on, constr.al_lambda)))
+
+    def inner_a(ic):
+        c = ic["c"]
+        cost, (g, h) = cost_of(c["X"], c["U"], c["state"].constr)
         feas = ro_mod.dynamics_feasibility(c["defect"])
         last_node = ro_mod.last_active_node(prob)
+        lqd = (None if kernel_jac else lq_mod.lq_approximation(
+            prob, c["X"], c["U"], c["state"].constr, reb_on, al_on, model))
+        bw = backward.first_sweep(prob, c["defect"], ic["reg"],
+                                  opt.update_regularization, last_node,
+                                  **sweep_route(c, lqd))
+        return dict(cost=cost, g=g, h=h, feas=feas, last_node=last_node,
+                    lq=lqd, bw=bw)
 
+    def retry(ic, ia):
+        c = ic["c"]
+        bw = backward.retry_sweep(prob, c["defect"],
+                                  opt.update_regularization,
+                                  ia["last_node"], ia["bw"],
+                                  **sweep_route(c, ia["lq"]))
+        return dict(ia, bw=bw)
+
+    def inner_b(ic, ia):
+        c = ic["c"]
+        st = c["state"]
+        cost, g, h, feas, lqd = (ia["cost"], ia["g"], ia["h"], ia["feas"],
+                                 ia["lq"])
+        dU, K, dv1, dv2, reg_new, ok_bw, bw_failed = backward.finish(ia["bw"])
+        st = _replace(st, dU=dU, K=K)
         if kernel_jac:
-            rbe = (st.constr.reb_eps if reb_on
-                   else torch.zeros_like(st.constr.reb_eps))
-            sig = (st.constr.al_sigma if al_on
-                   else torch.zeros_like(st.constr.al_sigma))
-            lam = (st.constr.al_lambda if al_on
-                   else torch.zeros_like(st.constr.al_lambda))
-            dU, K, dv1, dv2, reg_new, ok_bw, bw_failed = \
-                backward.backward_sweep_regularized(
-                    prob, c["defect"], reg, opt.update_regularization,
-                    last_node, kernel_jac_XU=(c["X"], c["U"],
-                                              st.constr.reb_delta, rbe, sig,
-                                              lam),
-                    bounded_retry=capturable)
-            st = _replace(st, dU=dU, K=K)
             if ms:
                 dX, dv1, dv2 = ro_mod.linear_rollout_jvp(
                     prob, st, c["X"], c["U"], c["defect"], 1.0,
                     reb_active=reb_on, al_active=al_on)
                 st = _replace(st, dX=dX)
         else:
-            lqd = lq_mod.lq_approximation(prob, c["X"], c["U"], st.constr,
-                                          reb_on, al_on, model)
-            dU, K, dv1, dv2, reg_new, ok_bw, bw_failed = \
-                backward.backward_sweep_regularized(
-                    prob, c["defect"], reg, opt.update_regularization,
-                    last_node, lq=lqd, assoc_backward=assoc_backward,
-                    scan=scan_backward, aug_sweep=aug_sweep,
-                    bounded_retry=capturable)
-            st = _replace(st, dU=dU, K=K)
             if ms and jvp_linear:
                 dX, dv1, dv2 = ro_mod.linear_rollout_jvp(
                     prob, st, c["X"], c["U"], c["defect"], 1.0, lq=lqd,
@@ -454,7 +485,8 @@ def solve_pieces(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
         c2 = dict(c, state=st, X=X, U=U, defect=defect, g=g2, h=h2,
                   cost=cost2, feas=feas2, maxp=maxp2, maxt=maxt2, traces=tr,
                   failed=bw_failed, it_total=c["it_total"] + 1)
-        return c2, reg_new, stop_inner
+        return inner_run(ic), dict(ic, c=c2, reg=reg_new, stop=stop_inner,
+                                   iter=ic["iter"] + 1)
 
     def outer_run(c):
         return (c["iter_ou"] < opt.max_AL_iter) & ~c["stop"]
@@ -469,13 +501,7 @@ def solve_pieces(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
         return dict(c=c, reg=torch.zeros(nb, dtype=dtype, device=dev),
                     stop=falses, iter=zeros_i, run_ou=run)
 
-    def inner(ic):
-        cc2, reg2, stop2 = inner_body(ic["c"], ic["reg"])
-        return tree_where(inner_run(ic),
-                          dict(ic, c=cc2, reg=reg2, stop=stop2,
-                               iter=ic["iter"] + 1), ic)
-
-    def tail(ic, c_prev):
+    def tail(ic, c_prev):   # c_prev: the carry kept where run_ou is false
         c = ic["c"]
         # AL / ReB parameter updates (skipped entirely on bad solve)
         constr = c["state"].constr
@@ -496,8 +522,7 @@ def solve_pieces(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
                      & (torch.abs(c["maxp"]) < opt.pconstr_thresh) & feas_ok)
         stalled = ((torch.abs(c["maxt"] - c["maxt_prev"]) < 1e-4)
                    & (torch.abs(c["maxp"] - c["maxp_prev"]) < 1e-4) & feas_ok)
-        c = dict(c, stop=satisfied | stalled | c["failed"])
-        return tree_where(ic["run_ou"], c, c_prev)
+        return ic["run_ou"], dict(c, stop=satisfied | stalled | c["failed"])
 
     def result(c):
         return SolveResult(
@@ -510,8 +535,10 @@ def solve_pieces(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
     return SolvePieces(
         carry0=carry0, outer_cond=lambda c: torch.any(outer_run(c)),
         head=head, inner_cond=lambda ic: torch.any(inner_run(ic)),
-        inner=inner, tail=tail, result=result,
-        max_outer=int(opt.max_AL_iter), max_inner=int(opt.max_DDP_iter))
+        inner_a=inner_a, retry_cond=lambda ia: ia["bw"]["again"],
+        retry=retry, inner_b=inner_b, tail=tail, result=result,
+        max_outer=int(opt.max_AL_iter), max_inner=int(opt.max_DDP_iter),
+        max_retry=backward.retry_sweeps(opt.update_regularization) - 1)
 
 
 def solve(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,

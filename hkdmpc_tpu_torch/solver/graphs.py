@@ -1,52 +1,56 @@
-"""CUDA graphs of the solve and of the MPC steps: the port's counterpart of
-the JAX package's jit cache (`ddp.solve_jit` / `solve_batch`,
-`fused.fused_step` / `fleet_step` with the state donated).
+"""Device programs of the solve and of the MPC steps: the port's
+counterpart of the JAX package's jit cache (`ddp.solve_jit` /
+`solve_batch`, `fused.fused_step` / `fleet_step` with the state donated).
 
 JAX compiles each entry point once per static key and runs it as one
-device program. Here each entry point is captured once per key into a CUDA
-graph (`torch.cuda.CUDAGraph`) and replayed:
+device program, its `lax.while_loop`s included. Here each entry point is
+built once per key into one CUDA graph and replayed:
 
 - the key: the entry point, its static flags (the option set, `kernel_jac`,
-  `parallel_rollout`, the assoc / scan / jvp flags, the model object), and
-  every input's shape, dtype and device; the MPC steps also key on the
-  addresses of the tables and of the resident state they read and write;
-- the capture: a warm-up run of the eager body on a side stream (it builds
+  `parallel_rollout`, the assoc / scan / jvp flags, `unroll_caps`, the
+  model object), and every input's shape, dtype and device; the MPC steps
+  also key on the addresses of the tables and of the resident state they
+  read and write;
+- the pieces: the solve cut at its loops (`SolveProgram` over
+  `ddp.solve_pieces`: carry0, head, inner_a, retry, inner_b, tail; the
+  steps add `pre` and `post`, `StepProgram`), each reading and writing
+  static buffers and setting its loop's device flag;
+- the build: a warm-up run of each piece on the capture stream (it builds
   and loads the kernels, makes every cached constant and the cuBLAS
-  handles), then the capture of the same body on that stream in
-  "thread_local" mode, so that a capture in the MPC service's worker thread
-  leaves the polling thread free. Graphs that never run at once share one
-  memory pool per device: every replay goes to its caller's current stream
-  (the default stream in this package), where they run one after the
-  other;
-- a replay: the inputs are copied into the graph's static buffers (host
-  arrays through pinned staging buffers, copied without blocking), then
-  `replay()`; the kernel launches recorded at capture are added to the
-  kernels' counters once per replay, so that the counters count what ran.
+  handles), then one torch capture of each piece on that stream in
+  "thread_local" mode (a capture in the MPC service's worker thread leaves
+  the polling thread free), all into one memory pool per device; then
+  `csrc/graph_while.cu` assembles the pieces in the program's order
+  (`solve_code`): each piece a child graph node, as often as the order
+  names it, each loop that stops a conditional while node. The retry loop
+  of every backward sweep is a while node; the AL and DDP loops are
+  unrolled to their caps (unroll_caps) or two nested while nodes;
+- a replay: the inputs are copied into the static buffers (host arrays
+  through pinned staging buffers, copied without blocking), then the
+  program is launched on the caller's current stream. Nothing is read on
+  the host: each piece counts its runs in a device tensor, and
+  `fold_counts` adds them, times the kernel launches each piece recorded
+  at capture, to the kernels' counters when a counter is read
+  (`ops/counters.py`) or `stats()` is called.
 
-The loops that stop (`solve_batch` with unroll_caps=False, the JAX
-package's `lax.while_loop` solve) are one graph too (`solve_while`): torch
-captures each piece of the solve cut at its loops (`WhileSolve` over
-`ddp.solve_pieces`), and `csrc/graph_while.cu` puts the pieces under two
-nested conditional while nodes; a replay counts each piece's launches
-times the iterations it ran.
+A capture or an assembly that fails raises RuntimeError naming the
+operation or the node; nothing falls back to eager. `clear_graphs()` frees
+every graph, as `jax.clear_caches` frees the compiled programs. A reset of
+an MPC object copies its new tables and state into the resident ones
+(`rearm`), so the step programs keyed on their addresses replay on;
+tensors replaced for good take their graphs with them (`forget`).
 
-A capture that fails raises RuntimeError naming the operation that was
-not allowed; nothing falls back to eager. `clear_graphs()` frees every
-graph, as `jax.clear_caches` frees the compiled programs. A reset of an
-MPC object copies its new tables and state into the resident ones
-(`rearm`), so the step graphs keyed on their addresses replay on; tensors
-replaced for good take their graphs with them (`forget`).
-
-`solve_batch` returns tensors the caller owns (clones of the static
-outputs), as a jitted JAX function returns fresh arrays. `fused_step`
-keeps the state where the caller keeps it: the captured step ends by
-writing the new state over the old, the counterpart of
+`solve_batch` / `solve_while` return tensors the caller owns (clones of
+the static outputs), as a jitted JAX function returns fresh arrays.
+`fused_step` keeps the state where the caller keeps it: the step's last
+piece writes the new state over the old, the counterpart of
 `donate_argnums=(1,)`, and returns that same state with a bundle the caller
 owns.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -57,11 +61,13 @@ import traceback
 import numpy as np
 import torch
 
-from hkdmpc_tpu_torch.ops import riccati_dense, riccati_hkd
+from hkdmpc_tpu_torch.ops import counters, riccati_dense, riccati_hkd
+from hkdmpc_tpu_torch.solver import backward
 
-# the kernels' launch counters that a replay adds to
+# the counters that a replay adds to: the kernels' launches, the retries
 COUNTERS = ((riccati_hkd, "LAUNCHES"), (riccati_hkd, "RETRY_LAUNCHES"),
-            (riccati_dense, "LAUNCHES"), (riccati_dense, "RETRY_LAUNCHES"))
+            (riccati_dense, "LAUNCHES"), (riccati_dense, "RETRY_LAUNCHES"),
+            (backward, "RETRY_SWEEPS"))
 REPLAYS = 0          # every replay of every graph
 
 _GRAPHS: dict = {}   # key -> _Graph
@@ -96,12 +102,12 @@ def _layout(tensors) -> tuple:
 
 
 def _counts() -> tuple:
-    return tuple(getattr(m, n) for m, n in COUNTERS)
+    return tuple(counters.raw(m, n) for m, n in COUNTERS)
 
 
 def _set_counts(values) -> None:
     for (m, n), v in zip(COUNTERS, values):
-        setattr(m, n, v)
+        counters.set_raw(m, n, v)
 
 
 def _node_count(graph):
@@ -155,9 +161,13 @@ class _Graph:
     host_inputs: tuple = ()
     replays: int = 0
     addresses: frozenset = frozenset()   # data_ptr()s the key names
-    iterations: object = None   # while graphs: (outer, inner) of the last
-    pieces: tuple = ()          # while graphs: _Piece per captured piece
-    native_nodes: tuple = ()    # while graphs: parent, outer, inner body
+    pieces: tuple = ()          # _Piece per captured piece
+    native_nodes: tuple = ()    # native nodes per graph level
+    assembly_s: float = 0.0
+    assembly_bytes: int = 0
+    folded: list = dataclasses.field(default_factory=list)  # runs folded
+    folded_replays: int = 0
+    last_runs: tuple = ()       # each piece's runs in the last replay
 
 
 class _HostInput:
@@ -203,27 +213,20 @@ def _capture_stream(device):
     return _STREAMS[device]
 
 
-def _capture(label, device, warmup, body) -> tuple:
-    """Warm up (unless warmup is None) and capture `body()` on a side
-    stream of `device`. Returns (graph, outputs, launches recorded, capture
-    seconds, nodes)."""
+def _capture(label, device, body) -> tuple:
+    """Capture `body()` on the capture stream of `device` into a graph that
+    torch keeps uninstantiated (the program's assembly clones it). Returns
+    (graph, launches recorded, capture seconds, nodes)."""
     stream = _capture_stream(device)
     stream.wait_stream(torch.cuda.current_stream(device))
-    if warmup is not None:
-        with torch.cuda.stream(stream):
-            warmup()
-        stream.synchronize()
     before = _counts()
-    try:
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-    except TypeError:   # a torch that cannot keep the graph: no node count
-        graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     caller_stream = torch.cuda.current_stream(device)
     t0 = time.perf_counter()
     try:
         with torch.cuda.graph(graph, pool=_pool(device), stream=stream,
                               capture_error_mode="thread_local"):
-            out = body()
+            body()
     except Exception as exc:
         # a failed capture_end leaves the capture stream current, and the
         # allocator still recording to the pool: later captures take a
@@ -237,140 +240,239 @@ def _capture(label, device, warmup, body) -> tuple:
     finally:
         recorded = tuple(a - b for a, b in zip(_counts(), before))
         _set_counts(before)   # a capture launches nothing
-    nodes = _node_count(graph)
-    if hasattr(graph, "instantiate"):
-        try:
-            graph.instantiate()
-        except RuntimeError:   # instantiated by capture_end already
-            pass
-    return graph, out, recorded, time.perf_counter() - t0, nodes
+    return graph, recorded, time.perf_counter() - t0, _node_count(graph)
 
 
-def _replay(g: _Graph) -> None:
-    global REPLAYS
-    g.graph.replay()
-    _set_counts(tuple(a + b for a, b in zip(_counts(), g.launches)))
-    g.replays += 1
-    REPLAYS += 1
+def _same_view(a, b) -> bool:
+    return (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+            and a.stride() == b.stride() and a.dtype == b.dtype)
 
 
-def solve_batch(prob, state, opt, *, kernel_jac, model, parallel_rollout,
-                assoc_linear, assoc_backward, scan_backward, aug_sweep,
-                jvp_linear):
-    """`ddp.solve_batch` on CUDA with unroll_caps=True: replay the solve's
-    graph (captured at the first call with this key) on copies of prob and
-    state; returns a SolveResult of tensors the caller owns."""
-    from hkdmpc_tpu_torch.solver import ddp
-    from hkdmpc_tpu_torch.solver.structs import tree_map
-
-    device = prob.xr.device
-    flags = dict(kernel_jac=kernel_jac, model=model,
-                 parallel_rollout=parallel_rollout,
-                 assoc_linear=assoc_linear, assoc_backward=assoc_backward,
-                 scan_backward=scan_backward, aug_sweep=aug_sweep,
-                 jvp_linear=jvp_linear)
-    ins = leaves((prob, state))
-    key = _solve_key(opt, device, flags, ins, unroll_caps=True)
-    with torch.cuda.device(device):
-        with _LOCK:
-            g = _GRAPHS.get(key)
-            if g is None:
-                static = _static_copies(ins, device)
-                sp, ss = _rebuild((prob, state), static)
-                run = lambda: ddp._solve_batch(sp, ss, opt, capturable=True,
-                                               **flags)
-                label = (f"solve_batch(B={prob.kind.shape[0]}, "
-                         f"T={prob.kind.shape[1]}, kernel_jac={kernel_jac}, "
-                         f"parallel_rollout={parallel_rollout}, "
-                         f"assoc_backward={assoc_backward})")
-                graph, out, rec, secs, nodes = _capture(label, device, run,
-                                                        run)
-                g = _Graph(label=label, graph=graph, inputs=static,
-                           outputs=out, launches=rec, capture_s=secs,
-                           nodes=nodes, keep=(model,))
-                _GRAPHS[key] = g
-            else:
-                for s, t in zip(g.inputs, ins):
-                    s.copy_(t)
-            _replay(g)
-            return tree_map(lambda t: t.clone(), g.outputs)
+def _storage(t) -> int:
+    return t.untyped_storage().data_ptr()
 
 
-def _write(dst, src) -> None:
-    """Copy the struct `src` into the static struct `dst` leaf by leaf. A
-    source leaf that shares memory with a destination leaf is cloned first,
-    so no copy reads what an earlier copy wrote."""
-    dst_leaves = leaves(dst)
-    ptrs = {t.data_ptr() for t in dst_leaves}
-    srcs = [t.clone() if t.data_ptr() in ptrs else t for t in leaves(src)]
-    for d, t in zip(dst_leaves, srcs):
-        d.copy_(t)
+def _pairs(dst, src) -> list:
+    """(destination, source) leaves of two structs of one layout, without
+    the sources that are their destination (a piece wrote them in place);
+    a source that shares memory with a destination leaf is cloned, so
+    nothing read has been written before."""
+    mem = {_storage(d) for d in leaves(dst)}
+    return [(d, t.clone() if _storage(t) in mem else t)
+            for d, t in zip(leaves(dst), leaves(src)) if not _same_view(d, t)]
 
 
-def _like(tree):
+def write(dst, src) -> None:
+    """Copy the struct `src` into the static struct `dst`, leaf by leaf."""
+    pairs = _pairs(dst, src)
+    if pairs:
+        torch._foreach_copy_([d for d, _ in pairs], [t for _, t in pairs])
+
+
+def write_where(dst, pred, src) -> None:
+    """dst = tree_where(pred, src, dst) in place: pred (B,) bool picks
+    src's lane where true, as `structs.tree_where`, into dst's buffers."""
+    for d, t in _pairs(dst, src):
+        p = pred.reshape(pred.shape + (1,) * (d.dim() - pred.dim()))
+        torch.where(p, t, d, out=d)
+
+
+def own(tree, others):
+    """tree with each leaf that shares memory with `others` (a struct) or
+    with an earlier leaf of tree cloned: a piece's outputs made fit to be
+    a program's static buffer."""
+    seen = {_storage(t) for t in leaves(others)}
+    out = []
+    for t in leaves(tree):
+        out.append(t.clone() if _storage(t) in seen else t)
+        seen.add(_storage(t))
+    return _rebuild(tree, out)
+
+
+def like(tree):
     """Static buffers of tree's layout (`torch.empty_like` per leaf)."""
     return _rebuild(tree, [torch.empty_like(t) for t in leaves(tree)])
 
 
-class WhileSolve:
-    """The loops that stop (`ddp.solve_pieces`, capturable) on static
-    buffers: the outer carry `c`, the inner carry `ic`, the two loop
-    conditions as device flags and the loop iterations run (`loops`:
-    outer, inner). Each piece reads and writes only those and the static
-    inputs (prob, state), so a CUDA graph of each piece can run in any
-    order a while node gives it:
+def solve_code(unroll_caps, max_outer, max_inner) -> list:
+    """The order in which a solve's device program runs its pieces: a list
+    of items, each a piece's name or (flag, [items]), a while loop on that
+    device flag. The retry loop is a while loop in both forms; the AL and
+    DDP loops are unrolled to their caps (unroll_caps) or while loops."""
+    inner = ["inner_a", ("retry", ["retry"]), "inner_b"]
+    if unroll_caps:
+        return ["carry0"] + (["head"] + inner * max_inner
+                             + ["tail"]) * max_outer
+    return ["carry0", ("outer", ["head", ("inner", inner), "tail"])]
 
-        carry0; while flag_ou: (head; while flag_in: inner; tail)
 
-    On the CPU the tests drive the pieces in that order, reading the flags
-    on the host. The buffers are made here, outside any capture, by one run
-    of carry0 and head."""
+class Program:
+    """Pieces on static buffers and the order that runs them. A subclass
+    names its pieces (`PIECES`: a method `_<name>` each, reading and
+    writing only static buffers) and its loops' device flags (`FLAGS`),
+    and sets `code` (`solve_code`'s items) and the buffers; `_init`
+    makes the flags and `runs` (2, pieces): each piece's runs since the
+    program was made (row 0) and in its last run (row 1), counted on the
+    device by the piece itself.
 
-    PIECES = ("carry0", "head", "inner", "tail")
+    `run_on_host` drives the pieces in `code`'s order and reads each flag
+    on the host where a while node would test it: on the CPU the tests
+    do, and it is the device program's semantics (`build_program`)."""
 
-    def __init__(self, prob, state, opt, flags):
-        from hkdmpc_tpu_torch.solver import ddp
-        self.p = ddp.solve_pieces(prob, state, opt, capturable=True, **flags)
-        dev = prob.xr.device
-        c = self.p.carry0()
-        self.c = _like(c)
-        self.ic = _like(self.p.head(c))
-        self.flag_ou = torch.zeros((), dtype=torch.bool, device=dev)
-        self.flag_in = torch.zeros((), dtype=torch.bool, device=dev)
-        self.loops = torch.zeros(2, dtype=torch.int32, device=dev)
+    PIECES: tuple = ()
+    FLAGS: tuple = ()
 
-    def carry0(self) -> None:
-        _write(self.c, self.p.carry0())
-        self.flag_ou.copy_(self.p.outer_cond(self.c))
-        self.loops.zero_()
+    def _init(self, dev, code) -> None:
+        self.flag = {n: torch.zeros((), dtype=torch.bool, device=dev)
+                     for n in self.FLAGS}
+        self.runs = torch.zeros((2, len(self.PIECES)), dtype=torch.int64,
+                                device=dev)
+        self.code = code
+        self.warming = False
+        # set while the pieces are captured: a piece that is its buffer's
+        # only writer keeps its captured outputs as that buffer
+        self.adopt = False
 
-    def head(self) -> None:
-        _write(self.ic, self.p.head(self.c))
-        self.flag_in.copy_(self.p.inner_cond(self.ic))
-        self.loops.narrow(0, 0, 1).add_(1)
-
-    def inner(self) -> None:
-        _write(self.ic, self.p.inner(self.ic))
-        self.flag_in.copy_(self.p.inner_cond(self.ic))
-        self.loops.narrow(0, 1, 1).add_(1)
-
-    def tail(self) -> None:
-        _write(self.c, self.p.tail(self.ic, self.c))
-        self.flag_ou.copy_(self.p.outer_cond(self.c))
+    def run(self, name) -> None:
+        """Run one piece: its body, then its count (the program's first
+        piece zeroes the counts of the last run first)."""
+        i = self.PIECES.index(name)
+        if i == 0:
+            self.runs[1].zero_()
+        getattr(self, "_" + name)()
+        self.runs[:, i].add_(1)
 
     def warm_up(self) -> None:
         """Each piece once, in order (the kernels, constants and handles a
-        capture needs are made in a first run)."""
-        for name in self.PIECES:
-            getattr(self, name)()
+        capture needs are made in a first run); a step writes nothing over
+        its resident state here. The counts start again at 0."""
+        self.warming = True
+        try:
+            for name in self.PIECES:
+                self.run(name)
+        finally:
+            self.warming = False
+        self.runs.zero_()
+
+    def run_on_host(self, guard=contextlib.nullcontext) -> None:
+        """The program on the host: each piece in `code`'s order inside
+        `guard()`, each while loop's flag read between pieces."""
+        def run(items):
+            for item in items:
+                if isinstance(item, str):
+                    with guard():
+                        self.run(item)
+                else:
+                    flag, body = item
+                    while bool(self.flag[flag]):
+                        run(body)
+        run(self.code)
+
+    def counts(self, row=0) -> dict:
+        """{piece: runs} since the program was made (row 0) or in its last
+        run (row 1) (a host read)."""
+        return dict(zip(self.PIECES, self.runs[row].tolist()))
+
+
+class SolveProgram(Program):
+    """A solve (`ddp.solve_pieces`) on static buffers, cut into the pieces
+    that its device program runs in the order `solve_code` gives them: the
+    outer carry `c`, the inner carry `ic`, the retry carry `ia` and a
+    device flag per loop (outer, inner, retry). Each piece reads and writes
+    only those and the static inputs (prob, state), and ends by setting its
+    loop's flag, so a CUDA graph of each piece can run in any order a while
+    node gives it. The buffers are made here, outside any capture, by one
+    run of carry0, head and inner_a."""
+
+    PIECES = ("carry0", "head", "inner_a", "retry", "inner_b", "tail")
+    FLAGS = ("outer", "inner", "retry")
+
+    def __init__(self, prob, state, opt, flags, unroll_caps):
+        from hkdmpc_tpu_torch.solver import ddp
+        self.inputs = (prob, state)
+        self.p = ddp.solve_pieces(prob, state, opt, **flags)
+        self._setup(prob.xr.device, unroll_caps)
+
+    def _setup(self, dev, unroll_caps):
+        c = self.p.carry0()
+        ic = self.p.head(c)
+        self.c, self.ic = like(c), like(ic)
+        self.ia = like(self.p.inner_a(ic))
+        self._init(dev, solve_code(unroll_caps, self.p.max_outer,
+                                   self.p.max_inner))
+        return c
+
+    def _carry0(self):
+        write(self.c, self.p.carry0())
+        self.flag["outer"].copy_(self.p.outer_cond(self.c))
+
+    def _head(self):
+        write(self.ic, self.p.head(self.c))
+        self.flag["inner"].copy_(self.p.inner_cond(self.ic))
+
+    def _inner_a(self):
+        ia = self.p.inner_a(self.ic)
+        if self.adopt:   # the retry carry's only writer: no copy of it
+            self.ia = own(ia, (self.inputs, self.c, self.ic))
+        else:
+            write(self.ia, ia)
+        self.flag["retry"].copy_(self.p.retry_cond(self.ia))
+
+    def _retry(self):
+        write(self.ia, self.p.retry(self.ic, self.ia))
+        self.flag["retry"].copy_(self.p.retry_cond(self.ia))
+
+    def _inner_b(self):
+        write_where(self.ic, *self.p.inner_b(self.ic, self.ia))
+        self.flag["inner"].copy_(self.p.inner_cond(self.ic))
+
+    def _tail(self):
+        write_where(self.c, *self.p.tail(self.ic, self.c))
+        self.flag["outer"].copy_(self.p.outer_cond(self.c))
 
     def result(self):
         """The SolveResult on the static outer carry (views of it)."""
         return self.p.result(self.c)
 
-    def iterations(self) -> tuple:
-        """(outer, inner) iterations the last run ran (a host read)."""
-        return tuple(int(v) for v in self.loops.tolist())
+
+class StepProgram(SolveProgram):
+    """The MPC step (`fused._fused_core`) as a program: `pre`
+    (`fused.step_pre`: the packed host vectors unpacked, the warm-start
+    gathers over the resident state, the problem and x0) into static
+    (prob, state) buffers, the solve's pieces on them, and `post`
+    (`fused.step_post`: the commands and the bundle) into a static bundle,
+    writing the new state over the resident one (donated). `pre` reads the
+    resident state before any piece writes it; `post` writes it from the
+    solve's outer carry, which aliases nothing of it."""
+
+    PIECES = ("pre",) + SolveProgram.PIECES + ("post",)
+
+    def __init__(self, tables, state, ins, opt, n_cmd, flags, unroll_caps):
+        from hkdmpc_tpu_torch.mpc import fused
+        from hkdmpc_tpu_torch.solver import ddp
+        self.tables, self.state, self.ins, self.n_cmd = (tables, state,
+                                                         tuple(ins), n_cmd)
+        self.prob, self.st = like(fused.step_pre(tables, state, *ins,
+                                                  n_cmd))
+        self._pre()
+        self.inputs = (self.prob, self.st)
+        self.p = ddp.solve_pieces(self.prob, self.st, opt, **flags)
+        c = self._setup(state.Xbar.device, unroll_caps)
+        self.bundle = like(fused.step_post(self.p.result(c), ins[0],
+                                            n_cmd))
+        self.code = ["pre"] + self.code + ["post"]
+
+    def _pre(self):
+        from hkdmpc_tpu_torch.mpc import fused
+        write((self.prob, self.st), fused.step_pre(
+            self.tables, self.state, *self.ins, self.n_cmd))
+
+    def _post(self):
+        from hkdmpc_tpu_torch.mpc import fused
+        res = self.result()
+        write(self.bundle, fused.step_post(res, self.ins[0], self.n_cmd))
+        if not self.warming:
+            write(self.state, res.state)
 
 
 @dataclasses.dataclass
@@ -383,15 +485,17 @@ class _Piece:
 
 
 @functools.cache
-def _while_lib():
-    """The native assembly of the while graphs (csrc/graph_while.cu),
+def _program_lib():
+    """The native assembly of the device programs (csrc/graph_while.cu),
     built and loaded at first use."""
     from hkdmpc_tpu_torch.ops import _build
     lib = _build.load("graph_while")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.graph_while_build.argtypes = [vp] * 6 + [
-        ctypes.POINTER(vp), ctypes.POINTER(ci), ctypes.c_char_p, ci]
-    lib.graph_while_build.restype = ci
+    lib.graph_program_build.argtypes = [
+        ctypes.POINTER(vp), ci, ctypes.POINTER(vp), ci,
+        ctypes.POINTER(ci), ci, ctypes.POINTER(vp), ctypes.POINTER(ci), ci,
+        ctypes.c_char_p, ci]
+    lib.graph_program_build.restype = ci
     lib.graph_while_launch.argtypes = [vp, vp]
     lib.graph_while_launch.restype = ci
     lib.graph_while_destroy.argtypes = [vp]
@@ -401,12 +505,33 @@ def _while_lib():
     return lib
 
 
-class _WhileExec:
-    """The instantiated parent graph of a while solve (a cudaGraphExec_t
-    made by csrc/graph_while.cu), destroyed with this object."""
+MAX_LEVELS = 8   # graph levels whose native nodes the assembly counts
 
-    def __init__(self, label, pieces, flag_ou, flag_in):
-        lib = _while_lib()
+
+def encode(code, pieces, flags) -> list:
+    """`code` (`solve_code`'s items) as the assembly's int32 program: a
+    piece is (0, its index in `pieces`), a while loop (1, its flag's index
+    in `flags`, the length of its body's encoding) and then its body."""
+    out = []
+    for item in code:
+        if isinstance(item, str):
+            out += [0, pieces.index(item)]
+        else:
+            flag, body = item
+            inner = encode(body, pieces, flags)
+            out += [1, flags.index(flag), len(inner)] + inner
+    return out
+
+
+class _ProgramExec:
+    """The instantiated parent graph of a device program (a
+    cudaGraphExec_t made by csrc/graph_while.cu), destroyed with this
+    object: each piece a child graph node, each while loop a conditional
+    while node with a one-thread `set_cond` kernel node before it and at
+    the end of its body."""
+
+    def __init__(self, label, pieces, flags, program):
+        lib = _program_lib()
         raws = []
         for p in pieces:
             try:
@@ -416,19 +541,23 @@ class _WhileExec:
                     f"{label}: piece {p.name} has no kept cudaGraph_t "
                     f"(torch.cuda.CUDAGraph(keep_graph=True) and "
                     f"raw_cuda_graph() are needed): {exc}") from exc
-        handle = ctypes.c_void_p(0)
-        nodes = (ctypes.c_int * 3)()
+        vp = ctypes.c_void_p
+        handle = vp(0)
+        levels = (ctypes.c_int * MAX_LEVELS)()
         msg = ctypes.create_string_buffer(512)
-        err = lib.graph_while_build(
-            *(ctypes.c_void_p(r) for r in raws),
-            ctypes.c_void_p(flag_ou.data_ptr()),
-            ctypes.c_void_p(flag_in.data_ptr()), ctypes.byref(handle),
-            nodes, msg, len(msg))
+        err = lib.graph_program_build(
+            (vp * len(raws))(*raws), len(raws),
+            (vp * len(flags))(*(f.data_ptr() for f in flags)), len(flags),
+            (ctypes.c_int * len(program))(*program), len(program),
+            ctypes.byref(handle), levels, MAX_LEVELS, msg, len(msg))
         if err != 0:
-            raise RuntimeError(f"{label}: building the while graph failed "
-                               f"at {msg.value.decode()}")
+            raise RuntimeError(f"{label}: building the device program "
+                               f"failed at {msg.value.decode()}")
         self.lib, self.handle = lib, handle
-        self.nodes = tuple(nodes)   # parent, outer body, inner body
+        n = [int(v) for v in levels]
+        while n and n[-1] == 0:
+            n.pop()
+        self.nodes = tuple(n)   # native nodes per graph level
 
     def launch(self, label) -> None:
         stream = torch.cuda.current_stream().cuda_stream
@@ -436,7 +565,7 @@ class _WhileExec:
                                           ctypes.c_void_p(stream))
         if err != 0:
             raise RuntimeError(
-                f"{label}: cudaGraphLaunch of the while graph failed: "
+                f"{label}: cudaGraphLaunch of the device program failed: "
                 f"cudaError {err} "
                 f"({self.lib.graph_while_error_string(err).decode()})")
 
@@ -446,89 +575,134 @@ class _WhileExec:
             self.handle = None
 
 
-def solve_while(prob, state, opt, *, kernel_jac, model, parallel_rollout,
-                assoc_linear, assoc_backward, scan_backward, aug_sweep,
-                jvp_linear):
-    """`ddp.solve_batch` on CUDA with unroll_caps=False: the loops that
-    stop as one graph with two nested conditional while nodes, for this key
-    (the unroll_caps graph's key with unroll_caps=False), built at the
-    first call: a warm-up run of each piece (`WhileSolve.warm_up`), one
-    torch capture per piece, and the parent graph assembled and
-    instantiated by csrc/graph_while.cu, each piece a child graph node and
-    each condition set from its device flag by a one-thread kernel node.
-    A replay launches the parent on the current stream, then reads the
-    iterations it ran (one host read, after the graph) and adds the pieces'
-    launches times their runs to the kernels' counters. Returns a
-    SolveResult of tensors the caller owns."""
+def _build_program(label, device, prog) -> tuple:
+    """Warm up `prog`'s pieces, capture each with torch, assemble them in
+    `prog.code`'s order. Returns (exec, pieces, capture s, assembly s,
+    device bytes the assembly took)."""
+    stream = _capture_stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        prog.warm_up()
+    stream.synchronize()
+    t0 = time.perf_counter()
+    pieces = []
+    prog.adopt = True
+    try:
+        for name in prog.PIECES:
+            graph, rec, secs, nodes = _capture(
+                f"{label} piece {name}", device,
+                functools.partial(prog.run, name))
+            pieces.append(_Piece(name, graph, rec, secs, nodes))
+    finally:
+        prog.adopt = False
+    t1 = time.perf_counter()
+    free = torch.cuda.mem_get_info(device)[0]
+    native = _ProgramExec(label, pieces,
+                          [prog.flag[n] for n in prog.FLAGS],
+                          encode(prog.code, prog.PIECES, prog.FLAGS))
+    taken = free - torch.cuda.mem_get_info(device)[0]
+    return native, pieces, t1 - t0, time.perf_counter() - t1, taken
+
+
+def build_program(label, prog) -> "_Graph":
+    """`prog` (a `Program` on CUDA tensors) as a device program outside the
+    entry points' cache: run it with `replay_program`; its counts stay in
+    `prog.runs` (they are not folded into the counters)."""
+    return _program_graph(label, prog.runs.device, prog, [], ())
+
+
+def _program_graph(label, device, prog, inputs, keep, **kw) -> _Graph:
+    native, pieces, capture_s, assembly_s, taken = _build_program(
+        label, device, prog)
+    known = [p.nodes for p in pieces]
+    return _Graph(label=label, graph=native, inputs=inputs, outputs=prog,
+                  launches=tuple(0 for _ in COUNTERS),
+                  capture_s=capture_s + assembly_s,
+                  nodes=None if None in known else sum(known)
+                  + sum(native.nodes),
+                  keep=keep, pieces=tuple(pieces),
+                  native_nodes=native.nodes, assembly_s=assembly_s,
+                  assembly_bytes=taken,
+                  folded=[0] * len(pieces), **kw)
+
+
+def replay_program(g: _Graph) -> None:
+    """Launch the program on the current stream. Nothing is read on the
+    host: its pieces' runs stay in `prog.runs` until `fold_counts`."""
+    global REPLAYS
+    g.graph.launch(g.label)
+    g.replays += 1
+    REPLAYS += 1
+
+
+def fold_counts() -> None:
+    """Add the runs of every program's pieces since the last fold, times
+    each piece's launches, to the kernels' counters, and keep each
+    program's last-run counts for `stats` (one host read per program that
+    ran). Called whenever a counter is read or set (`ops/counters.py`)."""
+    with _LOCK:
+        for g in _GRAPHS.values():
+            _fold(g)
+
+
+def _fold(g) -> None:
+    if not g.pieces or g.replays == g.folded_replays:
+        return
+    total, last = g.outputs.runs.tolist()
+    added = [0] * len(COUNTERS)
+    for p, now, before in zip(g.pieces, total, g.folded):
+        for i, v in enumerate(p.launches):
+            added[i] += (now - before) * v
+    _set_counts(tuple(a + b for a, b in zip(_counts(), added)))
+    g.folded, g.last_runs, g.folded_replays = total, last, g.replays
+    g.launches = tuple(sum(n * p.launches[i] for n, p in zip(last, g.pieces))
+                       for i in range(len(COUNTERS)))
+
+
+def _program(kind, prob, state, opt, unroll_caps, flags):
+    """`ddp.solve_batch` on CUDA: replay the solve's device program for
+    this key (built at the first call) on copies of prob and state;
+    returns a SolveResult of tensors the caller owns."""
     from hkdmpc_tpu_torch.solver.structs import tree_map
 
     device = prob.xr.device
-    flags = dict(kernel_jac=kernel_jac, model=model,
-                 parallel_rollout=parallel_rollout,
-                 assoc_linear=assoc_linear, assoc_backward=assoc_backward,
-                 scan_backward=scan_backward, aug_sweep=aug_sweep,
-                 jvp_linear=jvp_linear)
     ins = leaves((prob, state))
-    key = _solve_key(opt, device, flags, ins, unroll_caps=False)
+    key = _solve_key(opt, device, flags, ins, unroll_caps=unroll_caps)
     with torch.cuda.device(device):
         with _LOCK:
             g = _GRAPHS.get(key)
             if g is None:
-                label = (f"solve_while(B={prob.kind.shape[0]}, "
-                         f"T={prob.kind.shape[1]}, kernel_jac={kernel_jac}, "
-                         f"parallel_rollout={parallel_rollout}, "
-                         f"assoc_backward={assoc_backward}, caps "
-                         f"{opt.max_AL_iter}x{opt.max_DDP_iter})")
-                g = _capture_while(label, device, prob, state, opt, flags,
-                                   ins)
+                static = _static_copies(ins, device)
+                sp, ss = _rebuild((prob, state), static)
+                label = (f"{kind}(B={prob.kind.shape[0]}, "
+                         f"T={prob.kind.shape[1]}, "
+                         f"kernel_jac={flags['kernel_jac']}, "
+                         f"parallel_rollout={flags['parallel_rollout']}, "
+                         f"assoc_backward={flags['assoc_backward']}, "
+                         f"caps {opt.max_AL_iter}x{opt.max_DDP_iter})")
+                prog = SolveProgram(sp, ss, opt, flags, unroll_caps)
+                g = _program_graph(label, device, prog, static,
+                                   (flags["model"],))
                 _GRAPHS[key] = g
             else:
                 for s, t in zip(g.inputs, ins):
                     s.copy_(t)
-            _replay_while(g)
+            replay_program(g)
             return tree_map(lambda t: t.clone(), g.outputs.result())
 
 
-def _capture_while(label, device, prob, state, opt, flags, ins) -> _Graph:
-    static = _static_copies(ins, device)
-    sp, ss = _rebuild((prob, state), static)
-    ws = WhileSolve(sp, ss, opt, flags)
-    stream = _capture_stream(device)
-    stream.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(stream):
-        ws.warm_up()
-    stream.synchronize()
-    t0 = time.perf_counter()
-    pieces = []
-    for name in WhileSolve.PIECES:
-        graph, _, rec, secs, nodes = _capture(f"{label} piece {name}",
-                                              device, None,
-                                              getattr(ws, name))
-        pieces.append(_Piece(name, graph, rec, secs, nodes))
-    native = _WhileExec(label, pieces, ws.flag_ou, ws.flag_in)
-    known = [p.nodes for p in pieces]
-    nodes = (None if None in known
-             else sum(known) + sum(native.nodes))
-    return _Graph(label=label, graph=native, inputs=static, outputs=ws,
-                  launches=tuple(0 for _ in COUNTERS),
-                  capture_s=time.perf_counter() - t0, nodes=nodes,
-                  keep=(flags["model"],), pieces=tuple(pieces),
-                  native_nodes=native.nodes)
+def solve_batch(prob, state, opt, **flags):
+    """`ddp.solve_batch` on CUDA with unroll_caps=True: the AL and DDP
+    loops unrolled to their caps, each backward sweep's retry loop a
+    conditional while node."""
+    return _program("solve_batch", prob, state, opt, True, flags)
 
 
-def _replay_while(g: _Graph) -> None:
-    global REPLAYS
-    g.graph.launch(g.label)
-    n_outer, n_inner = g.outputs.iterations()
-    runs = dict(carry0=1, head=n_outer, inner=n_inner, tail=n_outer)
-    launches = [0] * len(COUNTERS)
-    for p in g.pieces:
-        for i, v in enumerate(p.launches):
-            launches[i] += runs[p.name] * v
-    _set_counts(tuple(a + b for a, b in zip(_counts(), launches)))
-    g.launches, g.iterations = tuple(launches), (n_outer, n_inner)
-    g.replays += 1
-    REPLAYS += 1
+def solve_while(prob, state, opt, **flags):
+    """`ddp.solve_batch` on CUDA with unroll_caps=False: the AL and DDP
+    loops as two nested conditional while nodes, the retry loop a third
+    inside them (the JAX package's `lax.while_loop`s)."""
+    return _program("solve_while", prob, state, opt, False, flags)
 
 
 def _solve_key(opt, device, flags, ins, unroll_caps) -> tuple:
@@ -568,14 +742,14 @@ def _rebuild(tree, tensors):
 
 
 def fused_step(tables, state, ints, floats, meas, *, opt, parallel_rollout,
-               n_cmd, kernel_jac, assoc_linear, assoc_backward):
-    """`fused.fleet_step` on CUDA: replay the step's graph for this key.
-    `tables` and `state` stay where they are (the graph reads them and
-    writes the new state over `state`); ints, floats and meas (host arrays
-    or tensors) are copied into the graph's static buffers. Returns
-    (state, bundle (N, L) the caller owns)."""
-    from hkdmpc_tpu_torch.mpc import fused
-
+               n_cmd, kernel_jac, assoc_linear, assoc_backward, model,
+               unroll_caps):
+    """`fused.fleet_step` on CUDA: replay the step's device program for
+    this key (`StepProgram`, built at the first call). `tables` and `state`
+    stay where they are (the program reads them and writes the new state
+    over `state`); ints, floats and meas (host arrays or tensors) are
+    copied into the program's static buffers. Nothing is read on the host.
+    Returns (state, bundle (N, L) the caller owns)."""
     device = state.Xbar.device
     parallel_rollout = bool(parallel_rollout) and bool(opt.MS)
     resident = leaves((tables, state))
@@ -585,6 +759,7 @@ def fused_step(tables, state, ints, floats, meas, *, opt, parallel_rollout,
     addresses = tuple(t.data_ptr() for t in resident)
     key = ("fused_step", opt, device, parallel_rollout, int(n_cmd),
            bool(kernel_jac), bool(assoc_linear), bool(assoc_backward),
+           None if model is None else id(model), bool(unroll_caps),
            _layout(resident), addresses, host_shapes)
     with torch.cuda.device(device):
         with _LOCK:
@@ -598,61 +773,71 @@ def fused_step(tables, state, ints, floats, meas, *, opt, parallel_rollout,
             for h, v in zip(host, (ints, floats, meas)):
                 h.load(v)
             if new:
-                def step():
-                    return fused._fused_core(
-                        tables, state, *(h.device_buf for h in host), opt,
-                        parallel_rollout, n_cmd, kernel_jac, assoc_linear,
-                        assoc_backward, capturable=True)
-
-                def step_in_place():
-                    new_state, bundle = step()
-                    for old, fresh in zip(leaves(state), leaves(new_state)):
-                        old.copy_(fresh)
-                    return bundle
-
+                flags = dict(kernel_jac=kernel_jac, model=model,
+                             parallel_rollout=parallel_rollout,
+                             assoc_linear=assoc_linear,
+                             assoc_backward=assoc_backward)
+                prog = StepProgram(tables, state,
+                                   [h.device_buf for h in host], opt, n_cmd,
+                                   flags, unroll_caps)
                 n = state.Xbar.shape[0]
                 label = (f"fleet_step(N={n}, T={state.Ubar.shape[1]}, "
                          f"kernel_jac={kernel_jac}, parallel_rollout="
                          f"{parallel_rollout}, assoc_backward="
-                         f"{assoc_backward})")
-                graph, out, rec, secs, nodes = _capture(label, device, step,
-                                                        step_in_place)
-                g = _Graph(label=label, graph=graph, inputs=[],
-                           outputs=out, launches=rec, capture_s=secs,
-                           nodes=nodes, host_inputs=host,
-                           addresses=frozenset(addresses))
+                         f"{assoc_backward}, unroll_caps={unroll_caps})")
+                g = _program_graph(label, device, prog, [], (model,),
+                                   host_inputs=host,
+                                   addresses=frozenset(addresses))
                 _GRAPHS[key] = g
-            _replay(g)
-            return state, g.outputs.clone()
+            replay_program(g)
+            return state, g.outputs.bundle.clone()
 
 
 def stats() -> list:
-    """One record per graph: label, replays, capture seconds (warm-up
-    excluded), nodes (None where not known) and the kernel launches per
-    replay by counter ('riccati_hkd.LAUNCHES', ...). A while graph's
-    launches are its last replay's, `iterations` the (outer, inner) loop
-    iterations that replay ran (None for the other graphs), `pieces` each
-    captured piece's nodes, capture seconds and launches per run, and
-    `native_nodes` the nodes of its parent graph and of the outer and inner
-    while bodies (child graphs, set_cond kernels, while nodes)."""
+    """One record per graph (after `fold_counts`): label, replays, capture
+    seconds (warm-up excluded; the assembly included, also apart as
+    `assembly_s`, with the device bytes it took, `assembly_bytes`), nodes
+    (captured: the pieces' and the native ones; None where not known), and
+    of its last replay: the kernel launches by counter
+    ('riccati_hkd.LAUNCHES', ...), `iterations` (outer, inner), `retries`
+    (retry sweeps) and `nodes_run` (each piece's nodes times its runs).
+    `pieces` has each captured piece's nodes, capture seconds, launches per
+    run and runs in the last replay; `native_nodes` the nodes of the
+    parent graph and of the while bodies at each depth (child graphs,
+    set_cond kernels, while nodes)."""
     name = lambda m, n: f"{m.__name__.rsplit('.', 1)[-1]}.{n}"
     per = lambda launches: {name(m, n): v
                             for (m, n), v in zip(COUNTERS, launches)}
-    return [dict(label=g.label, replays=g.replays, capture_s=g.capture_s,
-                 nodes=g.nodes, launches=per(g.launches),
-                 iterations=g.iterations, native_nodes=g.native_nodes,
-                 pieces={p.name: dict(nodes=p.nodes, capture_s=p.capture_s,
-                                      launches=per(p.launches))
-                         for p in g.pieces})
-            for g in _GRAPHS.values()]
+    fold_counts()
+    out = []
+    for g in _GRAPHS.values():
+        runs = dict(zip((p.name for p in g.pieces), g.last_runs))
+        known = all(p.nodes is not None for p in g.pieces)
+        out.append(dict(
+            label=g.label, replays=g.replays, capture_s=g.capture_s,
+            nodes=g.nodes, launches=per(g.launches),
+            iterations=((runs.get("head", 0), runs.get("inner_b", 0))
+                        if g.replays else None),
+            retries=runs.get("retry", 0) if g.replays else None,
+            nodes_run=(sum(p.nodes * runs.get(p.name, 0) for p in g.pieces)
+                       if known and g.replays else None),
+            native_nodes=g.native_nodes, assembly_s=g.assembly_s,
+            assembly_bytes=g.assembly_bytes,
+            pieces={p.name: dict(nodes=p.nodes, capture_s=p.capture_s,
+                                 launches=per(p.launches),
+                                 runs=runs.get(p.name, 0))
+                    for p in g.pieces}))
+    return out
 
 
 def forget(tensors) -> int:
-    """Drop every graph whose key names the address of one of `tensors`;
-    returns how many. Their memory goes back to the allocator, so a graph
-    keyed on tensors that are replaced for good does not stay behind."""
+    """Drop every graph whose key names the address of one of `tensors`
+    (their counts folded first); returns how many. Their memory goes back
+    to the allocator, so a graph keyed on tensors that are replaced for
+    good does not stay behind."""
     ptrs = {t.data_ptr() for t in tensors}
     with _LOCK:
+        fold_counts()
         drop = [k for k, g in _GRAPHS.items() if g.addresses & ptrs]
         for k in drop:
             del _GRAPHS[k]
@@ -696,6 +881,7 @@ def clear_graphs() -> None:
     """Free every captured graph, its static buffers and the shared memory
     pools; the next call of an entry point captures anew."""
     with _LOCK:
+        fold_counts()
         _GRAPHS.clear()
         _POOLS.clear()
     if torch.cuda.is_available():

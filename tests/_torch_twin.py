@@ -460,10 +460,47 @@ def no_host_reads():
         torch.tensor, torch.as_tensor = saved_tensor, saved_as_tensor
 
 
-def captured(fn):
-    """fn() as a CUDA graph capture runs its body: once outside the guard
-    (the warm-up, which makes the cached constants), then under
-    `no_host_reads`."""
-    fn()
-    with no_host_reads():
-        return fn()
+def drive(prog):
+    """A device program's pieces (`graphs.Program`) as its graph runs them:
+    one warm-up run of each piece outside the guard (as a capture has),
+    then the program's order with every piece under `no_host_reads` and
+    each loop's flag read on the host between pieces."""
+    prog.warm_up()
+    prog.run_on_host(guard=no_host_reads)
+    return prog
+
+
+def program_solve(prob, state, opt, unroll_caps, **flags):
+    """`ddp.solve_batch`'s device program driven on the host (`drive`) on
+    copies of prob and state. Returns (a copy of its SolveResult, the
+    program)."""
+    from hkdmpc_tpu_torch.solver import graphs
+    from hkdmpc_tpu_torch.solver.structs import tree_map
+    full = dict(kernel_jac=True, model=None, parallel_rollout=True,
+                assoc_linear=False, assoc_backward=False,
+                scan_backward=False, aug_sweep=True, jvp_linear=False)
+    full.update(flags)
+    prog = graphs.SolveProgram(tree_map(torch.clone, prob),
+                               tree_map(torch.clone, state), opt, full,
+                               unroll_caps)
+    drive(prog)
+    return tree_map(torch.clone, prog.result()), prog
+
+
+def program_step(tables, state, ints, floats, meas, opt, parallel_rollout,
+                 n_cmd, unroll_caps, **flags):
+    """`fused.fleet_step`'s device program (`graphs.StepProgram`) driven on
+    the host (`drive`) on a copy of `state` as the resident state it writes
+    over; ints, floats, meas are tensors. Returns (the new state, the
+    bundle)."""
+    from hkdmpc_tpu_torch.solver import graphs
+    from hkdmpc_tpu_torch.solver.structs import tree_map
+    full = dict(kernel_jac=False, model=None,
+                parallel_rollout=parallel_rollout and bool(opt.MS),
+                assoc_linear=False, assoc_backward=False)
+    full.update(flags)
+    resident = tree_map(torch.clone, state)
+    prog = graphs.StepProgram(tables, resident, (ints, floats, meas), opt,
+                              n_cmd, full, unroll_caps)
+    drive(prog)
+    return resident, prog.bundle.clone()

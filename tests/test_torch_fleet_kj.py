@@ -1,6 +1,7 @@
 """The port's FleetMPC on the kernel_jac path (the default HKD model, K1's
 plain version on the CPU) against the JAX FleetMPC(kernel_jac=True,
-unroll_caps=True), with the fleet checkpoints and the refusals.
+unroll_caps=True), with the fleet checkpoints and the refusals, and the
+port's fleet with `FleetConfig(unroll_caps=False)` against the same.
 
 N = 3 robots on the in-repo trot at plan 0.3 s (T = 45), f64, the
 measurement stream of tests/test_fleet.py, 24 steps: appends at updates 9
@@ -58,6 +59,22 @@ def run(tmp_path_factory):
 def _port_fleet(ref):
     return FleetMPC(ref, N, config=FleetConfig(**CFG), dtype=F64,
                     device="cpu")
+
+
+def test_fleet_with_loops_that_stop_matches_jax(run):
+    """FleetConfig(unroll_caps=False): the steps run their AL and DDP loops
+    until no robot runs on, which gives the decisions and values of the
+    masked caps; its first steps (the first append and sequential-rollout
+    steps among them) match the JAX fleet's records. The JAX step's
+    while-loop form itself: `test_torch_step_while.py`."""
+    assert FleetConfig().unroll_caps
+    tf = FleetMPC(run["ref"], N, config=FleetConfig(unroll_caps=False,
+                                                    **CFG),
+                  dtype=F64, device="cpu")
+    tf.initialize()
+    n = 10
+    assert_steps_match(step_fleet(tf, run["meas"], 0, n), run["jrecs"][:n],
+                       "unroll_caps=False")
 
 
 def test_initialize_matches_jax(run):

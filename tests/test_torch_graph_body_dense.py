@@ -1,8 +1,10 @@
-"""The solve's capturable body (`ddp._solve_batch(capturable=True)`) on the
-CPU in float64 on the dense path (the swing-constraint model; the default
-model's path: `test_torch_graph_body.py`): after one warm-up run it runs
-with no host read and no tensor made from host data
-(`_torch_twin.no_host_reads`) and equals the JAX package's jitted
+"""The pieces that the device program of `solve_batch` captures
+(`graphs.SolveProgram`, unroll_caps) on the CPU in float64 on the dense
+path (the swing-constraint model; the default model's path:
+`test_torch_graph_body.py`), driven in the program's order
+(`_torch_twin.drive`): after one warm-up run every piece runs with no host
+read and no tensor made from host data (`_torch_twin.no_host_reads`), and
+the result equals the JAX package's jitted
 `solve_batch` (`pallas_backward=True`; in f64 its batched rule runs the
 scan) on the same inputs, with the parallel and the sequential rollout, and
 with single shooting (`opt.MS = False`): three perturbed scenarios of the
@@ -16,10 +18,9 @@ import pytest
 import torch
 
 from hkdmpc_tpu.solver import ddp as jddp
-from hkdmpc_tpu_torch.solver import ddp
 from hkdmpc_tpu_torch.solver import structs as tstructs
 from tests._torch_twin import (assert_solves_match, batched_trot, both,
-                               captured, port_option, specs)
+                               port_option, program_solve, specs)
 
 torch.set_num_threads(2)
 
@@ -45,9 +46,9 @@ def test_capturable_dense_solve_reads_nothing_and_matches_jax(trot, parallel,
                                                               ms):
     t = trot
     jopt = dataclasses.replace(t["opt"], MS=ms)
-    got = captured(lambda: ddp._solve_batch(
-        t["prob"], t["state"], port_option(jopt), kernel_jac=False,
-        model=t["spec"], parallel_rollout=parallel, capturable=True))
+    got, _ = program_solve(t["prob"], t["state"], port_option(jopt), True,
+                           kernel_jac=False, model=t["spec"],
+                           parallel_rollout=parallel)
     want = jddp.solve_batch(t["jprob"], t["jstate"], jopt, model=t["jspec"],
                             pallas_backward=True, parallel_rollout=parallel,
                             unroll_caps=True)

@@ -1,12 +1,15 @@
-"""The MPC steps' capturable body (`fused._fused_core(capturable=True)`,
-what the CUDA graphs of `fleet_step` and `fused_step` capture) on the CPU in
-float64: after one warm-up run, it runs with no host read and no tensor
-made from host data (`_torch_twin.no_host_reads`) and equals the JAX
+"""The pieces that the device programs of `fleet_step` and `fused_step`
+capture (`graphs.StepProgram`: `pre`, the solve's pieces with the AL and
+DDP loops unrolled and the retry loop a while loop, `post` writing the new
+state over the resident one) on the CPU in float64, driven in the
+program's order (`_torch_twin.drive`): after one warm-up run, every piece
+runs with no host read and no tensor made from host data
+(`_torch_twin.no_host_reads`) and the step equals the JAX
 package's jitted `fleet_step` / `fused_step` on the same inputs, from
 perturbed carried-over states, runtime caps: the fleet step of N = 3 robots
 on the trot at plan 0.3 s (T = 45) after 8 receding-horizon updates, the
 step that appends a phase (not all-shooting: the sequential rollout), on
-the dense path (the kernel_jac path's capturable solve is held to JAX in
+the dense path (the kernel_jac path's solve pieces are held to JAX in
 `test_torch_graph_body.py`; the step's own gathers are the same on both);
 and one robot's step at plan 0.1 s (T = 25) after 3 updates on the dense
 path with the parallel-in-time recursions on (the single-robot defaults on
@@ -23,8 +26,8 @@ from hkdmpc_tpu_torch.mpc import fused as tfused
 from hkdmpc_tpu_torch.mpc.solver import default_stand_state
 from hkdmpc_tpu_torch.solver import structs as tstructs
 from hkdmpc_tpu_torch.solver.structs import tree_map
-from tests._torch_twin import (F64, assert_close, both, captured,
-                               fleet_meas, port_option, problem_pair,
+from tests._torch_twin import (F64, assert_close, both, fleet_meas,
+                               port_option, problem_pair, program_step,
                                tile_tree, to_numpy_tree)
 
 torch.set_num_threads(2)
@@ -85,9 +88,8 @@ def test_capturable_fleet_step_reads_nothing_and_matches_jax(tmp_path):
     tables = tfused.make_tables(tpb, F64, "cpu")
     on = lambda a, dt: torch.as_tensor(a, dtype=dt)
     args = (on(ints, torch.int32), on(floats, F64), on(meas, F64))
-    tnew, tbundle = captured(lambda: tfused._fused_core(
-        tables, tstate, *args, port_option(optr), False, N_CMD, False,
-        capturable=True))
+    tnew, tbundle = program_step(tables, tstate, *args, port_option(optr),
+                                 False, N_CMD, True)
     _assert_step_matches(tnew, tbundle, jnew, jbundle)
     assert not np.any(tbundle.numpy()[:, 5])
 
@@ -111,9 +113,9 @@ def test_capturable_single_robot_step_matches_jax(tmp_path, assoc):
     tables = tfused.make_tables(tpb, F64, "cpu")
     on = lambda a, dt: torch.as_tensor(a, dtype=dt)
     args = (on(ints, torch.int32), on(floats, F64), on(meas, F64))
-    tnew, tbundle = captured(lambda: tfused._fused_core(
+    tnew, tbundle = program_step(
         tables, tree_map(lambda a: a[None], tstate), *args,
-        port_option(optr), True, N_CMD, False, assoc, assoc,
-        capturable=True))
+        port_option(optr), True, N_CMD, True, assoc_linear=assoc,
+        assoc_backward=assoc)
     _assert_step_matches(tree_map(lambda a: a[0], tnew), tbundle[0], jnew,
                          jbundle)

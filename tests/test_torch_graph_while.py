@@ -1,9 +1,10 @@
 """The loops that stop cut into the pieces that the card's while graph runs
-(`graphs.WhileSolve` over `ddp.solve_pieces(capturable=True)`), on the CPU
-in float64: a host loop of this file drives the pieces in the while nodes'
-order (carry0; while the outer flag: head, while the inner flag: inner;
-tail), reading the two device flags between pieces, and runs every piece
-under `_torch_twin.no_host_reads`. The result must equal the eager body
+(`graphs.SolveProgram` over `ddp.solve_pieces`, unroll_caps=False), on the
+CPU in float64: a host loop of this file drives the pieces in the while
+nodes' order (carry0; while the outer flag: head, while the inner flag:
+inner_a, while the retry flag: retry, inner_b; tail), reading the three
+device flags between pieces, and runs every piece under
+`_torch_twin.no_host_reads`. The result must equal the eager body
 (`ddp._solve_batch(unroll_caps=False)`) bit for bit on the default model's
 path (kernel_jac) and the dense path, with multiple and with single
 shooting: three perturbed scenarios of the in-repo trot at plan 0.1 s,
@@ -43,32 +44,35 @@ def trot():
     return dict(jprob=jprob, prob=prob, jstate=jstate, state=state, opt=opt)
 
 
-def _drive(ws):
+def _drive(prog):
     """The while nodes' order on the host: every piece under the guard, the
     flags read between pieces. Returns the inner iterations run."""
-    with no_host_reads():
-        ws.carry0()
+    def piece(name):
+        with no_host_reads():
+            prog.run(name)
+
+    piece("carry0")
     n_inner = 0
-    while bool(ws.flag_ou):
-        with no_host_reads():
-            ws.head()
-        while bool(ws.flag_in):
-            with no_host_reads():
-                ws.inner()
+    while bool(prog.flag["outer"]):
+        piece("head")
+        while bool(prog.flag["inner"]):
+            piece("inner_a")
+            while bool(prog.flag["retry"]):
+                piece("retry")
+            piece("inner_b")
             n_inner += 1
-        with no_host_reads():
-            ws.tail()
+        piece("tail")
     return n_inner
 
 
 def _pieces_solve(t, opt, flags):
-    """(the pieces' SolveResult, inner iterations run, WhileSolve) on static
-    copies of the inputs, as `graphs.solve_while` makes them."""
+    """(the pieces' SolveResult, inner iterations run, SolveProgram) on
+    static copies of the inputs, as `graphs.solve_while` makes them."""
     sp, ss = (tstructs.tree_map(torch.clone, t["prob"]),
               tstructs.tree_map(torch.clone, t["state"]))
-    ws = graphs.WhileSolve(sp, ss, opt, flags)
-    n_inner = _drive(ws)
-    return (tstructs.tree_map(torch.clone, ws.result()), n_inner, ws)
+    prog = graphs.SolveProgram(sp, ss, opt, flags, unroll_caps=False)
+    n_inner = _drive(prog)
+    return (tstructs.tree_map(torch.clone, prog.result()), n_inner, prog)
 
 
 def _flags(kernel_jac, parallel):
@@ -101,13 +105,13 @@ def test_pieces_equal_eager_body_and_jax_while_loop(trot, kernel_jac, ms):
     # warm-up of a capture does
     eager = ddp._solve_batch(t["prob"], t["state"], opt, unroll_caps=False,
                              **flags)
-    got, n_inner, ws = _pieces_solve(t, opt, flags)
+    got, n_inner, prog = _pieces_solve(t, opt, flags)
     _assert_same(got, eager)
     if kernel_jac == ms:
         assert_solves_match(got, _jax(t, jopt, kernel_jac, ms))
     assert not bool(got.solve_failed.any())
-    # the loop counters of the carry count what the host loop ran
-    assert ws.iterations()[1] == n_inner
+    # the pieces' device counts count what the host loop ran
+    assert prog.counts()["inner_b"] == n_inner
     assert n_inner <= opt.max_AL_iter * opt.max_DDP_iter
 
 
@@ -122,10 +126,10 @@ def test_pieces_stop_before_the_caps(trot):
     flags = _flags(False, parallel=True)
     eager = ddp._solve_batch(t["prob"], t["state"], loose, unroll_caps=False,
                              **flags)
-    got, n_inner, ws = _pieces_solve(t, loose, flags)
+    got, n_inner, prog = _pieces_solve(t, loose, flags)
     _assert_same(got, eager)
     want = _jax(t, jloose, False, True)
     assert_solves_match(got, want)
     assert n_inner < loose.max_AL_iter * loose.max_DDP_iter
-    assert ws.iterations() == (int(ws.loops[0]), n_inner)
+    assert prog.counts()["inner_b"] == n_inner
     assert int(want.n_iters.max()) < loose.max_AL_iter * loose.max_DDP_iter

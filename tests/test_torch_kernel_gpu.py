@@ -683,18 +683,21 @@ def test_graph_replay_equals_eager_body(cuda, kernel_jac):
 
 
 def test_graph_launch_counters_count_per_replay(cuda):
-    """A replay adds the launches recorded at capture: 2 first sweeps and
-    2 x 17 masked retries of K1 per solve (runtime caps, the retry bound
-    at a growth of 2), whatever the capture itself did."""
-    from hkdmpc_tpu_torch.solver import backward
+    """A replay adds the launches of the pieces it ran, read from the
+    program's device counts when the counters are read: 2 first sweeps of
+    K1 per solve (runtime caps) and the retries the retry loop ran, the
+    same as the eager body's, whatever the capture itself did."""
     prob, state, optr = _trot_batch(20, torch.float32, cuda)
     ddp.solve_batch(prob, state, optr, kernel_jac=True)
+    l0, r0 = riccati_hkd.LAUNCHES, riccati_hkd.RETRY_LAUNCHES
+    ddp._solve_batch(prob, state, optr, kernel_jac=True)
+    eager_retries = riccati_hkd.RETRY_LAUNCHES - r0
+    assert riccati_hkd.LAUNCHES - l0 == 2
     for _ in range(3):
         l0, r0 = riccati_hkd.LAUNCHES, riccati_hkd.RETRY_LAUNCHES
         ddp.solve_batch(prob, state, optr, kernel_jac=True)
         assert riccati_hkd.LAUNCHES - l0 == 2
-        assert riccati_hkd.RETRY_LAUNCHES - r0 == 2 * (
-            backward.retry_sweeps(optr.update_regularization) - 1)
+        assert riccati_hkd.RETRY_LAUNCHES - r0 == eager_retries
 
 
 def test_graph_fleet_steps_equal_eager_steps(cuda, tmp_path, monkeypatch):
@@ -723,16 +726,7 @@ def test_graph_fleet_steps_equal_eager_steps(cuda, tmp_path, monkeypatch):
     graph, ptr0, ptr1 = run()
     assert ptr0 == ptr1
 
-    def eager(tables, state, ints, floats, meas, opt, parallel_rollout,
-              n_cmd, kernel_jac, assoc_linear=False, assoc_backward=False):
-        on = lambda a, dt: torch.as_tensor(a, dtype=dt, device="cuda")
-        return fused._fused_core(tables, state, on(ints, torch.int32),
-                                 on(floats, torch.float32),
-                                 on(meas, torch.float32), opt,
-                                 parallel_rollout, n_cmd, kernel_jac,
-                                 assoc_linear, assoc_backward)
-
-    monkeypatch.setattr(fused, "fleet_step", eager)
+    monkeypatch.setattr(fused, "fleet_step", fused.fleet_step_eager)
     want, _, _ = run()
     for g, w in zip(graph, want):
         for name in ("scalars", "controls", "body", "gains", "pf"):
@@ -816,7 +810,7 @@ def test_graph_with_retries_equals_eager_body(cuda):
 @pytest.mark.parametrize("kernel_jac", [True, False], ids=["K1", "K2"])
 def test_while_graph_equals_eager_body(cuda, kernel_jac):
     """solve_batch(unroll_caps=False) on the card replays one graph with
-    two nested conditional while nodes (csrc/graph_while.cu): the result
+    three nested conditional while nodes (csrc/graph_while.cu): the result
     equals the eager body's (`ddp._solve_batch(unroll_caps=False)`) bit for
     bit at every replay, cold caps, on both paths."""
     from hkdmpc_tpu_torch.solver import graphs
@@ -843,12 +837,16 @@ def test_while_graph_equals_eager_body(cuda, kernel_jac):
 
 def test_while_graph_counters_count_iterations(cuda):
     """A while graph's replay adds each piece's launches times the runs the
-    loop counters report: on K1's path one first sweep and 17 masked
-    retries per inner iteration, none in the other pieces."""
+    program's device counts report: on K1's path one first sweep per inner
+    iteration (inner_a) and one masked launch per retry the loop ran (the
+    eager body's), none in the other pieces."""
     from hkdmpc_tpu_torch.solver import backward, graphs
     prob, state, _ = _trot_batch(20, torch.float32, cuda)
     opt = HSDDPOption()
     ddp.solve_batch(prob, state, opt, kernel_jac=True, unroll_caps=False)
+    r0 = backward.RETRY_SWEEPS
+    ddp._solve_batch(prob, state, opt, kernel_jac=True, unroll_caps=False)
+    eager_retries = backward.RETRY_SWEEPS - r0
     for _ in range(2):
         l0, r0 = riccati_hkd.LAUNCHES, riccati_hkd.RETRY_LAUNCHES
         res = ddp.solve_batch(prob, state, opt, kernel_jac=True,
@@ -859,29 +857,30 @@ def test_while_graph_counters_count_iterations(cuda):
         assert n_inner == int(res.n_iters.max()) >= 1
         assert 1 <= n_outer <= opt.max_AL_iter
         assert riccati_hkd.LAUNCHES - l0 == n_inner
-        assert riccati_hkd.RETRY_LAUNCHES - r0 == n_inner * (
-            backward.retry_sweeps(opt.update_regularization) - 1)
+        assert riccati_hkd.RETRY_LAUNCHES - r0 == st["retries"] \
+            == eager_retries
         pieces = st["pieces"]
-        assert pieces["inner"]["launches"]["riccati_hkd.LAUNCHES"] == 1
+        assert pieces["inner_a"]["launches"]["riccati_hkd.LAUNCHES"] == 1
+        assert pieces["retry"]["launches"]["riccati_hkd.RETRY_LAUNCHES"] == 1
         assert all(pieces[p]["launches"]["riccati_hkd.LAUNCHES"] == 0
-                   for p in ("carry0", "head", "tail"))
+                   for p in ("carry0", "head", "inner_b", "tail"))
 
 
 def test_while_graph_build_error_raises(cuda, monkeypatch):
-    """A failed assembly of the while graph raises RuntimeError naming the
-    step; nothing is cached, nothing falls back to the eager body."""
+    """A failed assembly of the device program raises RuntimeError naming
+    the step; nothing is cached, nothing falls back to the eager body."""
     from hkdmpc_tpu_torch.solver import graphs
 
     class Refusing:
-        def graph_while_build(self, *args):
+        def graph_program_build(self, *args):
             args[-2].value = b"cudaGraphInstantiate (parent): refused"
             return 1
 
     prob, state, _ = _trot_batch(7, torch.float32, cuda)
     opt = HSDDPOption()
-    monkeypatch.setattr(graphs, "_while_lib", lambda: Refusing())
+    monkeypatch.setattr(graphs, "_program_lib", lambda: Refusing())
     held, replays = len(graphs.stats()), graphs.REPLAYS
-    with pytest.raises(RuntimeError, match="building the while graph "
+    with pytest.raises(RuntimeError, match="building the device program "
                        "failed at cudaGraphInstantiate"):
         ddp.solve_batch(prob, state, opt, kernel_jac=True, unroll_caps=False)
     assert len(graphs.stats()) == held and graphs.REPLAYS == replays

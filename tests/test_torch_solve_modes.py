@@ -104,11 +104,12 @@ def test_stopping_loops_match_masked_form_and_jax_while_loop(trot):
 
 def test_stopping_loops_run_fewer_iterations(trot, monkeypatch):
     """With every scenario converged after its first iteration the stopping
-    form computes fewer backward sweeps than the caps."""
+    form computes fewer backward sweeps (first sweeps of the retry loop)
+    than the caps."""
     from hkdmpc_tpu_torch.solver import backward
     calls = []
-    real = backward.backward_sweep_regularized
-    monkeypatch.setattr(backward, "backward_sweep_regularized",
+    real = backward.first_sweep
+    monkeypatch.setattr(backward, "first_sweep",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     loose = dataclasses.replace(port_option(trot["opt"]), cost_thresh=1e9,
                                 dynamics_feas_thresh=1e9, max_DDP_iter=4,
