@@ -12,7 +12,8 @@ resets that reuse the resident buffers; then every device program, whose
 regularization retry loops are conditional while nodes, against its eager
 body, with forced retries; then brings up the bench's mixed trot +
 flytrot batch and 2.0 s plan and runs the bench program (`python -m
-hkdmpc_tpu_torch.bench`).
+hkdmpc_tpu_torch.bench`); last, float64 on the card: both kernels' f64
+instantiations and the f64 solves, fleet, single robot and service.
 
 Graphs are the card's default: `solve_batch` (unroll_caps, or the while
 graph of the loops that stop), the fleet and single-robot steps replay a
@@ -28,7 +29,8 @@ reference runs of phases 3, 5 and 7 run the eager body.
 Phases, one line each:
   1. build both kernels and the while graphs' native assembly
      (csrc/graph_while.cu) from hkdmpc_tpu_torch/csrc (one nvcc per source,
-     started together, sm_90a) and print the build time, each kernel's
+     started together, sm_90a; a kernel's library holds its float32 and
+     float64 instantiation) and print the build time, each instantiation's
      ptxas registers, spills and barriers, its threads per block, dynamic
      shared memory and resident blocks per SM, and the card's name and
      power limit;
@@ -186,7 +188,8 @@ Phases, one line each:
      graph is freed.
  14. (run after phase 13, before phase 12) the device programs against
      their eager bodies, every backward sweep's retry loop a conditional
-     while node. (a) in turns (eager, graph, graph, eager) on the same
+     while node, in turns (eager, graph, graph, eager; every turn's result
+     and retries against the first eager turn's). (a) on the same
      inputs: the B = 4096 kernel_jac (K1) and dense swing (K2) solves with
      unroll_caps=True (runtime caps) and False (cold caps), the scan route
      (`scan_backward=True`) at B = 1024; the single robot's fused update
@@ -203,9 +206,9 @@ Phases, one line each:
      REG_MAX: the retry loop alone as a device program (the first sweep,
      then a while node on `again` around the retry step) against
      `backward_sweep_regularized` for K1 and K2 at B = 4096, the scan and
-     the assoc sweep at B = 256: dU, K, dv1, dv2, reg, ok,
-     failed bit-equal, the same retries (at least 10), the failing row
-     failed. (c) the K1 B = 4096 program's assembly time and device memory
+     the assoc sweep at B = 256, in turns: dU, K, dv1, dv2, reg, ok,
+     failed bit-equal, the same retries (at least 10) in every turn, the
+     failing row failed. (c) the K1 B = 4096 program's assembly time and device memory
      at the runtime caps (2 x 1) and at the cold caps 3 x 4 unrolled (each
      inner piece 12 times) and as while nodes, with a replay's ms.
      The times against the parent commit's programs come from `python -m
@@ -228,17 +231,53 @@ Phases, one line each:
      BENCH_LONGT=1 BENCH_REPS=2 BENCH_FLEET_STEPS=10: exit 0, one JSON line
      with every key present and finite, no vs_baseline,
      fleet_failed_last_step 0; its stderr lines are printed.
+ 15. (run last, after phase 12, with every earlier program cleared) float64
+     on the card. (a) each kernel's f64 instantiation (built in phase 1)
+     against its f64 plain version on the card: K1 on the trot at B = 4096
+     and 1024, on the interleaved trot + flytrot batch (B = 1024) and at
+     T = 250 (B = 256); K2 on the swing-constraint trot's LQ data at
+     B = 4096 and 1024 and on the default model's at B = 1; dU, K, dv1, dv2
+     within 1e-8 of the plain output's largest magnitude, ok equal on
+     99.9% of the rows (the differing count printed); ms beside the f64
+     plain version, the f32 kernel on the same inputs in f32 and both
+     bounds (f64: operations at the FP64 tensor-core rate, 67 TFLOP/s, the
+     vector rate beside it); the masked launches at B = 4096; registers,
+     shared memory and blocks per SM; phase 14 (b)'s forced retries in f64
+     on K1 and K2 at B = 4096 (program against eager loop in turns,
+     bit-equal, at least 10 retries, a row failed past REG_MAX), the eager
+     loop also against the same loop on the f64 plain version on the card
+     (reg, ok, failed equal on 99.9% of the rows, outputs within 1e-8).
+     (b) f64 solve_batch at B = 4096, K1
+     and the dense swing-constraint model, unroll_caps True and False: the
+     eager body against the device program in turns, every result tensor
+     bit-equal with the same retries, the f64 kernel launched in a replay,
+     0 failed, finite, the first 8 final costs within 1e-7 of the port's
+     f64 solve on the CPU, ms per replay beside phase 14 (a)'s f32 program;
+     the memory held. (c) an f64 FleetMPC N = 1024 (FleetConfig(): K1),
+     2 + 10 steps, ms per step by rollout kind beside phase 7's. (d) an
+     f64 HKDMPCSolver (fused; assoc defaults, and assoc off: K2 at B = 1),
+     2 + 12 updates, each timed update within 1e-6 of the f64 solver on the
+     CPU on cost and controls. (e) MPCService.run on the f64 K2 solver over
+     a scripted transport, 2 + 6 requests. Alone: `c.f64_phase(
+     c.build_phase())`.
 Each solve path runs with its kernel's launch count set to 0 just before it
 and read just after. Then one JSON line with both kernels (name, route,
 source, replaces, launches, retry_launches, max_abs_err, ms, plain_ms,
 bound_ms, bound_by, library_ms, ms_b1024, bound_ms_b1024, ms_all_inactive,
 threads_per_block, smem_bytes, blocks_per_sm, while_launches,
 while_retry_launches (phase 13 (a), one replay), forced_retries (phase 14
-(b): retries of the forced-retry loop at B = 4096); K1 also fleet_launches,
+(b): retries of the forced-retry loop at B = 4096; forced_retries_f64 the
+same in phase 15 (a)); K1 also fleet_launches,
 sharded_launches, mixed_launches, longt_ms, longt_bound_ms,
 while_fleet_launches (phase 13 (c)); K2 also mpc_launches,
 service_launches, profile_launches, ms_b1, plain_ms_b1, bound_ms_b1,
-while_mpc_launches (phase 13 (b), assoc off)), the card's name and power
+while_mpc_launches (phase 13 (b), assoc off); phase 15's f64 figures:
+ms_f64, plain_ms_f64, bound_ms_f64, bound_by_f64, max_abs_err_f64,
+ms_f32_same_call, ms_all_inactive_f64, ms_b1024_f64, bound_ms_b1024_f64,
+smem_bytes_f64, blocks_per_sm_f64, launches_f64 (one replay of each
+program in (b)); K1 also mixed_ms_f64, longt_ms_f64, longt_bound_ms_f64,
+fleet_launches_f64; K2 also ms_b1_f64, bound_ms_b1_f64, plain_ms_b1_f64,
+mpc_launches_f64, service_launches_f64), the card's name and power
 limit, and the
 result line. Any
 failure raises and exits non-zero. No CUDA device: exit 1.
@@ -278,6 +317,7 @@ MPC_WARMUP = 2
 MPC_CLOSE = {"cost": 1e-4, "cmd": 1e-3}
 MPC_WORST = {"cost": 5e-3, "cmd": 1e-1}
 MPC_SHARE = 0.9
+# the kernels; each library holds its float32 and float64 instantiation
 KERNELS = ("riccati_hkd", "riccati_dense")
 # the native assembly of the while graphs (set_cond: no TPU kernel)
 GRAPH_SOURCES = ("graph_while",)
@@ -407,6 +447,24 @@ def trot_batch(torch, batch, dtype, model=None):
     return perturb_scenarios(prob_b, noise=noise), state_b, opt
 
 
+def ptxas_report(log, dtype):
+    """ptxas's stack, spill and register lines of a kernel's entry function
+    for `dtype` (float32 or float64), from its library's build log."""
+    import torch
+    tag = "kernelIdE" if dtype == torch.float64 else "kernelIfE"
+    lines, on = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            on = tag in line
+        elif "Compile time" in line:
+            on = False
+        elif on and ("registers" in line or "spill" in line):
+            lines.append(line.strip().split("ptxas info    : ")[-1])
+    if not lines:
+        raise AssertionError(f"no ptxas report of the {dtype} kernel")
+    return " | ".join(lines)
+
+
 def build_phase():
     torch = _torch()
     from hkdmpc_tpu_torch.ops import _build
@@ -434,15 +492,19 @@ def build_phase():
     reports = []
     for name, (path, build_s) in built.items():
         log = (path.parent / f"{name}.build.log").read_text()
-        report = f"{name} {build_s:.3f} s: " + " | ".join(
-            l.strip() for l in log.splitlines()
-            if "registers" in l or "spill" in l)
-        if name in KERNELS:
-            info = _build.kernel_info(name)
-            report += (f" | {info['threads_per_block']} threads, "
-                       f"{info['smem_bytes']} B dynamic shared memory per "
-                       f"block, {info['blocks_per_sm']} blocks per SM")
-        reports.append(report)
+        if name not in KERNELS:
+            reports.append(f"{name} {build_s:.3f} s: " + " | ".join(
+                l.strip() for l in log.splitlines()
+                if "registers" in l or "spill" in l))
+            continue
+        parts = []
+        for dtype in (torch.float32, torch.float64):
+            info = _build.kernel_info(name, dtype)
+            parts.append(f"{dtype}: {ptxas_report(log, dtype)} | "
+                         f"{info['threads_per_block']} threads, "
+                         f"{info['smem_bytes']} B dynamic shared memory per "
+                         f"block, {info['blocks_per_sm']} blocks per SM")
+        reports.append(f"{name} {build_s:.3f} s: " + "; ".join(parts))
     card = card_line()
     print(f"phase 1 build: {', '.join(sources)} and the native transport "
           f"hkdcomm (g++, {host_s:.3f} s) built in parallel in "
@@ -848,6 +910,7 @@ def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
     total_ms = (t1 - t0) * 1e3
     par_ms = [m for m, s in zip(step_ms, shooting) if s]
     seq_ms = [m for m, s in zip(step_ms, shooting) if not s]
+    KEPT["fleet_ms"] = (par_ms, seq_ms)
     print(f"phase 7 fleet: FleetMPC N={n} trot plan 0.6 s T="
           f"{fleet.problem.T} f32 FleetConfig() (kernel_jac -> K1); cold "
           f"solve mean cost {init['mean_cost']:.6g}, 0/{n} failed, "
@@ -912,17 +975,17 @@ def fleet_vs_plain(torch, card, n=PLAIN_CHECK_LANES,
                              f"fleet by {rel:.3e} rel")
 
 
-def mpc_run(torch, ref, label, stream, **cfg):
-    """One single-robot MPC run: cold solve, MPC_WARMUP updates, then
-    MPC_UPDATES timed updates of `stream`'s measurements. Counts K2's
-    launches and retry launches and the graphs replayed (by label) over the
-    timed updates. Returns a record of per-update times, costs and
-    commands."""
+def mpc_run(torch, ref, label, stream, dtype=None, **cfg):
+    """One single-robot MPC run (f32 unless `dtype` says otherwise): cold
+    solve, MPC_WARMUP updates, then MPC_UPDATES timed updates of `stream`'s
+    measurements. Counts K2's launches and retry launches (and its f64
+    launches) and the graphs replayed (by label) over the timed updates.
+    Returns a record of per-update times, costs and commands."""
     from hkdmpc_tpu_torch.mpc.solver import HKDMPCSolver, MPCConfig
     from hkdmpc_tpu_torch.ops import riccati_dense
 
-    solver = HKDMPCSolver(ref, config=MPCConfig(**cfg), dtype=torch.float32,
-                          device="cuda")
+    solver = HKDMPCSolver(ref, config=MPCConfig(**cfg),
+                          dtype=dtype or torch.float32, device="cuda")
     cold_replays = replays_by_label()
     cmd = solver.initialize()
     if bool(solver.last_result.solve_failed) or not np.isfinite(
@@ -936,6 +999,7 @@ def mpc_run(torch, ref, label, stream, **cfg):
     for k in range(MPC_WARMUP + MPC_UPDATES):
         if k == MPC_WARMUP:
             riccati_dense.LAUNCHES = riccati_dense.RETRY_LAUNCHES = 0
+            riccati_dense.LAUNCHES_F64 = 0
             replays = replays_by_label()
         m = {name: v[0] for name, v in stream(k).items()}
         args = (m["rpy"], m["p"], m["v"], m["omega"], m["qJ"])
@@ -971,6 +1035,7 @@ def mpc_run(torch, ref, label, stream, **cfg):
         rec["cost"].append(float(res.cost))
         rec["cmds"].append(cmd)
     rec["k2_launches"] = riccati_dense.LAUNCHES
+    rec["k2_launches_f64"] = riccati_dense.LAUNCHES_F64
     rec["k2_retries"] = riccati_dense.RETRY_LAUNCHES
     rec["graphs"] = replayed_since(replays)
     rec["solver"] = solver
@@ -1891,6 +1956,18 @@ def _max_diff(pairs):
     return worst
 
 
+def _max_diff_card(pairs):
+    """Max |a - b| over pairs of tensors on the card (NaN where both
+    are)."""
+    worst = 0.0
+    for a, b in pairs:
+        if not a.is_floating_point():
+            a, b = a.long(), b.long()
+        diff = (a.nan_to_num(7.0) - b.nan_to_num(7.0)).abs()
+        worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+    return worst
+
+
 def _retry_sweeps():
     """Retry sweeps run so far on every route (`backward.RETRY_SWEEPS`;
     the device programs' runs folded in when it is read)."""
@@ -2402,13 +2479,8 @@ def _same_results(a, b):
     """Max |a - b| over every tensor of two SolveResults (on the card, NaN
     where both are), and whether their n_iters agree."""
     from hkdmpc_tpu_torch.solver import graphs
-    worst = 0.0
-    for x, y in zip(graphs.leaves(a), graphs.leaves(b)):
-        if not x.is_floating_point():
-            x, y = x.long(), y.long()
-        diff = (x.nan_to_num(7.0) - y.nan_to_num(7.0)).abs()
-        worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
-    return worst, bool((a.n_iters == b.n_iters).all())
+    return (_max_diff_card(zip(graphs.leaves(a), graphs.leaves(b))),
+            bool((a.n_iters == b.n_iters).all()))
 
 
 def while_solves(torch, card):
@@ -2701,6 +2773,8 @@ def while_phase(card):
 
 RETRY_BATCH = 1024        # phase 14 (a): the scan route's solve
 LQ_RETRY_BATCH = 256      # phase 14 (b): the scan and assoc retry programs
+# phases 14 and 15: the eager body and its device program in turns
+TURNS = ("eager", "graph", "graph", "eager")
 # phase 14 (b): per row, a scale of the ReB weight (K1) and a shift of luu
 # (the LQ routes): no retry, 1 retry, 10-11 retries, a failure past REG_MAX
 REB_PATTERN = (1.0, -1e-3, -0.1, -100.0)
@@ -2708,13 +2782,17 @@ LUU_PATTERN = (0.0, 1e-3, 1.0, 1000.0)
 
 
 def _turns(torch, eager, graph):
-    """The eager body and the device program on the same inputs in turns
-    (eager, graph, graph, eager), after the program's build: results, ms
-    (CUDA events) and retry sweeps of each turn, by kind."""
+    """The eager body and the device program on the same inputs in TURNS,
+    after the program's build: each turn's result against the first eager
+    one (max |difference| over every tensor, n_iters equal in all), and
+    the ms (CUDA events) and retry sweeps of each turn, by kind. Holds two
+    results at a time (a B = 4096 result holds its gains, 0.7 GB in f32
+    and 1.4 GB in f64)."""
     graph()
     torch.cuda.synchronize()
-    res, ms, retries = ({"eager": [], "graph": []} for _ in range(3))
-    for turn in ("eager", "graph", "graph", "eager"):
+    ms, retries = {"eager": [], "graph": []}, {"eager": [], "graph": []}
+    first, worst, equal = None, 0.0, True
+    for turn in TURNS:
         torch.cuda.synchronize()
         r0 = _retry_sweeps()
         start = torch.cuda.Event(enable_timing=True)
@@ -2724,9 +2802,14 @@ def _turns(torch, eager, graph):
         end.record()
         torch.cuda.synchronize()
         ms[turn].append(start.elapsed_time(end))
-        res[turn].append(out)
         retries[turn].append(_retry_sweeps() - r0)
-    return res, ms, retries
+        if first is None:
+            first = out
+        else:
+            w, e = _same_results(first, out)
+            worst, equal = max(worst, w), equal and e
+        del out
+    return ms, retries, worst, equal
 
 
 def _record(head, *parts):
@@ -2762,9 +2845,9 @@ def retry_solves(torch, card):
             o = opt.runtime() if unroll else opt
             run = lambda f: f(prob_b, state_b, o, kernel_jac=kj, model=spec,
                               unroll_caps=unroll, **extra)
-            res, ms, retries = _turns(torch, lambda: run(ddp._solve_batch),
-                                      lambda: run(ddp.solve_batch))
-            worst, equal = _same_results(res["eager"][0], res["graph"][0])
+            ms, retries, worst, equal = _turns(
+                torch, lambda: run(ddp._solve_batch),
+                lambda: run(ddp.solve_batch))
             st = _record("solve_batch(B=" if unroll else "solve_while(B=",
                          f"(B={batch},", f"kernel_jac={kj},",
                          f"caps {o.max_AL_iter}x{o.max_DDP_iter})")
@@ -2780,7 +2863,7 @@ def retry_solves(torch, card):
             print(f"phase 14 (a) {label} solve, B={batch} T={prob_b.T} f32 "
                   f"unroll_caps={unroll} (caps AL {o.max_AL_iter} x DDP "
                   f"{o.max_DDP_iter}): eager body vs device program in turns"
-                  f" (eager, graph, graph, eager): every result tensor "
+                  f" ({', '.join(TURNS)}): every result tensor "
                   f"bit-equal, n_iters equal; retry sweeps per solve {want}"
                   f" eager, {st['retries']} in the program's replay; ms per "
                   f"solve, CUDA events: eager {fmt(ms['eager'])}, program "
@@ -2789,6 +2872,9 @@ def retry_solves(torch, card):
                   f"{card}", flush=True)
             if kj and unroll:
                 kept["runtime"] = st
+            if label != "scan, default model":
+                KEPT[("f32 program ms", kj, unroll)] = statistics.median(
+                    ms["graph"])
     return kept
 
 
@@ -2842,7 +2928,7 @@ def retry_steps(torch, card, ref):
               f"fleet_step(N={FLEET_N},", "unroll_caps=False")]
     for label, run, head, form in cases:
         outs, ms, retries = {"eager": [], "graph": []}, {}, []
-        for turn in ("eager", "graph", "graph", "eager"):
+        for turn in TURNS:
             out, _, r = run(turn == "eager")
             outs[turn].append(out)
             retries.append(r)
@@ -2854,10 +2940,10 @@ def retry_steps(torch, card, ref):
                            "controls": o[3].hkd_controls,
                            "body": o[3].des_body_state,
                            "gains": o[3].feedback})
-        worst = _max_diff([(flat(a)[n], flat(b)[n])
-                           for a, b in zip(outs["eager"][0],
-                                           outs["graph"][0])
-                           for n in flat(a)])
+        worst = max(_max_diff([(flat(a)[n], flat(b)[n])
+                               for a, b in zip(outs["eager"][0], other)
+                               for n in flat(a)])
+                    for other in outs["graph"] + outs["eager"][1:])
         recs = [st for st in graphs.stats() if st["label"].startswith(head)
                 and form in st["label"] and st["replays"]]
         if worst != 0.0 or len(set(retries)) != 1 or not recs:
@@ -2865,7 +2951,7 @@ def retry_steps(torch, card, ref):
                                  f"graph| {worst:.3e}, retry sweeps by turn "
                                  f"{retries}, {len(recs)} programs")
         print(f"phase 14 (a) {label}: eager steps vs device programs in "
-              f"turns (eager, graph, graph, eager): bit-equal; retry sweeps "
+              f"turns ({', '.join(TURNS)}): bit-equal; retry sweeps "
               f"{retries[0]} in each turn's timed steps; ms per step (host "
               f"clock around the blocking step, median): eager "
               f"{statistics.median(ms['eager']):.3f}, program "
@@ -2907,45 +2993,59 @@ def _retry_program(prob, defect, last, route):
     return RetryProgram()
 
 
-def forced_retries(torch, card):
-    """Phase 14 (b): inputs whose first sweep is not PSD on some rows
-    (REB_PATTERN on the ReB weight for K1, LUU_PATTERN on luu for the LQ
-    routes, repeated over the batch): the retry loop as a device program
-    against `backward_sweep_regularized` on K1 and K2 (B = 4096), the scan
-    and the assoc sweep (B = 256): dU, K, dv1, dv2, reg,
-    ok, failed bit-equal, the retries the eager loop ran, a row that fails
-    past REG_MAX. Returns {kernel: retries a program replay ran}."""
+def _forced_inputs(torch, kind, batch, dtype):
+    """A trot batch whose first sweep is not PSD on some rows (REB_PATTERN
+    on the ReB weight for K1, "hkd"; LUU_PATTERN on luu for the LQ routes,
+    "dense", "scan", "assoc"; repeated over the batch): (prob, defect,
+    last, route keywords of backward_sweep_regularized)."""
     import dataclasses as dc
-    from hkdmpc_tpu_torch.solver import backward, graphs, lq as lq_mod
+    from hkdmpc_tpu_torch.solver import lq as lq_mod
     from hkdmpc_tpu_torch.solver import rollout as ro
+    prob_b, state_b, _ = trot_batch(torch, batch, dtype)
+    r = ro.hybrid_rollout_parallel(prob_b, state_b, 0.0)
+    c = state_b.constr
+    last = ro.last_active_node(prob_b)
+    rows = lambda pat: torch.tensor(pat * (batch // len(pat)), dtype=dtype,
+                                    device="cuda")
+    if kind == "hkd":
+        route = dict(kernel_jac_XU=(
+            r.X, r.U, c.reb_delta,
+            (c.reb_eps * rows(REB_PATTERN)[:, None, None]).contiguous(),
+            c.al_sigma, c.al_lambda))
+    else:
+        lqd = lq_mod.lq_approximation(prob_b, r.X, r.U, c, True, True, None)
+        shift = rows(LUU_PATTERN)[:, None, None, None]
+        lqd = dc.replace(lqd, luu=(lqd.luu - shift * torch.eye(
+            24, dtype=dtype, device="cuda")).contiguous())
+        route = dict(lq=lqd, scan=kind == "scan",
+                     assoc_backward=kind == "assoc")
+    return prob_b, r.defect, last, route
+
+
+def forced_retries(torch, card, dtype=None, cases=(
+        ("K1", BATCH, "hkd"), ("K2", BATCH, "dense"),
+        ("scan", LQ_RETRY_BATCH, "scan"),
+        ("assoc", LQ_RETRY_BATCH, "assoc")), phase="14 (b)", against=None):
+    """Phase 14 (b) (and, with dtype float64, 15 (a)): on
+    `_forced_inputs`, the retry loop as a device program against
+    `backward_sweep_regularized` in TURNS, on K1 and K2 (B = 4096), the scan and the assoc sweep
+    (B = 256): dU, K, dv1, dv2, reg, ok, failed bit-equal in every turn,
+    the retries the eager loop ran (at least 10) in every turn, a row that
+    fails past REG_MAX. `against(label, inputs, result)`, where given,
+    checks the eager result further and returns a text for the line.
+    Returns {kernel: retries a program replay ran}."""
+    from hkdmpc_tpu_torch.solver import backward, graphs
+    dtype = dtype or torch.float32
     out = {}
-    for label, batch, kind in (("K1", BATCH, "hkd"),
-                               ("K2", BATCH, "dense"),
-                               ("scan", LQ_RETRY_BATCH, "scan"),
-                               ("assoc", LQ_RETRY_BATCH, "assoc")):
-        prob_b, state_b, _ = trot_batch(torch, batch, torch.float32)
-        r = ro.hybrid_rollout_parallel(prob_b, state_b, 0.0)
-        c = state_b.constr
-        last = ro.last_active_node(prob_b)
-        rows = lambda pat: torch.tensor(pat * (batch // len(pat)),
-                                        device="cuda")
-        if kind == "hkd":
-            route = dict(kernel_jac_XU=(
-                r.X, r.U, c.reb_delta,
-                (c.reb_eps * rows(REB_PATTERN)[:, None, None]).contiguous(),
-                c.al_sigma, c.al_lambda))
-        else:
-            lqd = lq_mod.lq_approximation(prob_b, r.X, r.U, c, True, True,
-                                          None)
-            shift = rows(LUU_PATTERN)[:, None, None, None]
-            lqd = dc.replace(lqd, luu=(lqd.luu - shift * torch.eye(
-                24, device="cuda")).contiguous())
-            route = dict(lq=lqd, scan=kind == "scan",
-                         assoc_backward=kind == "assoc")
-        prog = _retry_program(prob_b, r.defect, last, route)
-        g = graphs.build_program(f"retry loop ({label}, B={batch})", prog)
-        res, ms, sweeps = {}, {"eager": [], "graph": []}, []
-        for turn in ("eager", "graph", "graph", "eager"):
+    for label, batch, kind in cases:
+        inputs = _forced_inputs(torch, kind, batch, dtype)
+        prob_b, defect, last, route = inputs
+        prog = _retry_program(prob_b, defect, last, route)
+        g = graphs.build_program(f"retry loop ({label}, B={batch}, "
+                                 f"{dtype})", prog)
+        ms, sweeps = {"eager": [], "graph": []}, []
+        first, got, worst = None, None, 0.0
+        for turn in TURNS:
             torch.cuda.synchronize()
             r0 = backward.RETRY_SWEEPS
             start = torch.cuda.Event(enable_timing=True)
@@ -2953,7 +3053,7 @@ def forced_retries(torch, card):
             start.record()
             if turn == "eager":
                 got = backward.backward_sweep_regularized(
-                    prob_b, r.defect, 0.0, 2.0, last, **route)
+                    prob_b, defect, 0.0, 2.0, last, **route)
             else:
                 graphs.replay_program(g)
                 got = backward.finish(prog.bw)
@@ -2961,31 +3061,34 @@ def forced_retries(torch, card):
             torch.cuda.synchronize()
             ms[turn].append(start.elapsed_time(end))
             got = tuple(t.clone() for t in got)
-            res.setdefault(turn, got)
+            if first is None:
+                first = got
+            else:
+                worst = max(worst, _max_diff_card(zip(first, got)))
             if turn == "eager":
                 sweeps.append(backward.RETRY_SWEEPS - r0)
             else:
                 sweeps.append(prog.counts(1)["retry"])
-        worst = _max_diff([(a.cpu(), b.cpu()) for a, b in
-                           zip(res["eager"], res["graph"])])
-        ok, failed = res["graph"][5], res["graph"][6]
-        n_retried = int(((res["graph"][4] > 0) & ok).sum())
+        ok, failed = got[5], got[6]
+        n_retried = int(((got[4] > 0) & ok).sum())
         if worst != 0.0 or len(set(sweeps)) != 1 or sweeps[0] < 10 \
                 or not bool(failed[3]) or bool(failed[0]):
             raise AssertionError(
-                f"phase 14 (b) {label}: max |eager - graph| {worst:.3e}, "
-                f"retries by turn {sweeps}, failed rows "
+                f"phase {phase} {label} {dtype}: max |eager - graph| "
+                f"{worst:.3e}, retries by turn {sweeps}, failed rows "
                 f"{int(failed.sum())}")
+        del prog, g, got
+        more = against(label, inputs, first) if against else ""
         fmt = lambda xs: ", ".join(f"{x:.3f}" for x in xs)
-        print(f"phase 14 (b) forced retries, {label} B={batch} T={prob_b.T} "
-              f"f32: the retry loop as a device program (first sweep; while "
-              f"node on `again`: retry step) vs backward_sweep_regularized "
-              f"in turns: dU, K, dv1, dv2, reg, ok, failed bit-equal; "
-              f"retries per loop {sweeps[0]} (eager and program); rows: "
-              f"{int(ok.sum())} ok ({n_retried} after retries), "
-              f"{int(failed.sum())} failed past REG_MAX; ms: eager "
-              f"{fmt(ms['eager'])}, program {fmt(ms['graph'])}; on {card}",
-              flush=True)
+        print(f"phase {phase} forced retries, {label} B={batch} "
+              f"T={prob_b.T} {dtype}: the retry loop as a device program "
+              f"(first sweep; while node on `again`: retry step) vs "
+              f"backward_sweep_regularized in turns ({', '.join(TURNS)}): "
+              f"dU, K, dv1, dv2, reg, ok, failed bit-equal; retries per loop "
+              f"{sweeps[0]} in every turn; rows: {int(ok.sum())} ok "
+              f"({n_retried} after retries), {int(failed.sum())} failed "
+              f"past REG_MAX; ms: eager {fmt(ms['eager'])}, program "
+              f"{fmt(ms['graph'])}{more}; on {card}", flush=True)
         out[label] = sweeps[0]
     return out
 
@@ -3012,6 +3115,515 @@ def retry_phase(card):
     print(f"phase 14 in {time.perf_counter() - t0:.1f} s", flush=True)
     return ({"forced_retries": forced["K1"]},
             {"forced_retries": forced["K2"]})
+
+
+# phase 15: float64 on the card
+F64_KERNEL_REL = 1e-8   # a kernel vs its f64 plain version, of the plain
+                        # output's largest magnitude
+F64_OK_SHARE = 0.999    # rows whose ok flags agree
+F64_SOLVE_REL = 1e-7    # the first PLAIN_CHECK_LANES final costs vs the CPU
+F64_MPC_TOL = 1e-6      # a robot update vs the CPU's: cost relative,
+                        # controls of their magnitude
+F64_FLEET_STEPS = 10    # after FLEET_WARMUP
+F64_SERVICE_REQUESTS = 6   # after SERVICE_WARMUP
+
+
+def _as(dtype, args):
+    """args with every float tensor in `dtype` (contiguous)."""
+    return tuple(a.to(dtype).contiguous() if a.is_floating_point() else a
+                 for a in args)
+
+
+def _block_text(name):
+    """ptxas's registers and spills of kernel `name`'s float64
+    instantiation (its library's build log) and how its blocks sit on an
+    SM."""
+    import torch
+    from hkdmpc_tpu_torch.ops import _build
+    log = (_build.build(name).parent / f"{name}.build.log").read_text()
+    info = _build.kernel_info(name, torch.float64)
+    return (f"{ptxas_report(log, torch.float64)} | {info['smem_bytes']} B "
+            f"dynamic shared memory, {info['blocks_per_sm']} blocks per SM"
+            ), info
+
+
+def f64_kernel(torch, card, label, cuda_fn, plain_fn, args, work,
+               masked=False, plain_reps=3):
+    """Phase 15 (a), one case: the f64 kernel against its f64 plain version
+    on the same inputs (each of dU, K, dv1, dv2 within F64_KERNEL_REL of
+    the plain output's largest magnitude, ok equal on F64_OK_SHARE of the
+    rows), timed beside the plain version and beside the f32 kernel on the
+    same inputs in f32 (CUDA events, median of 10; the plain version of
+    plain_reps), with both bounds (`work(real_bytes)`); with `masked`, the
+    masked retry launch (`masked_launches`). Returns the measured record."""
+    from hkdmpc_tpu_torch.ops import riccati_bound
+    args64 = _as(torch.float64, args)
+    nb, T = args64[0].shape
+    out_k = cuda_fn(*args64)
+    torch.cuda.synchronize()
+    out_p = plain_fn(*args64)
+    torch.cuda.synchronize()
+    rels, max_abs = [], 0.0
+    for name, k, q in zip(("dU", "K", "dv1", "dv2"), out_k[:4], out_p[:4]):
+        if k.dtype != torch.float64 or not bool(torch.isfinite(k).all()):
+            raise AssertionError(f"phase 15 (a) {label} {name}: {k.dtype}, "
+                                 "or not finite")
+        err = float((k - q).abs().max())
+        scale = float(q.abs().max())
+        rels.append((name, err / scale if scale > 0 else err))
+        max_abs = max(max_abs, err)
+    differ = int((out_k[4] != out_p[4]).sum())
+    worst = max(r for _, r in rels)
+    if not worst <= F64_KERNEL_REL or differ > (1 - F64_OK_SHARE) * nb:
+        raise AssertionError(f"phase 15 (a) {label}: relative errors {rels} "
+                             f"(limit {F64_KERNEL_REL:g}), ok differs on "
+                             f"{differ} of {nb} rows")
+    ms = cuda_ms(torch, lambda: cuda_fn(*args64), 10)
+    plain_ms = cuda_ms(torch, lambda: plain_fn(*args64), plain_reps)
+    args32 = _as(torch.float32, args)
+    ms32 = cuda_ms(torch, lambda: cuda_fn(*args32), 10)
+    b64 = riccati_bound.bound_ms(work(riccati_bound.F64))
+    b32 = riccati_bound.bound_ms(work(riccati_bound.F32))
+    vector = riccati_bound.bound_ms(
+        work(riccati_bound.F64),
+        flop_per_s=riccati_bound.H100_F64_VECTOR_FLOP_PER_S)
+    mask = (masked_launches(torch, label, cuda_fn, args64, out_k, nb)
+            if masked else None)
+    print(f"phase 15 (a) {label} f64 kernel vs f64 plain: B={nb} T={T}; "
+          "max |kernel - plain| / max |plain|: "
+          + ", ".join(f"{n} {r:.3e}" for n, r in rels)
+          + f" (limit {F64_KERNEL_REL:g}); ok differs on {differ} of {nb} "
+          f"rows (ok {int(out_k[4].sum())}); f64 kernel {ms:.3f} ms, f64 "
+          f"plain {plain_ms:.3f} ms (median of {plain_reps}), f32 kernel on "
+          f"the same inputs in f32 {ms32:.3f} ms (f64 / f32 "
+          f"{ms / ms32:.3f}); f64 bound {b64['bound_ms']:.6f} ms set by "
+          f"{b64['bound_by']} ({work(riccati_bound.F64)['bytes'] / 1e9:.6f}"
+          f" GB = {b64['bytes_ms']:.6f} ms at 3.35 TB/s, "
+          f"{work(riccati_bound.F64)['flops'] / 1e9:.6f} GFLOP = "
+          f"{b64['operations_ms']:.6f} ms at 67 TFLOP/s FP64 tensor cores, "
+          f"{vector['operations_ms']:.6f} ms at 34 TFLOP/s FP64 vector): "
+          f"{b64['bound_ms'] / ms:.3%} of it; f32 bound "
+          f"{b32['bound_ms']:.6f} ms ({b32['bound_by']}): "
+          f"{b32['bound_ms'] / ms32:.3%}"
+          + (f"; {mask['text']}" if mask else "") + f"; on {card}",
+          flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "ms_f32": ms32,
+            "bound_ms": b64["bound_ms"], "bound_by": b64["bound_by"],
+            "max_abs_err": max_abs,
+            "ms_all_inactive": mask["ms_all_inactive"] if mask else None}
+
+
+def f64_kernels(torch, card):
+    """Phase 15 (a): K1 on the trot at B = 4096 (with the masked launches)
+    and 1024, on the interleaved trot + flytrot batch (B = 1024) and at
+    T = 250 (B = 256); K2 on the swing-constraint trot's LQ data at
+    B = 4096 (masked launches) and 1024 and on the default model's at
+    B = 1. Returns the f64 additions to (K1's, K2's) JSON records."""
+    from hkdmpc_tpu_torch import bench
+    from hkdmpc_tpu_torch.ops import riccati_bound, riccati_dense, riccati_hkd
+    from hkdmpc_tpu_torch.solver.model_api import hkd_model_spec
+    k1 = (riccati_hkd.backward_sweep_hkd_cuda,
+          riccati_hkd.backward_sweep_hkd_plain)
+    k2 = (riccati_dense.backward_sweep_dense_cuda,
+          riccati_dense.backward_sweep_dense_plain)
+    hkd_work = lambda a: lambda r: riccati_bound.hkd_sweep_work(
+        a[0], a[2].shape[1], a[6].shape[1], r)
+    dense_work = lambda a: lambda r: riccati_bound.dense_sweep_work(a[0], r)
+    swing = hkd_model_spec(swing_constraint=True)
+    hkd, dense = {}, {}
+
+    for batch, key in ((BATCH, ""), (KERNEL_SMALL_BATCH, "_b1024")):
+        args = kernel_inputs(torch, *trot_batch(torch, batch,
+                                                torch.float64)[:2])
+        rec = f64_kernel(torch, card, f"riccati_hkd trot B={batch}", *k1,
+                         args, hkd_work(args), masked=batch == BATCH)
+        hkd.update({f"ms{key}_f64": rec["ms"],
+                    f"bound_ms{key}_f64": rec["bound_ms"]})
+        if batch == BATCH:
+            hkd.update(plain_ms_f64=rec["plain_ms"],
+                       bound_by_f64=rec["bound_by"],
+                       max_abs_err_f64=rec["max_abs_err"],
+                       ms_f32_same_call=rec["ms_f32"],
+                       ms_all_inactive_f64=rec["ms_all_inactive"])
+        del args
+    cases, _ = bench.mixed_layouts("cuda", MIXED_BATCH)
+    args = kernel_inputs(torch, *cases["interleaved"])
+    rec = f64_kernel(torch, card, f"riccati_hkd interleaved trot + flytrot "
+                     f"B={MIXED_BATCH}", *k1, args, hkd_work(args),
+                     plain_reps=1)
+    hkd["mixed_ms_f64"] = rec["ms"]
+    del cases, args
+    prob_l, state_l, _ = bench.scenarios("trot", LONGT_BATCH, 0, "cuda",
+                                         LONGT_PLAN)
+    args = kernel_inputs(torch, prob_l, state_l)
+    rec = f64_kernel(torch, card, f"riccati_hkd T={prob_l.T} "
+                     f"B={LONGT_BATCH}", *k1, args, hkd_work(args),
+                     plain_reps=1)
+    hkd.update(longt_ms_f64=rec["ms"], longt_bound_ms_f64=rec["bound_ms"])
+    del args
+
+    for batch, key, spec in ((BATCH, "", swing),
+                             (KERNEL_SMALL_BATCH, "_b1024", swing),
+                             (1, "_b1", None)):
+        prob_b, state_b, _ = trot_batch(torch, batch, torch.float64, spec)
+        args = dense_kernel_inputs(torch, prob_b, state_b, spec)
+        what = "swing-constraint trot" if spec else "default-model trot"
+        rec = f64_kernel(torch, card, f"riccati_dense {what} B={batch}", *k2,
+                         args, dense_work(args), masked=batch == BATCH)
+        dense.update({f"ms{key}_f64": rec["ms"],
+                      f"bound_ms{key}_f64": rec["bound_ms"]})
+        if batch == BATCH:
+            dense.update(plain_ms_f64=rec["plain_ms"],
+                         bound_by_f64=rec["bound_by"],
+                         max_abs_err_f64=rec["max_abs_err"],
+                         ms_f32_same_call=rec["ms_f32"],
+                         ms_all_inactive_f64=rec["ms_all_inactive"])
+        if batch == 1:
+            dense["plain_ms_b1_f64"] = rec["plain_ms"]
+        del args
+    for rec, name in ((hkd, "riccati_hkd"), (dense, "riccati_dense")):
+        text, info = _block_text(name)
+        rec.update(smem_bytes_f64=info["smem_bytes"],
+                   blocks_per_sm_f64=info["blocks_per_sm"])
+        print(f"phase 15 (a) {name} float64: {text}; on {card}", flush=True)
+    return hkd, dense
+
+
+def f64_forced_against_plain(torch):
+    """Phase 15 (a), forced retries: `against` of `forced_retries` that
+    runs the same retry loop on the kernel's f64 plain version on the card
+    and holds the kernel's loop to it: reg, ok and failed equal on
+    F64_OK_SHARE of the rows, dU, K, dv1, dv2 within F64_KERNEL_REL of the
+    plain output's largest magnitude on the rows ok in both with the same
+    reg."""
+    from hkdmpc_tpu_torch.ops import riccati_dense, riccati_hkd
+    from hkdmpc_tpu_torch.solver import backward
+    routes = {"K1": (riccati_hkd, "backward_sweep_hkd",
+                     riccati_hkd.backward_sweep_hkd_plain),
+              "K2": (riccati_dense, "backward_sweep_dense",
+                     riccati_dense.backward_sweep_dense_plain)}
+
+    def check(label, inputs, got):
+        prob_b, defect, last, route = inputs
+        r0 = backward.RETRY_SWEEPS
+        t0 = time.perf_counter()
+        with plain_sweep_on_card(*routes[label]):
+            ref = backward.backward_sweep_regularized(prob_b, defect, 0.0,
+                                                      2.0, last, **route)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        plain_sweeps = backward.RETRY_SWEEPS - r0
+        nb = got[4].shape[0]
+        same = (got[4] == ref[4]) & (got[5] == ref[5]) & (got[6] == ref[6])
+        differ = nb - int(same.sum())
+        rows = same & ref[5]
+        rels = []
+        for name, k, q in zip(("dU", "K", "dv1", "dv2"), got[:4], ref[:4]):
+            k, q = k[rows], q[rows]
+            scale = float(q.abs().max()) if q.numel() else 0.0
+            err = float((k - q).abs().max()) if q.numel() else 0.0
+            rels.append((name, err / scale if scale > 0 else err))
+        worst = max(r for _, r in rels)
+        if not worst <= F64_KERNEL_REL or differ > (1 - F64_OK_SHARE) * nb:
+            raise AssertionError(f"phase 15 (a) forced retries, {label}: "
+                                 f"kernel vs plain loop {rels} (limit "
+                                 f"{F64_KERNEL_REL:g}), reg / ok / failed "
+                                 f"differ on {differ} of {nb} rows")
+        return (f"; against the same loop on the f64 plain version on the "
+                f"card ({plain_sweeps} retries, {plain_s:.1f} s): reg, ok "
+                f"and failed differ on {differ} of {nb} rows, max |kernel - "
+                f"plain| / max |plain| on the {int(rows.sum())} rows ok in "
+                f"both: " + ", ".join(f"{n} {r:.3e}" for n, r in rels)
+                + f" (limit {F64_KERNEL_REL:g})")
+    return check
+
+
+def _head_on_cpu(tree):
+    """The first PLAIN_CHECK_LANES scenarios of a batched struct, on the
+    CPU."""
+    from hkdmpc_tpu_torch.solver.structs import tree_map
+    return tree_map(lambda a: a[:PLAIN_CHECK_LANES].cpu().contiguous(), tree)
+
+
+def f64_solves(torch, card):
+    """Phase 15 (b): f64 solve_batch at B = 4096, K1 (kernel_jac=True) and
+    the dense swing-constraint model (K2), unroll_caps True (runtime caps)
+    and False (cold caps): the eager body against the device program
+    (TURNS), every result tensor bit-equal with the same retries; 0 failed,
+    finite; the first PLAIN_CHECK_LANES final costs within F64_SOLVE_REL of
+    the port's f64 solve of the same scenarios on the CPU; ms per replay
+    beside the f32 program's (phase 14 (a) of this run); the memory held
+    with the program, which is freed before the next. Returns the f64
+    kernels' launches in one replay of each program: {kernel_jac: n}."""
+    from hkdmpc_tpu_torch.ops import riccati_dense, riccati_hkd
+    from hkdmpc_tpu_torch.solver import ddp, graphs
+    from hkdmpc_tpu_torch.solver.model_api import hkd_model_spec
+    swing = hkd_model_spec(swing_constraint=True)
+    launches = {True: 0, False: 0}
+    for label, kj, spec in (("K1", True, None),
+                            ("dense swing", False, swing)):
+        module = riccati_hkd if kj else riccati_dense
+        prob_b, state_b, opt = trot_batch(torch, BATCH, torch.float64, spec)
+        prob_c, state_c = _head_on_cpu(prob_b), _head_on_cpu(state_b)
+        for unroll in (True, False):
+            o = opt.runtime() if unroll else opt
+            run = lambda f, p=prob_b, s=state_b: f(
+                p, s, o, kernel_jac=kj, model=spec, unroll_caps=unroll)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms, retries, worst, equal = _turns(
+                torch, lambda: run(ddp._solve_batch),
+                lambda: run(ddp.solve_batch))
+            want = retries["eager"][0]
+            if worst != 0.0 or not equal or set(
+                    retries["eager"] + retries["graph"]) != {want}:
+                raise AssertionError(
+                    f"phase 15 (b) {label} unroll_caps={unroll}: max |eager "
+                    f"- graph| {worst:.3e}, n_iters equal {equal}, retries "
+                    f"{retries}")
+            torch.cuda.synchronize()
+            module.LAUNCHES_F64 = 0
+            got = run(ddp.solve_batch)
+            torch.cuda.synchronize()
+            n64 = module.LAUNCHES_F64
+            if n64 < 1:
+                raise AssertionError(f"phase 15 (b) {label}: the f64 kernel "
+                                     "was not launched in a replay")
+            launches[kj] += n64
+            check_solve(torch, got, BATCH, prob_b.T)
+            held = torch.cuda.memory_allocated() / 2**30
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            mean_cost = float(got.cost.mean())
+            head = got.cost[:PLAIN_CHECK_LANES].cpu()
+            del got
+            t0 = time.perf_counter()
+            cpu = run(ddp.solve_batch, prob_c, state_c)
+            cpu_s = time.perf_counter() - t0
+            rel = float(((head - cpu.cost).abs() / cpu.cost.abs()).max())
+            if not rel <= F64_SOLVE_REL:
+                raise AssertionError(f"phase 15 (b) {label} unroll_caps="
+                                     f"{unroll}: the first "
+                                     f"{PLAIN_CHECK_LANES} final costs differ "
+                                     f"from the CPU's by {rel:.3e} rel")
+            f32 = KEPT.get(("f32 program ms", kj, unroll))
+            fmt = lambda xs: ", ".join(f"{x:.3f}" for x in xs)
+            print(f"phase 15 (b) {label} solve, B={BATCH} T={prob_b.T} f64 "
+                  f"unroll_caps={unroll} (caps {o.max_AL_iter} x "
+                  f"{o.max_DDP_iter}): eager body vs device program in "
+                  f"turns ({', '.join(TURNS)}): every result tensor "
+                  f"bit-equal, n_iters equal, retry "
+                  f"sweeps {want}; f64 kernel launches in a replay {n64}; 0 "
+                  f"failed, finite, mean cost {mean_cost:.9g}; "
+                  f"first {PLAIN_CHECK_LANES} final costs vs the f64 CPU "
+                  f"solve {rel:.3e} rel (limit {F64_SOLVE_REL:g}; CPU "
+                  f"{cpu_s:.1f} s); ms per solve, CUDA events: eager "
+                  f"{fmt(ms['eager'])}, program {fmt(ms['graph'])}; the f32 "
+                  f"program of this run (phase 14 (a)) "
+                  + (f"{f32:.3f} ms: f64 / f32 "
+                     f"{statistics.median(ms['graph']) / f32:.3f}"
+                     if f32 else "not measured in this run")
+                  + f"; memory with the program: torch.cuda.memory_allocated "
+                  f"{held:.3f} GiB, max_memory_allocated {peak:.3f} GiB; "
+                  f"{_graph_text(['solve_batch(B=', 'solve_while(B='])}; on "
+                  f"{card}", flush=True)
+            graphs.clear_graphs()
+    return launches
+
+
+def f64_fleet(torch, card, ref, n=FLEET_N, steps=F64_FLEET_STEPS):
+    """Phase 15 (c): FleetMPC N = FLEET_N in f64 with FleetConfig() (K1's
+    f64 instantiation on the card): cold solve, FLEET_WARMUP + steps
+    blocking steps of meas_stream(n, SEED); ms per step by rollout kind
+    beside phase 7's f32 steps. Returns K1's f64 launches over the timed
+    steps."""
+    from hkdmpc_tpu_torch.mpc.fleet import FleetConfig, FleetMPC
+    from hkdmpc_tpu_torch.ops import riccati_hkd
+    from hkdmpc_tpu_torch.solver import graphs
+    from hkdmpc_tpu_torch.workload import meas_stream
+    fleet = FleetMPC(ref, n, config=FleetConfig(), dtype=torch.float64,
+                     device="cuda")
+    if not fleet._kernel_jac:
+        raise AssertionError("phase 15 (c): an f64 fleet's default did not "
+                             "resolve to K1")
+    init = fleet.initialize()
+    if init["n_failed"]:
+        raise AssertionError(f"phase 15 (c): the cold solve failed for "
+                             f"{init['n_failed']} robots")
+    stream = meas_stream(n, SEED)
+    for k in range(FLEET_WARMUP + steps):
+        if k == FLEET_WARMUP:
+            torch.cuda.synchronize()
+            riccati_hkd.LAUNCHES_F64 = 0
+            ms, shooting = [], []
+        m = stream(k)
+        t0 = time.perf_counter()
+        out = fleet.step(m["rpy"], m["p"], m["v"], m["omega"], m["qJ"],
+                         mpc_time=0.01 * k)
+        if k >= FLEET_WARMUP:
+            ms.append((time.perf_counter() - t0) * 1e3)
+            shooting.append(fleet.problem.all_shooting())
+    launches = riccati_hkd.LAUNCHES_F64
+    failed = int((out["scalars"][:, 5] > 0).sum())
+    if failed or not (np.isfinite(out["controls"]).all()
+                      and np.isfinite(out["gains"]).all()):
+        raise AssertionError(f"phase 15 (c): {failed} robots failed, or the "
+                             "last step is not finite")
+    if launches < 2 * steps:
+        raise AssertionError(f"phase 15 (c): K1 f64 launched {launches} "
+                             f"times in {steps} steps")
+    par = [x for x, s in zip(ms, shooting) if s]
+    seq = [x for x, s in zip(ms, shooting) if not s]
+    f32 = KEPT.get("fleet_ms")
+    vs = (f"; phase 7's f32 steps: {_rate(f32[0], n)} parallel, "
+          f"{_rate(f32[1], n)} sequential" if f32 else
+          "; f32 steps not measured in this run")
+    print(f"phase 15 (c) fleet: FleetMPC N={n} trot f64 FleetConfig() "
+          f"(kernel_jac -> K1 f64); cold solve {init['solve_ms']:.3f} ms, "
+          f"0 failed; {steps} steps after {FLEET_WARMUP} warm-up (host "
+          f"clock, blocking): parallel rollout {_rate(par, n)}, sequential "
+          f"rollout {_rate(seq, n)} ({len(seq)} of {steps}){vs}; K1 f64 "
+          f"launches {launches}; last step 0/{n} failed, mean cost "
+          f"{float(out['scalars'][:, 0].mean()):.9g}; "
+          f"{len(graphs.stats())} programs held; on {card}", flush=True)
+    fleet = None
+    graphs.clear_graphs()
+    return launches
+
+
+def f64_robot(torch, card, ref):
+    """Phase 15 (d): HKDMPCSolver in f64 on the card, fused step, with the
+    assoc defaults and with assoc off (K2's f64 instantiation at B = 1),
+    MPC_WARMUP + MPC_UPDATES updates of meas_stream(1, SEED), each timed
+    update within F64_MPC_TOL of the same update of the f64 solver on the
+    CPU (cost relative, controls of their magnitude); ms per update beside
+    the 10 ms budget. Returns K2's f64 launches over the timed updates."""
+    from hkdmpc_tpu_torch import compare_mpc_f32
+    from hkdmpc_tpu_torch.workload import meas_stream
+    t0 = time.perf_counter()
+    cpu = compare_mpc_f32.run(dict(assoc_linear=False, assoc_backward=False),
+                              torch.float64, "cpu", MPC_WARMUP + MPC_UPDATES)
+    cpu = cpu[MPC_WARMUP:]
+    cpu_s = time.perf_counter() - t0
+    launches = 0
+    for label, cfg in (("assoc defaults", dict(fused_step=True)),
+                       ("assoc off (K2 f64 at B=1)",
+                        dict(fused_step=True, assoc_linear=False,
+                             assoc_backward=False))):
+        rec = mpc_run(torch, ref, f"f64 {label}", meas_stream(1, SEED),
+                      dtype=torch.float64, **cfg)
+        rec["solver"].close()
+        cost = [abs(a - c[1]) / abs(c[1]) for a, c in zip(rec["cost"], cpu)]
+        ctrl = [float(np.max(np.abs(cmd.hkd_controls - c[0]))
+                      / max(1.0, np.max(np.abs(c[0]))))
+                for cmd, c in zip(rec["cmds"], cpu)]
+        shoot = [s == c[3] for s, c in zip(rec["shooting"], cpu)]
+        if not (max(cost) <= F64_MPC_TOL and max(ctrl) <= F64_MPC_TOL
+                and all(shoot)):
+            raise AssertionError(f"phase 15 (d) {label}: cost {cost}, "
+                                 f"controls {ctrl} against the CPU")
+        if rec["assoc_bw"] == bool(rec["k2_launches_f64"]) or (
+                not rec["assoc_bw"]
+                and rec["k2_launches_f64"] < len(rec["ms"])):
+            raise AssertionError(f"phase 15 (d) {label}: assoc "
+                                 f"{rec['assoc_bw']}, K2 f64 launches "
+                                 f"{rec['k2_launches_f64']}")
+        require_replays("15 (d)", sum(rec["graphs"].values()))
+        launches += rec["k2_launches_f64"]
+        par = [m for m, s in zip(rec["ms"], rec["shooting"]) if s]
+        seq = [m for m, s in zip(rec["ms"], rec["shooting"]) if not s]
+        print(f"phase 15 (d) single robot f64, fused, {label}: cold solve "
+              f"{rec['cold_ms']:.3f} ms; {len(rec['ms'])} updates after "
+              f"{MPC_WARMUP}: median {statistics.median(rec['ms']):.3f} ms "
+              f"(parallel rollout {_mean(par):.3f}, sequential "
+              f"{_mean(seq):.3f} mean; the budget is 10 ms); against the "
+              f"f64 CPU solver (assoc off, {cpu_s:.1f} s): worst cost "
+              f"{max(cost):.3e} rel, controls {max(ctrl):.3e} of their "
+              f"magnitude (limit {F64_MPC_TOL:g}); K2 f64 launches "
+              f"{rec['k2_launches_f64']}; graph replays "
+              f"{sum(rec['graphs'].values())}; on {card}", flush=True)
+    return launches
+
+
+def f64_service(torch, card, ref, lcm_dir, lcm):
+    """Phase 15 (e): MPCService.run on an f64 HKDMPCSolver (fused step,
+    K2's f64 instantiation at B = 1) over a scripted transport:
+    SERVICE_WARMUP + F64_SERVICE_REQUESTS requests, every answer finite
+    with n_iter >= 1, no failed solve, K2 f64 launched in each timed
+    request. Returns K2's f64 launches over the timed requests."""
+    from hkdmpc_tpu_torch.mpc.runtime import MPCService
+    from hkdmpc_tpu_torch.mpc.solver import HKDMPCSolver, MPCConfig
+    from hkdmpc_tpu_torch.ops import riccati_dense
+    from hkdmpc_tpu_torch.workload import meas_stream
+    n_all = SERVICE_WARMUP + F64_SERVICE_REQUESTS
+    encoded = [lcm["hkd_data_lcmt"].encode(m) for m in service_requests(
+        meas_stream(1, SEED), n_all, {})]
+    solver = HKDMPCSolver(ref, dtype=torch.float64, device="cuda",
+                          config=MPCConfig(fused_step=True,
+                                           assoc_linear=False,
+                                           assoc_backward=False))
+    solver.initialize()
+    tx = ScriptedTransport(encoded)
+    svc = MPCService(solver, tx, lcm_dir)
+    svc.run(max_messages=SERVICE_WARMUP)
+    torch.cuda.synchronize()
+    riccati_dense.LAUNCHES_F64 = 0
+    t0 = time.perf_counter()
+    svc.run(max_messages=F64_SERVICE_REQUESTS)
+    secs = time.perf_counter() - t0
+    launches = riccati_dense.LAUNCHES_F64
+    failed = bool(solver.last_result.solve_failed)
+    solver.close()
+    cmds = [lcm["hkd_command_lcmt"].decode(b) for c, b in tx.published
+            if c == "mpc_command"]
+    infos = [lcm["solver_info_lcmt"].decode(b) for c, b in tx.published
+             if c == "solver_info"]
+    if len(cmds) != n_all or len(infos) != n_all or failed:
+        raise AssertionError(f"phase 15 (e): {len(cmds)} commands, "
+                             f"{len(infos)} solver_infos for {n_all} "
+                             f"requests, last solve failed {failed}")
+    for k, (cmd, info) in enumerate(zip(cmds, infos)):
+        check_answer("phase 15 (e)", k, cmd, info)
+    if launches < F64_SERVICE_REQUESTS:
+        raise AssertionError(f"phase 15 (e): K2 f64 launched {launches} "
+                             f"times in {F64_SERVICE_REQUESTS} requests")
+    print(f"phase 15 (e) MPCService.run, scripted transport, f64 solver "
+          f"(fused, K2 f64 at B=1): {n_all} requests answered, "
+          f"{F64_SERVICE_REQUESTS} timed in {secs * 1e3:.3f} ms "
+          f"({secs * 1e3 / F64_SERVICE_REQUESTS:.3f} ms per request); "
+          f"every answer finite, n_iter >= 1; K2 f64 launches {launches}; "
+          f"on {card}", flush=True)
+    return launches
+
+
+def f64_phase(card):
+    """Phase 15: float64 on the card (run last, after the f32 programs are
+    cleared). Returns the f64 additions to (K1's, K2's) JSON records."""
+    torch = _torch()
+    import tempfile
+    from hkdmpc_tpu_torch.comm.lcm_types import load_reference_types
+    from hkdmpc_tpu_torch.solver import graphs
+    from hkdmpc_tpu_torch.workload import gait_file, lcmtypes_dir
+    t0 = time.perf_counter()
+    graphs.clear_graphs()
+    hkd, dense = f64_kernels(torch, card)
+    forced = forced_retries(torch, card, torch.float64,
+                            (("K1", BATCH, "hkd"), ("K2", BATCH, "dense")),
+                            "15 (a)", f64_forced_against_plain(torch))
+    hkd["forced_retries_f64"] = forced["K1"]
+    dense["forced_retries_f64"] = forced["K2"]
+    solve_launches = f64_solves(torch, card)
+    hkd["launches_f64"] = solve_launches[True]
+    dense["launches_f64"] = solve_launches[False]
+    with tempfile.TemporaryDirectory() as d:
+        ref = gait_file("trot", d)
+        hkd["fleet_launches_f64"] = f64_fleet(torch, card, ref)
+        dense["mpc_launches_f64"] = f64_robot(torch, card, ref)
+        lcm_dir = lcmtypes_dir(os.path.join(d, "lcmtypes"))
+        dense["service_launches_f64"] = f64_service(
+            torch, card, ref, lcm_dir, load_reference_types(lcm_dir))
+    graphs.clear_graphs()
+    print(f"phase 15 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return hkd, dense
 
 
 def main():
@@ -3045,7 +3657,11 @@ def main():
     hkd.update(hkd_more)
     dense.update(dense_more)
     hkd.update(mixed_longt_phase(card))
-    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - t0:.1f} s",
+    mark(14)
+    hkd_more, dense_more = f64_phase(card)
+    hkd.update(hkd_more)
+    dense.update(dense_more)
+    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - t0:.1f} s",
           flush=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

@@ -2,7 +2,7 @@
 card in alternating processes.
 
     python -m hkdmpc_tpu_torch.compare_programs TREE_A TREE_B [--pairs 2]
-        [--updates 8] [--steps 6] [--reps 5]
+        [--updates 8] [--steps 6] [--reps 5] [--kernels]
 
 Each run is a process of its own with one tree first on its PYTHONPATH and
 that tree as its working directory (its kernels build into the tree's
@@ -26,11 +26,17 @@ Beside each time, the nodes the program's last replay ran, from
 `graphs.stats()` (`nodes_run` where the tree reports it; a graph captured
 whole ran its `nodes`; a while graph its pieces' nodes times the
 iterations its last replay reports) and the retries (where reported).
-The runs go A B, B A, ... so that a drift of the machine falls on both
+With --kernels a run times only the two float32 kernels, each tree's own
+build: `riccati_hkd.backward_sweep_hkd_cuda` (K1) on the inputs of the
+first sweep of the B = 4096 trot solve above, and
+`riccati_dense.backward_sweep_dense_cuda` (K2) on the swing-constraint
+trot's LQ data at B = 4096 (CUDA events, median of 4 x `reps` launches after
+one). The runs go A B, B A, ... so that a drift of the machine falls on both
 trees alike. Prints one line per run and program, each pair's ratio B / A
 per program, and the card's name and power limit; exits 1 when a run
-fails, a robot of the fleet fails, or the two trees' last fleet steps
-differ (mean final cost, 1e-5 relative). Needs a CUDA device.
+fails, or (without --kernels) a robot of the fleet fails or the two
+trees' last fleet steps differ (mean final cost, 1e-5 relative). Needs a
+CUDA device.
 """
 
 import argparse
@@ -152,12 +158,65 @@ print("RUN " + json.dumps(out), flush=True)
 """
 
 
+# the kernels' run of one tree (its own process); argv: reps
+_KERNELS_RUN = r"""
+import json, sys
+import numpy as np
+import torch
+from hkdmpc_tpu_torch.ops import riccati_dense, riccati_hkd
+from hkdmpc_tpu_torch.parallel.batch import perturb_scenarios, replicate_problem
+from hkdmpc_tpu_torch.solver import lq, rollout as ro
+from hkdmpc_tpu_torch.solver.model_api import hkd_model_spec
+from hkdmpc_tpu_torch.workload import trot_problem
+
+reps = 4 * int(sys.argv[1])
+out = {}
+for name, spec in (("K1 f32 B=4096", None),
+                   ("K2 f32 B=4096", hkd_model_spec(swing_constraint=True))):
+    _, prob, state, _ = trot_problem(dtype=torch.float32, device="cuda",
+                                     model=spec)
+    prob, state = replicate_problem(prob, state, 4096)
+    prob = perturb_scenarios(prob, noise=np.random.default_rng(
+        0).standard_normal((4096, 24)))
+    r = ro.hybrid_rollout_parallel(prob, state, 0.0, spec)
+    reg = torch.where(torch.arange(4096, device="cuda") % 2 == 1, 0.05,
+                      0.0).to(torch.float32)
+    last = ro.last_active_node(prob)
+    c = state.constr
+    if spec is None:
+        args = (prob.kind, r.X, r.U, prob.contact, prob.contact_next,
+                prob.xr, prob.ur, prob.foot_r, c.reb_delta, c.reb_eps,
+                prob.term_contact, prob.td_mask, c.al_sigma, c.al_lambda,
+                prob.term_mask, r.defect, reg, last, prob.dt)
+        fn = riccati_hkd.backward_sweep_hkd_cuda
+    else:
+        l = lq.lq_approximation(prob, r.X, r.U, c, True, True, spec)
+        args = (prob.kind, l.A, l.B, l.lxx, l.luu, l.lx, l.lu, r.defect,
+                l.phix, l.phixx, reg, last)
+        fn = riccati_dense.backward_sweep_dense_cuda
+    fn(*args)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn(*args)
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    out[name] = dict(ms=ms, nodes=[])
+print("RUN " + json.dumps(out), flush=True)
+"""
+
+
 def run_tree(tree, args):
     env = dict(os.environ, PYTHONPATH=tree)
+    code, argv = ((_KERNELS_RUN, [str(args.reps)]) if args.kernels else
+                  (_RUN, [str(args.updates), str(args.steps),
+                          str(args.reps)]))
     proc = subprocess.run(
-        [sys.executable, "-c", _RUN, str(args.updates), str(args.steps),
-         str(args.reps)], cwd=tree, env=env, capture_output=True,
-        text=True, timeout=args.timeout)
+        [sys.executable, "-c", code, *argv], cwd=tree, env=env,
+        capture_output=True, text=True, timeout=args.timeout)
     lines = [l for l in proc.stdout.splitlines() if l.startswith("RUN ")]
     if proc.returncode or not lines:
         raise SystemExit(f"compare_programs: the run of {tree} failed "
@@ -189,6 +248,8 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--timeout", type=float, default=900.0,
                     help="seconds per run")
+    ap.add_argument("--kernels", action="store_true",
+                    help="time the two f32 kernels only")
     args = ap.parse_args(argv)
     trees = [os.path.abspath(t) for t in args.trees]
     card = subprocess.run(
@@ -205,6 +266,8 @@ def main(argv=None):
             pair[name] = rec
             for prog, r in rec.items():
                 print(f"pair {p} {name} {prog}: {_text(r)}", flush=True)
+            if args.kernels:
+                continue
             fleet = rec["fleet N=1024 step"]
             if fleet["failed"]:
                 raise SystemExit(f"compare_programs: {name}: robots failed")
@@ -218,7 +281,7 @@ def main(argv=None):
               + ", ".join(f"{r:.4f}" for r in rs), flush=True)
     print(f"A = {trees[0]}, B = {trees[1]}", flush=True)
     print(card, flush=True)
-    if abs(costs["B"] - costs["A"]) > 1e-5 * abs(costs["A"]):
+    if costs and abs(costs["B"] - costs["A"]) > 1e-5 * abs(costs["A"]):
         raise SystemExit(f"compare_programs: the last fleet steps' mean "
                          f"costs differ: {costs}")
 

@@ -63,6 +63,15 @@
 // is what four resident blocks (128 registers a thread) saturate, and the
 // elimination's chain of 12 rounds is 40% of a block's cycles.
 // No tensor cores, no TF32 (riccati_step.cuh says why).
+//
+// float64 (riccati_step.cuh): the same kernel on double, in the same
+// library (riccati_dense_launch_f64, riccati_dense_info_f64). Every tile is
+// 4,608 bytes, still a multiple of 16 for its bulk copy, and a step moves twice
+// the bytes, so at B = 4096 the sweep moves 6.3 GB, 1.9 ms of memory time;
+// its operations take 0.78 ms at the card's FP64 tensor-core rate
+// (67 TFLOP/s), 1.55 ms on the FP64 vector units (34 TFLOP/s) where it
+// runs. Bytes bound it. Two blocks (81 KB of shared memory each) share an
+// SM.
 
 #include <cuda_runtime.h>
 
@@ -73,35 +82,39 @@ namespace {
 using namespace riccati;
 
 constexpr int NSTAGE = 2;
-constexpr uint32_t TILE_BYTES = NX * NX * sizeof(float);
-constexpr uint32_t VEC_BYTES = NX * sizeof(float);
+// bytes of one bulk copy: a 24 x 24 tile, a 24-vector
+template <typename R> struct Bytes {
+  static constexpr uint32_t TILE = NX * NX * sizeof(R);
+  static constexpr uint32_t VEC = NX * sizeof(R);
+};
 
 // One ring item. DYN: A[t], B[t], lxx[t], luu[t], lx[t], lu[t];
 // RESET: Px in A, phixx[t] in C, phix[t] in lx. Both: defect[t+1].
+template <typename R>
 struct __align__(16) Stage {
-  float A[NX * NX];
-  float B[NX * NX];
-  float C[NX * NX];
-  float Luu[NX * NX];
-  float lx[NX], lu[NX], dnext[NX];
+  R A[NX * NX];
+  R B[NX * NX];
+  R C[NX * NX];
+  R Luu[NX * NX];
+  R lx[NX], lu[NX], dnext[NX];
 };
 
+template <typename R>
 struct __align__(16) Smem {
-  Work w;
-  Stage ring[NSTAGE];
+  Work<R> w;
+  Stage<R> ring[NSTAGE];
   uint64_t full[NSTAGE];
   uint64_t empty[NSTAGE];
 };
 
 // acc[i][:] += sum_k left(k, i) * right[k][c0 .. c0 + 5], i < 3: a 3 x 6
 // register tile of a 24-deep product, six shared loads for 18 multiply-adds
-// per k. `right` has rows of `ld` floats; left(k, i) is the tile's i-th row
+// per k. `right` has rows of `ld` values; left(k, i) is the tile's i-th row
 // entry of the left factor at depth k.
-template <class Left>
-__device__ __forceinline__ void tile_product(float acc[3][TC],
-                                             const float* right, int ld,
-                                             int c0, Left left) {
-  float v[TC];
+template <typename R, class Left>
+__device__ __forceinline__ void tile_product(R acc[3][TC], const R* right,
+                                             int ld, int c0, Left left) {
+  R v[TC];
 #pragma unroll 4
   for (int k = 0; k < NX; ++k) {
     ld6(right + k * ld + c0, v);
@@ -117,29 +130,30 @@ __device__ __forceinline__ void tile_product(float acc[3][TC],
 // A 1 x 6 tile of every product in every thread reads about one shared word
 // per multiply-add, and the shared-memory pipe is what the resident blocks
 // saturate; the 3 x 6 tiles read a third of a word.
-__device__ __forceinline__ void dyn_step(Work& w, const Stage& st,
-                                         uint64_t* stage_empty, float reg_b,
+template <typename R>
+__device__ __forceinline__ void dyn_step(Work<R>& w, const Stage<R>& st,
+                                         uint64_t* stage_empty, R reg_b,
                                          int tid, int r, int cg, int c0,
-                                         float* K_bt, float* dU_bt,
-                                         float& dv1, float& dv2, bool& okb) {
+                                         R* K_bt, R* dU_bt, R& dv1, R& dv2,
+                                         bool& okb) {
   const int warp = tid >> 5, r0 = 3 * ((tid & 31) >> 2);
   defect_correction(w, st.dnext, r, cg, c0);
   if (warp < 2) {
-    float acc[3][TC] = {};
+    R acc[3][TC] = {};
     tile_product(acc, warp == 0 ? st.A : st.B, NX, c0,
                  [&](int k, int i) { return w.H[r0 + i][k]; });
-    float(*out)[LDP] = warp == 0 ? w.HA : w.HB;
+    R (*out)[LDP] = warp == 0 ? w.HA : w.HB;
 #pragma unroll
     for (int i = 0; i < 3; ++i) st6(&out[r0 + i][c0], acc[i]);
   }
   consumer_sync();
   {
-    const float* left = warp == 0 ? st.A : st.B;
-    float acc[3][TC] = {};
+    const R* left = warp == 0 ? st.A : st.B;
+    R acc[3][TC] = {};
     tile_product(acc, warp == 2 ? &w.HB[0][0] : &w.HA[0][0], LDP, c0,
                  [&](int k, int i) { return left[k * NX + r0 + i]; });
     // A'HA, B'HB are added to lxx, luu apart, as the plain version adds them
-    const float* cost = warp == 0 ? st.C : st.Luu;
+    const R* cost = warp == 0 ? st.C : st.Luu;
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
       const int row = r0 + i;
@@ -147,26 +161,26 @@ __device__ __forceinline__ void dyn_step(Work& w, const Stage& st,
         st6(&w.Qux[row][c0], acc[i]);
         st6(&w.W[row][NX + c0], acc[i]);
       } else {
-        float q[TC];
+        R q[TC];
         ld6(cost + row * NX + c0, q);
 #pragma unroll
         for (int j = 0; j < TC; ++j)
-          q[j] = (q[j] + acc[i][j]) + (row == c0 + j ? reg_b : 0.f);
+          q[j] = (q[j] + acc[i][j]) + (row == c0 + j ? reg_b : R(0));
         st6(warp == 0 ? &w.Qxx[row][c0] : &w.W[row][c0], q);
       }
     }
   }
-  float ag = 0.f, bg = 0.f;
+  R ag = R(0), bg = R(0);
 #pragma unroll
   for (int j = 0; j < TC; ++j) {
-    const float gn = w.Gn[c0 + j];
-    ag = fmaf(st.A[(c0 + j) * NX + r], gn, ag);
-    bg = fmaf(st.B[(c0 + j) * NX + r], gn, bg);
+    const R gn = w.Gn[c0 + j];
+    ag = rfma(st.A[(c0 + j) * NX + r], gn, ag);
+    bg = rfma(st.B[(c0 + j) * NX + r], gn, bg);
   }
   ag = row_sum(ag);
   bg = row_sum(bg);
   if (cg == 0) {
-    const float qu = st.lu[r] + bg;
+    const R qu = st.lu[r] + bg;
     w.Qx[r] = st.lx[r] + ag;
     w.Qu[r] = qu;
     w.W[r][2 * NX] = qu;
@@ -176,24 +190,22 @@ __device__ __forceinline__ void dyn_step(Work& w, const Stage& st,
   solve_and_update(w, tid, r, cg, c0, K_bt, dU_bt, dv1, dv2, okb);
 }
 
-__global__ void __launch_bounds__(NTHREADS, 4)
-riccati_dense_kernel(const int* __restrict__ kind,
-                     const float* __restrict__ A, const float* __restrict__ B,
-                     const float* __restrict__ lxx,
-                     const float* __restrict__ luu,
-                     const float* __restrict__ lx,
-                     const float* __restrict__ lu,
-                     const float* __restrict__ defect,
-                     const float* __restrict__ phix,
-                     const float* __restrict__ phixx,
-                     const float* __restrict__ reg,
+template <typename R>
+__global__ void __launch_bounds__(NTHREADS, MinBlocks<R>::value)
+riccati_dense_kernel(const int* __restrict__ kind, const R* __restrict__ A,
+                     const R* __restrict__ B, const R* __restrict__ lxx,
+                     const R* __restrict__ luu, const R* __restrict__ lx,
+                     const R* __restrict__ lu, const R* __restrict__ defect,
+                     const R* __restrict__ phix, const R* __restrict__ phixx,
+                     const R* __restrict__ reg,
                      const int* __restrict__ last_node,
                      const unsigned char* __restrict__ active,
-                     float* __restrict__ dU, float* __restrict__ K,
-                     float* __restrict__ dv1_out, float* __restrict__ dv2_out,
+                     R* __restrict__ dU, R* __restrict__ K,
+                     R* __restrict__ dv1_out, R* __restrict__ dv2_out,
                      unsigned char* __restrict__ ok_out, int T) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
+  Smem<R>& s = *reinterpret_cast<Smem<R>*>(smem_raw);
+  constexpr uint32_t TILE = Bytes<R>::TILE, VEC = Bytes<R>::VEC;
   const int tid = threadIdx.x;
   const size_t b = blockIdx.x;
   // a retry sweep: a scenario that is done returns before its first load
@@ -203,9 +215,9 @@ riccati_dense_kernel(const int* __restrict__ kind,
   constexpr size_t M = NX * NX;
 
   const int* kind_b = kind + b * T;
-  const float* def_b = defect + b * Tn * NX;
-  const float* phix_b = phix + b * Tn * NX;
-  const float* phixx_b = phixx + b * Tn * M;
+  const R* def_b = defect + b * Tn * NX;
+  const R* phix_b = phix + b * Tn * NX;
+  const R* phixx_b = phixx + b * Tn * M;
 
   if (tid == 0) {
     for (int i = 0; i < NSTAGE; ++i) {
@@ -226,26 +238,25 @@ riccati_dense_kernel(const int* __restrict__ kind,
       if (kd == KIND_DYN || kd == KIND_RESET) {
         if (lane == 0) {
           const RingPos pos(item, NSTAGE);
-          Stage& st = s.ring[pos.stage];
+          Stage<R>& st = s.ring[pos.stage];
           uint64_t* full = &s.full[pos.stage];
           mbar_wait(&s.empty[pos.stage], pos.parity ^ 1);
           fence_proxy_async();
           if (kd == KIND_DYN) {
-            mbar_arrive_expect_tx(full, 4 * TILE_BYTES + 3 * VEC_BYTES);
-            bulk_copy_g2s(st.A, A + bt * M, TILE_BYTES, full);
-            bulk_copy_g2s(st.B, B + bt * M, TILE_BYTES, full);
-            bulk_copy_g2s(st.C, lxx + bt * M, TILE_BYTES, full);
-            bulk_copy_g2s(st.Luu, luu + bt * M, TILE_BYTES, full);
-            bulk_copy_g2s(st.lx, lx + bt * NX, VEC_BYTES, full);
-            bulk_copy_g2s(st.lu, lu + bt * NX, VEC_BYTES, full);
+            mbar_arrive_expect_tx(full, 4 * TILE + 3 * VEC);
+            bulk_copy_g2s(st.A, A + bt * M, TILE, full);
+            bulk_copy_g2s(st.B, B + bt * M, TILE, full);
+            bulk_copy_g2s(st.C, lxx + bt * M, TILE, full);
+            bulk_copy_g2s(st.Luu, luu + bt * M, TILE, full);
+            bulk_copy_g2s(st.lx, lx + bt * NX, VEC, full);
+            bulk_copy_g2s(st.lu, lu + bt * NX, VEC, full);
           } else {
-            mbar_arrive_expect_tx(full, 2 * TILE_BYTES + 2 * VEC_BYTES);
-            bulk_copy_g2s(st.A, A + bt * M, TILE_BYTES, full);
-            bulk_copy_g2s(st.C, phixx_b + (size_t)t * M, TILE_BYTES, full);
-            bulk_copy_g2s(st.lx, phix_b + (size_t)t * NX, VEC_BYTES, full);
+            mbar_arrive_expect_tx(full, 2 * TILE + 2 * VEC);
+            bulk_copy_g2s(st.A, A + bt * M, TILE, full);
+            bulk_copy_g2s(st.C, phixx_b + (size_t)t * M, TILE, full);
+            bulk_copy_g2s(st.lx, phix_b + (size_t)t * NX, VEC, full);
           }
-          bulk_copy_g2s(st.dnext, def_b + (size_t)(t + 1) * NX, VEC_BYTES,
-                        full);
+          bulk_copy_g2s(st.dnext, def_b + (size_t)(t + 1) * NX, VEC, full);
         }
         ++item;
       }
@@ -255,16 +266,16 @@ riccati_dense_kernel(const int* __restrict__ kind,
   }
 
   // ---- consumers ----
-  Work& w = s.w;
+  Work<R>& w = s.w;
   const int r = tid >> 2, cg = tid & 3, c0 = TC * cg;
-  const float reg_b = reg[b];
+  const R reg_b = reg[b];
   const size_t last = (size_t)last_node[b];
-  float dv1 = 0.f, dv2 = 0.f;   // meaningful in thread 0
-  bool okb = true;              // meaningful in warp 0
+  R dv1 = R(0), dv2 = R(0);   // meaningful in thread 0
+  bool okb = true;            // meaningful in warp 0
 
   // seed: the terminal partials of the last active node
   {
-    float v[TC];
+    R v[TC];
     ld6(phixx_b + last * M + r * NX + c0, v);
     st6(&w.H[r][c0], v);
     if (cg == 0) w.G[r] = phix_b[last * NX + r];
@@ -279,7 +290,7 @@ riccati_dense_kernel(const int* __restrict__ kind,
     if (kd != KIND_DYN && kd != KIND_RESET) continue;   // PAD
     const RingPos pos(item, NSTAGE);
     ++item;
-    const Stage& st = s.ring[pos.stage];
+    const Stage<R>& st = s.ring[pos.stage];
     mbar_wait(&s.full[pos.stage], pos.parity);
     if (kd == KIND_DYN) {
       const size_t bt = b * T + t;
@@ -297,49 +308,80 @@ riccati_dense_kernel(const int* __restrict__ kind,
   }
 }
 
-// the shared-memory opt-in, once per device (a launch may be captured
-// into a CUDA graph, where only launches belong)
+// the shared-memory opt-in of instantiation R, once per device (a launch
+// may be captured into a CUDA graph, where only launches belong); each
+// instantiation keeps its own bits
+template <typename R>
 cudaError_t configure() {
   static unsigned long long done = 0;  // bit d: device d configured
   int dev = 0;
   cudaError_t st = cudaGetDevice(&dev);
   if (st != cudaSuccess || (dev < 64 && (done >> dev) & 1ull)) return st;
-  st = cudaFuncSetAttribute(riccati_dense_kernel,
+  st = cudaFuncSetAttribute(riccati_dense_kernel<R>,
                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                            (int)sizeof(Smem));
+                            (int)sizeof(Smem<R>));
   if (st == cudaSuccess && dev < 64) done |= 1ull << dev;
   return st;
 }
 
-}  // namespace
-
-extern "C" int riccati_dense_launch(
-    const int* kind, const float* A, const float* B, const float* lxx,
-    const float* luu, const float* lx, const float* lu, const float* defect,
-    const float* phix, const float* phixx, const float* reg,
-    const int* last_node, const unsigned char* active, float* dU, float* K,
-    float* dv1, float* dv2, unsigned char* ok, int batch, int T,
-    void* stream) {
+template <typename R>
+int launch(const int* kind, const R* A, const R* B, const R* lxx,
+           const R* luu, const R* lx, const R* lu, const R* defect,
+           const R* phix, const R* phixx, const R* reg, const int* last_node,
+           const unsigned char* active, R* dU, R* K, R* dv1, R* dv2,
+           unsigned char* ok, int batch, int T, void* stream) {
   if (batch <= 0 || T <= 0) return 0;
-  const cudaError_t st = configure();
+  const cudaError_t st = configure<R>();
   if (st != cudaSuccess) return static_cast<int>(st);
-  riccati_dense_kernel<<<batch, NTHREADS, sizeof(Smem),
-                         static_cast<cudaStream_t>(stream)>>>(
+  riccati_dense_kernel<R><<<batch, NTHREADS, sizeof(Smem<R>),
+                            static_cast<cudaStream_t>(stream)>>>(
       kind, A, B, lxx, luu, lx, lu, defect, phix, phixx, reg, last_node,
       active, dU, K, dv1, dv2, ok, T);
   return static_cast<int>(cudaGetLastError());
 }
 
 // threads per block, dynamic shared memory per block and resident blocks
-// per SM of the kernel on the current device
-extern "C" int riccati_dense_info(int* threads, int* smem_bytes,
-                                  int* blocks_per_sm) {
-  const cudaError_t st = configure();
+// per SM of instantiation R on the current device
+template <typename R>
+int info(int* threads, int* smem_bytes, int* blocks_per_sm) {
+  const cudaError_t st = configure<R>();
   if (st != cudaSuccess) return static_cast<int>(st);
   *threads = NTHREADS;
-  *smem_bytes = (int)sizeof(Smem);
+  *smem_bytes = (int)sizeof(Smem<R>);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, riccati_dense_kernel, NTHREADS, sizeof(Smem)));
+      blocks_per_sm, riccati_dense_kernel<R>, NTHREADS, sizeof(Smem<R>)));
+}
+
+}  // namespace
+
+// The C interface: riccati_dense_launch / _info run the float32
+// instantiation, riccati_dense_launch_f64 / _info_f64 the float64 one.
+#define DENSE_PARAMS(R)                                                     \
+  const int *kind, const R *A, const R *B, const R *lxx, const R *luu,      \
+      const R *lx, const R *lu, const R *defect, const R *phix,             \
+      const R *phixx, const R *reg, const int *last_node,                   \
+      const unsigned char *active, R *dU, R *K, R *dv1, R *dv2,             \
+      unsigned char *ok, int batch, int T, void *stream
+#define DENSE_ARGS                                                          \
+  kind, A, B, lxx, luu, lx, lu, defect, phix, phixx, reg, last_node, active, \
+      dU, K, dv1, dv2, ok, batch, T, stream
+
+extern "C" int riccati_dense_launch(DENSE_PARAMS(float)) {
+  return launch<float>(DENSE_ARGS);
+}
+
+extern "C" int riccati_dense_launch_f64(DENSE_PARAMS(double)) {
+  return launch<double>(DENSE_ARGS);
+}
+
+extern "C" int riccati_dense_info(int* threads, int* smem_bytes,
+                                  int* blocks_per_sm) {
+  return info<float>(threads, smem_bytes, blocks_per_sm);
+}
+
+extern "C" int riccati_dense_info_f64(int* threads, int* smem_bytes,
+                                      int* blocks_per_sm) {
+  return info<double>(threads, smem_bytes, blocks_per_sm);
 }
 
 extern "C" const char* riccati_dense_error_string(int err) {

@@ -71,6 +71,14 @@
 //   - the schedule is read per scenario from kind[b, :] and last_node[b] by
 //     both sides; nothing assumes one gait.
 // No tensor cores, no TF32 (riccati_step.cuh says why).
+//
+// float64 (riccati_step.cuh): the same kernel on double, in the same
+// library (riccati_hkd_launch_f64, riccati_hkd_info_f64), with the exact float64 constants (KD_*)
+// and double sines and cosines. The sweep then moves twice the bytes, 1.96
+// GB at B = 4096, 0.59 ms, and its 21.2 GFLOP take 0.32 ms at the card's
+// FP64 tensor-core rate (67 TFLOP/s), 0.62 ms on the FP64 vector units
+// (34 TFLOP/s) where it runs: bytes bound it, narrowly. Two blocks (75 KB of
+// shared memory each) share an SM.
 
 #include <cuda_runtime.h>
 
@@ -80,6 +88,29 @@
 namespace {
 
 using namespace riccati;
+
+// The model and weight constants of the instantiation's type: K_* (float32)
+// or KD_* (the exact float64 values) of the generated header.
+#define HKD_CONSTANTS(P, T)                                                  \
+  static __device__ __forceinline__ T IINV(int i) { return P##_IINV[i]; }   \
+  static __device__ __forceinline__ T IDIAG(int i) { return P##_IDIAG[i]; } \
+  static __device__ __forceinline__ T HIP(int l, int j) {                   \
+    return P##_HIP[l][j];                                                   \
+  }                                                                         \
+  static __device__ __forceinline__ T L1S(int l) { return P##_L1S[l]; }     \
+  static __device__ __forceinline__ T Q_BODY(int i) {                       \
+    return P##_Q_BODY[i];                                                   \
+  }                                                                         \
+  static __device__ __forceinline__ T QF(int i) { return P##_QF[i]; }       \
+  static __device__ __forceinline__ T WFOOT(int j) { return P##_WFOOT[j]; } \
+  static constexpr T INV_MASS = P##_INV_MASS, L2 = P##_L2, L3 = P##_L3,     \
+                     Q_SWING_LEG = P##_Q_SWING_LEG, QF_LEG = P##_QF_LEG,    \
+                     R_GRF = P##_R_GRF, R_QJD = P##_R_QJD, TF2 = P##_TF2,   \
+                     MU = P##_MU, MU2 = P##_MU2;
+
+template <typename R> struct Model;
+template <> struct Model<float> { HKD_CONSTANTS(K, float) };
+template <> struct Model<double> { HKD_CONSTANTS(KD, double) };
 
 constexpr int NSTAGE = 3;
 constexpr int ND = 6;   // rows of DA with computed entries: eul 0:3, omega 6:9
@@ -99,47 +130,52 @@ constexpr int Q_HYZ = Q_HXZ + 4;     // 4: luu[3l+1][3l+2] (symmetric)
 constexpr int Q_SIZE = 68;
 
 // A DYN step in compact form.
+template <typename R>
 struct DynData {
-  float D[ND][NX];     // dt * DA rows 0, 1, 2, 6, 7, 8
-  float Bc[4][NX];     // B by column i: rows 6..8 (zero for i >= 12), then
+  R D[ND][NX];     // dt * DA rows 0, 1, 2, 6, 7, 8
+  R Bc[4][NX];     // B by column i: rows 6..8 (zero for i >= 12), then
                        // the column's entry in row b_single_row(i)
-  float lx[NX], lu[NX];
-  float q[Q_SIZE];
+  R lx[NX], lu[NX];
+  R q[Q_SIZE];
 };
 
 // RESET: Px = I + S and the terminal partials of node t. SEED: the terminal
 // partials of the last active node (Px unused).
+template <typename R>
 struct TileData {
-  float Px[NX * NX];
-  float phixx[NX * NX];
-  float phix[NX];
+  R Px[NX * NX];
+  R phixx[NX * NX];
+  R phix[NX];
 };
 
+template <typename R>
 struct __align__(16) Stage {
   union {
-    DynData dyn;
-    TileData tile;
+    DynData<R> dyn;
+    TileData<R> tile;
   };
-  float dnext[NX];     // defect[t+1]
+  R dnext[NX];     // defect[t+1]
 };
 
 // The producer warp's own scratch.
+template <typename R>
 struct __align__(16) Scratch {
-  float x[NX], u[NX], xr[NX], ur[NX], fr[12];
-  float c[4], cn[4], rbd[20], rbe[20];
-  float tc[4], td[4], sig[4], lam[4];
-  float cs[3][2];                // cos, sin of yaw, pitch, roll
-  float R[3][3], dR[3][3][3];
-  float m[3], Fc[3];
-  float Dk[20], Hk[20];          // cone rows: c[l] * (ReB first, second deriv.)
-  float pf[4][3], J[4][3][3];    // per leg: hip-frame foot position, Jacobian
-  float val[4][7], w1[4], w2[4]; // per leg: foot-height row and AL weights
+  R x[NX], u[NX], xr[NX], ur[NX], fr[12];
+  R c[4], cn[4], rbd[20], rbe[20];
+  R tc[4], td[4], sig[4], lam[4];
+  R cs[3][2];                // cos, sin of yaw, pitch, roll
+  R Rot[3][3], dR[3][3][3];
+  R m[3], Fc[3];
+  R Dk[20], Hk[20];          // cone rows: c[l] * (ReB first, second deriv.)
+  R pf[4][3], J[4][3][3];    // per leg: hip-frame foot position, Jacobian
+  R val[4][7], w1[4], w2[4]; // per leg: foot-height row and AL weights
 };
 
+template <typename R>
 struct __align__(16) Smem {
-  Work w;
-  Stage ring[NSTAGE];
-  Scratch sc;
+  Work<R> w;
+  Stage<R> ring[NSTAGE];
+  Scratch<R> sc;
   uint64_t full[NSTAGE];
   uint64_t empty[NSTAGE];
 };
@@ -148,11 +184,12 @@ struct __align__(16) Smem {
 // entry formulas
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void mm3(const float A[3][3], const float B[3][3],
-                                    float C[3][3]) {
+template <typename R>
+__device__ __forceinline__ void mm3(const R A[3][3], const R B[3][3],
+                                    R C[3][3]) {
   for (int i = 0; i < 3; ++i)
     for (int j = 0; j < 3; ++j) {
-      float s = A[i][0] * B[0][j];
+      R s = A[i][0] * B[0][j];
       s = s + A[i][1] * B[1][j];
       s = s + A[i][2] * B[2][j];
       C[i][j] = s;
@@ -163,23 +200,24 @@ __device__ __forceinline__ void mm3(const float A[3][3], const float B[3][3],
 // cosine and sine of one angle each; then lane q < 4 forms one of
 // R = Rz Ry Rx (q = 0) and dR/d(yaw, pitch, roll) (q = 1, 2, 3: the q-th
 // factor replaced by its derivative), each as (Mz My) Mx. Ends synchronized.
-__device__ void produce_rot(Scratch& sc, int lane) {
+template <typename R>
+__device__ void produce_rot(Scratch<R>& sc, int lane) {
   if (lane < 3) {
-    sc.cs[lane][0] = cosf(sc.x[lane]);
-    sc.cs[lane][1] = sinf(sc.x[lane]);
+    sc.cs[lane][0] = rcos(sc.x[lane]);
+    sc.cs[lane][1] = rsin(sc.x[lane]);
   }
   __syncwarp();
   if (lane < 4) {
-    const float cy = sc.cs[0][0], sy = sc.cs[0][1];
-    const float cp = sc.cs[1][0], sp = sc.cs[1][1];
-    const float cr = sc.cs[2][0], sr = sc.cs[2][1];
-    const float Rz[3][3] = {{cy, -sy, 0.f}, {sy, cy, 0.f}, {0.f, 0.f, 1.f}};
-    const float Ry[3][3] = {{cp, 0.f, sp}, {0.f, 1.f, 0.f}, {-sp, 0.f, cp}};
-    const float Rx[3][3] = {{1.f, 0.f, 0.f}, {0.f, cr, -sr}, {0.f, sr, cr}};
-    const float dRz[3][3] = {{-sy, -cy, 0.f}, {cy, -sy, 0.f}, {0.f, 0.f, 0.f}};
-    const float dRy[3][3] = {{-sp, 0.f, cp}, {0.f, 0.f, 0.f}, {-cp, 0.f, -sp}};
-    const float dRx[3][3] = {{0.f, 0.f, 0.f}, {0.f, -sr, -cr}, {0.f, cr, -sr}};
-    float Mz[3][3], My[3][3], Mx[3][3], T1[3][3], out[3][3];
+    const R cy = sc.cs[0][0], sy = sc.cs[0][1];
+    const R cp = sc.cs[1][0], sp = sc.cs[1][1];
+    const R cr = sc.cs[2][0], sr = sc.cs[2][1];
+    const R Rz[3][3] = {{cy, -sy, R(0)}, {sy, cy, R(0)}, {R(0), R(0), R(1)}};
+    const R Ry[3][3] = {{cp, R(0), sp}, {R(0), R(1), R(0)}, {-sp, R(0), cp}};
+    const R Rx[3][3] = {{R(1), R(0), R(0)}, {R(0), cr, -sr}, {R(0), sr, cr}};
+    const R dRz[3][3] = {{-sy, -cy, R(0)}, {cy, -sy, R(0)}, {R(0), R(0), R(0)}};
+    const R dRy[3][3] = {{-sp, R(0), cp}, {R(0), R(0), R(0)}, {-cp, R(0), -sp}};
+    const R dRx[3][3] = {{R(0), R(0), R(0)}, {R(0), -sr, -cr}, {R(0), cr, -sr}};
+    R Mz[3][3], My[3][3], Mx[3][3], T1[3][3], out[3][3];
     for (int i = 0; i < 3; ++i)
       for (int j = 0; j < 3; ++j) {
         Mz[i][j] = lane == 1 ? dRz[i][j] : Rz[i][j];
@@ -188,7 +226,7 @@ __device__ void produce_rot(Scratch& sc, int lane) {
       }
     mm3(Mz, My, T1);
     mm3(T1, Mx, out);
-    float* dst = lane == 0 ? &sc.R[0][0] : &sc.dR[lane - 1][0][0];
+    R* dst = lane == 0 ? &sc.Rot[0][0] : &sc.dR[lane - 1][0][0];
     for (int i = 0; i < 3; ++i)
       for (int j = 0; j < 3; ++j) dst[3 * i + j] = out[i][j];
   }
@@ -196,26 +234,27 @@ __device__ void produce_rot(Scratch& sc, int lane) {
 }
 
 // _leg_fk_entries: hip-frame foot position p and its joint Jacobian J
-__device__ void leg_fk_entries(float q1, float q2, float q3, int leg,
-                               float p[3], float J[3][3]) {
-  const float l1 = K_L1S[leg], l2 = K_L2, l3 = K_L3;
-  const float s1 = sinf(q1), c1 = cosf(q1);
-  const float s2 = sinf(q2), c2 = cosf(q2);
-  const float s23 = sinf(q2 + q3), c23 = cosf(q2 + q3);
-  const float ext = l3 * c23 + l2 * c2;
-  const float flx = l3 * s23 + l2 * s2;
+template <typename R>
+__device__ void leg_fk_entries(R q1, R q2, R q3, int leg,
+                               R p[3], R J[3][3]) {
+  const R l1 = Model<R>::L1S(leg), l2 = Model<R>::L2, l3 = Model<R>::L3;
+  const R s1 = rsin(q1), c1 = rcos(q1);
+  const R s2 = rsin(q2), c2 = rcos(q2);
+  const R s23 = rsin(q2 + q3), c23 = rcos(q2 + q3);
+  const R ext = l3 * c23 + l2 * c2;
+  const R flx = l3 * s23 + l2 * s2;
   p[0] = flx;
   p[1] = l1 * c1 + s1 * ext;
   p[2] = l1 * s1 - c1 * ext;
-  J[0][0] = 0.f;   J[0][1] = ext;        J[0][2] = l3 * c23;
+  J[0][0] = R(0);   J[0][1] = ext;        J[0][2] = l3 * c23;
   J[1][0] = -p[2]; J[1][1] = -s1 * flx;  J[1][2] = -s1 * l3 * s23;
   J[2][0] = p[1];  J[2][1] = c1 * flx;   J[2][2] = c1 * l3 * s23;
 }
 
-__device__ __forceinline__ float dot3c(const float a0, const float a1,
-                                       const float a2, const float b0,
-                                       const float b1, const float b2) {
-  float s = a0 * b0;
+template <typename R>
+__device__ __forceinline__ R dot3c(const R a0, const R a1, const R a2,
+                                   const R b0, const R b1, const R b2) {
+  R s = a0 * b0;
   s = s + a1 * b1;
   s = s + a2 * b2;
   return s;
@@ -223,21 +262,23 @@ __device__ __forceinline__ float dot3c(const float a0, const float a1,
 
 // column j of the cross-product matrix of v,
 // {{0, -v2, v1}, {v2, 0, -v0}, {-v1, v0, 0}}
-__device__ __forceinline__ void skew_column(const float* v, int j, float& o0,
-                                            float& o1, float& o2) {
-  const float v0 = v[0], v1 = v[1], v2 = v[2];
-  o0 = j == 0 ? 0.f : (j == 1 ? -v2 : v1);
-  o1 = j == 0 ? v2 : (j == 1 ? 0.f : -v0);
-  o2 = j == 0 ? -v1 : (j == 1 ? v0 : 0.f);
+template <typename R>
+__device__ __forceinline__ void skew_column(const R* v, int j, R& o0,
+                                            R& o1, R& o2) {
+  const R v0 = v[0], v1 = v[1], v2 = v[2];
+  o0 = j == 0 ? R(0) : (j == 1 ? -v2 : v1);
+  o1 = j == 0 ? v2 : (j == 1 ? R(0) : -v0);
+  o2 = j == 0 ? -v1 : (j == 1 ? v0 : R(0));
 }
 
 // solver/costs.py:reb_derivs
-__device__ __forceinline__ void reb_derivs(float g, float delta, float eps,
-                                           float& d1, float& d2) {
+template <typename R>
+__device__ __forceinline__ void reb_derivs(R g, R delta, R eps,
+                                           R& d1, R& d2) {
   const bool act = g > delta;
-  const float g_safe = act ? g : 1.f;
-  const float a = act ? -1.f / g_safe : (g - 2.f * delta) / (delta * delta);
-  const float b = act ? 1.f / (g_safe * g_safe) : 1.f / (delta * delta);
+  const R g_safe = act ? g : R(1);
+  const R a = act ? -R(1) / g_safe : (g - R(2) * delta) / (delta * delta);
+  const R b = act ? R(1) / (g_safe * g_safe) : R(1) / (delta * delta);
   d1 = eps * a;
   d2 = eps * b;
 }
@@ -250,42 +291,44 @@ __device__ __forceinline__ int b_single_row(int i) {
 
 // dyn_jac_entries, column `col` of the rows 0..2 of DA (the Euler-angle
 // rates): the four columns that divide share one piece of code
-__device__ void da_eul_column(const Scratch& sc, int col, float out[3]) {
-  out[0] = out[1] = 0.f;
-  out[2] = col == 6 ? 1.f : 0.f;
+template <typename R>
+__device__ void da_eul_column(const Scratch<R>& sc, int col, R out[3]) {
+  out[0] = out[1] = R(0);
+  out[2] = col == 6 ? R(1) : R(0);
   if (col == 1 || col == 2 || col == 7 || col == 8) {
-    const float cp = sc.cs[1][0], sp = sc.cs[1][1];
-    const float cr = sc.cs[2][0], sr = sc.cs[2][1];
-    const float wy = sc.x[7], wz = sc.x[8];
-    const float s_ = sr * wy + cr * wz;
-    const float t_ = cr * wy - sr * wz;
+    const R cp = sc.cs[1][0], sp = sc.cs[1][1];
+    const R cr = sc.cs[2][0], sr = sc.cs[2][1];
+    const R wy = sc.x[7], wz = sc.x[8];
+    const R s_ = sr * wy + cr * wz;
+    const R t_ = cr * wy - sr * wz;
     // col 1: s_ sp / cp^2,  0,  s_ / cp^2      col 2: t_ / cp, -s_, t_ sp / cp
     // col 7: sr / cp,      cr,  sr sp / cp     col 8: cr / cp, -sr, cr sp / cp
-    const float n = col == 1 ? s_ : (col == 2 ? t_ : (col == 7 ? sr : cr));
-    const float den = col == 1 ? cp * cp : cp;
+    const R n = col == 1 ? s_ : (col == 2 ? t_ : (col == 7 ? sr : cr));
+    const R den = col == 1 ? cp * cp : cp;
     out[0] = (col == 1 ? n * sp : n) / den;
-    out[1] = col == 1 ? 0.f : (col == 2 ? -s_ : (col == 7 ? cr : -sr));
+    out[1] = col == 1 ? R(0) : (col == 2 ? -s_ : (col == 7 ? cr : -sr));
     out[2] = (col == 1 ? n : n * sp) / den;
   }
 }
 
-// scale * K_IINV[i] * (M[:, i] . v), i < 3: the rows 6..8 (angular
+// scale * IINV[i] * (M[:, i] . v), i < 3: the rows 6..8 (angular
 // acceleration) of a Jacobian column whose moment arm or force is v, through
 // the rotation M (R, or dR/d angle)
-__device__ __forceinline__ void rotated_column(const float (*M)[3],
-                                               float scale, float v0,
-                                               float v1, float v2,
-                                               float out[3]) {
+template <typename R>
+__device__ __forceinline__ void rotated_column(const R (*M)[3], R scale,
+                                               R v0, R v1, R v2, R out[3]) {
 #pragma unroll
   for (int i = 0; i < 3; ++i)
-    out[i] = scale * K_IINV[i] * dot3c(M[0][i], M[1][i], M[2][i], v0, v1, v2);
+    out[i] = scale * Model<R>::IINV(i) *
+             dot3c(M[0][i], M[1][i], M[2][i], v0, v1, v2);
 }
 
 // dyn_jac_entries, column `col` of the rows 6..8 of DA into out[0..2]; sc
 // holds x, u, c, the rotation, and the moment and force sums m, Fc
-__device__ void da_omega_column(const Scratch& sc, int col, float out[3]) {
-  const float (*M)[3] = sc.R;
-  float scale = 1.f, v0 = 0.f, v1 = 0.f, v2 = 0.f;
+template <typename R>
+__device__ void da_omega_column(const Scratch<R>& sc, int col, R out[3]) {
+  const R (*M)[3] = sc.Rot;
+  R scale = R(1), v0 = R(0), v1 = R(0), v2 = R(0);
   if (col < 3) {                     // d/d angle: dR' m
     M = sc.dR[col];
     v0 = sc.m[0]; v1 = sc.m[1]; v2 = sc.m[2];
@@ -295,60 +338,63 @@ __device__ void da_omega_column(const Scratch& sc, int col, float out[3]) {
     // d/d foot x, y of leg l: ex x f = (0, -fz, fy), ey x f = (fz, 0, -fx)
     const int l = (col - 12) / 3;
     const bool ax = (col - 12) % 3 == 0;
-    const float* f = sc.u + 3 * l;
+    const R* f = sc.u + 3 * l;
     scale = sc.c[l];
-    v0 = ax ? 0.f : f[2];
-    v1 = ax ? -f[2] : 0.f;
+    v0 = ax ? R(0) : f[2];
+    v1 = ax ? -f[2] : R(0);
     v2 = ax ? f[1] : -f[0];
   } else {
-    scale = 0.f;                     // vel, foot z: no entry; omega: below
+    scale = R(0);                     // vel, foot z: no entry; omega: below
   }
   rotated_column(M, scale, v0, v1, v2, out);
   if (col >= 6 && col < 9) {         // d/d omega: the gyroscopic term
     const int j = col - 6;
-    const float* w = sc.x + 6;
-    const float Iw[3] = {K_IDIAG[0] * w[0], K_IDIAG[1] * w[1],
-                         K_IDIAG[2] * w[2]};
-    float wx[3], iwx[3];
+    const R* w = sc.x + 6;
+    const R Iw[3] = {Model<R>::IDIAG(0) * w[0], Model<R>::IDIAG(1) * w[1],
+                     Model<R>::IDIAG(2) * w[2]};
+    R wx[3], iwx[3];
     skew_column(w, j, wx[0], wx[1], wx[2]);
     skew_column(Iw, j, iwx[0], iwx[1], iwx[2]);
 #pragma unroll
     for (int i = 0; i < 3; ++i)
-      out[i] = K_IINV[i] * (-(wx[i] * K_IDIAG[j]) + iwx[i]);
+      out[i] = Model<R>::IINV(i) * (-(wx[i] * Model<R>::IDIAG(j)) + iwx[i]);
   }
 }
 
 // dyn_jac_entries, column i of DB: out[k], k < 3, the entry of row 6 + k;
 // out[3] the entry of row b_single_row(i)
-__device__ void db_column(const Scratch& sc, int i, float out[4]) {
+template <typename R>
+__device__ void db_column(const Scratch<R>& sc, int i, R out[4]) {
   const int l = i < 12 ? i / 3 : (i - 12) / 3;
-  const float cl = sc.c[l];
-  float v0 = 0.f, v1 = 0.f, v2 = 0.f;
+  const R cl = sc.c[l];
+  R v0 = R(0), v1 = R(0), v2 = R(0);
   if (i < 12) {                      // the force's moment: R' [r_l]x
-    const float rl[3] = {sc.x[12 + 3 * l] - sc.x[3],
+    const R rl[3] = {sc.x[12 + 3 * l] - sc.x[3],
                          sc.x[12 + 3 * l + 1] - sc.x[4], -sc.x[5]};
     skew_column(rl, i % 3, v0, v1, v2);
   }
-  rotated_column(sc.R, i < 12 ? cl : 0.f, v0, v1, v2, out);
-  out[3] = i < 12 ? cl * K_INV_MASS : 1.f - cl;
+  rotated_column(sc.Rot, i < 12 ? cl : R(0), v0, v1, v2, out);
+  out[3] = i < 12 ? cl * Model<R>::INV_MASS : R(1) - cl;
 }
 
 // the foot-regularization residual of leg l, axis j < 2 (sc.x, sc.xr, sc.fr)
-__device__ __forceinline__ float foot_residual(const Scratch& sc, int l,
-                                               int j) {
+template <typename R>
+__device__ __forceinline__ R foot_residual(const Scratch<R>& sc, int l,
+                                           int j) {
   return (sc.x[12 + 3 * l + j] - sc.x[3 + j])
          - (sc.fr[3 * l + j] - sc.xr[3 + j]);
 }
 
 // One DYN ring item: loads step t's slices, then every lane its entries
 // (lane = column for the Jacobian blocks, lane = index for the partials).
-__device__ void produce_dyn(Scratch& sc, Stage& st, int lane,
-                            const float* X_t, const float* U_t,
-                            const float* xr_t, const float* ur_t,
-                            const float* fr_t, const float* c_t,
-                            const float* rbd_t, const float* rbe_t,
-                            const float* def_next, float dt_b) {
-  DynData& d = st.dyn;
+template <typename R>
+__device__ void produce_dyn(Scratch<R>& sc, Stage<R>& st, int lane,
+                            const R* X_t, const R* U_t,
+                            const R* xr_t, const R* ur_t,
+                            const R* fr_t, const R* c_t,
+                            const R* rbd_t, const R* rbe_t,
+                            const R* def_next, R dt_b) {
+  DynData<R>& d = st.dyn;
   __syncwarp();   // the scratch is free: every lane is done with the last item
   if (lane < NX) {
     sc.x[lane] = X_t[lane];
@@ -367,7 +413,7 @@ __device__ void produce_dyn(Scratch& sc, Stage& st, int lane,
 
   if (lane == 4) {
     // net moment and force of the stance legs
-    float f[4][3], r[4][3];
+    R f[4][3], r[4][3];
     for (int l = 0; l < 4; ++l) {
       for (int j = 0; j < 3; ++j) f[l][j] = sc.u[3 * l + j];
       r[l][0] = sc.x[12 + 3 * l] - sc.x[3];
@@ -375,27 +421,27 @@ __device__ void produce_dyn(Scratch& sc, Stage& st, int lane,
       r[l][2] = -sc.x[5];
     }
     for (int k = 0; k < 3; ++k) {
-      float s = 0.f;
+      R s = R(0);
       for (int l = 0; l < 4; ++l)
         s = s + sc.c[l] * (r[l][(k + 1) % 3] * f[l][(k + 2) % 3]
                            - r[l][(k + 2) % 3] * f[l][(k + 1) % 3]);
       sc.m[k] = s;
     }
     for (int j = 0; j < 3; ++j) {
-      float s = 0.f;
+      R s = R(0);
       for (int l = 0; l < 4; ++l) s = s + sc.c[l] * f[l][j];
       sc.Fc[j] = s;
     }
   } else if (lane >= 8 && lane < 28) {
     // one GRF cone row: ReB derivatives
     const int row = lane - 8, l = row / 5, k = row % 5;
-    const float fx = sc.u[3 * l], fy = sc.u[3 * l + 1], fz = sc.u[3 * l + 2];
-    const float g = k == 0 ? fz
-                  : k == 1 ? -fx + K_MU * fz
-                  : k == 2 ? fx + K_MU * fz
-                  : k == 3 ? -fy + K_MU * fz
-                           : fy + K_MU * fz;
-    float a1, a2;
+    const R fx = sc.u[3 * l], fy = sc.u[3 * l + 1], fz = sc.u[3 * l + 2];
+    const R g = k == 0 ? fz
+                  : k == 1 ? -fx + Model<R>::MU * fz
+                  : k == 2 ? fx + Model<R>::MU * fz
+                  : k == 3 ? -fy + Model<R>::MU * fz
+                           : fy + Model<R>::MU * fz;
+    R a1, a2;
     reb_derivs(g, sc.rbd[row], sc.rbe[row], a1, a2);
     sc.Dk[row] = sc.c[l] * a1;
     sc.Hk[row] = sc.c[l] * a2;
@@ -403,7 +449,7 @@ __device__ void produce_dyn(Scratch& sc, Stage& st, int lane,
   produce_rot(sc, lane);
 
   if (lane < NX) {
-    float e[3], o[3], bcol[4];
+    R e[3], o[3], bcol[4];
     da_eul_column(sc, lane, e);
     da_omega_column(sc, lane, o);
     db_column(sc, lane, bcol);
@@ -415,26 +461,26 @@ __device__ void produce_dyn(Scratch& sc, Stage& st, int lane,
   }
 
   // running_partial_entries with the ReB rows; mdt = dt at a DYN transition
-  const float mdt = dt_b;
+  const R mdt = dt_b;
   if (lane < NX) {
     const int i = lane;
-    float lx, lxxd, lu, luud;
+    R lx, lxxd, lu, luud;
     if (i < 12) {
-      lx = mdt * K_Q_BODY[i] * (sc.x[i] - sc.xr[i]);
-      lxxd = mdt * K_Q_BODY[i];
+      lx = mdt * Model<R>::Q_BODY(i) * (sc.x[i] - sc.xr[i]);
+      lxxd = mdt * Model<R>::Q_BODY(i);
       if (i == 3 || i == 4) {
         const int j = i - 3;
         for (int l = 0; l < 4; ++l) {
-          const float Wl = K_WFOOT[j] * sc.c[l];
+          const R Wl = Model<R>::WFOOT(j) * sc.c[l];
           lx += -mdt * Wl * foot_residual(sc, l, j);
           lxxd += mdt * Wl;
         }
       }
       const int l = i / 3, a = i % 3;
-      const float* D = sc.Dk + 5 * l;
-      const float* Hh = sc.Hk + 5 * l;
-      lu = mdt * K_R_GRF * (sc.u[i] - sc.ur[i]);
-      luud = mdt * K_R_GRF;
+      const R* D = sc.Dk + 5 * l;
+      const R* Hh = sc.Hk + 5 * l;
+      lu = mdt * Model<R>::R_GRF * (sc.u[i] - sc.ur[i]);
+      luud = mdt * Model<R>::R_GRF;
       if (a == 0) {
         lu += mdt * (-D[1] + D[2]);
         luud += mdt * (Hh[1] + Hh[2]);
@@ -442,22 +488,22 @@ __device__ void produce_dyn(Scratch& sc, Stage& st, int lane,
         lu += mdt * (-D[3] + D[4]);
         luud += mdt * (Hh[3] + Hh[4]);
       } else {
-        lu += mdt * (D[0] + K_MU * (D[1] + D[2] + D[3] + D[4]));
-        luud += mdt * (Hh[0] + K_MU2 * (Hh[1] + Hh[2] + Hh[3] + Hh[4]));
+        lu += mdt * (D[0] + Model<R>::MU * (D[1] + D[2] + D[3] + D[4]));
+        luud += mdt * (Hh[0] + Model<R>::MU2 * (Hh[1] + Hh[2] + Hh[3] + Hh[4]));
       }
     } else {
       const int l = (i - 12) / 3, j = (i - 12) % 3;
-      const float w = K_Q_SWING_LEG * (1.f - sc.c[l]);
+      const R w = Model<R>::Q_SWING_LEG * (R(1) - sc.c[l]);
       lx = mdt * w * (sc.x[i] - sc.xr[i]);
       lxxd = mdt * w;
       if (j < 2) {
-        const float Wl = K_WFOOT[j] * sc.c[l];
+        const R Wl = Model<R>::WFOOT(j) * sc.c[l];
         lx += mdt * Wl * foot_residual(sc, l, j);
         lxxd += mdt * Wl;
         d.q[Q_LXC + 2 * l + j] = -mdt * Wl;
       }
-      lu = mdt * K_R_QJD * (sc.u[i] - sc.ur[i]);
-      luud = mdt * K_R_QJD;
+      lu = mdt * Model<R>::R_QJD * (sc.u[i] - sc.ur[i]);
+      luud = mdt * Model<R>::R_QJD;
     }
     d.lx[i] = lx;
     d.lu[i] = lu;
@@ -465,11 +511,11 @@ __device__ void produce_dyn(Scratch& sc, Stage& st, int lane,
     d.q[Q_LUUD + i] = luud;
   } else if (lane < NX + 4) {
     const int l = lane - NX;
-    const float* Hh = sc.Hk + 5 * l;
-    d.q[Q_HXZ + l] = mdt * K_MU * (Hh[2] - Hh[1]);
-    d.q[Q_HYZ + l] = mdt * K_MU * (Hh[4] - Hh[3]);
+    const R* Hh = sc.Hk + 5 * l;
+    d.q[Q_HXZ + l] = mdt * Model<R>::MU * (Hh[2] - Hh[1]);
+    d.q[Q_HYZ + l] = mdt * Model<R>::MU * (Hh[4] - Hh[3]);
   } else if (lane == NX + 4) {
-    d.q[Q_ZERO] = 0.f;
+    d.q[Q_ZERO] = R(0);
   }
 }
 
@@ -482,11 +528,12 @@ __device__ __forceinline__ int height_index(int l, int a) {
 // 24 x 24 tile), and the node's rotation and leg kinematics into the
 // scratch. tm = term_mask[n]; tc, td, sig, lam: the node's term_contact,
 // td_mask, al_sigma, al_lambda rows.
-__device__ void produce_phi(Scratch& sc, float* phix, float* phixx, int lane,
-                            const float* X_n, const float* xr_n,
-                            const float* fr_n, const float* tc_n,
-                            const float* td_n, const float* sig_n,
-                            const float* lam_n, float tm) {
+template <typename R>
+__device__ void produce_phi(Scratch<R>& sc, R* phix, R* phixx, int lane,
+                            const R* X_n, const R* xr_n,
+                            const R* fr_n, const R* tc_n,
+                            const R* td_n, const R* sig_n,
+                            const R* lam_n, R tm) {
   __syncwarp();   // the scratch is free: every lane is done with the last item
   if (lane < NX) {
     sc.x[lane] = X_n[lane];
@@ -506,43 +553,43 @@ __device__ void produce_phi(Scratch& sc, float* phix, float* phixx, int lane,
     // one leg: kinematics, world foot height h = pos_z + R[2,:] . pf, the
     // AL weights and the foot-height row (d/d eul, d/d pos_z, d/d qleg)
     const int l = lane;
-    float p[3], J[3][3];
+    R p[3], J[3][3];
     leg_fk_entries(sc.x[12 + 3 * l], sc.x[13 + 3 * l], sc.x[14 + 3 * l], l, p,
                    J);
-    const float pf[3] = {p[0] + K_HIP[l][0], p[1] + K_HIP[l][1],
-                         p[2] + K_HIP[l][2]};
+    const R pf[3] = {p[0] + Model<R>::HIP(l, 0), p[1] + Model<R>::HIP(l, 1),
+                     p[2] + Model<R>::HIP(l, 2)};
     for (int i = 0; i < 3; ++i) {
       sc.pf[l][i] = pf[i];
       for (int j = 0; j < 3; ++j) sc.J[l][i][j] = J[i][j];
     }
-    const float mask = tm * sc.td[l];
-    const float h = sc.x[5] + dot3c(sc.R[2][0], sc.R[2][1], sc.R[2][2],
+    const R mask = tm * sc.td[l];
+    const R h = sc.x[5] + dot3c(sc.Rot[2][0], sc.Rot[2][1], sc.Rot[2][2],
                                     pf[0], pf[1], pf[2]);
     sc.w1[l] = mask * (sc.sig[l] * h + sc.lam[l]);
-    sc.w2[l] = mask * (sc.sig[l] * (1.f + h) + sc.lam[l]);
+    sc.w2[l] = mask * (sc.sig[l] * (R(1) + h) + sc.lam[l]);
     for (int ang = 0; ang < 3; ++ang)
       sc.val[l][ang] = dot3c(sc.dR[ang][2][0], sc.dR[ang][2][1],
                              sc.dR[ang][2][2], pf[0], pf[1], pf[2]);
-    sc.val[l][3] = 1.f;
+    sc.val[l][3] = R(1);
     for (int j = 0; j < 3; ++j)
-      sc.val[l][4 + j] = dot3c(sc.R[2][0], sc.R[2][1], sc.R[2][2], J[0][j],
-                               J[1][j], J[2][j]);
+      sc.val[l][4 + j] = dot3c(sc.Rot[2][0], sc.Rot[2][1], sc.Rot[2][2],
+                               J[0][j], J[1][j], J[2][j]);
   }
   __syncwarp();
   if (lane < NX) {
     // tracking and foot regularization: phix, the diagonal of phixx and its
     // foot-regularization cross entries; then the AL rows of phix
     const int i = lane;
-    float px, pd;
+    R px, pd;
     if (i < 12) {
-      px = tm * K_QF[i] * (sc.x[i] - sc.xr[i]);
-      pd = tm * K_QF[i];
+      px = tm * Model<R>::QF(i) * (sc.x[i] - sc.xr[i]);
+      pd = tm * Model<R>::QF(i);
       if (i == 3 || i == 4) {
         const int j = i - 3;
         for (int l = 0; l < 4; ++l) {
-          const float Wl = K_WFOOT[j] * sc.tc[l];
-          px += -tm * K_TF2 * Wl * foot_residual(sc, l, j);
-          pd += tm * K_TF2 * Wl;
+          const R Wl = Model<R>::WFOOT(j) * sc.tc[l];
+          px += -tm * Model<R>::TF2 * Wl * foot_residual(sc, l, j);
+          pd += tm * Model<R>::TF2 * Wl;
         }
       }
       if (i < 3 || i == 5) {
@@ -551,15 +598,15 @@ __device__ void produce_phi(Scratch& sc, float* phix, float* phixx, int lane,
       }
     } else {
       const int l = (i - 12) / 3, j = (i - 12) % 3;
-      const float w = K_QF_LEG * (1.f - sc.tc[l]);
+      const R w = Model<R>::QF_LEG * (R(1) - sc.tc[l]);
       px = tm * w * (sc.x[i] - sc.xr[i]);
       pd = tm * w;
       if (j < 2) {
-        const float Wl = K_WFOOT[j] * sc.tc[l];
-        px += tm * K_TF2 * Wl * foot_residual(sc, l, j);
-        pd += tm * K_TF2 * Wl;
-        phixx[i * NX + 3 + j] = -tm * K_TF2 * Wl;
-        phixx[(3 + j) * NX + i] = -tm * K_TF2 * Wl;
+        const R Wl = Model<R>::WFOOT(j) * sc.tc[l];
+        px += tm * Model<R>::TF2 * Wl * foot_residual(sc, l, j);
+        pd += tm * Model<R>::TF2 * Wl;
+        phixx[i * NX + 3 + j] = -tm * Model<R>::TF2 * Wl;
+        phixx[(3 + j) * NX + i] = -tm * Model<R>::TF2 * Wl;
       }
       px += sc.w1[l] * sc.val[l][4 + j];
     }
@@ -580,8 +627,9 @@ __device__ void produce_phi(Scratch& sc, float* phix, float* phixx, int lane,
 
 // reset_jac_entries: Px = I + S of step t into a dense 24 x 24 tile; the
 // rotation and leg kinematics of node t are in the scratch (produce_phi)
-__device__ void produce_px(Scratch& sc, float* Px, int lane,
-                           const float* c_t, const float* cn_t) {
+template <typename R>
+__device__ void produce_px(Scratch<R>& sc, R* Px, int lane,
+                           const R* c_t, const R* cn_t) {
   if (lane < 4) {
     sc.c[lane] = c_t[lane];
     sc.cn[lane] = cn_t[lane];
@@ -590,26 +638,26 @@ __device__ void produce_px(Scratch& sc, float* Px, int lane,
   __syncwarp();
   if (lane < 4) {
     const int l = lane, r0 = 12 + 3 * l;
-    const float to_swing = sc.c[l] * (1.f - sc.cn[l]);
-    const float to_stance = (1.f - sc.c[l]) * sc.cn[l];
-    const float keep = 1.f - to_swing - to_stance;
-    const float* pf = sc.pf[l];
+    const R to_swing = sc.c[l] * (R(1) - sc.cn[l]);
+    const R to_stance = (R(1) - sc.c[l]) * sc.cn[l];
+    const R keep = R(1) - to_swing - to_stance;
+    const R* pf = sc.pf[l];
     for (int i = 0; i < 2; ++i) {
       for (int ang = 0; ang < 3; ++ang)
         Px[(r0 + i) * NX + ang] += to_stance *
             dot3c(sc.dR[ang][i][0], sc.dR[ang][i][1], sc.dR[ang][i][2],
                   pf[0], pf[1], pf[2]);
-      Px[(r0 + i) * NX + 3 + i] += to_stance * 1.f;
+      Px[(r0 + i) * NX + 3 + i] += to_stance * R(1);
       for (int j = 0; j < 3; ++j)
         Px[(r0 + i) * NX + r0 + j] += to_stance *
-            dot3c(sc.R[i][0], sc.R[i][1], sc.R[i][2], sc.J[l][0][j],
+            dot3c(sc.Rot[i][0], sc.Rot[i][1], sc.Rot[i][2], sc.J[l][0][j],
                   sc.J[l][1][j], sc.J[l][2][j]);
     }
     for (int j = 0; j < 3; ++j)
-      Px[(r0 + j) * NX + r0 + j] += (keep - 1.f) * 1.f;
+      Px[(r0 + j) * NX + r0 + j] += (keep - R(1)) * R(1);
   }
   __syncwarp();
-  if (lane < NX) Px[lane * NX + lane] = 1.f + Px[lane * NX + lane];
+  if (lane < NX) Px[lane * NX + lane] = R(1) + Px[lane * NX + lane];
 }
 
 // ---------------------------------------------------------------------------
@@ -656,20 +704,21 @@ __device__ __forceinline__ int d_row(int k) { return k < 3 ? k : k + 3; }
 // DYN: the Q expansion on the pattern of A and B, then the shared step.
 // A = I + dt DA with DA's rows 0..2 and 6..8 in D and its rows 3..5 the
 // constant d(pos)/dt = vel (DA[3+i][9+i] = 1); B by column in Bc.
-__device__ __forceinline__ void dyn_step(Work& w, const Stage& st,
-                                         uint64_t* stage_empty, float reg_b,
-                                         float dt_b, const Pattern& pat,
+template <typename R>
+__device__ __forceinline__ void dyn_step(Work<R>& w, const Stage<R>& st,
+                                         uint64_t* stage_empty, R reg_b,
+                                         R dt_b, const Pattern& pat,
                                          int tid, int r, int cg, int c0,
-                                         float* K_bt, float* dU_bt,
-                                         float& dv1, float& dv2, bool& okb) {
-  const DynData& d = st.dyn;
+                                         R* K_bt, R* dU_bt,
+                                         R& dv1, R& dv2, bool& okb) {
+  const DynData<R>& d = st.dyn;
   defect_correction(w, st.dnext, r, cg, c0);
-  float v[TC];
+  R v[TC];
   {
     // HA = H + H[:, rows] D + dt H[:, 3:6] -> columns 9:12
     // HB[:, j] = H[:, 6:9] Bc[0:3, j] + H[:, row_j] Bc[3, j]
-    float ha[TC];
-    float hb[TC] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    R ha[TC];
+    R hb[TC] = {R(0), R(0), R(0), R(0), R(0), R(0)};
     ld6(&w.H[r][c0], ha);
 #pragma unroll
     for (int k = 0; k < ND; ++k) {
@@ -678,7 +727,7 @@ __device__ __forceinline__ void dyn_step(Work& w, const Stage& st,
     }
     if (cg == 1) {   // columns 9, 10, 11
 #pragma unroll
-      for (int i = 0; i < 3; ++i) ha[3 + i] = fmaf(dt_b, w.H[r][3 + i], ha[3 + i]);
+      for (int i = 0; i < 3; ++i) ha[3 + i] = rfma(dt_b, w.H[r][3 + i], ha[3 + i]);
     }
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
@@ -688,17 +737,17 @@ __device__ __forceinline__ void dyn_step(Work& w, const Stage& st,
     ld6(&d.Bc[3][c0], v);
 #pragma unroll
     for (int j = 0; j < TC; ++j)
-      hb[j] = fmaf(w.H[r][b_single_row(c0 + j)], v[j], hb[j]);
+      hb[j] = rfma(w.H[r][b_single_row(c0 + j)], v[j], hb[j]);
     st6(&w.HA[r][c0], ha);
     st6(&w.HB[r][c0], hb);
   }
   consumer_sync();
   const int rs = b_single_row(r);
-  const float bs = d.Bc[3][r];
+  const R bs = d.Bc[3][r];
   const bool vel_row = r >= 9 && r < 12;   // row 9 + i of A' takes dt * row 3 + i
-  float axx[TC];
-  float qux[TC] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float auu[TC] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  R axx[TC];
+  R qux[TC] = {R(0), R(0), R(0), R(0), R(0), R(0)};
+  R auu[TC] = {R(0), R(0), R(0), R(0), R(0), R(0)};
   // A'(HA) = HA + D' HA[rows, :] + dt HA[3:6, :] -> rows 9:12
   ld6(&w.HA[r][c0], axx);
 #pragma unroll
@@ -713,7 +762,7 @@ __device__ __forceinline__ void dyn_step(Work& w, const Stage& st,
   // B'(HA), B'(HB): rows 6..8 and row rs of the right factor
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    const float bk = d.Bc[k][r];
+    const R bk = d.Bc[k][r];
     ld6(&w.HA[6 + k][c0], v);
     fma6(qux, bk, v);
     ld6(&w.HB[6 + k][c0], v);
@@ -723,10 +772,10 @@ __device__ __forceinline__ void dyn_step(Work& w, const Stage& st,
   fma6(qux, bs, v);
   ld6(&w.HB[rs][c0], v);
   fma6(auu, bs, v);
-  float qxx[TC], quu[TC];
+  R qxx[TC], quu[TC];
 #pragma unroll
   for (int j = 0; j < TC; ++j) {
-    const float rd = (r == c0 + j) ? reg_b : 0.f;
+    const R rd = (r == c0 + j) ? reg_b : R(0);
     qxx[j] = (d.q[Pattern::at(pat.lxx, j)] + axx[j]) + rd;
     quu[j] = (d.q[Pattern::at(pat.luu, j)] + auu[j]) + rd;
   }
@@ -737,19 +786,19 @@ __device__ __forceinline__ void dyn_step(Work& w, const Stage& st,
   {
     // Qx = lx + A' Gn, Qu = lu + B' Gn: each of the row's four threads
     // takes a share of the terms
-    float ag = 0.f, bg;
-    for (int k = cg; k < ND; k += 4) ag = fmaf(d.D[k][r], w.Gn[d_row(k)], ag);
+    R ag = R(0), bg;
+    for (int k = cg; k < ND; k += 4) ag = rfma(d.D[k][r], w.Gn[d_row(k)], ag);
     if (cg == 3) {
       bg = bs * w.Gn[rs];
       ag += w.Gn[r];
-      if (vel_row) ag = fmaf(dt_b, w.Gn[r - 6], ag);
+      if (vel_row) ag = rfma(dt_b, w.Gn[r - 6], ag);
     } else {
       bg = d.Bc[cg][r] * w.Gn[6 + cg];
     }
     ag = row_sum(ag);
     bg = row_sum(bg);
     if (cg == 0) {
-      const float qu = d.lu[r] + bg;
+      const R qu = d.lu[r] + bg;
       w.Qx[r] = d.lx[r] + ag;
       w.Qu[r] = qu;
       w.W[r][2 * NX] = qu;
@@ -760,32 +809,33 @@ __device__ __forceinline__ void dyn_step(Work& w, const Stage& st,
   solve_and_update(w, tid, r, cg, c0, K_bt, dU_bt, dv1, dv2, okb);
 }
 
-__global__ void __launch_bounds__(NTHREADS, 4)
-riccati_hkd_kernel(const int* __restrict__ kind, const float* __restrict__ X,
-                   const float* __restrict__ U,
-                   const float* __restrict__ contact,
-                   const float* __restrict__ contact_next,
-                   const float* __restrict__ xr, const float* __restrict__ ur,
-                   const float* __restrict__ foot_r,
-                   const float* __restrict__ reb_delta,
-                   const float* __restrict__ reb_eps,
-                   const float* __restrict__ term_contact,
-                   const float* __restrict__ td_mask,
-                   const float* __restrict__ al_sigma,
-                   const float* __restrict__ al_lambda,
-                   const float* __restrict__ term_mask,
-                   const float* __restrict__ defect,
-                   const float* __restrict__ reg,
+template <typename R>
+__global__ void __launch_bounds__(NTHREADS, MinBlocks<R>::value)
+riccati_hkd_kernel(const int* __restrict__ kind, const R* __restrict__ X,
+                   const R* __restrict__ U,
+                   const R* __restrict__ contact,
+                   const R* __restrict__ contact_next,
+                   const R* __restrict__ xr, const R* __restrict__ ur,
+                   const R* __restrict__ foot_r,
+                   const R* __restrict__ reb_delta,
+                   const R* __restrict__ reb_eps,
+                   const R* __restrict__ term_contact,
+                   const R* __restrict__ td_mask,
+                   const R* __restrict__ al_sigma,
+                   const R* __restrict__ al_lambda,
+                   const R* __restrict__ term_mask,
+                   const R* __restrict__ defect,
+                   const R* __restrict__ reg,
                    const int* __restrict__ last_node,
-                   const float* __restrict__ dt,
+                   const R* __restrict__ dt,
                    const unsigned char* __restrict__ active,
-                   float* __restrict__ dU,
-                   float* __restrict__ K, float* __restrict__ dv1_out,
-                   float* __restrict__ dv2_out,
+                   R* __restrict__ dU,
+                   R* __restrict__ K, R* __restrict__ dv1_out,
+                   R* __restrict__ dv2_out,
                    unsigned char* __restrict__ ok_out, int T, int u_rows,
                    int ur_rows) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
+  Smem<R>& s = *reinterpret_cast<Smem<R>*>(smem_raw);
   const int tid = threadIdx.x;
   const size_t b = blockIdx.x;
   // a retry sweep: a scenario that is done returns before its first load
@@ -808,25 +858,25 @@ riccati_hkd_kernel(const int* __restrict__ kind, const float* __restrict__ X,
   if (tid >= PRODUCER_WARP * 32) {
     // ---- producer warp: the entry formulas, ahead of the consumers ----
     const int lane = tid - PRODUCER_WARP * 32;
-    const float* X_b = X + b * Tn * NX;
-    const float* U_b = U + b * (size_t)u_rows * NX;
-    const float* c_b = contact + b * T * 4;
-    const float* cn_b = contact_next + b * T * 4;
-    const float* xr_b = xr + b * Tn * NX;
-    const float* ur_b = ur + b * (size_t)ur_rows * NX;
-    const float* fr_b = foot_r + b * Tn * 12;
-    const float* rbd_b = reb_delta + b * T * 20;
-    const float* rbe_b = reb_eps + b * T * 20;
-    const float* tc_b = term_contact + b * Tn * 4;
-    const float* td_b = td_mask + b * Tn * 4;
-    const float* sig_b = al_sigma + b * Tn * 4;
-    const float* lam_b = al_lambda + b * Tn * 4;
-    const float* tm_b = term_mask + b * Tn;
-    const float* def_b = defect + b * Tn * NX;
-    const float dt_b = dt[b];
+    const R* X_b = X + b * Tn * NX;
+    const R* U_b = U + b * (size_t)u_rows * NX;
+    const R* c_b = contact + b * T * 4;
+    const R* cn_b = contact_next + b * T * 4;
+    const R* xr_b = xr + b * Tn * NX;
+    const R* ur_b = ur + b * (size_t)ur_rows * NX;
+    const R* fr_b = foot_r + b * Tn * 12;
+    const R* rbd_b = reb_delta + b * T * 20;
+    const R* rbe_b = reb_eps + b * T * 20;
+    const R* tc_b = term_contact + b * Tn * 4;
+    const R* td_b = td_mask + b * Tn * 4;
+    const R* sig_b = al_sigma + b * Tn * 4;
+    const R* lam_b = al_lambda + b * Tn * 4;
+    const R* tm_b = term_mask + b * Tn;
+    const R* def_b = defect + b * Tn * NX;
+    const R dt_b = dt[b];
 
     // terminal partials of node n into a stage's tile
-    auto phi = [&](Stage& st, size_t n) {
+    auto phi = [&](Stage<R>& st, size_t n) {
       produce_phi(s.sc, st.tile.phix, st.tile.phixx, lane, X_b + n * NX,
                   xr_b + n * NX, fr_b + n * 12, tc_b + n * 4, td_b + n * 4,
                   sig_b + n * 4, lam_b + n * 4, tm_b[n]);
@@ -854,7 +904,7 @@ riccati_hkd_kernel(const int* __restrict__ kind, const float* __restrict__ X,
         if (kd == KIND_RESET) {
           const RingPos pos(item++, NSTAGE);
           mbar_wait(&s.empty[pos.stage], pos.parity ^ 1);
-          Stage& st = s.ring[pos.stage];
+          Stage<R>& st = s.ring[pos.stage];
           phi(st, st_);
           produce_px(s.sc, st.tile.Px, lane, c_b + st_ * 4, cn_b + st_ * 4);
           if (lane < NX) st.dnext[lane] = def_b[(st_ + 1) * NX + lane];
@@ -868,18 +918,18 @@ riccati_hkd_kernel(const int* __restrict__ kind, const float* __restrict__ X,
   }
 
   // ---- consumers ----
-  Work& w = s.w;
+  Work<R>& w = s.w;
   const int r = tid >> 2, cg = tid & 3, c0 = TC * cg;
-  const float reg_b = reg[b];
-  const float dt_b = dt[b];
+  const R reg_b = reg[b];
+  const R dt_b = dt[b];
   const Pattern pat(r, c0);
-  float dv1 = 0.f, dv2 = 0.f;   // meaningful in thread 0
+  R dv1 = R(0), dv2 = R(0);   // meaningful in thread 0
   bool okb = true;              // meaningful in warp 0
 
   {
-    const float zero[TC] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    const R zero[TC] = {R(0), R(0), R(0), R(0), R(0), R(0)};
     st6(&w.H[r][c0], zero);
-    if (cg == 0) w.G[r] = 0.f;
+    if (cg == 0) w.G[r] = R(0);
   }
   consumer_sync();
 
@@ -891,9 +941,9 @@ riccati_hkd_kernel(const int* __restrict__ kind, const float* __restrict__ X,
     if (last == t + 1) {
       // seed the carry with phi(t+1) at the scenario's last active node
       const RingPos pos(item++, NSTAGE);
-      const TileData& tile = s.ring[pos.stage].tile;
+      const TileData<R>& tile = s.ring[pos.stage].tile;
       mbar_wait(&s.full[pos.stage], pos.parity);
-      float h[TC], p[TC];
+      R h[TC], p[TC];
       ld6(&w.H[r][c0], h);
       ld6(tile.phixx + r * NX + c0, p);
 #pragma unroll
@@ -912,7 +962,7 @@ riccati_hkd_kernel(const int* __restrict__ kind, const float* __restrict__ X,
     } else if (kd == KIND_RESET) {
       const RingPos pos(item++, NSTAGE);
       mbar_wait(&s.full[pos.stage], pos.parity);
-      const Stage& st = s.ring[pos.stage];
+      const Stage<R>& st = s.ring[pos.stage];
       reset_step(w, st.tile.Px, st.tile.phixx, st.tile.phix, st.dnext,
                  &s.empty[pos.stage], r, cg, c0);
     }
@@ -924,37 +974,36 @@ riccati_hkd_kernel(const int* __restrict__ kind, const float* __restrict__ X,
   }
 }
 
-// the shared-memory opt-in, once per device (a launch may be captured
-// into a CUDA graph, where only launches belong)
+// the shared-memory opt-in of instantiation R, once per device (a launch
+// may be captured into a CUDA graph, where only launches belong); each
+// instantiation keeps its own bits
+template <typename R>
 cudaError_t configure() {
   static unsigned long long done = 0;  // bit d: device d configured
   int dev = 0;
   cudaError_t st = cudaGetDevice(&dev);
   if (st != cudaSuccess || (dev < 64 && (done >> dev) & 1ull)) return st;
-  st = cudaFuncSetAttribute(riccati_hkd_kernel,
+  st = cudaFuncSetAttribute(riccati_hkd_kernel<R>,
                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                            (int)sizeof(Smem));
+                            (int)sizeof(Smem<R>));
   if (st == cudaSuccess && dev < 64) done |= 1ull << dev;
   return st;
 }
 
-}  // namespace
-
-extern "C" int riccati_hkd_launch(
-    const int* kind, const float* X, const float* U, const float* contact,
-    const float* contact_next, const float* xr, const float* ur,
-    const float* foot_r, const float* reb_delta, const float* reb_eps,
-    const float* term_contact, const float* td_mask, const float* al_sigma,
-    const float* al_lambda, const float* term_mask, const float* defect,
-    const float* reg, const int* last_node, const float* dt,
-    const unsigned char* active, float* dU, float* K, float* dv1,
-    float* dv2, unsigned char* ok, int B, int T, int u_rows, int ur_rows,
-    void* stream) {
+template <typename R>
+int launch(const int* kind, const R* X, const R* U, const R* contact,
+           const R* contact_next, const R* xr, const R* ur, const R* foot_r,
+           const R* reb_delta, const R* reb_eps, const R* term_contact,
+           const R* td_mask, const R* al_sigma, const R* al_lambda,
+           const R* term_mask, const R* defect, const R* reg,
+           const int* last_node, const R* dt, const unsigned char* active,
+           R* dU, R* K, R* dv1, R* dv2, unsigned char* ok, int B, int T,
+           int u_rows, int ur_rows, void* stream) {
   if (B <= 0 || T <= 0) return 0;
-  const cudaError_t st = configure();
+  const cudaError_t st = configure<R>();
   if (st != cudaSuccess) return static_cast<int>(st);
-  riccati_hkd_kernel<<<B, NTHREADS, sizeof(Smem),
-                       static_cast<cudaStream_t>(stream)>>>(
+  riccati_hkd_kernel<R><<<B, NTHREADS, sizeof(Smem<R>),
+                          static_cast<cudaStream_t>(stream)>>>(
       kind, X, U, contact, contact_next, xr, ur, foot_r, reb_delta, reb_eps,
       term_contact, td_mask, al_sigma, al_lambda, term_mask, defect, reg,
       last_node, dt, active, dU, K, dv1, dv2, ok, T, u_rows, ur_rows);
@@ -962,15 +1011,52 @@ extern "C" int riccati_hkd_launch(
 }
 
 // threads per block, dynamic shared memory per block and resident blocks
-// per SM of the kernel on the current device
-extern "C" int riccati_hkd_info(int* threads, int* smem_bytes,
-                                int* blocks_per_sm) {
-  const cudaError_t st = configure();
+// per SM of instantiation R on the current device
+template <typename R>
+int info(int* threads, int* smem_bytes, int* blocks_per_sm) {
+  const cudaError_t st = configure<R>();
   if (st != cudaSuccess) return static_cast<int>(st);
   *threads = NTHREADS;
-  *smem_bytes = (int)sizeof(Smem);
+  *smem_bytes = (int)sizeof(Smem<R>);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, riccati_hkd_kernel, NTHREADS, sizeof(Smem)));
+      blocks_per_sm, riccati_hkd_kernel<R>, NTHREADS, sizeof(Smem<R>)));
+}
+
+}  // namespace
+
+// The C interface: riccati_hkd_launch / _info run the float32
+// instantiation, riccati_hkd_launch_f64 / _info_f64 the float64 one.
+#define HKD_PARAMS(R)                                                       \
+  const int *kind, const R *X, const R *U, const R *contact,                \
+      const R *contact_next, const R *xr, const R *ur, const R *foot_r,     \
+      const R *reb_delta, const R *reb_eps, const R *term_contact,          \
+      const R *td_mask, const R *al_sigma, const R *al_lambda,              \
+      const R *term_mask, const R *defect, const R *reg,                    \
+      const int *last_node, const R *dt, const unsigned char *active,       \
+      R *dU, R *K, R *dv1, R *dv2, unsigned char *ok, int B, int T,         \
+      int u_rows, int ur_rows, void *stream
+#define HKD_ARGS                                                            \
+  kind, X, U, contact, contact_next, xr, ur, foot_r, reb_delta, reb_eps,    \
+      term_contact, td_mask, al_sigma, al_lambda, term_mask, defect, reg,   \
+      last_node, dt, active, dU, K, dv1, dv2, ok, B, T, u_rows, ur_rows,    \
+      stream
+
+extern "C" int riccati_hkd_launch(HKD_PARAMS(float)) {
+  return launch<float>(HKD_ARGS);
+}
+
+extern "C" int riccati_hkd_launch_f64(HKD_PARAMS(double)) {
+  return launch<double>(HKD_ARGS);
+}
+
+extern "C" int riccati_hkd_info(int* threads, int* smem_bytes,
+                                int* blocks_per_sm) {
+  return info<float>(threads, smem_bytes, blocks_per_sm);
+}
+
+extern "C" int riccati_hkd_info_f64(int* threads, int* smem_bytes,
+                                    int* blocks_per_sm) {
+  return info<double>(threads, smem_bytes, blocks_per_sm);
 }
 
 extern "C" const char* riccati_hkd_error_string(int err) {

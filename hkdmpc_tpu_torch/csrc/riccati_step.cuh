@@ -29,8 +29,8 @@
 // Without row exchanges its pivots are those of Gaussian elimination, the D
 // of Quu's LDL' factorization, so the PSD gate (every pivot > 1e-9) keeps its
 // meaning; the solution differs from Gaussian elimination's in rounding
-// only. Rows of 28 floats (LDP) keep every row of a tile 16-byte aligned and
-// put the eight rows a warp touches in one access on distinct banks.
+// only. Rows of 28 values (LDP) keep every row of a tile 16-byte aligned and,
+// at f32, put the eight rows a warp touches in one access on distinct banks.
 //
 // What a step costs is latency more than work (measured on an NVIDIA H100
 // 80GB HBM3 at 700 W, K1): one block alone on an SM takes about 8k cycles
@@ -45,7 +45,27 @@
 // (ops/precise.pin_full_f32) holds the f32 solve to the f64 oracle at 1e-4
 // and TF32 keeps about three digits. The f32 FMA peak of the H100
 // (67 TFLOP/s) already puts the arithmetic bound of a B = 4096, T = 75 sweep
-// below 1 ms.
+// below 1 ms. The f64 instantiation runs on the FP64 units too (34 TFLOP/s
+// on the H100's vector units; its FP64 tensor cores, DMMA, at 67 TFLOP/s,
+// are not used yet).
+
+// Both kernels are templates on their scalar, `R` = float or double. A
+// kernel's library holds both instantiations, each with its own entry
+// points (`<name>_launch` float, `<name>_launch_f64` double); the float one
+// compiles to the code it had before the double one existed. The f64
+// instantiation computes what the f64 plain version does: the same entry
+// formulas, the PSD gate at 1e-9 in double, and a correctly
+// rounded reciprocal where the f32 one takes the special-function unit's.
+// At f64 every array of the block layout is twice as large (about 81 KB of
+// shared memory for K2 and 75 KB for K1, against 40 and 37 KB) and a
+// thread's registers about double, so two blocks, not four, share an SM
+// (`MinBlocks`). The padded rows keep their widths: every row and every
+// 6-wide tile segment stays 16-byte aligned, so the f64 tile segments load
+// as three 16-byte double2. At 8 bytes a quarter-warp's 16-byte loads of
+// a 1 x 6 tile segment meet two-way bank conflicts on half of its lanes
+// (rows of 224 bytes: the segments of rows 2q and 2q + 1 overlap on two of
+// eight 16-byte bank groups); the scalar column reads of the left factors
+// (rows r, r + 1, .. at 224-byte steps) stay conflict-free.
 
 #pragma once
 
@@ -66,18 +86,92 @@ constexpr int KIND_DYN = 1;
 constexpr int KIND_RESET = 2;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
+// resident blocks per SM that __launch_bounds__ asks the register
+// allocator for: four at f32 (128 registers a thread), two at f64
+template <typename R> struct MinBlocks { static constexpr int value = 4; };
+template <> struct MinBlocks<double> { static constexpr int value = 2; };
+
 // The consumers' working set of one step.
+template <typename R>
 struct __align__(16) Work {
-  float H[NX][LDP];     // value Hessian carry
-  float HA[NX][LDP];    // H A; later the unsymmetrized new H
-  float HB[NX][LDP];    // H B
-  float Qxx[NX][LDP];   // before symmetrization
-  float Qux[NX][NX];
-  float W[NX][LDW];     // elimination tableau [Quu | Qux | Qu]
-  float Sol[NX][LDP];   // Quu^-1 [Qux | Qu] (25 columns)
-  float piv[2][2 * NX]; // the elimination's two pivot columns, double-buffered
-  float G[NX], Gn[NX], Qx[NX], Qu[NX];
+  R H[NX][LDP];     // value Hessian carry
+  R HA[NX][LDP];    // H A; later the unsymmetrized new H
+  R HB[NX][LDP];    // H B
+  R Qxx[NX][LDP];   // before symmetrization
+  R Qux[NX][NX];
+  R W[NX][LDW];     // elimination tableau [Quu | Qux | Qu]
+  R Sol[NX][LDP];   // Quu^-1 [Qux | Qu] (25 columns)
+  R piv[2][2 * NX]; // the elimination's two pivot columns, double-buffered
+  R G[NX], Gn[NX], Qx[NX], Qu[NX];
 };
+
+// ---------------------------------------------------------------------------
+// scalar helpers: one overload per type, so the f32 instantiation keeps its
+// single-precision intrinsics
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float rfma(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double rfma(double a, double b, double c) {
+  return fma(a, b, c);
+}
+__device__ __forceinline__ float rabs(float x) { return fabsf(x); }
+__device__ __forceinline__ double rabs(double x) { return fabs(x); }
+__device__ __forceinline__ float rsin(float x) { return sinf(x); }
+__device__ __forceinline__ double rsin(double x) { return sin(x); }
+__device__ __forceinline__ float rcos(float x) { return cosf(x); }
+__device__ __forceinline__ double rcos(double x) { return cos(x); }
+
+// 1 / x. f32: by the special-function unit alone (an error of about 1 ulp),
+// where the rounded reciprocal is a dependent chain a dozen long. f64:
+// correctly rounded, as the plain version divides.
+__device__ __forceinline__ float fast_rcp(float x) {
+  return __fdividef(1.f, x);
+}
+__device__ __forceinline__ double fast_rcp(double x) { return 1.0 / x; }
+
+// the PSD gate (every pivot > 1e-9, solver/backward.py:CHOL_SHIFT) and the
+// guard of a reciprocal, in the instantiation's type
+template <typename R> struct Gate;
+template <> struct Gate<float> {
+  static constexpr float psd = 1e-9f, tiny = 1e-30f;
+};
+template <> struct Gate<double> {
+  static constexpr double psd = 1e-9, tiny = 1e-30;
+};
+
+// two and sixteen bytes of R as one vector access
+__device__ __forceinline__ void ld2(const float* p, float& a, float& b) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  a = v.x; b = v.y;
+}
+__device__ __forceinline__ void ld2(const double* p, double& a, double& b) {
+  const double2 v = *reinterpret_cast<const double2*>(p);
+  a = v.x; b = v.y;
+}
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void st2(double* p, double a, double b) {
+  *reinterpret_cast<double2*>(p) = make_double2(a, b);
+}
+// elements of R in one 16-byte access
+template <typename R> struct Vec16 { static constexpr int N = 16 / sizeof(R); };
+__device__ __forceinline__ void ld16(const float* p, float* v) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+}
+__device__ __forceinline__ void ld16(const double* p, double* v) {
+  const double2 u = *reinterpret_cast<const double2*>(p);
+  v[0] = u.x; v[1] = u.y;
+}
+__device__ __forceinline__ void st16(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void st16(double* p, const double* v) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
 
 // ---------------------------------------------------------------------------
 // ring primitives
@@ -155,52 +249,51 @@ struct RingPos {
 };
 
 // ---------------------------------------------------------------------------
-// tile helpers (8-byte aligned row segments of TC floats)
+// tile helpers (row segments of TC values: 8-byte aligned at f32, 16-byte
+// aligned at f64)
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void ld6(const float* p, float v[TC]) {
-  const float2 a = *reinterpret_cast<const float2*>(p);
-  const float2 b = *reinterpret_cast<const float2*>(p + 2);
-  const float2 c = *reinterpret_cast<const float2*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y; v[4] = c.x; v[5] = c.y;
+template <typename R>
+__device__ __forceinline__ void ld6(const R* p, R v[TC]) {
+  ld2(p, v[0], v[1]);
+  ld2(p + 2, v[2], v[3]);
+  ld2(p + 4, v[4], v[5]);
 }
 
-__device__ __forceinline__ void st6(float* p, const float v[TC]) {
-  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  *reinterpret_cast<float2*>(p + 2) = make_float2(v[2], v[3]);
-  *reinterpret_cast<float2*>(p + 4) = make_float2(v[4], v[5]);
+template <typename R>
+__device__ __forceinline__ void st6(R* p, const R v[TC]) {
+  st2(p, v[0], v[1]);
+  st2(p + 2, v[2], v[3]);
+  st2(p + 4, v[4], v[5]);
 }
 
 // acc += a * v
-__device__ __forceinline__ void fma6(float acc[TC], float a,
-                                     const float v[TC]) {
+template <typename R>
+__device__ __forceinline__ void fma6(R acc[TC], R a, const R v[TC]) {
 #pragma unroll
-  for (int j = 0; j < TC; ++j) acc[j] = fmaf(a, v[j], acc[j]);
-}
-
-// 1 / x by the special-function unit alone (an error of about 1 ulp),
-// where the rounded reciprocal is a dependent chain a dozen long
-__device__ __forceinline__ float fast_rcp(float x) {
-  return __fdividef(1.f, x);
+  for (int j = 0; j < TC; ++j) acc[j] = rfma(a, v[j], acc[j]);
 }
 
 // sum of p over the four threads of a row (lanes 4q .. 4q+3)
-__device__ __forceinline__ float row_sum(float p) {
+template <typename R>
+__device__ __forceinline__ R row_sum(R p) {
   p += __shfl_xor_sync(FULL_MASK, p, 1);
   p += __shfl_xor_sync(FULL_MASK, p, 2);
   return p;
 }
 
-// n floats of zeros (n a multiple of 4, p 16-byte aligned) by one warp
-__device__ __forceinline__ void warp_zero(float* p, int n, int lane) {
+// n values of zeros (n a multiple of 4, p 16-byte aligned) by one warp
+template <typename R>
+__device__ __forceinline__ void warp_zero(R* p, int n, int lane) {
   const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int e = lane; e < n / 4; e += 32) reinterpret_cast<float4*>(p)[e] = z;
+  const int n16 = n / Vec16<R>::N;
+  for (int e = lane; e < n16; e += 32) reinterpret_cast<float4*>(p)[e] = z;
 }
 
 // The producer warp's share of a step that is not DYN: K[b, t] and dU[b, t]
 // are zero.
-__device__ __forceinline__ void zero_gain_rows(float* K_bt, float* dU_bt,
-                                               int lane) {
+template <typename R>
+__device__ __forceinline__ void zero_gain_rows(R* K_bt, R* dU_bt, int lane) {
   warp_zero(K_bt, NX * NX, lane);
   warp_zero(dU_bt, NX, lane);
 }
@@ -212,14 +305,15 @@ __device__ __forceinline__ void zero_gain_rows(float* K_bt, float* dU_bt,
 // Gn = G + H dnext (the defect correction of the dest node,
 // SinglePhase.cpp:319-321). Expects s.G, s.H synchronized; does not
 // synchronize after.
-__device__ __forceinline__ void defect_correction(Work& s, const float* dnext,
+template <typename R>
+__device__ __forceinline__ void defect_correction(Work<R>& s, const R* dnext,
                                                   int r, int cg, int c0) {
-  float h[TC], d[TC];
+  R h[TC], d[TC];
   ld6(&s.H[r][c0], h);
   ld6(dnext + c0, d);
-  float p = 0.f;
+  R p = R(0);
 #pragma unroll
-  for (int j = 0; j < TC; ++j) p = fmaf(h[j], d[j], p);
+  for (int j = 0; j < TC; ++j) p = rfma(h[j], d[j], p);
   p = row_sum(p);
   if (cg == 0) s.Gn[r] = s.G[r] + p;
 }
@@ -245,69 +339,64 @@ __device__ __forceinline__ void defect_correction(Work& s, const float* dnext,
 // (a fully unrolled elimination is 45 KB of straight-line code, more than
 // the SM's code cache holds beside the products); after 12 rounds every
 // row is back in its place and holds the solution.
-__device__ __forceinline__ void eliminate(Work& s, int lane, bool& okb) {
-  float a[NX], b[NX];
+template <typename R>
+__device__ __forceinline__ void eliminate(Work<R>& s, int lane, bool& okb) {
+  constexpr int VN = Vec16<R>::N;
+  R a[NX], b[NX];
   const bool has_b = lane + 32 < NW;
 #pragma unroll
   for (int i = 0; i < NX; ++i) {
     a[i] = s.W[i][lane];
-    b[i] = has_b ? s.W[i][lane + 32] : 0.f;
+    b[i] = has_b ? s.W[i][lane + 32] : R(0);
   }
   // the lanes that hold pivot columns k and k + 1 publish them (rows as
   // they stand: the pivot rows are registers 0 and 1)
   auto publish = [&](int k) {
     if (lane == k || lane == k + 1) {
-      float4* dst =
-          reinterpret_cast<float4*>(s.piv[(k >> 1) & 1] + (lane - k) * NX);
+      R* dst = s.piv[(k >> 1) & 1] + (lane - k) * NX;
 #pragma unroll
-      for (int q = 0; q < NX / 4; ++q)
-        dst[q] = make_float4(a[4 * q], a[4 * q + 1], a[4 * q + 2],
-                             a[4 * q + 3]);
+      for (int q = 0; q < NX / VN; ++q) st16(dst + VN * q, a + VN * q);
     }
   };
   publish(0);
 #pragma unroll 1
   for (int k = 0; k < NX; k += 2) {
-    const float* cols = s.piv[(k >> 1) & 1];
+    const R* cols = s.piv[(k >> 1) & 1];
     __syncwarp();
-    float c1[NX], c2[NX];
+    R c1[NX], c2[NX];
 #pragma unroll
-    for (int q = 0; q < NX / 4; ++q) {
-      const float4 u = reinterpret_cast<const float4*>(cols)[q];
-      const float4 v = reinterpret_cast<const float4*>(cols + NX)[q];
-      c1[4 * q] = u.x; c1[4 * q + 1] = u.y; c1[4 * q + 2] = u.z;
-      c1[4 * q + 3] = u.w;
-      c2[4 * q] = v.x; c2[4 * q + 1] = v.y; c2[4 * q + 2] = v.z;
-      c2[4 * q + 3] = v.w;
+    for (int q = 0; q < NX / VN; ++q) {
+      ld16(cols + VN * q, c1 + VN * q);
+      ld16(cols + NX + VN * q, c2 + VN * q);
     }
     // pivot k, then pivot k + 1 on the column pivot k left behind: d1, and
     // d2 = c2[1] - c1[1] c2[0] / d1 = det / d1. Both reciprocals start at
     // once (1 / d2 = d1 / det), so one reciprocal's latency is on the chain.
-    const float d1 = c1[0];
-    const float det = fmaf(d1, c2[1], -(c1[1] * c2[0]));
-    const float inv1 = fast_rcp(fabsf(d1) > 1e-30f ? d1 : 1.f);
-    const float inv2 = d1 * fast_rcp(fabsf(det) > 1e-30f ? det : 1.f);
-    const float q = c2[0] * inv1;              // row 0 of column k + 1
-    okb = okb && (d1 > 1e-9f) && (fmaf(-c1[1], q, c2[1]) > 1e-9f);
+    const R d1 = c1[0];
+    const R det = rfma(d1, c2[1], -(c1[1] * c2[0]));
+    const R inv1 = fast_rcp(rabs(d1) > Gate<R>::tiny ? d1 : R(1));
+    const R inv2 = d1 * fast_rcp(rabs(det) > Gate<R>::tiny ? det : R(1));
+    const R q = c2[0] * inv1;              // row 0 of column k + 1
+    okb = okb && (d1 > Gate<R>::psd) && (rfma(-c1[1], q, c2[1]) > Gate<R>::psd);
     // the two normalized pivot rows (y0, y1) of a column; every other row
     // takes both pivots and moves up two registers. The first 32 columns go
     // first, so that the next round's pivot columns are on their way
     // through shared memory while the other columns are reduced.
-    float y0 = a[0] * inv1;
-    float y1 = fmaf(-c1[1], y0, a[1]) * inv2;
-    y0 = fmaf(-q, y1, y0);
+    R y0 = a[0] * inv1;
+    R y1 = rfma(-c1[1], y0, a[1]) * inv2;
+    y0 = rfma(-q, y1, y0);
 #pragma unroll
     for (int i = 2; i < NX; ++i)
-      a[i - 2] = fmaf(-c2[i], y1, fmaf(-c1[i], y0, a[i]));
+      a[i - 2] = rfma(-c2[i], y1, rfma(-c1[i], y0, a[i]));
     a[NX - 2] = y0;
     a[NX - 1] = y1;
     if (k + 2 < NX) publish(k + 2);
     y0 = b[0] * inv1;
-    y1 = fmaf(-c1[1], y0, b[1]) * inv2;
-    y0 = fmaf(-q, y1, y0);
+    y1 = rfma(-c1[1], y0, b[1]) * inv2;
+    y0 = rfma(-q, y1, y0);
 #pragma unroll
     for (int i = 2; i < NX; ++i)
-      b[i - 2] = fmaf(-c2[i], y1, fmaf(-c1[i], y0, b[i]));
+      b[i - 2] = rfma(-c2[i], y1, rfma(-c1[i], y0, b[i]));
     b[NX - 2] = y0;
     b[NX - 1] = y1;
   }
@@ -329,25 +418,26 @@ __device__ __forceinline__ void eliminate(Work& s, int lane, bool& okb) {
 // H = sym(sym(Qxx) - Qux' S), G = Qx - Qux' s, and dv = Qu' s into thread 0's
 // dv1 / dv2; warp 0 runs the elimination and folds the PSD gate into its
 // okb. Leaves s.G, s.H synchronized.
-__device__ __forceinline__ void solve_and_update(Work& s, int tid, int r,
-                                                 int cg, int c0, float* K_bt,
-                                                 float* dU_bt, float& dv1,
-                                                 float& dv2, bool& okb) {
+template <typename R>
+__device__ __forceinline__ void solve_and_update(Work<R>& s, int tid, int r,
+                                                 int cg, int c0, R* K_bt,
+                                                 R* dU_bt, R& dv1, R& dv2,
+                                                 bool& okb) {
   if (tid < 32) eliminate(s, tid, okb);
   consumer_sync();
 
-  float acc[TC] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float v[TC];
+  R acc[TC] = {R(0), R(0), R(0), R(0), R(0), R(0)};
+  R v[TC];
 #pragma unroll 4
   for (int k = 0; k < NX; ++k) {
     ld6(&s.Sol[k][c0], v);
     fma6(acc, s.Qux[k][r], v);
   }
-  float hn[TC], gain[TC];
+  R hn[TC], gain[TC];
   ld6(&s.Qxx[r][c0], v);
 #pragma unroll
   for (int j = 0; j < TC; ++j)
-    hn[j] = 0.5f * (v[j] + s.Qxx[c0 + j][r]) - acc[j];
+    hn[j] = R(0.5) * (v[j] + s.Qxx[c0 + j][r]) - acc[j];
   st6(&s.HA[r][c0], hn);
   ld6(&s.Sol[r][c0], v);
 #pragma unroll
@@ -356,12 +446,12 @@ __device__ __forceinline__ void solve_and_update(Work& s, int tid, int r,
   {
     // G = Qx - Qux' s and dv = Qu' s: each of the row's four threads takes
     // six terms
-    float a = 0.f, dv = 0.f;
+    R a = R(0), dv = R(0);
 #pragma unroll
     for (int j = 0; j < TC; ++j) {
-      const float sk = s.Sol[c0 + j][NX];
-      a = fmaf(s.Qux[c0 + j][r], sk, a);
-      dv = fmaf(s.Qu[c0 + j], sk, dv);
+      const R sk = s.Sol[c0 + j][NX];
+      a = rfma(s.Qux[c0 + j][r], sk, a);
+      dv = rfma(s.Qu[c0 + j], sk, dv);
     }
     a = row_sum(a);
     dv = row_sum(dv);
@@ -377,26 +467,26 @@ __device__ __forceinline__ void solve_and_update(Work& s, int tid, int r,
   consumer_sync();
 #pragma unroll
   for (int j = 0; j < TC; ++j)
-    hn[j] = 0.5f * (s.HA[r][c0 + j] + s.HA[c0 + j][r]);
+    hn[j] = R(0.5) * (s.HA[r][c0 + j] + s.HA[c0 + j][r]);
   st6(&s.H[r][c0], hn);
   consumer_sync();
 }
 
 // RESET transition (impact-aware sandwich plus the terminal seed of the
 // source node): G = phix + Px' Gn, H = phixx + Px' H Px, from the dense
-// 24 x 24 tiles Px and phixx (rows of 24 floats) and the vectors phix and
+// 24 x 24 tiles Px and phixx (rows of 24 values) and the vectors phix and
 // dnext of a ring stage. Expects s.G, s.H synchronized. Every consumer
 // thread arrives on `stage_empty` after its last read of the stage. Leaves
 // s.G, s.H synchronized.
-__device__ __forceinline__ void reset_step(Work& s, const float* Px,
-                                           const float* phixx,
-                                           const float* phix,
-                                           const float* dnext,
+template <typename R>
+__device__ __forceinline__ void reset_step(Work<R>& s, const R* Px,
+                                           const R* phixx, const R* phix,
+                                           const R* dnext,
                                            uint64_t* stage_empty, int r,
                                            int cg, int c0) {
   defect_correction(s, dnext, r, cg, c0);
-  float ha[TC] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float v[TC];
+  R ha[TC] = {R(0), R(0), R(0), R(0), R(0), R(0)};
+  R v[TC];
 #pragma unroll 4
   for (int k = 0; k < NX; ++k) {
     ld6(Px + k * NX + c0, v);
@@ -404,17 +494,17 @@ __device__ __forceinline__ void reset_step(Work& s, const float* Px,
   }
   st6(&s.HA[r][c0], ha);
   consumer_sync();
-  float hn[TC];
+  R hn[TC];
   ld6(phixx + r * NX + c0, hn);
 #pragma unroll 4
   for (int k = 0; k < NX; ++k) {
     ld6(&s.HA[k][c0], v);
     fma6(hn, Px[k * NX + r], v);
   }
-  float g = 0.f;
+  R g = R(0);
 #pragma unroll
   for (int j = 0; j < TC; ++j)
-    g = fmaf(Px[(c0 + j) * NX + r], s.Gn[c0 + j], g);
+    g = rfma(Px[(c0 + j) * NX + r], s.Gn[c0 + j], g);
   g = row_sum(g);
   st6(&s.H[r][c0], hn);
   if (cg == 0) s.G[r] = phix[r] + g;

@@ -11,7 +11,8 @@ one such fleet per gait (`MixedFleetMPC`).
 The solve path follows `FleetConfig.kernel_jac`: True is the default HKD
 model's path with the CUDA kernel K1 (`csrc/riccati_hkd.cu`), False the
 dense path with K2 (`csrc/riccati_dense.cu`); None picks True for a CUDA
-device in float32 and False otherwise. On the CPU both run their plain
+device in float32 or float64 (`default_kernel_jac`; both kernels have both
+instantiations) and False otherwise. On the CPU both run their plain
 versions. Every step passes `problem.all_shooting()` as the solve's
 `parallel_rollout`, so the steps after a back-phase append (whose last phase
 is too short to shoot) take the sequential rollout.
@@ -60,6 +61,16 @@ from hkdmpc_tpu_torch.reference.quad_reference import QuadReference
 from hkdmpc_tpu_torch.solver.problem import HKDProblem
 
 
+def default_kernel_jac(device_type: str, dtype: torch.dtype) -> bool:
+    """`FleetConfig(kernel_jac=None)`'s path: K1 on a CUDA device in float32
+    or float64, the dense path otherwise (the CPU, where both run their
+    plain versions, and any other dtype, which the dense route refuses on
+    CUDA). The JAX package takes its kernel on a TPU in float32 only, the
+    one type its Pallas kernel has."""
+    from hkdmpc_tpu_torch.ops import _build
+    return device_type == "cuda" and dtype in _build.KERNEL_DTYPES
+
+
 @dataclasses.dataclass
 class FleetConfig:
     # schedule parameters (parity: HKDMPC.cpp:26-29, per robot)
@@ -68,7 +79,7 @@ class FleetConfig:
     timestep: float = 0.01
     n_cmd_extra: int = 7
     # solve path: True = K1 (default HKD model), False = dense path (K2);
-    # None = True on a CUDA device in float32, False otherwise
+    # None = True on a CUDA device in float32 or float64, False otherwise
     kernel_jac: Optional[bool] = None
     # the steps' AL and DDP loops: run to their caps and masked (True, the
     # batched-throughput form) or stopped once no robot runs on (False)
@@ -132,7 +143,7 @@ class FleetMPC:
                           else np.float32)
         kj = self.cfg.kernel_jac
         if kj is None:
-            kj = self.device.type == "cuda" and dtype == torch.float32
+            kj = default_kernel_jac(self.device.type, dtype)
         self._kernel_jac = bool(kj)
         if self._kernel_jac and (self.cfg.assoc_linear
                                  or self.cfg.assoc_backward):

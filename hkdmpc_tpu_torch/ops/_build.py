@@ -8,11 +8,15 @@ with a plain C interface (`<name>_launch`, `<name>_info`,
 (`graph_while.cu`, whose caller sets its own signatures; `load`), and the
 `*.cuh` headers they include. `nvcc` compiles each `<name>.cu` for Hopper
 (`sm_90a`) into its own shared library, loaded with ctypes, in
-`build/hkdmpc_tpu_torch/` beside the package. The HKD constants and cost
-weights are not typed into the sources: this module writes them from
-`models/mini_cheetah.py` and `models/hkd_weights.py` into a generated header,
-`hkd_constants.cuh`, in the build directory. Each library is keyed on a hash
-of its source, of every header it includes (followed transitively), of the
+`build/hkdmpc_tpu_torch/` beside the package. A kernel is a template on
+its scalar, and its library holds both instantiations: `<name>_launch` and
+`<name>_info` take float32, `<name>_launch_f64` and `<name>_info_f64`
+float64 (`entry(name, fn, dtype)`). The HKD
+constants and cost weights are not typed into the sources: this module
+writes them from `models/mini_cheetah.py` and `models/hkd_weights.py` into a
+generated header, `hkd_constants.cuh`, in the build directory, as float32
+(`K_*`) and as float64 (`KD_*`). Each library is keyed on a hash of its
+source, of every header it includes (followed transitively), of the
 generated header where it is included, and of the compiler flags, so a
 change to any of them rebuilds it.
 """
@@ -39,11 +43,14 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "hkdmpc_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 GXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared", "-pthread")
+# the kernels' scalars, and the suffix of each one's entry points
+_ENTRY_SUFFIX = {torch.float32: "", torch.float64: "_f64"}
+KERNEL_DTYPES = tuple(_ENTRY_SUFFIX)
 GENERATED_HEADER = "hkd_constants.cuh"
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
-# ctypes signature of each kernel's `<name>_launch`: the tensor pointers,
-# then the int sizes, then the stream
+# ctypes signature of each kernel's `<name>_launch` (and `_launch_f64`):
+# the tensor pointers, then the int sizes, then the stream
 _LAUNCH_ARGTYPES = {
     "riccati_hkd": [ctypes.c_void_p] * 25 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p],
@@ -60,39 +67,67 @@ def _f32(v) -> str:
     return float(np.float32(v)).hex() + "f"
 
 
-def _arr(vals) -> str:
-    return "{" + ", ".join(_f32(v) for v in vals) + "}"
+def _f64(v) -> str:
+    """Exact float64 literal (hex) of a Python/numpy number."""
+    return float(v).hex()
+
+
+def constant_values() -> list:
+    """The kernels' constants in the header's order: (name, value), a value
+    a number, a list or a list of rows, taken from the Python model and
+    weight modules (derived products formed in float64, as the Python code
+    forms them)."""
+    qf = [W.QF_MULT * s * q for s, q in zip(W.QF_SCALE_BODY, W.Q_BODY)]
+    return [
+        ("IINV", list(mc.INERTIA_INV_DIAG)),
+        ("IDIAG", list(mc.INERTIA_DIAG)),
+        ("HIP", [list(row) for row in mc.HIP_OFFSETS]),
+        ("L1S", [mc.ABAD_LINK * float(s) for s in mc.SIDE_SIGNS]),
+        ("Q_BODY", list(W.Q_BODY)),
+        ("QF", qf),
+        ("WFOOT", list(W.FOOTREG_W[:2])),
+        ("INV_MASS", 1.0 / mc.MASS),
+        ("L2", mc.THIGH_LINK),
+        ("L3", mc.SHANK_LINK),
+        ("Q_SWING_LEG", W.Q_SWING_LEG),
+        ("QF_LEG", W.QF_MULT * W.QF_SCALE_LEG * W.Q_SWING_LEG),
+        ("R_GRF", W.R_GRF),
+        ("R_QJD", W.R_QJD),
+        ("TF2", 2.0 * W.FOOTREG_TERM_FACTOR),
+        ("MU", W.MU_FRICTION),
+        ("MU2", W.MU_FRICTION * W.MU_FRICTION),
+    ]
+
+
+def _constant_lines(prefix: str, ctype: str, lit) -> list:
+    """One declaration per constant: arrays in constant memory, numbers as
+    constexpr, each value written by `lit`."""
+    arr = lambda vals: "{" + ", ".join(lit(v) for v in vals) + "}"
+    lines = []
+    for name, val in constant_values():
+        if not isinstance(val, list):
+            lines.append(f"constexpr {ctype} {prefix}_{name} = {lit(val)};")
+        elif isinstance(val[0], list):
+            lines.append(f"__constant__ {ctype} {prefix}_{name}[{len(val)}]"
+                         f"[{len(val[0])}] = {{"
+                         + ", ".join(arr(row) for row in val) + "};")
+        else:
+            lines.append(f"__constant__ {ctype} {prefix}_{name}[{len(val)}]"
+                         f" = {arr(val)};")
+    return lines
 
 
 def constants_header() -> str:
-    """The kernels' constants, as float32 values of the Python model and
-    weight modules (derived products are taken in float64 first, as the
-    Python code forms them)."""
-    qf = [W.QF_MULT * s * q for s, q in zip(W.QF_SCALE_BODY, W.Q_BODY)]
+    """The kernels' constants: `K_*` as float32 values for the f32 kernels,
+    `KD_*` as the exact float64 values for the f64 kernels, both from the
+    same Python numbers (`constant_values`)."""
     lines = [
         "// Generated by hkdmpc_tpu_torch/ops/_build.py from",
         "// hkdmpc_tpu_torch/models/mini_cheetah.py and hkd_weights.py.",
         "#pragma once",
-        f"__constant__ float K_IINV[3] = {_arr(mc.INERTIA_INV_DIAG)};",
-        f"__constant__ float K_IDIAG[3] = {_arr(mc.INERTIA_DIAG)};",
-        "__constant__ float K_HIP[4][3] = {"
-        + ", ".join(_arr(row) for row in mc.HIP_OFFSETS) + "};",
-        "__constant__ float K_L1S[4] = "
-        + _arr([mc.ABAD_LINK * float(s) for s in mc.SIDE_SIGNS]) + ";",
-        f"__constant__ float K_Q_BODY[12] = {_arr(W.Q_BODY)};",
-        f"__constant__ float K_QF[12] = {_arr(qf)};",
-        f"__constant__ float K_WFOOT[2] = {_arr(W.FOOTREG_W[:2])};",
-        f"constexpr float K_INV_MASS = {_f32(1.0 / mc.MASS)};",
-        f"constexpr float K_L2 = {_f32(mc.THIGH_LINK)};",
-        f"constexpr float K_L3 = {_f32(mc.SHANK_LINK)};",
-        f"constexpr float K_Q_SWING_LEG = {_f32(W.Q_SWING_LEG)};",
-        f"constexpr float K_QF_LEG = "
-        f"{_f32(W.QF_MULT * W.QF_SCALE_LEG * W.Q_SWING_LEG)};",
-        f"constexpr float K_R_GRF = {_f32(W.R_GRF)};",
-        f"constexpr float K_R_QJD = {_f32(W.R_QJD)};",
-        f"constexpr float K_TF2 = {_f32(2.0 * W.FOOTREG_TERM_FACTOR)};",
-        f"constexpr float K_MU = {_f32(W.MU_FRICTION)};",
-        f"constexpr float K_MU2 = {_f32(W.MU_FRICTION * W.MU_FRICTION)};",
+        *_constant_lines("K", "float", _f32),
+        "// the same values in float64 (the f64 kernels)",
+        *_constant_lines("KD", "double", _f64),
     ]
     return "\n".join(lines) + "\n"
 
@@ -129,6 +164,17 @@ def uses_generated_header(src: Path) -> bool:
                for p in [src] + included_files(src))
 
 
+def entry(name: str, fn: str, dtype: torch.dtype) -> str:
+    """The C entry point `fn` ("launch" or "info") of kernel `name`'s
+    instantiation for `dtype`: `<name>_<fn>` for float32, `<name>_<fn>_f64`
+    for float64. Raises TypeError for any other dtype (the kernels have no
+    other instantiation)."""
+    if dtype not in _ENTRY_SUFFIX:
+        raise TypeError(f"{name}: no {dtype} instantiation; the CUDA kernels "
+                        "take float32 or float64")
+    return f"{name}_{fn}{_ENTRY_SUFFIX[dtype]}"
+
+
 def build_key(src: Path) -> str:
     """Hash of the source, every header it includes, the generated header
     (when included) and the compiler flags."""
@@ -161,10 +207,10 @@ def _compile(name: str, out_dir: Path, cmd: list) -> Path:
 
 
 def build(name: str) -> Path:
-    """Compile csrc/<name>.cu (if its keyed library is not built yet) and
+    """Compile csrc/<name>.cu if its keyed library is not built yet, and
     return the path of the shared library. The compiler's output, with
-    ptxas's register and shared-memory report, goes to `<name>.build.log`
-    beside it."""
+    ptxas's register and shared-memory report of each kernel, goes to
+    `<name>.build.log` beside it."""
     src = CSRC / f"{name}.cu"
     out_dir = BUILD_DIR / build_key(src)
     lib = out_dir / f"lib{name}.so"
@@ -206,16 +252,18 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """Kernel `name`'s library, built and loaded once per process, with the
-    ctypes signatures of `<name>_launch` and `<name>_error_string` set."""
+    """Kernel library `name`, built and loaded once per process, with the
+    ctypes signatures of both instantiations' `launch` and `info` entry
+    points and of `<name>_error_string` set."""
     lib = load(name)
     if name not in _SIGNED:
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = _LAUNCH_ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        info = getattr(lib, f"{name}_info")
-        info.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
-        info.restype = ctypes.c_int
+        for dtype in KERNEL_DTYPES:
+            fn = getattr(lib, entry(name, "launch", dtype))
+            fn.argtypes = _LAUNCH_ARGTYPES[name]
+            fn.restype = ctypes.c_int
+            info = getattr(lib, entry(name, "info", dtype))
+            info.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+            info.restype = ctypes.c_int
         errstr = getattr(lib, f"{name}_error_string")
         errstr.argtypes = [ctypes.c_int]
         errstr.restype = ctypes.c_char_p
@@ -223,28 +271,32 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, *args) -> None:
-    """Call `<name>_launch(*args)` and raise if it returns a non-zero
-    cudaError_t (a refused launch never runs, and a later synchronize does
-    not report it)."""
-    err = getattr(library(name), f"{name}_launch")(*args)
+def launch(name: str, dtype: torch.dtype, *args) -> None:
+    """Launch kernel `name`'s instantiation for `dtype` (its `launch` entry
+    point with `args`) and raise if it returns a non-zero cudaError_t (a
+    refused launch never runs, and a later synchronize does not report it).
+    The error names the kernel and the dtype."""
+    err = getattr(library(name), entry(name, "launch", dtype))(*args)
     if err != 0:
-        _raise_cuda(name, "kernel launch", err)
+        _raise_cuda(name, dtype, "kernel launch", err)
 
 
-def _raise_cuda(name: str, what: str, err: int) -> None:
+def _raise_cuda(name: str, dtype: torch.dtype, what: str, err: int) -> None:
     msg = getattr(library(name), f"{name}_error_string")(err).decode()
-    raise RuntimeError(f"{name} {what} failed: cudaError {err} ({msg})")
+    raise RuntimeError(f"{name} ({dtype}) {what} failed: cudaError {err} "
+                       f"({msg})")
 
 
-def kernel_info(name: str) -> dict:
-    """How kernel `name` sits on the current CUDA device: threads per block,
-    dynamic shared memory per block in bytes, and the blocks of it that one
-    SM holds at a time (`<name>_info`)."""
+def kernel_info(name: str, dtype: torch.dtype = torch.float32) -> dict:
+    """How kernel `name`'s instantiation for `dtype` sits on the current
+    CUDA device: threads per block, dynamic shared memory per block in
+    bytes, and the blocks of it that one SM holds at a time (its `info`
+    entry point)."""
     vals = [ctypes.c_int(0) for _ in range(3)]
-    err = getattr(library(name), f"{name}_info")(*map(ctypes.byref, vals))
+    err = getattr(library(name), entry(name, "info", dtype))(
+        *map(ctypes.byref, vals))
     if err != 0:
-        _raise_cuda(name, "occupancy query", err)
+        _raise_cuda(name, dtype, "occupancy query", err)
     return dict(zip(("threads_per_block", "smem_bytes", "blocks_per_sm"),
                     (v.value for v in vals)))
 

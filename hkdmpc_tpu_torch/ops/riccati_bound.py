@@ -1,8 +1,8 @@
 """What a Riccati backward sweep must move and compute, from its shapes: the
 bytes and floating-point operations of one call of each kernel
-(`ops/riccati_hkd.py`, `ops/riccati_dense.py`), and the least time a card
-could take for them (the larger of bytes over its memory rate and operations
-over its f32 rate). Also the fixed sparsity patterns of the HKD model's
+(`ops/riccati_hkd.py`, `ops/riccati_dense.py`) in float32 or float64, and
+the least time a card could take for them (the larger of bytes over its
+memory rate and operations over its peak rate in the sweep's type). Also the fixed sparsity patterns of the HKD model's
 Jacobians that the K1 kernel's products are written from
 (`csrc/riccati_hkd.cu`); `tests/test_torch_riccati_bound.py` holds them
 against `ops/jac_tminor.build_AB_tminor`.
@@ -22,12 +22,19 @@ import numpy as np
 NX = 24
 NW = 2 * NX + 1                  # tableau columns [Quu | Qux | Qu]
 DYN, RESET = 1, 2                # solver.structs kinds (PAD = 0)
-F32 = 4                          # bytes
+F32 = 4                          # bytes of a float32 value
+F64 = 8                          # bytes of a float64 value
+INT = 4                          # bytes of an int32 (kind, last_node)
 
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s; 67 TFLOP/s in float32
-# outside the tensor cores
+# outside the tensor cores; in float64 67 TFLOP/s on the tensor cores
+# (DMMA), the least time the card could take, and 34 TFLOP/s on the vector
+# units, where the f64 kernels run
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOP_PER_S = 67e12
+H100_F64_FLOP_PER_S = 67e12
+H100_F64_VECTOR_FLOP_PER_S = 34e12
+PEAK_FLOP_PER_S = {F32: H100_F32_FLOP_PER_S, F64: H100_F64_FLOP_PER_S}
 
 DA_ROWS = 9                      # DA is zero below row 8: A = I + dt * DA
 
@@ -129,47 +136,57 @@ def _counts(kind):
             int((kind == DYN).sum()), int((kind == RESET).sum()))
 
 
-def hkd_sweep_work(kind, u_rows: int, ur_rows: int) -> dict:
+def hkd_sweep_work(kind, u_rows: int, ur_rows: int,
+                   real_bytes: int = F32) -> dict:
     """Bytes and operations of one `backward_sweep_hkd` call on the schedule
-    `kind` (B, T): every input tensor once, K, dU, dv1, dv2, ok once; the
-    products on the patterns of A, B and S."""
+    `kind` (B, T) in the type of `real_bytes` (F32 or F64): every input
+    tensor once, K, dU, dv1, dv2, ok once; the products on the patterns of
+    A, B and S. `float_bytes` is the share of the bytes in that type."""
     nb, T, n_dyn, n_reset = _counts(kind)
-    per_scenario_in = (
-        T * 4                                        # kind
-        + F32 * NX * ((T + 1) * 3 + u_rows + ur_rows)  # X, xr, defect, U, ur
-        + F32 * (T + 1) * 12                         # foot_r
-        + F32 * T * (4 + 4 + 20 + 20)                # contacts, ReB rows
-        + F32 * (T + 1) * (4 * 4 + 1)                # terminal rows
-        + F32 * 2 + 4)                               # reg, dt, last_node
-    per_scenario_out = F32 * T * (NX * NX + NX) + 2 * F32 + 1
+    per_scenario_reals = (
+        NX * ((T + 1) * 3 + u_rows + ur_rows)        # X, xr, defect, U, ur
+        + (T + 1) * 12                               # foot_r
+        + T * (4 + 4 + 20 + 20)                      # contacts, ReB rows
+        + (T + 1) * (4 * 4 + 1)                      # terminal rows
+        + 2                                          # reg, dt
+        + T * (NX * NX + NX) + 2)                    # K, dU, dv1, dv2
+    per_scenario_other = INT * T + INT + 1           # kind, last_node, ok
     flops = (n_dyn * dyn_step_flops(int(da_pattern().sum()),
                                     int(db_pattern().sum()))
              + n_reset * reset_step_flops(int(reset_pattern().sum())))
-    return {"bytes": nb * (per_scenario_in + per_scenario_out),
-            "flops": flops}
+    float_bytes = nb * real_bytes * per_scenario_reals
+    return {"bytes": float_bytes + nb * per_scenario_other,
+            "float_bytes": float_bytes, "flops": flops,
+            "real_bytes": real_bytes}
 
 
-def dense_sweep_work(kind) -> dict:
+def dense_sweep_work(kind, real_bytes: int = F32) -> dict:
     """Bytes and operations of one `backward_sweep_dense` call on the
-    schedule `kind` (B, T): the tiles and rows of the DYN and RESET steps
-    (a PAD step reads none), the seed's terminal partials, and every output
-    once; dense products."""
+    schedule `kind` (B, T) in the type of `real_bytes` (F32 or F64): the
+    tiles and rows of the DYN and RESET steps (a PAD step reads none), the
+    seed's terminal partials, and every output once; dense products.
+    `float_bytes` is the share of the bytes in that type."""
     nb, T, n_dyn, n_reset = _counts(kind)
-    tile, row = F32 * NX * NX, F32 * NX
-    bytes_in = (nb * T * 4                           # kind
-                + n_dyn * (4 * tile + 3 * row)       # A, B, lxx, luu, lx, lu, d
+    tile, row = NX * NX, NX                          # values
+    reals_in = (n_dyn * (4 * tile + 3 * row)         # A, B, lxx, luu, lx, lu, d
                 + n_reset * (2 * tile + 2 * row)     # Px, phixx, phix, d
                 + nb * (tile + row)                  # the seed phi(last)
-                + nb * (F32 + 4))                    # reg, last_node
-    bytes_out = nb * (T * (tile + row) + 2 * F32 + 1)
+                + nb)                                # reg
+    reals_out = nb * (T * (tile + row) + 2)          # K, dU, dv1, dv2
+    other = nb * (INT * T + INT + 1)                 # kind, last_node, ok
     flops = n_dyn * dyn_step_flops() + n_reset * reset_step_flops()
-    return {"bytes": bytes_in + bytes_out, "flops": flops}
+    float_bytes = real_bytes * (reals_in + reals_out)
+    return {"bytes": float_bytes + other, "float_bytes": float_bytes,
+            "flops": flops, "real_bytes": real_bytes}
 
 
 def bound_ms(work: dict, bytes_per_s: float = H100_BYTES_PER_S,
-             flop_per_s: float = H100_F32_FLOP_PER_S) -> dict:
+             flop_per_s: float | None = None) -> dict:
     """The least milliseconds a card with these peak rates could take for
-    `work`, and which of the two limits sets it."""
+    `work`, and which of the two limits sets it. The operations' rate is by
+    default the card's peak in the work's type (`PEAK_FLOP_PER_S`)."""
+    if flop_per_s is None:
+        flop_per_s = PEAK_FLOP_PER_S[work.get("real_bytes", F32)]
     bytes_ms = work["bytes"] / bytes_per_s * 1e3
     ops_ms = work["flops"] / flop_per_s * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),

@@ -25,13 +25,17 @@ this function (`solver/backward._dense_route`).
 
 `backward_sweep_dense` dispatches on the tensors' device: CPU tensors go to
 `backward_sweep_dense_plain` (any width, any float dtype), CUDA tensors to
-the kernel (`csrc/riccati_dense.cu`). The kernel takes nx = 24 and float32
-only; on CUDA anything else raises NotImplementedError here, and in the
-solver before it calls this function: neither has a fallback. The scan sweep
-(`scan_backward=True`) takes such LQ data where the caller asks for it.
+the kernel (`csrc/riccati_dense.cu`). The kernel takes nx = 24 in float32
+or float64 (one instantiation each, picked by the tensors' dtype; every
+float input shares it); on CUDA another width or dtype raises
+NotImplementedError here, and in the solver before it calls this function:
+neither has a fallback. The scan sweep (`scan_backward=True`) and the
+parallel-in-time sweep (`assoc_backward=True`) take such LQ data on the card
+where the caller asks for them, and the CPU takes it in the plain version.
 `LAUNCHES` counts the kernel's first-sweep launches, `RETRY_LAUNCHES` its
-masked retry launches (a device program's launches are folded in when they
-are read, `ops/counters.py`).
+masked retry launches, both dtypes; `LAUNCHES_F64` and `RETRY_LAUNCHES_F64`
+the float64 ones among them (a device program's launches are folded in
+when they are read, `ops/counters.py`).
 """
 
 from __future__ import annotations
@@ -44,7 +48,10 @@ from hkdmpc_tpu_torch.ops import consts, counters, precise
 
 LAUNCHES = 0
 RETRY_LAUNCHES = 0
-counters.install(__name__, ("LAUNCHES", "RETRY_LAUNCHES"))
+LAUNCHES_F64 = 0
+RETRY_LAUNCHES_F64 = 0
+counters.install(__name__, ("LAUNCHES", "RETRY_LAUNCHES", "LAUNCHES_F64",
+                            "RETRY_LAUNCHES_F64"))
 NX = 24  # the kernel's state and control width
 BULK_COPY_ALIGN = 16  # bytes: source alignment of a bulk asynchronous copy
 
@@ -56,16 +63,26 @@ def backward_sweep_dense(kind, A, B, lxx, luu, lx, lu, defect, phix, phixx,
     args = (kind, A, B, lxx, luu, lx, lu, defect, phix, phixx, reg,
             last_node)
     if A.device.type == "cuda":
-        if A.dtype != torch.float32 or tuple(A.shape[-2:]) != (NX, NX) \
-                or tuple(B.shape[-2:]) != (NX, NX):
+        if not kernel_takes(A.dtype, tuple(A.shape[-2:]),
+                            tuple(B.shape[-2:])):
             raise NotImplementedError(
-                f"the CUDA dense Riccati kernel takes {NX}-wide float32 LQ "
-                f"data, got A {tuple(A.shape)} B {tuple(B.shape)} "
-                f"{A.dtype}; other widths and dtypes run on the CPU")
+                f"the CUDA dense Riccati kernel takes {NX}-wide float32 or "
+                f"float64 LQ data, got A {tuple(A.shape)} B "
+                f"{tuple(B.shape)} {A.dtype}; on the card the scan sweep "
+                "(scan_backward=True) and assoc_backward=True take other "
+                "widths and dtypes, and so does the CPU")
         return backward_sweep_dense_cuda(*args, active=active, out=out)
     if A.device.type == "cpu":
         return backward_sweep_dense_plain(*args, active=active, out=out)
     raise ValueError(f"no dense Riccati sweep for device {A.device}")
+
+
+def kernel_takes(dtype, a_shape, b_shape) -> bool:
+    """Whether the kernel takes LQ data of this dtype and these trailing
+    A / B shapes: 24 x 24, float32 or float64."""
+    from hkdmpc_tpu_torch.ops import _build
+    return (dtype in _build.KERNEL_DTYPES and tuple(a_shape) == (NX, NX)
+            and tuple(b_shape) == (NX, NX))
 
 
 def backward_sweep_dense_plain(kind, A, B, lxx, luu, lx, lu, defect, phix,
@@ -86,56 +103,61 @@ def backward_sweep_dense_plain(kind, A, B, lxx, luu, lx, lu, defect, phix,
 
 def backward_sweep_dense_cuda(kind, A, B, lxx, luu, lx, lu, defect, phix,
                               phixx, reg, last_node, active=None, out=None):
-    """Launch the CUDA kernel on the current stream. Every tensor must lie
-    on one CUDA device, be contiguous, and be float32 with nx = 24 (kind and
+    """Launch the CUDA kernel on the current stream, its float32 or float64
+    instantiation by A's dtype. Every tensor must lie on one CUDA device, be
+    contiguous, have nx = 24, and every float tensor A's dtype (kind and
     last_node int32). The kernel fetches each A[b, t], B[b, t], lxx[b, t],
-    luu[b, t], phixx[b, t] tile (2,304 bytes) and each lx, lu, defect, phix
-    row (96 bytes) with one bulk asynchronous copy, which takes 16-byte
-    aligned addresses: those tensors must start on a multiple of 16 bytes
-    (a tensor from the allocator does; a view at an odd offset may not).
-    A retry (`active` (B,) bool) sweeps the active scenarios only, into
-    `out`, the first sweep's outputs."""
-    global LAUNCHES, RETRY_LAUNCHES
+    luu[b, t], phixx[b, t] tile (2,304 bytes, 4,608 at f64) and each lx,
+    lu, defect, phix row (96 or 192 bytes) with one bulk asynchronous copy,
+    which takes 16-byte aligned addresses: those tensors must start on a
+    multiple of 16 bytes (a tensor from the allocator does; a view at an odd
+    offset may not). A retry (`active` (B,) bool) sweeps the active
+    scenarios only, into `out`, the first sweep's outputs."""
+    global LAUNCHES, RETRY_LAUNCHES, LAUNCHES_F64, RETRY_LAUNCHES_F64
     from hkdmpc_tpu_torch.ops import _build
 
     dev = A.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA dense Riccati kernel takes CUDA tensors, "
                          f"got {dev}")
+    _build.entry("riccati_dense", "launch", A.dtype)   # TypeError: no kernel
     if kind.dim() != 2:
         raise ValueError(f"kind: shape {tuple(kind.shape)}, expected (B, T)")
     nb, T = kind.shape
-    f32, i32 = torch.float32, torch.int32
+    real, i32 = A.dtype, torch.int32
     bulk = BULK_COPY_ALIGN   # fetched by bulk copies; the rest by plain loads
     for name, t, shape, dtype, align in (
             ("kind", kind, (nb, T), i32, 1),
-            ("A", A, (nb, T, NX, NX), f32, bulk),
-            ("B", B, (nb, T, NX, NX), f32, bulk),
-            ("lxx", lxx, (nb, T, NX, NX), f32, bulk),
-            ("luu", luu, (nb, T, NX, NX), f32, bulk),
-            ("lx", lx, (nb, T, NX), f32, bulk),
-            ("lu", lu, (nb, T, NX), f32, bulk),
-            ("defect", defect, (nb, T + 1, NX), f32, bulk),
-            ("phix", phix, (nb, T + 1, NX), f32, bulk),
-            ("phixx", phixx, (nb, T + 1, NX, NX), f32, bulk),
-            ("reg", reg, (nb,), f32, 1),
+            ("A", A, (nb, T, NX, NX), real, bulk),
+            ("B", B, (nb, T, NX, NX), real, bulk),
+            ("lxx", lxx, (nb, T, NX, NX), real, bulk),
+            ("luu", luu, (nb, T, NX, NX), real, bulk),
+            ("lx", lx, (nb, T, NX), real, bulk),
+            ("lu", lu, (nb, T, NX), real, bulk),
+            ("defect", defect, (nb, T + 1, NX), real, bulk),
+            ("phix", phix, (nb, T + 1, NX), real, bulk),
+            ("phixx", phixx, (nb, T + 1, NX, NX), real, bulk),
+            ("reg", reg, (nb,), real, 1),
             ("last_node", last_node, (nb,), i32, 1)):
         _build.check_tensor(name, t, shape, dtype, dev, align)
 
     dU, K, dv1, dv2, ok = _build.outputs(
-        out, active, (("dU", (nb, T, NX), f32), ("K", (nb, T, NX, NX), f32),
-                      ("dv1", (nb,), f32), ("dv2", (nb,), f32),
+        out, active, (("dU", (nb, T, NX), real), ("K", (nb, T, NX, NX), real),
+                      ("dv1", (nb,), real), ("dv2", (nb,), real),
                       ("ok", (nb,), torch.bool)), dev)
     ptr = lambda t: ctypes.c_void_p(0 if t is None else t.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.launch(
-            "riccati_dense", ptr(kind), ptr(A), ptr(B), ptr(lxx), ptr(luu),
-            ptr(lx), ptr(lu), ptr(defect), ptr(phix), ptr(phixx), ptr(reg),
+            "riccati_dense", real, ptr(kind), ptr(A), ptr(B), ptr(lxx),
+            ptr(luu), ptr(lx), ptr(lu), ptr(defect), ptr(phix), ptr(phixx), ptr(reg),
             ptr(last_node), ptr(active), ptr(dU), ptr(K), ptr(dv1), ptr(dv2),
             ptr(ok), nb, T, ctypes.c_void_p(stream))
+    f64 = real == torch.float64
     if active is None:
         LAUNCHES += 1
+        LAUNCHES_F64 += int(f64)
     else:
         RETRY_LAUNCHES += 1
+        RETRY_LAUNCHES_F64 += int(f64)
     return dU, K, dv1, dv2, ok

@@ -20,11 +20,13 @@ an inactive scenario returns before its first load).
 
 `backward_sweep_hkd` dispatches on the tensors' device: CPU tensors go to
 `backward_sweep_hkd_plain`, CUDA tensors to the kernel
-(`csrc/riccati_hkd.cu`, f32 only), which raises on anything it does not
-take. There is no fallback from one to the other. `LAUNCHES` counts the
-kernel's first-sweep launches, `RETRY_LAUNCHES` its masked retry launches
-(a device program's launches are folded in when they are read,
-`ops/counters.py`).
+(`csrc/riccati_hkd.cu`), in float32 or float64 (one instantiation each,
+picked by the tensors' dtype; every float input shares it), which raises on
+anything it does not take. There is no fallback from one to the other.
+`LAUNCHES` counts the kernel's first-sweep launches, `RETRY_LAUNCHES` its
+masked retry launches, both dtypes; `LAUNCHES_F64` and `RETRY_LAUNCHES_F64`
+the float64 ones among them (a device program's launches are folded in
+when they are read, `ops/counters.py`).
 """
 
 from __future__ import annotations
@@ -40,7 +42,10 @@ from hkdmpc_tpu_torch.solver.structs import DYN
 
 LAUNCHES = 0
 RETRY_LAUNCHES = 0
-counters.install(__name__, ("LAUNCHES", "RETRY_LAUNCHES"))
+LAUNCHES_F64 = 0
+RETRY_LAUNCHES_F64 = 0
+counters.install(__name__, ("LAUNCHES", "RETRY_LAUNCHES", "LAUNCHES_F64",
+                            "RETRY_LAUNCHES_F64"))
 
 
 def backward_sweep_hkd(kind, X, U, contact, contact_next, xr, ur, foot_r,
@@ -96,18 +101,20 @@ def backward_sweep_hkd_cuda(kind, X, U, contact, contact_next, xr, ur,
                             foot_r, reb_delta, reb_eps, term_contact,
                             td_mask, al_sigma, al_lambda, term_mask, defect,
                             reg, last_node, dt, active=None, out=None):
-    """Launch the CUDA kernel on the current stream. Every tensor must lie
-    on one CUDA device, be contiguous, and be float32 (kind and last_node
+    """Launch the CUDA kernel on the current stream, its float32 or float64
+    instantiation by X's dtype. Every tensor must lie on one CUDA device, be
+    contiguous, and every float tensor have X's dtype (kind and last_node
     int32). A retry (`active` (B,) bool) sweeps the active scenarios only,
     into `out`, the first sweep's outputs."""
-    global LAUNCHES, RETRY_LAUNCHES
+    global LAUNCHES, RETRY_LAUNCHES, LAUNCHES_F64, RETRY_LAUNCHES_F64
     from hkdmpc_tpu_torch.ops import _build
 
     dev = X.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA Riccati kernel takes CUDA tensors, got {dev}")
+    _build.entry("riccati_hkd", "launch", X.dtype)   # TypeError: no kernel
     nb, T = kind.shape
-    f32, i32 = torch.float32, torch.int32
+    real, i32 = X.dtype, torch.int32
     if U.dim() != 3 or U.shape[1] not in (T, T + 1):
         raise ValueError(f"U: shape {tuple(U.shape)}, expected ({nb}, {T} or "
                          f"{T + 1}, 24)")
@@ -116,43 +123,45 @@ def backward_sweep_hkd_cuda(kind, X, U, contact, contact_next, xr, ur,
                          f"or {T + 1}, 24)")
     for name, t, shape, dtype in (
             ("kind", kind, (nb, T), i32),
-            ("X", X, (nb, T + 1, 24), f32),
-            ("U", U, (nb, U.shape[1], 24), f32),
-            ("contact", contact, (nb, T, 4), f32),
-            ("contact_next", contact_next, (nb, T, 4), f32),
-            ("xr", xr, (nb, T + 1, 24), f32),
-            ("ur", ur, (nb, ur.shape[1], 24), f32),
-            ("foot_r", foot_r, (nb, T + 1, 12), f32),
-            ("reb_delta", reb_delta, (nb, T, 20), f32),
-            ("reb_eps", reb_eps, (nb, T, 20), f32),
-            ("term_contact", term_contact, (nb, T + 1, 4), f32),
-            ("td_mask", td_mask, (nb, T + 1, 4), f32),
-            ("al_sigma", al_sigma, (nb, T + 1, 4), f32),
-            ("al_lambda", al_lambda, (nb, T + 1, 4), f32),
-            ("term_mask", term_mask, (nb, T + 1), f32),
-            ("defect", defect, (nb, T + 1, 24), f32),
-            ("reg", reg, (nb,), f32),
+            ("X", X, (nb, T + 1, 24), real),
+            ("U", U, (nb, U.shape[1], 24), real),
+            ("contact", contact, (nb, T, 4), real),
+            ("contact_next", contact_next, (nb, T, 4), real),
+            ("xr", xr, (nb, T + 1, 24), real),
+            ("ur", ur, (nb, ur.shape[1], 24), real),
+            ("foot_r", foot_r, (nb, T + 1, 12), real),
+            ("reb_delta", reb_delta, (nb, T, 20), real),
+            ("reb_eps", reb_eps, (nb, T, 20), real),
+            ("term_contact", term_contact, (nb, T + 1, 4), real),
+            ("td_mask", td_mask, (nb, T + 1, 4), real),
+            ("al_sigma", al_sigma, (nb, T + 1, 4), real),
+            ("al_lambda", al_lambda, (nb, T + 1, 4), real),
+            ("term_mask", term_mask, (nb, T + 1), real),
+            ("defect", defect, (nb, T + 1, 24), real),
+            ("reg", reg, (nb,), real),
             ("last_node", last_node, (nb,), i32),
-            ("dt", dt, (nb,), f32)):
+            ("dt", dt, (nb,), real)):
         _build.check_tensor(name, t, shape, dtype, dev)
 
     dU, K, dv1, dv2, ok = _build.outputs(
-        out, active, (("dU", (nb, T, 24), f32), ("K", (nb, T, 24, 24), f32),
-                      ("dv1", (nb,), f32), ("dv2", (nb,), f32),
+        out, active, (("dU", (nb, T, 24), real), ("K", (nb, T, 24, 24), real),
+                      ("dv1", (nb,), real), ("dv2", (nb,), real),
                       ("ok", (nb,), torch.bool)), dev)
     ptr = lambda t: ctypes.c_void_p(0 if t is None else t.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.launch(
-            "riccati_hkd", ptr(kind), ptr(X), ptr(U), ptr(contact),
-            ptr(contact_next), ptr(xr), ptr(ur), ptr(foot_r), ptr(reb_delta),
-            ptr(reb_eps),
-            ptr(term_contact), ptr(td_mask), ptr(al_sigma), ptr(al_lambda),
+            "riccati_hkd", real, ptr(kind), ptr(X), ptr(U), ptr(contact),
+            ptr(contact_next), ptr(xr), ptr(ur), ptr(foot_r),
+            ptr(reb_delta), ptr(reb_eps), ptr(term_contact), ptr(td_mask), ptr(al_sigma), ptr(al_lambda),
             ptr(term_mask), ptr(defect), ptr(reg), ptr(last_node), ptr(dt),
             ptr(active), ptr(dU), ptr(K), ptr(dv1), ptr(dv2), ptr(ok),
             nb, T, U.shape[1], ur.shape[1], ctypes.c_void_p(stream))
+    f64 = real == torch.float64
     if active is None:
         LAUNCHES += 1
+        LAUNCHES_F64 += int(f64)
     else:
         RETRY_LAUNCHES += 1
+        RETRY_LAUNCHES_F64 += int(f64)
     return dU, K, dv1, dv2, ok

@@ -223,28 +223,28 @@ riccati_backward = riccati_dense.backward_sweep_dense
 riccati_backward_hkd = riccati_hkd.backward_sweep_hkd
 
 
-def _dense_route(lq) -> str:
+def dense_route(device_type: str, dtype, a_shape, b_shape,
+                has_lux: bool) -> str:
     """Which sweep the dense route (neither `scan` nor `assoc_backward`)
-    runs for this LQ data: "kernel" (`riccati_backward`: the CUDA kernel on
-    CUDA tensors, its plain version on CPU tensors) or "scan". The kernel's
-    array interface has no lux input and takes 24-wide float32 data only. On
-    the CPU a cross term goes to the scan route (exact). On CUDA the dense
-    route is the kernel or nothing: other widths and dtypes and a cross term
-    raise, each naming the routes the caller can ask for instead, so the
-    scan sweep runs on the card only where `scan=True` says so. `lq.lux` is
-    None exactly when the model's terms return none or the model declares
-    `lux_is_zero`, so this is decided on the host with no device read."""
-    if lq.A.device.type != "cuda":
-        return "kernel" if lq.lux is None else "scan"
-    nx = riccati_dense.NX
-    if lq.A.dtype != torch.float32 or tuple(lq.A.shape[-2:]) != (nx, nx) \
-            or tuple(lq.B.shape[-2:]) != (nx, nx):
+    runs for LQ data on a device of `device_type` with A, B of `dtype` and
+    trailing shapes `a_shape`, `b_shape`, with or without a u-x cross term:
+    "kernel" (`riccati_backward`: the CUDA kernel on CUDA tensors, its plain
+    version on CPU tensors) or "scan". The kernel's array interface has no
+    lux input and takes 24-wide float32 or float64 data only. On the CPU a
+    cross term goes to the scan route (exact). On CUDA the dense route is
+    the kernel or nothing: other widths and dtypes and a cross term raise,
+    each naming the routes the caller can ask for instead, so the scan sweep
+    runs on the card only where `scan=True` says so."""
+    if device_type != "cuda":
+        return "scan" if has_lux else "kernel"
+    if not riccati_dense.kernel_takes(dtype, a_shape, b_shape):
+        nx = riccati_dense.NX
         raise NotImplementedError(
-            f"the CUDA dense Riccati kernel takes {nx}-wide float32 LQ "
-            f"data, got A {tuple(lq.A.shape)} B {tuple(lq.B.shape)} "
-            f"{lq.A.dtype}: solve with the scan sweep (scan_backward=True) "
-            "or with assoc_backward=True, or on the CPU")
-    if lq.lux is not None:
+            f"the CUDA dense Riccati kernel takes {nx}-wide float32 or "
+            f"float64 LQ data, got A {tuple(a_shape)} B {tuple(b_shape)} "
+            f"{dtype}: solve with the scan sweep (scan_backward=True) or "
+            "with assoc_backward=True, or on the CPU")
+    if has_lux:
         raise ValueError(
             "the CUDA dense Riccati kernel has no lux input, and this "
             "model's running cost returns a u-x cross term: solve with "
@@ -252,6 +252,14 @@ def _dense_route(lq) -> str:
             " or set lux_is_zero = True on a ModelSpec whose cross term is "
             "identically zero")
     return "kernel"
+
+
+def _dense_route(lq) -> str:
+    """`dense_route` of this LQ data. `lq.lux` is None exactly when the
+    model's terms return none or the model declares `lux_is_zero`, so this
+    is decided on the host with no device read."""
+    return dense_route(lq.A.device.type, lq.A.dtype, lq.A.shape[-2:],
+                       lq.B.shape[-2:], lq.lux is not None)
 
 
 def write_active(new, active, out):

@@ -67,7 +67,10 @@ from hkdmpc_tpu_torch.solver import backward
 # the counters that a replay adds to: the kernels' launches, the retries
 COUNTERS = ((riccati_hkd, "LAUNCHES"), (riccati_hkd, "RETRY_LAUNCHES"),
             (riccati_dense, "LAUNCHES"), (riccati_dense, "RETRY_LAUNCHES"),
-            (backward, "RETRY_SWEEPS"))
+            (backward, "RETRY_SWEEPS"),
+            (riccati_hkd, "LAUNCHES_F64"), (riccati_hkd, "RETRY_LAUNCHES_F64"),
+            (riccati_dense, "LAUNCHES_F64"),
+            (riccati_dense, "RETRY_LAUNCHES_F64"))
 REPLAYS = 0          # every replay of every graph
 
 _GRAPHS: dict = {}   # key -> _Graph

@@ -232,13 +232,14 @@ def _fake_lq(device, dtype=torch.float32, nx=24, lux=None):
 def test_dense_route_by_device_width_and_lux():
     """The host-side choice of the dense route: the kernel's interface has
     no lux, so a cross term goes to the scan route on the CPU and is refused
-    on CUDA; other widths and dtypes are refused on CUDA too, with the
-    scan route named as the way out."""
+    on CUDA; the kernel takes float32 and float64, other widths and dtypes
+    are refused on CUDA, with the scan route named as the way out."""
     route = backward._dense_route
     assert route(_fake_lq("cpu")) == "kernel"
     assert route(_fake_lq("cpu", lux=object())) == "scan"
     assert route(_fake_lq("cuda")) == "kernel"
-    for odd in (dict(nx=2), dict(dtype=torch.float64),
+    assert route(_fake_lq("cuda", dtype=torch.float64)) == "kernel"
+    for odd in (dict(nx=2), dict(dtype=torch.float16),
                 dict(nx=2, lux=object())):
         with pytest.raises(NotImplementedError, match="scan_backward=True"):
             route(_fake_lq("cuda", **odd))

@@ -275,9 +275,9 @@ def test_dense_wrapper_rejects_bad_inputs(mixed):
     CUDA tensors instead of falling back."""
     prob, state = mixed
     args = list(_dense_args(prob, state, torch.float32))
-    with pytest.raises(NotImplementedError):        # f64 on the card
+    with pytest.raises(NotImplementedError):        # f16 on the card
         riccati_dense.backward_sweep_dense(*_dense_args(prob, state,
-                                                        torch.float64))
+                                                        torch.float16))
     narrow = list(args)
     for i in (1, 2, 3, 4):
         narrow[i] = args[i][..., :2, :2].contiguous()
