@@ -1,0 +1,1 @@
+"""Sub-package of the frozen plain reference; see the package docstring."""
