@@ -1,0 +1,24 @@
+"""outside_program_ms.fleet: the median, over the pairs of consecutive
+step-program replays of the fleet's measured window (one a tick, parallel
+or sequential rollout), of the device time from one replay's last
+stage-clock stamp to the next's first, in ms (`graphs.outside_program()`):
+the tick's host half (`fleet.update`, `fleet.pack`, the program's load and
+launch), the bundle's copy and unpack, the harness's measurements, and
+idle. Untraced: the window runs with no profiler. The window's replays are
+the `ticks` before the traced window's. Layer: host between programs.
+Source: program_counter. None where the program has no such helper or the
+window holds fewer than two replays."""
+
+import statistics
+
+
+def read(run):
+    from hkdmpc_tpu_torch.solver import graphs
+    outside = getattr(graphs, "outside_program", None)
+    if outside is None:
+        return None
+    n = len(run.window.get("ticks") or [])
+    t = int(run.traced.get("ticks") or 0) if run.traced else 0
+    gaps = [g["ms"] for g in outside()]
+    window = gaps[max(0, len(gaps) + 1 - t - n):max(0, len(gaps) - t)]
+    return statistics.median(window) if window else None

@@ -38,7 +38,24 @@
 //                       level_nodes[d] the nodes of the graphs at nesting
 //                       depth d (0: the parent);
 //   graph_while_launch(exec, stream), graph_while_destroy(exec),
-//   graph_while_error_string(err).
+//   graph_while_error_string(err);
+//   stage_lap_launch(meter, n_pieces, piece, stage, n_stages, rows, stream):
+//                       one lap of a program's stage clock (below) on
+//                       `stream`, where a capture records it as one more
+//                       kernel node;
+//   clock_stamp_launch(out, stream): the device's %globaltimer into out[0].
+//
+// The meter of a device program is one int64 buffer: the runs, 2 rows of
+// n_pieces (each piece's runs since the program was made, and in the last
+// replay), then the stage clock, 1 + rows rows of 2 + n_stages: the head
+// (replays begun, the last stamp, then the laps run per stage) and a ring
+// of rows, one per replay (row k % rows for replay k, from 0): the replay's
+// first and last stamp, then the ns of each stage. A lap reads %globaltimer
+// and adds the time since the last stamp to the slot of the stage that just
+// ended, so the stages of a replay sum to its last stamp less its first;
+// stage -1 begins a replay (zeroes its row and the last replay's runs). A
+// lap with piece >= 0 ends that piece and counts its run, so a piece's end
+// costs one node; a replay's begin counts no piece.
 
 #include <cuda_runtime.h>
 
@@ -48,6 +65,51 @@ __global__ void set_cond(cudaGraphConditionalHandle handle,
                          const bool* flag) {
   cudaGraphSetConditional(handle, *flag ? 1u : 0u);
 }
+
+__device__ __forceinline__ long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return static_cast<long long>(t);
+}
+
+__global__ void stage_lap(long long* meter, int n_pieces, int piece,
+                          int stage, int n_stages, int rows) {
+  const long long t = global_ns();
+  long long* runs = meter;
+  long long* clock = meter + 2 * n_pieces;
+  const int width = 2 + n_stages;
+  long long* ring = clock + width;
+  const long long n = clock[0];
+  if (stage < 0) {
+    long long* row = ring + (n % rows) * width;
+    for (int p = 0; p < n_pieces; ++p) runs[n_pieces + p] = 0;
+    for (int s = 0; s < n_stages; ++s) row[2 + s] = 0;
+    row[0] = row[1] = t;
+    clock[0] = n + 1;
+    clock[1] = t;
+    return;
+  }
+  // every load before the first store, so that the loads go out together
+  // (the slots differ: no store here feeds a load of this lap)
+  long long* row = ring + ((n > 0 ? n - 1 : 0) % rows) * width;
+  const long long prev = clock[1], laps = clock[2 + stage];
+  const long long ns = row[2 + stage];
+  long long r0 = 0, r1 = 0;
+  if (piece >= 0) {
+    r0 = runs[piece];
+    r1 = runs[n_pieces + piece];
+  }
+  row[2 + stage] = ns + (t - prev);
+  row[1] = t;
+  clock[2 + stage] = laps + 1;
+  clock[1] = t;
+  if (piece >= 0) {
+    runs[piece] = r0 + 1;
+    runs[n_pieces + piece] = r1 + 1;
+  }
+}
+
+__global__ void clock_stamp(long long* out) { out[0] = global_ns(); }
 
 namespace {
 
@@ -216,6 +278,21 @@ extern "C" int graph_while_launch(void* exec, void* stream) {
 
 extern "C" int graph_while_destroy(void* exec) {
   return cudaGraphExecDestroy(static_cast<cudaGraphExec_t>(exec));
+}
+
+extern "C" int stage_lap_launch(void* meter, int n_pieces, int piece,
+                                int stage, int n_stages, int rows,
+                                void* stream) {
+  stage_lap<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<long long*>(meter), n_pieces, piece, stage, n_stages,
+      rows);
+  return cudaGetLastError();
+}
+
+extern "C" int clock_stamp_launch(void* out, void* stream) {
+  clock_stamp<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<long long*>(out));
+  return cudaGetLastError();
 }
 
 extern "C" const char* graph_while_error_string(int err) {

@@ -17,6 +17,13 @@ versions. Every step passes `problem.all_shooting()` as the solve's
 `parallel_rollout`, so the steps after a back-phase append (whose last phase
 is too short to shoot) take the sequential rollout.
 
+The host half records its spans (`utils.spans`), each with the step's
+`mpc_iter` at dispatch as its request: `fleet.dispatch` (`fleet.update`,
+`fused.host_step`; `fleet.pack`, the measurement pack; the program's load
+and launch), `fleet.complete` (`fleet.wait`, the step's event;
+`fleet.copy`, the bundle to the host; `fleet.unpack`), and
+`fleet.initialize`.
+
 On a CUDA device a step replays one of the fleet's two device programs
 (parallel and sequential rollout, `fused.fleet_step`), each built at its
 first step, with the robots' state resident in the fleet's buffers: the
@@ -59,6 +66,7 @@ from hkdmpc_tpu_torch.parallel.batch import (local_block, replicate_problem,
 from hkdmpc_tpu_torch.solver import ddp, graphs
 from hkdmpc_tpu_torch.reference.quad_reference import QuadReference
 from hkdmpc_tpu_torch.solver.problem import HKDProblem
+from hkdmpc_tpu_torch.utils.spans import span
 
 
 def default_kernel_jac(device_type: str, dtype: torch.dtype) -> bool:
@@ -166,6 +174,10 @@ class FleetMPC:
         every robot, HKDMPC.cpp:44-54). Returns aggregate stats over the
         whole fleet (with a mesh, the cold solve runs through
         `solve_sharded` and these are its reductions over the group)."""
+        with span("fleet.initialize"):
+            return self._initialize(x0_b)
+
+    def _initialize(self, x0_b):
         pb = self.problem
         pb.initialization()
         if x0_b is None:
@@ -228,11 +240,14 @@ class FleetMPC:
         front-phase contact after the update, as the reference updates the
         problem before building x0 (HKDMPC.cpp:96-130)."""
         pb = self.problem
-        ints, floats, self._offsets, aux = fused.host_step(
-            pb, self._offsets, self.cfg.nsteps_between_mpc, self.n_cmd,
-            mpc_time, self.cfg.timestep, self._np_dtype)
-        meas_b = self._meas_batch(meas["rpy"], meas["p"], meas["v"],
-                                  meas["omega"], meas["qJ"])
+        it = self.mpc_iter
+        with span("fleet.update", request=it):
+            ints, floats, self._offsets, aux = fused.host_step(
+                pb, self._offsets, self.cfg.nsteps_between_mpc, self.n_cmd,
+                mpc_time, self.cfg.timestep, self._np_dtype)
+        with span("fleet.pack", request=it):
+            meas_b = self._meas_batch(meas["rpy"], meas["p"], meas["v"],
+                                      meas["omega"], meas["qJ"])
         t0 = time.perf_counter()
         self._state_dev, bundle = fused.fleet_step(
             self._tables, self._state_dev, ints, floats, meas_b,
@@ -253,13 +268,17 @@ class FleetMPC:
         (N, ...) measurements (with a mesh, this process steps its robots);
         complete() fetches it."""
         self._check_idle("step_async")
-        bundle, aux, t0 = self._dispatch(
-            dict(rpy=rpy_b, p=p_b, v=v_b, omega=omega_b, qJ=qJ_b), mpc_time)
-        event = None
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record()
-        self._pending = dict(bundle=bundle, t0=t0, aux=aux, event=event)
+        it = self.mpc_iter
+        with span("fleet.dispatch", request=it):
+            bundle, aux, t0 = self._dispatch(
+                dict(rpy=rpy_b, p=p_b, v=v_b, omega=omega_b, qJ=qJ_b),
+                mpc_time)
+            event = None
+            if self.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record()
+        self._pending = dict(bundle=bundle, t0=t0, aux=aux, event=event,
+                             iter=it)
 
     def ready(self) -> bool:
         """True when the dispatched step's result is available (complete()
@@ -279,7 +298,15 @@ class FleetMPC:
         if pend is None:
             raise RuntimeError("complete() without a dispatched step")
         self._pending = None
-        out = self.unpack(pend["bundle"])
+        with span("fleet.complete", request=pend["iter"]):
+            return self._complete(pend)
+
+    def _complete(self, pend) -> dict:
+        it = pend["iter"]
+        with span("fleet.wait", request=it):   # the device step, apart
+            if pend["event"] is not None:      # from the bundle's copy
+                pend["event"].synchronize()
+        out = self.unpack(pend["bundle"], request=it)
         self.solve_time = (time.perf_counter() - pend["t0"]) * 1e3
         found = pend["aux"]["found"]
         for leg in range(4):
@@ -333,13 +360,16 @@ class FleetMPC:
         from hkdmpc_tpu_torch.utils.checkpoint import load_fleet
         load_fleet(path, self)
 
-    def unpack(self, bundle_b) -> dict:
+    def unpack(self, bundle_b, request=None) -> dict:
         """Unpack an (N, L) fleet bundle (a tensor on any device, or an
-        array), copied to the host once."""
+        array), copied to the host once (spans `fleet.copy` and
+        `fleet.unpack`, with `request`)."""
         if isinstance(bundle_b, torch.Tensor):
-            bundle_b = bundle_b.cpu().numpy()
-        return unpack_bundle_batch(bundle_b, self.n_cmd,
-                                   ddp.trace_len_for(self.opt.runtime()))
+            with span("fleet.copy", request=request):
+                bundle_b = bundle_b.cpu().numpy()
+        with span("fleet.unpack", request=request):
+            return unpack_bundle_batch(
+                bundle_b, self.n_cmd, ddp.trace_len_for(self.opt.runtime()))
 
     def command(self, i: int) -> MPCCommand:
         """Robot i's MPCCommand from the last completed fleet step, the

@@ -14,24 +14,24 @@ model's `solve_batch(kernel_jac=True)`, `dense` the swing-constraint model's
 trot after two receding-horizon updates, whose appended last phase is too
 short to shoot, so the solve takes the sequential rollout
 (`parallel_rollout=False`, as a fleet step there does). Warms one solve of
-the eager body (`ddp._solve_batch`) and one of the CUDA graph
-(`ddp.solve_batch`, captured there), then:
-  1. stage wall times of the eager body: the solver's stages are wrapped
-     with a synchronize on both sides (initial/line-search rollouts, cost
-     evaluation, the LQ approximation of the dense path, the backward
-     sweep's first sweep and its retries apart, the CUDA kernel inside
-     them, the linear rollout), and their host-clock times summed over 3
-     solves, beside the unwrapped eager and graph solve times from CUDA
-     events, and the device program's nodes captured and the nodes and
-     retries its last replay ran;
+the eager body (`ddp._solve_batch`) and one of the device program
+(`ddp.solve_batch`, built there), then:
+  1. the eager solve's and the program replay's times from CUDA events
+     (mean of 3), beside the program's own split of its replays by stage
+     (`graphs.stats()` `stage_ms`: the medians over its replays of the
+     stage clock's laps, read on the device inside the program: rollouts,
+     cost, the dense path's LQ approximation, the backward sweep with its
+     retries, the linear rollout, the rest), its device ms per replay, its
+     laps per replay, and its nodes captured and the nodes and retries its
+     last replay ran;
   2. one eager solve and one graph replay under torch.profiler: device time
      by kernel name (top 15), and the device-busy share of the wall time.
-`mpc1` is one warm update of the single-robot `HKDMPCSolver` (B = 1, dense
-LQ, the fused step; parallel-rollout updates only) with the same two
-measurements, eager (`fused.fleet_step_eager`) for the stages and beside
-the graph for the times and profiles; `mpc1 dense` turns the solver's
-parallel-in-time recursions off (the CUDA kernel of the dense sweep at
-batch 1).
+`mpc1` is warm updates of the single-robot `HKDMPCSolver` (B = 1, dense
+LQ, the fused step; parallel-rollout updates only) on its device program:
+the update's host-clock time beside the step program's stage split (with
+`step_io`, its `pre` and `post`), and one update under the profiler;
+`mpc1 dense` turns the solver's parallel-in-time recursions off (the CUDA
+kernel of the dense sweep at batch 1).
 `forms` builds the solve of one robot's update (B = 1, the dense path with
 K2, runtime caps) 5 times as its device program (the pieces assembled, the
 retry loops as while nodes) and, beside each, the same pieces captured in
@@ -42,7 +42,6 @@ clocks and power (nvidia-smi) after the replays.
 Prints the card's name and power limit. Needs a CUDA device.
 """
 
-import collections
 import subprocess
 import sys
 import time
@@ -52,6 +51,7 @@ import numpy as np
 BATCH = 4096
 PLAN = 0.6
 MPC1_WARMUP = 3
+MPC1_UPDATES = 4
 
 
 PATHS = ("kernel_jac", "dense", "sequential", "mpc1", "forms")
@@ -64,49 +64,25 @@ def card_line() -> str:
                           text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def stage_times(torch, stages, run, reps):
-    """Host-clock time of each stage, a synchronize on both sides, summed
-    over `reps` calls of run(). stages: (module, function name, label), in
-    print order (a nested stage after its outer one). Returns (wall ms per
-    run with the syncs, {label: (ms per run, calls per run)})."""
-    totals = collections.defaultdict(float)
-    counts = collections.defaultdict(int)
-    patched = []
-
-    def wrap(mod, name, label):
-        fn = getattr(mod, name)
-
-        def timed(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            totals[label] += time.perf_counter() - t0
-            counts[label] += 1
-            return out
-
-        setattr(mod, name, timed)
-        patched.append((mod, name, fn))
-        totals[label] = 0.0
-
-    for stage in stages:
-        wrap(*stage)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        run()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / reps * 1e3
-    for mod, name, fn in patched:
-        setattr(mod, name, fn)
-    return wall_ms, {label: (totals[label] / reps * 1e3,
-                             counts[label] // reps) for label in totals}
-
-
-def print_stages(wall_ms, stages, per):
-    for label, (ms, calls) in stages.items():
-        print(f"  {label:40s} {ms:9.3f} ms/{per}  ({calls} calls/{per}, "
-              f"{ms / wall_ms:.1%})")
+def stage_text(head: str) -> str:
+    """The stage split of the device programs whose label starts with
+    `head` (`graphs.stats()`): median ms per replay of each stage and of
+    the replay (its first lap to its last), and the laps per replay."""
+    from hkdmpc_tpu_torch.solver import graphs
+    lines = []
+    for st in graphs.stats():
+        if not st["label"].startswith(head) or not st["stage_ms"]:
+            continue
+        dev = st["device_ms"]
+        laps = sum(st["laps"].values()) / max(st["replays"], 1)
+        lines.append(f"program {st['label']}: device {dev:.3f} ms a replay "
+                     f"(median of its last "
+                     f"{min(st['replays'], graphs.RING_ROWS)}), "
+                     f"{laps:.1f} laps a replay")
+        for name, ms in st["stage_ms"].items():
+            if st["laps"][name]:
+                lines.append(f"  {name:16s} {ms:9.3f} ms  ({ms / dev:.1%})")
+    return "\n".join(lines) or f"no program {head}"
 
 
 def profile_once(torch, run, what):
@@ -146,10 +122,9 @@ def main(path: str = "kernel_jac", flags: str = "assoc"):
     if path == "forms":
         return forms(torch)
     from hkdmpc_tpu_torch.mpc.solver import default_stand_state
-    from hkdmpc_tpu_torch.ops import riccati_dense, riccati_hkd
     from hkdmpc_tpu_torch.parallel.batch import (perturb_scenarios,
                                                  replicate_problem)
-    from hkdmpc_tpu_torch.solver import backward, ddp, lq, rollout
+    from hkdmpc_tpu_torch.solver import ddp
     from hkdmpc_tpu_torch.solver.model_api import hkd_model_spec
     from hkdmpc_tpu_torch.workload import trot_problem
 
@@ -181,36 +156,12 @@ def main(path: str = "kernel_jac", flags: str = "assoc"):
     solve_ms, graph_ms = (cuda_mean_ms(torch, fn, 3)
                           for fn in (solve, graph_solve))
 
-    stages = [
-        (rollout,
-         "hybrid_rollout" if sequential else "hybrid_rollout_parallel",
-         "rollout (initial + line search)"),
-        (rollout, "compute_cost", "cost + constraint rows")]
-    if dense:
-        stages += [
-            (lq, "lq_approximation", "LQ approximation (dense)"),
-            (rollout, "linear_rollout", "dense linear rollout + dV"),
-            (backward, "first_sweep", "backward sweep (first sweep)"),
-            (backward, "retry_sweep", "backward sweep (retries)"),
-            (riccati_dense, "backward_sweep_dense_cuda",
-             "  of which the CUDA kernel")]
-    else:
-        stages += [
-            (rollout, "linear_rollout_jvp",
-             "jvp linear rollout + closed-form dV"),
-            (backward, "first_sweep", "backward sweep (first sweep)"),
-            (backward, "retry_sweep", "backward sweep (retries)"),
-            (riccati_hkd, "backward_sweep_hkd_cuda",
-             "  of which the CUDA kernel")]
-    wrapped_ms, times = stage_times(torch, stages, solve, 3)
-
     print(f"{path} path ({'swing-constraint' if dense else 'default'} "
           f"model): B={BATCH} T={prob.T} f32 runtime caps, parallel_rollout "
           f"{not sequential} on {card}")
-    print(f"solve: eager body {solve_ms:.3f} ms, graph replay "
-          f"{graph_ms:.3f} ms (CUDA events, mean of 3); eager with stage "
-          f"syncs {wrapped_ms:.3f} ms")
-    print_stages(wrapped_ms, times, "solve")
+    print(f"solve: eager body {solve_ms:.3f} ms, program replay "
+          f"{graph_ms:.3f} ms (CUDA events, mean of 3)")
+    print(stage_text(f"solve_batch(B={BATCH},"))
     print(program_text(f"solve_batch(B={BATCH},"))
     profile_once(torch, solve, "eager solve")
     profile_once(torch, graph_solve, "graph replay")
@@ -297,15 +248,12 @@ def cuda_mean_ms(torch, fn, reps):
 
 
 def mpc1(torch, flags):
-    """One warm single-robot update: HKDMPCSolver on the trot, f32, the
-    fused step, with the solve flags `flags`: "assoc", the solver's defaults
-    on the card, or "dense": both assoc flags off, the CUDA kernel of the
-    dense sweep at batch 1."""
+    """Warm single-robot updates: HKDMPCSolver on the trot, f32, the fused
+    step on its device program, with the solve flags `flags`: "assoc", the
+    solver's defaults on the card, or "dense": both assoc flags off, the
+    CUDA kernel of the dense sweep at batch 1."""
     import tempfile
-    from hkdmpc_tpu_torch.mpc import fused
     from hkdmpc_tpu_torch.mpc.solver import HKDMPCSolver, MPCConfig
-    from hkdmpc_tpu_torch.ops import assoc, riccati_dense
-    from hkdmpc_tpu_torch.solver import backward, lq, rollout
     from hkdmpc_tpu_torch.workload import gait_file, meas_stream
 
     if flags not in ("assoc", "dense"):
@@ -320,7 +268,6 @@ def mpc1(torch, flags):
                               dtype=torch.float32, device="cuda")
     solver.initialize()
     step = [0]
-    graph_step = fused.fleet_step
 
     def update(warm_up=False):
         m = {k: v[0] for k, v in stream(step[0]).items()}
@@ -334,54 +281,23 @@ def mpc1(torch, flags):
             raise AssertionError("the update's solve failed")
 
     # the trot's updates 2 and 3 follow a back-phase append and take the
-    # sequential rollout; the ten after them are all-shooting
-    def timed(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            update()
-        return (time.perf_counter() - t0) / n * 1e3
-
-    # eager updates first (an eager step returns a new state, whose
-    # addresses a graph then captures anew), then the graphs: one update
-    # captures, the next ones replay
-    fused.fleet_step = fused.fleet_step_eager
+    # sequential rollout; the ten after them are all-shooting. The first
+    # update of each rollout builds its program, the next ones replay it.
     for _ in range(MPC1_WARMUP):
         update(warm_up=True)
-    update_ms = timed(2)
-
-    stages = [
-        (fused, "host_step", "host half (update, descriptors)"),
-        (rollout, "hybrid_rollout_parallel",
-         "rollout (initial + line search)"),
-        (rollout, "compute_cost", "cost + constraint rows"),
-        (lq, "lq_approximation", "LQ approximation (dense)"),
-        (backward, "first_sweep", "backward sweep (first sweep)"),
-        (backward, "retry_sweep", "backward sweep (retries)")]
-    if flags == "assoc":
-        stages += [(assoc, "riccati_backward_assoc",
-                    "  of which the parallel-in-time sweep"),
-                   (assoc, "linear_rollout_assoc",
-                    "parallel-in-time linear rollout + dV")]
-    else:
-        stages += [(riccati_dense, "backward_sweep_dense_cuda",
-                    "  of which the CUDA kernel"),
-                   (rollout, "linear_rollout", "dense linear rollout + dV")]
-    try:
-        wrapped_ms, times = stage_times(torch, stages, update, 2)
-        profile_once(torch, update, "eager update")
-    finally:
-        fused.fleet_step = graph_step
     update()
-    graph_ms = timed(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MPC1_UPDATES):
+        update()
+    graph_ms = (time.perf_counter() - t0) / MPC1_UPDATES * 1e3
     print(f"mpc1 ({flags}): HKDMPCSolver fused update, B=1 T="
           f"{solver.problem.T} f32 runtime caps, assoc_linear "
           f"{cfg.assoc_linear} assoc_backward {solver._assoc_bw}, "
           f"parallel rollout, on {card}")
-    print(f"update: eager {update_ms:.3f} ms, graph replay {graph_ms:.3f} "
-          f"ms (host clock around the blocking update, mean of 2); eager "
-          f"with stage syncs {wrapped_ms:.3f} ms")
-    print_stages(wrapped_ms, times, "update")
+    print(f"update: {graph_ms:.3f} ms (host clock around the blocking "
+          f"update, mean of {MPC1_UPDATES})")
+    print(stage_text("fleet_step(N=1,"))
     print(program_text("fleet_step(N=1,"))
     profile_once(torch, update, "graph update")
 

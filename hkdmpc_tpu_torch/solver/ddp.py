@@ -303,13 +303,25 @@ def solve_pieces(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
                  kernel_jac: bool, model=None, parallel_rollout: bool = True,
                  assoc_linear: bool = False, assoc_backward: bool = False,
                  scan_backward: bool = False, aug_sweep: bool = True,
-                 jvp_linear: bool = False) -> SolvePieces:
+                 jvp_linear: bool = False, clock=None) -> SolvePieces:
     """The pieces of `_solve_batch` on (prob, state), which every piece
     reads when it runs (a capture records reads of these tensors, so a
     graph's static input buffers go in here). Nothing is computed here but
-    constants of the batch size and the retry loop's bound."""
+    constants of the batch size and the retry loop's bound.
+
+    clock: a device program's stage clock (`graphs.StageClock`): each
+    stage ends with `clock.lap(stage)` (rollout, cost, lq, backward,
+    linear_rollout, other), which writes only the clock's buffer, but the
+    last stage of a piece, which the program's lap at the piece's end
+    ends (`graphs.SolveProgram.PIECE_STAGE`: inner_a and retry end in the
+    backward sweep, the others in "other"). A lap is a kernel node of its
+    own, so an op too small to be worth one goes with a stage beside it:
+    the last active node with the backward sweep, the merit weight with
+    the linear rollout (with the backward sweep without one). None (the
+    eager body) laps nothing."""
     ms = bool(opt.MS)
     model = None if kernel_jac else (model or hkd_model_spec())
+    lap = clock.lap if clock is not None else (lambda stage: None)
     precise.pin_full_f32()
 
     dtype, dev = prob.xr.dtype, prob.xr.device
@@ -335,10 +347,12 @@ def solve_pieces(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
     # ---- initial nominal rollout (MultiPhaseDDP.cpp:257-280) -------------
     def carry0():
         ro = rollout_fn(state, 0.0)
+        lap("rollout")
         st = _replace(state, Xbar=ro.X, Ubar=ro.U, defect_bar=ro.defect)
         cost0, (g0, h0) = cost_of(ro.X, ro.U, st.constr)
         feas0 = ro_mod.dynamics_feasibility(ro.defect)
         maxp0, maxt0 = ro_mod.max_violations(prob, g0, h0)
+        lap("cost")
         nan = torch.full((nb, trace_len), float("nan"), dtype=dtype,
                          device=dev)
         traces0 = {
@@ -361,18 +375,25 @@ def solve_pieces(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
         # trial (the sequential rollout applies K to the rolled state)
         du_eff = (st.dU + precise.mv(st.K, st.dX[..., :-1, :])
                   if parallel_rollout else None)
-        trials = []
+        # every candidate's rollout, then every candidate's cost: one lap
+        # each for all of them (each candidate's ops are its own)
+        ros = []
         for i in range(n_eps):
+            ro_t = rollout_fn(st, eps_candidates[i], du_eff)
+            ros.append((ro_t.X, ro_t.U, ro_t.defect, ro_t.success))
+        lap("rollout")
+        trials = []
+        for i, (X_t, U_t, d_t, ok_t) in enumerate(ros):
             eps = eps_candidates[i]
-            ro_t = rollout_fn(st, eps, du_eff)
-            cost_t, (g_t, h_t) = cost_of(ro_t.X, ro_t.U, st.constr)
-            feas_t = ro_mod.dynamics_feasibility(ro_t.defect)
+            cost_t, (g_t, h_t) = cost_of(X_t, U_t, st.constr)
+            feas_t = ro_mod.dynamics_feasibility(d_t)
             merit_t = cost_t + merit_rho * feas_t
             exp_cost = eps * dv1 + 0.5 * eps * eps * dv2
             exp_merit = exp_cost - eps * merit_rho * feas_prev
-            ok = (merit_t <= merit_prev + opt.gamma * exp_merit) & ro_t.success
-            trials.append((ok, merit_t, cost_t, feas_t, ro_t.X, ro_t.U,
-                           ro_t.defect, g_t, h_t))
+            ok = (merit_t <= merit_prev + opt.gamma * exp_merit) & ok_t
+            trials.append((ok, merit_t, cost_t, feas_t, X_t, U_t, d_t, g_t,
+                           h_t))
+        lap("cost")
         stacked = [torch.stack(f, dim=1) for f in zip(*trials)]
         oks = stacked[0]
         any_ok = torch.any(oks, dim=1)
@@ -398,9 +419,14 @@ def solve_pieces(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
         c = ic["c"]
         cost, (g, h) = cost_of(c["X"], c["U"], c["state"].constr)
         feas = ro_mod.dynamics_feasibility(c["defect"])
+        lap("cost")
         last_node = ro_mod.last_active_node(prob)
-        lqd = (None if kernel_jac else lq_mod.lq_approximation(
-            prob, c["X"], c["U"], c["state"].constr, reb_on, al_on, model))
+        lqd = None
+        if not kernel_jac:
+            lqd = lq_mod.lq_approximation(prob, c["X"], c["U"],
+                                          c["state"].constr, reb_on, al_on,
+                                          model)
+            lap("lq")
         bw = backward.first_sweep(prob, c["defect"], ic["reg"],
                                   opt.update_regularization, last_node,
                                   **sweep_route(c, lqd))
@@ -421,6 +447,8 @@ def solve_pieces(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
         cost, g, h, feas, lqd = (ia["cost"], ia["g"], ia["h"], ia["feas"],
                                  ia["lq"])
         dU, K, dv1, dv2, reg_new, ok_bw, bw_failed = backward.finish(ia["bw"])
+        if ms:
+            lap("backward")
         st = _replace(st, dU=dU, K=K)
         if kernel_jac:
             if ms:
@@ -451,6 +479,7 @@ def solve_pieces(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
         early = (dv_abs < opt.cost_thresh) & (feas <= opt.dynamics_feas_thresh)
 
         run_ls = ~early & ~bw_failed
+        lap("linear_rollout" if ms else "backward")
         (ls_ok, X_s, U_s, d_s, g_s, h_s, cost_s, feas_s,
          merit_s) = line_search(st, dv1, dv2, merit_rho, merit_prev, feas)
         st_ls = tree_where(ls_ok, _replace(st, Xbar=X_s, Ubar=U_s,
@@ -465,11 +494,13 @@ def solve_pieces(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
         late = ((torch.abs((cost_prev - cost2) / cost_prev) < opt.cost_thresh)
                 & (feas2 <= opt.dynamics_feas_thresh))
         stop_inner = early | late | bw_failed
+        lap("other")
 
         # trace buffering — skipped on the early exit (cpp:340-343) and on
         # the late-convergence break, which fires before the push
         # (cpp:358-371)
         maxp2, maxt2 = ro_mod.max_violations(prob, g2, h2)
+        lap("cost")
         tr = c["traces"]
         do_trace = ~early & ~bw_failed & ~late
         n = tr["n"]

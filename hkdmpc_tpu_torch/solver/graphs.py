@@ -33,6 +33,19 @@ built once per key into one CUDA graph and replayed:
   at capture, to the kernels' counters when a counter is read
   (`ops/counters.py`) or `stats()` is called.
 
+The stage clock: every program carries a device buffer with its runs
+(`StageClock`). A one-thread lap kernel (`csrc/graph_while.cu`) at the end
+of each stage of `ddp.solve_pieces` and of each piece reads the device's
+%globaltimer and adds the time since the last lap to that stage (`STAGES`),
+so the stages of a replay sum to its device time; the lap at a piece's end
+also counts the piece's run. Each replay leaves a row in a ring of
+`RING_ROWS`, read in the same host read as the runs.
+`stats()` gives each program's median stage and device ms over its ring;
+`replay_records` the rows on the host clock (the offset between the two
+clocks measured by a stamp kernel between two host reads, `clock_offset`);
+`outside_program` the device time between consecutive replays, split by
+the host span (`utils.spans`) open at each instant.
+
 A capture or an assembly that fails raises RuntimeError naming the
 operation or the node; nothing falls back to eager. `clear_graphs()` frees
 every graph, as `jax.clear_caches` frees the compiled programs. A reset of
@@ -50,6 +63,7 @@ owns.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import dataclasses
@@ -63,6 +77,7 @@ import torch
 
 from hkdmpc_tpu_torch.ops import counters, riccati_dense, riccati_hkd
 from hkdmpc_tpu_torch.solver import backward
+from hkdmpc_tpu_torch.utils import spans
 
 # the counters that a replay adds to: the kernels' launches, the retries
 COUNTERS = ((riccati_hkd, "LAUNCHES"), (riccati_hkd, "RETRY_LAUNCHES"),
@@ -72,6 +87,17 @@ COUNTERS = ((riccati_hkd, "LAUNCHES"), (riccati_hkd, "RETRY_LAUNCHES"),
             (riccati_dense, "LAUNCHES_F64"),
             (riccati_dense, "RETRY_LAUNCHES_F64"))
 REPLAYS = 0          # every replay of every graph
+
+# the stages a program's clock splits a replay into: the nominal and the
+# line search's rollouts; cost, feasibility and violations; the dense
+# route's LQ approximation; the backward sweep (first sweep, retries,
+# finish); the linear rollout; a step's `pre` and `post`; everything else
+STAGES = ("rollout", "cost", "lq", "backward", "linear_rollout", "step_io",
+          "other")
+RING_ROWS = 1024     # replays a program's clock keeps
+ALIGN_NS = 50_000    # the offset's uncertainty above which gaps go unlabelled
+OFFSET_TRIES = 8     # stamps a reading of the clock offset takes the best of
+_OFFSETS: dict = {}  # device -> deque of (host ns, offset ns, uncertainty)
 
 _GRAPHS: dict = {}   # key -> _Graph
 _POOLS: dict = {}    # device -> memory pool handle shared by the graphs
@@ -171,6 +197,7 @@ class _Graph:
     folded: list = dataclasses.field(default_factory=list)  # runs folded
     folded_replays: int = 0
     last_runs: tuple = ()       # each piece's runs in the last replay
+    clock: object = None        # the stage clock as last read (numpy)
 
 
 class _HostInput:
@@ -309,14 +336,102 @@ def solve_code(unroll_caps, max_outer, max_inner) -> list:
     return ["carry0", ("outer", ["head", ("inner", inner), "tail"])]
 
 
+class StageClock:
+    """The meter of a program: one int64 buffer on the program's device
+    (`meter`), one host read for all of it. `runs` (2, n_pieces): each
+    piece's runs since the program was made (row 0) and in its last replay
+    (row 1); `buf` (1 + RING_ROWS, 2 + len(STAGES)), the stage clock. Its
+    row 0: replays begun, the last stamp, the laps run per stage; row
+    1 + k % RING_ROWS: replay k's first and last stamp and its ns per
+    stage. `start()` begins a replay (and zeroes `runs` row 1),
+    `lap(stage, piece)` ends a stage and, given a piece, counts a run of
+    it (one node for both): on a CUDA device a one-thread kernel that reads %globaltimer
+    (`csrc/graph_while.cu`), launched on the current stream, so a capture
+    records it as a node; on the CPU the same bookkeeping on the host
+    clock (`time.time_ns`). A lap writes only the meter."""
+
+    def __init__(self, n_pieces, device):
+        n = 2 * n_pieces
+        self.n_pieces = n_pieces
+        self.meter = torch.zeros(n + (1 + RING_ROWS) * (2 + len(STAGES)),
+                                 dtype=torch.int64, device=device)
+        self.runs = self.meter[:n].view(2, n_pieces)
+        self.buf = self.meter[n:].view(1 + RING_ROWS, 2 + len(STAGES))
+        self.on_card = self.meter.device.type == "cuda"
+        self._count = self._prev = 0     # the host clock's own head
+
+    def start(self) -> None:
+        self._lap(-1, -1)
+
+    def lap(self, stage, piece=-1) -> None:
+        self._lap(STAGES.index(stage), piece)
+
+    def zero(self) -> None:
+        self.meter.zero_()
+        self._count = self._prev = 0
+
+    def _lap(self, s, piece) -> None:
+        if self.on_card:
+            stream = torch.cuda.current_stream(self.meter.device).cuda_stream
+            err = _clock_lib().stage_lap_launch(
+                ctypes.c_void_p(self.meter.data_ptr()), self.n_pieces,
+                piece, s, len(STAGES), RING_ROWS, ctypes.c_void_p(stream))
+            if err != 0:
+                raise RuntimeError(f"stage_lap launch failed: cudaError "
+                                   f"{err}")
+            return
+        t = time.time_ns()
+        buf = self.buf
+        if s < 0:
+            self.runs[1].zero_()
+            row = 1 + self._count % RING_ROWS
+            self._count += 1
+            buf[row].zero_()
+            buf[row, 0] = t
+            buf[0, 0] = self._count
+        else:
+            row = 1 + max(self._count - 1, 0) % RING_ROWS
+            buf[row, 2 + s] += t - self._prev
+            buf[0, 2 + s] += 1
+            if piece >= 0:
+                self.runs[:, piece] += 1
+        buf[row, 1] = buf[0, 1] = self._prev = t
+
+    def read(self):
+        """The stage clock on the host (a host read), as numpy."""
+        return self.buf.cpu().numpy()
+
+
+def ring(clock) -> list:
+    """(replay index, row) of each replay a stage clock (a host copy of
+    its buffer) still holds, oldest first; a row is (first stamp, last
+    stamp, ns per stage)."""
+    n = int(clock[0, 0])
+    first = max(0, n - RING_ROWS)
+    return [(k, clock[1 + k % RING_ROWS]) for k in range(first, n)]
+
+
+def stage_summary(clock) -> tuple:
+    """(median ms per stage, median device ms) over the replays a stage
+    clock's host copy holds, or (None, None) where it holds none."""
+    rows = np.array([r for _, r in ring(clock)], dtype=np.int64)
+    if not len(rows):
+        return None, None
+    ms = np.median(rows[:, 2:], axis=0) / 1e6
+    return (dict(zip(STAGES, ms.tolist())),
+            float(np.median(rows[:, 1] - rows[:, 0]) / 1e6))
+
+
 class Program:
     """Pieces on static buffers and the order that runs them. A subclass
     names its pieces (`PIECES`: a method `_<name>` each, reading and
     writing only static buffers) and its loops' device flags (`FLAGS`),
     and sets `code` (`solve_code`'s items) and the buffers; `_init`
-    makes the flags and `runs` (2, pieces): each piece's runs since the
-    program was made (row 0) and in its last run (row 1), counted on the
-    device by the piece itself.
+    makes the flags and the meter (`StageClock`: `clock`, and its `runs`,
+    each piece's runs since the program was made, row 0, and in its last
+    run, row 1, counted on the device). The program's first piece begins
+    a replay on the clock; each piece ends with a lap that counts its run
+    and ends its last stage (`PIECE_STAGE`, else "other").
 
     `run_on_host` drives the pieces in `code`'s order and reads each flag
     on the host where a while node would test it: on the CPU the tests
@@ -324,12 +439,19 @@ class Program:
 
     PIECES: tuple = ()
     FLAGS: tuple = ()
+    PIECE_STAGE: dict = {}
+
+    def _meter(self, dev) -> None:
+        """The runs and the stage clock (`StageClock`, made once)."""
+        if getattr(self, "clock", None) is not None:
+            return
+        self.clock = StageClock(len(self.PIECES), dev)
+        self.meter, self.runs = self.clock.meter, self.clock.runs
 
     def _init(self, dev, code) -> None:
         self.flag = {n: torch.zeros((), dtype=torch.bool, device=dev)
                      for n in self.FLAGS}
-        self.runs = torch.zeros((2, len(self.PIECES)), dtype=torch.int64,
-                                device=dev)
+        self._meter(dev)
         self.code = code
         self.warming = False
         # set while the pieces are captured: a piece that is its buffer's
@@ -337,25 +459,27 @@ class Program:
         self.adopt = False
 
     def run(self, name) -> None:
-        """Run one piece: its body, then its count (the program's first
-        piece zeroes the counts of the last run first)."""
+        """Run one piece: its body, then its lap, which counts it (the
+        program's first piece begins a replay on the clock first, which
+        zeroes the counts of the last run)."""
         i = self.PIECES.index(name)
         if i == 0:
-            self.runs[1].zero_()
+            self.clock.start()
         getattr(self, "_" + name)()
-        self.runs[:, i].add_(1)
+        self.clock.lap(self.PIECE_STAGE.get(name, "other"), i)
 
     def warm_up(self) -> None:
         """Each piece once, in order (the kernels, constants and handles a
         capture needs are made in a first run); a step writes nothing over
-        its resident state here. The counts start again at 0."""
+        its resident state here. The counts and the clock start again at
+        0."""
         self.warming = True
         try:
             for name in self.PIECES:
                 self.run(name)
         finally:
             self.warming = False
-        self.runs.zero_()
+        self.clock.zero()
 
     def run_on_host(self, guard=contextlib.nullcontext) -> None:
         """The program on the host: each piece in `code`'s order inside
@@ -389,11 +513,15 @@ class SolveProgram(Program):
 
     PIECES = ("carry0", "head", "inner_a", "retry", "inner_b", "tail")
     FLAGS = ("outer", "inner", "retry")
+    # the pieces that end in the backward sweep (`ddp.solve_pieces`)
+    PIECE_STAGE = {"inner_a": "backward", "retry": "backward"}
 
     def __init__(self, prob, state, opt, flags, unroll_caps):
         from hkdmpc_tpu_torch.solver import ddp
         self.inputs = (prob, state)
-        self.p = ddp.solve_pieces(prob, state, opt, **flags)
+        self._meter(prob.xr.device)
+        self.p = ddp.solve_pieces(prob, state, opt, clock=self.clock,
+                                  **flags)
         self._setup(prob.xr.device, unroll_caps)
 
     def _setup(self, dev, unroll_caps):
@@ -449,6 +577,8 @@ class StepProgram(SolveProgram):
     solve's outer carry, which aliases nothing of it."""
 
     PIECES = ("pre",) + SolveProgram.PIECES + ("post",)
+    PIECE_STAGE = dict(SolveProgram.PIECE_STAGE, pre="step_io",
+                       post="step_io")
 
     def __init__(self, tables, state, ins, opt, n_cmd, flags, unroll_caps):
         from hkdmpc_tpu_torch.mpc import fused
@@ -459,7 +589,9 @@ class StepProgram(SolveProgram):
                                                   n_cmd))
         self._pre()
         self.inputs = (self.prob, self.st)
-        self.p = ddp.solve_pieces(self.prob, self.st, opt, **flags)
+        self._meter(state.Xbar.device)
+        self.p = ddp.solve_pieces(self.prob, self.st, opt, clock=self.clock,
+                                  **flags)
         c = self._setup(state.Xbar.device, unroll_caps)
         self.bundle = like(fused.step_post(self.p.result(c), ins[0],
                                             n_cmd))
@@ -505,6 +637,20 @@ def _program_lib():
     lib.graph_while_destroy.restype = ci
     lib.graph_while_error_string.argtypes = [ci]
     lib.graph_while_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _clock_lib():
+    """The stage clock's lap and stamp kernels, in the same native library
+    (csrc/graph_while.cu)."""
+    from hkdmpc_tpu_torch.ops import _build
+    lib = _build.load("graph_while")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.stage_lap_launch.argtypes = [vp, ci, ci, ci, ci, ci, vp]
+    lib.stage_lap_launch.restype = ci
+    lib.clock_stamp_launch.argtypes = [vp, vp]
+    lib.clock_stamp_launch.restype = ci
     return lib
 
 
@@ -617,6 +763,8 @@ def build_program(label, prog) -> "_Graph":
 def _program_graph(label, device, prog, inputs, keep, **kw) -> _Graph:
     native, pieces, capture_s, assembly_s, taken = _build_program(
         label, device, prog)
+    if not _OFFSETS.get(str(torch.device(device))):
+        _measure_offset(device)
     known = [p.nodes for p in pieces]
     return _Graph(label=label, graph=native, inputs=inputs, outputs=prog,
                   launches=tuple(0 for _ in COUNTERS),
@@ -651,7 +799,10 @@ def fold_counts() -> None:
 def _fold(g) -> None:
     if not g.pieces or g.replays == g.folded_replays:
         return
-    total, last = g.outputs.runs.tolist()
+    meter = g.outputs.meter.cpu().numpy()
+    n = len(g.pieces)
+    total, last = meter[:2 * n].reshape(2, n).tolist()
+    g.clock = meter[2 * n:].reshape(1 + RING_ROWS, 2 + len(STAGES))
     added = [0] * len(COUNTERS)
     for p, now, before in zip(g.pieces, total, g.folded):
         for i, v in enumerate(p.launches):
@@ -675,23 +826,29 @@ def _program(kind, prob, state, opt, unroll_caps, flags):
         with _LOCK:
             g = _GRAPHS.get(key)
             if g is None:
-                static = _static_copies(ins, device)
-                sp, ss = _rebuild((prob, state), static)
-                label = (f"{kind}(B={prob.kind.shape[0]}, "
-                         f"T={prob.kind.shape[1]}, "
-                         f"kernel_jac={flags['kernel_jac']}, "
-                         f"parallel_rollout={flags['parallel_rollout']}, "
-                         f"assoc_backward={flags['assoc_backward']}, "
-                         f"caps {opt.max_AL_iter}x{opt.max_DDP_iter})")
-                prog = SolveProgram(sp, ss, opt, flags, unroll_caps)
-                g = _program_graph(label, device, prog, static,
-                                   (flags["model"],))
-                _GRAPHS[key] = g
+                with spans.span("graphs.build"):
+                    static = _static_copies(ins, device)
+                    sp, ss = _rebuild((prob, state), static)
+                    label = (f"{kind}(B={prob.kind.shape[0]}, "
+                             f"T={prob.kind.shape[1]}, "
+                             f"kernel_jac={flags['kernel_jac']}, "
+                             f"parallel_rollout="
+                             f"{flags['parallel_rollout']}, "
+                             f"assoc_backward={flags['assoc_backward']}, "
+                             f"caps {opt.max_AL_iter}x{opt.max_DDP_iter})")
+                    prog = SolveProgram(sp, ss, opt, flags, unroll_caps)
+                    g = _program_graph(label, device, prog, static,
+                                       (flags["model"],))
+                    _GRAPHS[key] = g
             else:
-                for s, t in zip(g.inputs, ins):
-                    s.copy_(t)
-            replay_program(g)
-            return tree_map(lambda t: t.clone(), g.outputs.result())
+                with spans.span("graphs.load", request=g.replays):
+                    for s, t in zip(g.inputs, ins):
+                        s.copy_(t)
+            k = g.replays
+            with spans.span("graphs.launch", request=k):
+                replay_program(g)
+            with spans.span("graphs.clone", request=k):
+                return tree_map(lambda t: t.clone(), g.outputs.result())
 
 
 def solve_batch(prob, state, opt, **flags):
@@ -773,27 +930,32 @@ def fused_step(tables, state, ints, floats, meas, *, opt, parallel_rollout,
                              for shape, dtype in host_shapes)
             else:
                 host = g.host_inputs
-            for h, v in zip(host, (ints, floats, meas)):
-                h.load(v)
+            with spans.span("graphs.load", request=0 if new else g.replays):
+                for h, v in zip(host, (ints, floats, meas)):
+                    h.load(v)
             if new:
                 flags = dict(kernel_jac=kernel_jac, model=model,
                              parallel_rollout=parallel_rollout,
                              assoc_linear=assoc_linear,
                              assoc_backward=assoc_backward)
-                prog = StepProgram(tables, state,
-                                   [h.device_buf for h in host], opt, n_cmd,
-                                   flags, unroll_caps)
-                n = state.Xbar.shape[0]
-                label = (f"fleet_step(N={n}, T={state.Ubar.shape[1]}, "
-                         f"kernel_jac={kernel_jac}, parallel_rollout="
-                         f"{parallel_rollout}, assoc_backward="
-                         f"{assoc_backward}, unroll_caps={unroll_caps})")
-                g = _program_graph(label, device, prog, [], (model,),
-                                   host_inputs=host,
-                                   addresses=frozenset(addresses))
-                _GRAPHS[key] = g
-            replay_program(g)
-            return state, g.outputs.bundle.clone()
+                with spans.span("graphs.build"):
+                    prog = StepProgram(tables, state,
+                                       [h.device_buf for h in host], opt,
+                                       n_cmd, flags, unroll_caps)
+                    n = state.Xbar.shape[0]
+                    label = (f"fleet_step(N={n}, T={state.Ubar.shape[1]}, "
+                             f"kernel_jac={kernel_jac}, parallel_rollout="
+                             f"{parallel_rollout}, assoc_backward="
+                             f"{assoc_backward}, unroll_caps={unroll_caps})")
+                    g = _program_graph(label, device, prog, [], (model,),
+                                       host_inputs=host,
+                                       addresses=frozenset(addresses))
+                    _GRAPHS[key] = g
+            k = g.replays
+            with spans.span("graphs.launch", request=k):
+                replay_program(g)
+            with spans.span("graphs.clone", request=k):
+                return state, g.outputs.bundle.clone()
 
 
 def stats() -> list:
@@ -807,15 +969,23 @@ def stats() -> list:
     `pieces` has each captured piece's nodes, capture seconds, launches per
     run and runs in the last replay; `native_nodes` the nodes of the
     parent graph and of the while bodies at each depth (child graphs,
-    set_cond kernels, while nodes)."""
+    set_cond kernels, while nodes). From the stage clock: `stage_ms`, the
+    median over the replays its ring holds of each stage's ms (`STAGES`),
+    `device_ms`, the median of the replays' device ms (their first stamp
+    to their last), `laps`, the laps run per stage since the first
+    replay, and the clock offset of the program's device as measured now
+    (`clock_offset`: device ns less host ns, and its uncertainty)."""
     name = lambda m, n: f"{m.__name__.rsplit('.', 1)[-1]}.{n}"
     per = lambda launches: {name(m, n): v
                             for (m, n), v in zip(COUNTERS, launches)}
     fold_counts()
+    offsets = _refresh_offsets()
     out = []
-    for g in _GRAPHS.values():
+    for g in list(_GRAPHS.values()):
         runs = dict(zip((p.name for p in g.pieces), g.last_runs))
         known = all(p.nodes is not None for p in g.pieces)
+        stage_ms, device_ms = ((None, None) if g.clock is None
+                               else stage_summary(g.clock))
         out.append(dict(
             label=g.label, replays=g.replays, capture_s=g.capture_s,
             nodes=g.nodes, launches=per(g.launches),
@@ -829,7 +999,169 @@ def stats() -> list:
             pieces={p.name: dict(nodes=p.nodes, capture_s=p.capture_s,
                                  launches=per(p.launches),
                                  runs=runs.get(p.name, 0))
-                    for p in g.pieces}))
+                    for p in g.pieces},
+            stage_ms=stage_ms, device_ms=device_ms,
+            laps=(None if g.clock is None
+                  else dict(zip(STAGES, g.clock[0, 2:].tolist()))),
+            clock_offset=offsets.get(_device_of(g))))
+    return out
+
+
+def _device_of(g) -> str:
+    return str(g.outputs.meter.device)
+
+
+def clock_offset(device) -> tuple:
+    """(host ns, offset ns, uncertainty ns) of `device`'s %globaltimer
+    against the host's `time.time_ns()`: a one-thread stamp kernel
+    launched on an idle device between two host reads, the second after a
+    synchronize; the offset is the stamp less the reads' midpoint, the
+    uncertainty half their distance, the best of `OFFSET_TRIES`."""
+    dev = torch.device(device)
+    lib = _clock_lib()
+    out = torch.zeros(1, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev)
+    best = None
+    for _ in range(OFFSET_TRIES):
+        torch.cuda.synchronize(dev)
+        t0 = time.time_ns()
+        err = lib.clock_stamp_launch(ctypes.c_void_p(out.data_ptr()),
+                                     ctypes.c_void_p(stream.cuda_stream))
+        stream.synchronize()
+        t1 = time.time_ns()
+        if err != 0:
+            raise RuntimeError(f"clock_stamp launch failed: cudaError {err}")
+        mid = (t0 + t1) // 2
+        got = (mid, int(out.item()) - mid, (t1 - t0) // 2)
+        if best is None or got[2] < best[2]:
+            best = got
+    return best
+
+
+def _measure_offset(device) -> tuple:
+    got = clock_offset(device)
+    _OFFSETS.setdefault(str(torch.device(device)),
+                        collections.deque(maxlen=256)).append(got)
+    return got
+
+
+def _refresh_offsets() -> dict:
+    """Measure the offset again on every device that has a program; returns
+    {device: {"ns": offset, "uncertainty_ns": ...}} of the new readings."""
+    out = {}
+    for dev in sorted({_device_of(g) for g in _GRAPHS.values()}):
+        _, off, unc = _measure_offset(dev)
+        out[dev] = dict(ns=off, uncertainty_ns=unc)
+    return out
+
+
+def _to_host(device, stamps) -> tuple:
+    """Device stamps (ns) of `device` on the host clock: the offset
+    interpolated between the readings around each stamp (held beyond
+    them); returns (host ns array, uncertainty ns array)."""
+    got = sorted(_OFFSETS.get(str(device), []))
+    stamps = np.asarray(stamps, dtype=np.int64)
+    if not got:
+        nan = np.full(stamps.shape, np.nan)
+        return nan, nan
+    at = np.array([h + o for h, o, _ in got], dtype=np.float64)
+    off = np.interp(stamps.astype(np.float64), at,
+                    np.array([o for _, o, _ in got], dtype=np.float64))
+    unc = np.interp(stamps.astype(np.float64), at,
+                    np.array([u for _, _, u in got], dtype=np.float64))
+    return stamps - np.round(off).astype(np.int64), unc
+
+
+def replay_records(label=None) -> list:
+    """The replays each program's stage clock still holds (the last
+    `RING_ROWS`), of the programs labelled `label` (all where None), oldest
+    first by program: label, program (an id), device, replay (its index in
+    the program), stamps (its first and last stamp, device ns), start_ns /
+    end_ns (those on the host clock), uncertainty_ns (of that conversion),
+    device_ms and stage_ms."""
+    fold_counts()
+    _refresh_offsets()
+    out = []
+    for g in list(_GRAPHS.values()):
+        if g.clock is None or (label is not None and g.label != label):
+            continue
+        rows = ring(g.clock)
+        if not rows:
+            continue
+        dev = _device_of(g)
+        arr = np.array([r for _, r in rows], dtype=np.int64)
+        start, unc = _to_host(dev, arr[:, 0])
+        end, _ = _to_host(dev, arr[:, 1])
+        for i, (k, r) in enumerate(rows):
+            out.append(dict(
+                label=g.label, program=id(g), device=dev, replay=k,
+                start_ns=int(start[i]), end_ns=int(end[i]),
+                stamps=(int(r[0]), int(r[1])), uncertainty_ns=float(unc[i]),
+                device_ms=(int(r[1]) - int(r[0])) / 1e6,
+                stage_ms=dict(zip(STAGES, (r[2:] / 1e6).tolist()))))
+    return out
+
+
+def span_table(recs) -> tuple:
+    """(starts, ends, names) arrays of span records (`utils.spans.Record`),
+    as `label_gap` reads them."""
+    return (np.array([r.start_ns for r in recs], dtype=np.int64),
+            np.array([r.end_ns for r in recs], dtype=np.int64),
+            [r.name for r in recs])
+
+
+def label_gap(a, b, table) -> dict:
+    """{name: ns} over the host-clock interval [a, b): at each instant the
+    innermost of the spans of `table` (`span_table`) open then (the latest
+    begun), "caller" where none is."""
+    starts, ends, names = table
+    hit = np.flatnonzero((starts < b) & (ends > a))
+    cuts = sorted({a, b} | {int(v) for v in starts[hit] if a < v < b}
+                  | {int(v) for v in ends[hit] if a < v < b})
+    out: dict = {}
+    for lo, hi in zip(cuts, cuts[1:]):
+        inside = [i for i in hit if starts[i] <= lo and ends[i] >= hi]
+        name = (names[max(inside, key=lambda i: (starts[i], -ends[i]))]
+                if inside else "caller")
+        out[name] = out.get(name, 0) + hi - lo
+    return out
+
+
+def outside_program() -> list:
+    """The device time outside the programs: for each pair of consecutive
+    replays on a device (whichever program each is; from the first time
+    that every program's clock still holds), the device time from one's
+    last stamp to the next's first, oldest first: device, before / after
+    (their labels), start_ns / end_ns (on the host clock), ms, and
+    by_span: that time in ms split by the innermost host span open at each
+    instant (`label_gap`), or {"unaligned": ms} where the clock offset's
+    uncertainty exceeds ALIGN_NS. Replays that overlap (two streams) read
+    0."""
+    recs = replay_records()
+    table = span_table(spans.records())
+    out = []
+    for dev in sorted({r["device"] for r in recs}):
+        held: dict = {}
+        for r in recs:
+            if r["device"] == dev:
+                held.setdefault(r["program"], []).append(r)
+        wrapped = [rows[0]["start_ns"] for rows in held.values()
+                   if rows[0]["replay"] > 0]
+        since = max(wrapped, default=None)
+        mine = sorted((r for rows in held.values() for r in rows
+                       if since is None or r["start_ns"] >= since),
+                      key=lambda r: r["start_ns"])
+        for a, b in zip(mine, mine[1:]):
+            ns = max(0, b["stamps"][0] - a["stamps"][1])
+            lo = a["end_ns"]
+            if max(a["uncertainty_ns"], b["uncertainty_ns"]) > ALIGN_NS:
+                split = {"unaligned": ns / 1e6}
+            else:
+                split = {k: v / 1e6
+                         for k, v in label_gap(lo, lo + ns, table).items()}
+            out.append(dict(device=dev, before=a["label"],
+                            after=b["label"], start_ns=lo, end_ns=lo + ns,
+                            ms=ns / 1e6, by_span=split))
     return out
 
 
