@@ -260,8 +260,19 @@ Phases, one line each:
      CPU on cost and controls. (e) MPCService.run on the f64 K2 solver over
      a scripted transport, 2 + 6 requests. Alone: `c.f64_phase(
      c.build_phase())`.
+ 16. (run last) the linear rollout kernel (linear_rollout_hkd, built in
+     phase 1) alone, on the state an eager solve leaves: the trot at
+     B = 4096 and 1024, the interleaved trot + flytrot batch at B = 1024,
+     T = 250 at B = 256, each in float32 and float64; dX, dv1, dv2 against
+     the plain version in f64 (f32: within 1e-5 of the largest magnitude or
+     10 x the plain f32 error; f64: 1e-12); the kernel a call (median of
+     10, CUDA events, as K1 and K2), the plain version a call (median of
+     3), beside the least time of `riccati_bound.linear_rollout_work`
+     (bytes over 3.35 TB/s, as the schedule reads them); threads,
+     shared memory and blocks per SM; the phase's seconds. No cell runs
+     this phase. Alone: `c.linear_rollout_phase(c.build_phase())`.
 Each solve path runs with its kernel's launch count set to 0 just before it
-and read just after. Then one JSON line with both kernels (name, route,
+and read just after. Then one JSON line with the three kernels (name, route,
 source, replaces, launches, retry_launches, max_abs_err, ms, plain_ms,
 bound_ms, bound_by, library_ms, ms_b1024, bound_ms_b1024, ms_all_inactive,
 threads_per_block, smem_bytes, blocks_per_sm, while_launches,
@@ -277,8 +288,9 @@ ms_f32_same_call, ms_all_inactive_f64, ms_b1024_f64, bound_ms_b1024_f64,
 smem_bytes_f64, blocks_per_sm_f64, launches_f64 (one replay of each
 program in (b)); K1 also mixed_ms_f64, longt_ms_f64, longt_bound_ms_f64,
 fleet_launches_f64; K2 also ms_b1_f64, bound_ms_b1_f64, plain_ms_b1_f64,
-mpc_launches_f64, service_launches_f64), the card's name and power
-limit, and the
+mpc_launches_f64, service_launches_f64; the linear rollout: launches
+(phase 3's solve) and fleet_launches (phase 7's steps), each equal to the
+runs of inner_b, and phase 16's figures), the card's name and power limit, and the
 result line. Any
 failure raises and exits non-zero. No CUDA device: exit 1.
 """
@@ -318,7 +330,7 @@ MPC_CLOSE = {"cost": 1e-4, "cmd": 1e-3}
 MPC_WORST = {"cost": 5e-3, "cmd": 1e-1}
 MPC_SHARE = 0.9
 # the kernels; each library holds its float32 and float64 instantiation
-KERNELS = ("riccati_hkd", "riccati_dense")
+KERNELS = ("riccati_hkd", "riccati_dense", "linear_rollout_hkd")
 # the native assembly of the while graphs (set_cond: no TPU kernel)
 GRAPH_SOURCES = ("graph_while",)
 SERVICE_WARMUP = 2
@@ -405,6 +417,15 @@ def replayed_since(before):
     now = replays_by_label()
     return {k: v - before.get(k, 0) for k, v in now.items()
             if v > before.get(k, 0)}
+
+
+def inner_b_runs():
+    """Runs of the `inner_b` piece (a DDP iteration with its linear
+    rollout) of every device program since each was made."""
+    from hkdmpc_tpu_torch.solver import graphs
+    graphs.fold_counts()
+    return sum(n for g in list(graphs._GRAPHS.values())
+               for p, n in zip(g.pieces, g.folded) if p.name == "inner_b")
 
 
 def require_replays(phase, n):
@@ -718,27 +739,37 @@ def check_solve(torch, res, batch, T):
 
 
 def slice_run(torch, phase, label, run, eager_run, counter, plain_route,
-              card, batch, model=None, min_launches=1):
-    """One solve path at full width: the launch count of its kernel over
-    one run (set to 0 just before, read just after; the run replays the
-    solve's CUDA graph, captured by a first call before it), the result
-    checks, the first scenarios against the plain-path solve (eager), and
-    the timing. Returns (launches, retry launches)."""
+              card, batch, model=None, min_launches=1, linear=True):
+    """One solve path at full width: the launch count of its kernel and of
+    the linear rollout kernel over one run (set to 0 just before, read just
+    after; the run replays the solve's CUDA graph, captured by a first call
+    before it), the result checks, the first scenarios against the
+    plain-path solve (eager), and the timing. The linear rollout kernel
+    launches once per run of `inner_b` where `linear`, else never. Returns
+    (launches, retry launches, linear rollout launches)."""
+    from hkdmpc_tpu_torch.ops import linear_rollout_hkd as lr
     from hkdmpc_tpu_torch.solver.structs import tree_map
     prob_b, state_b, opt = trot_batch(torch, batch, torch.float32, model)
     optr = opt.runtime()
     run(prob_b, state_b, optr)          # captures the graph
     torch.cuda.synchronize()
     counter.LAUNCHES = counter.RETRY_LAUNCHES = 0
-    replays = graph_replays()
+    lr.LAUNCHES = lr.LAUNCHES_F64 = 0
+    replays, runs = graph_replays(), inner_b_runs()
     res = run(prob_b, state_b, optr)
     torch.cuda.synchronize()
     launches, retries = counter.LAUNCHES, counter.RETRY_LAUNCHES
-    replays = graph_replays() - replays
+    lin, lin64 = lr.LAUNCHES, lr.LAUNCHES_F64
+    replays, runs = graph_replays() - replays, inner_b_runs() - runs
     require_replays(phase, replays)
     if launches < min_launches:
         raise AssertionError(f"the {label} solve launched its kernel "
                              f"{launches} times, expected >= {min_launches}")
+    if runs < 1 or (lin, lin64) != ((runs if linear else 0), 0):
+        raise AssertionError(f"the {label} solve launched the linear rollout "
+                             f"kernel {lin} times ({lin64} f64) in {runs} "
+                             f"runs of inner_b, expected "
+                             f"{runs if linear else 0} (0 f64)")
     check_solve(torch, res, batch, prob_b.T)
 
     head = lambda a: a[:PLAIN_CHECK_LANES].contiguous()
@@ -755,14 +786,15 @@ def slice_run(torch, phase, label, run, eager_run, counter, plain_route,
     print(f"phase {phase} {label}: B={batch} T={prob_b.T} f32 runtime caps"
           f" (AL {optr.max_AL_iter} x DDP {optr.max_DDP_iter}); graph "
           f"replays {replays}; kernel launches {launches}, masked retry "
-          f"launches {retries}; 0/{batch} failed; mean cost "
+          f"launches {retries}; linear rollout launches {lin} in {runs} "
+          f"runs of inner_b; 0/{batch} failed; mean cost "
           f"{float(res.cost.mean()):.6g}; n_iters "
           f"{sorted(set(res.n_iters.tolist()))}; first {PLAIN_CHECK_LANES} "
           f"costs vs the eager plain-path solve {rel:.3e} rel; {ms:.3f} ms "
           f"per solve (graph replay) "
           f"(median of 5) = {batch / ms * 1e3:.1f} solves/s on {card}",
           flush=True)
-    return launches, retries
+    return launches, retries, lin
 
 
 def slice_phase(card, batch=BATCH):
@@ -802,7 +834,8 @@ def dense_slice_phase(card, batch=BATCH):
                      run, eager_run, riccati_dense,
                      (riccati_dense, "backward_sweep_dense",
                       riccati_dense.backward_sweep_dense_plain),
-                     card, batch, model=spec, min_launches=2)
+                     card, batch, model=spec, min_launches=2,
+                     linear=False)
 
 
 def k2_vs_k1_phase(batch=BATCH):
@@ -840,11 +873,13 @@ def _rate(ms_list, n):
 
 
 def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
-    """The fleet MPC at full width on K1's path; returns K1's launch count
-    over the timed steps."""
+    """The fleet MPC at full width on K1's path; returns the launch counts
+    of K1 and of the linear rollout kernel over the timed steps (the latter
+    once per run of the replayed programs' `inner_b`)."""
     torch = _torch()
     import tempfile
     from hkdmpc_tpu_torch.mpc.fleet import FleetConfig, FleetMPC
+    from hkdmpc_tpu_torch.ops import linear_rollout_hkd as lr
     from hkdmpc_tpu_torch.ops import riccati_hkd
     from hkdmpc_tpu_torch.workload import gait_file, meas_stream
 
@@ -873,11 +908,15 @@ def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
             return stream(k)
 
         riccati_hkd.LAUNCHES = riccati_hkd.RETRY_LAUNCHES = 0
+        lr.LAUNCHES = lr.LAUNCHES_F64 = 0
+        runs = inner_b_runs()
         t0 = time.perf_counter()
         last = fleet.rollout_steps(steps, meas_fn,
                                    mpc_time0=0.01 * FLEET_WARMUP)
         t1 = time.perf_counter()
         launches, retries = riccati_hkd.LAUNCHES, riccati_hkd.RETRY_LAUNCHES
+        lin, lin64 = lr.LAUNCHES, lr.LAUNCHES_F64
+        runs = inner_b_runs() - runs
         shooting.append(fleet.problem.all_shooting())
         calls.append(replays_by_label())
         stamps.append(t1)
@@ -886,6 +925,11 @@ def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
     if launches < 2 * steps:
         raise AssertionError(f"K1 launched {launches} times in {steps} "
                              "fleet steps, expected >= 2 per step")
+    if runs < steps or (lin, lin64) != (runs, 0):
+        raise AssertionError(f"the linear rollout kernel launched {lin} "
+                             f"times ({lin64} f64) in {steps} fleet steps "
+                             f"with {runs} runs of inner_b, expected one a "
+                             "run (0 f64)")
     n_failed = int((out["scalars"][:, 5] > 0).sum())
     if n_failed:
         raise AssertionError(f"{n_failed} robots failed in the last step")
@@ -920,14 +964,15 @@ def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
           f"step: parallel- or sequential-rollout graph as all_shooting() "
           f"says); K1 launches {launches} ({launches / steps:.2f}/step), "
           f"masked retry launches {retries} ({retries / steps:.2f}/step); "
-          f"{n_seq} of {steps} steps not "
+          f"linear rollout launches {lin} ({lin / steps:.2f}/step) in "
+          f"{runs} runs of inner_b; {n_seq} of {steps} steps not "
           f"all-shooting took the sequential rollout; parallel-rollout "
           f"steps: {_rate(par_ms, n)}; sequential-rollout steps: "
           f"{_rate(seq_ms, n)}; last step 0/{n} failed, mean cost "
           f"{float(out['scalars'][:, 0].mean()):.6g}; on {card}",
           flush=True)
     fleet_vs_plain(torch, card)
-    return launches
+    return launches, lin
 
 
 def fleet_vs_plain(torch, card, n=PLAIN_CHECK_LANES,
@@ -3626,6 +3671,105 @@ def f64_phase(card):
     return hkd, dense
 
 
+# phase 16: (label, gait, batch, plan seconds, the form of the case's keys
+# in the JSON record) of the linear rollout's inputs
+LINEAR_CASES = (("trot", "trot", BATCH, 0.6, "{}"),
+                ("trot", "trot", FLEET_N, 0.6, "{}_b1024"),
+                ("interleaved trot + flytrot", "mixed", MIXED_BATCH, 0.6,
+                 "mixed_{}"),
+                ("trot", "trot", LONGT_BATCH, LONGT_PLAN, "longt_{}"))
+
+
+def linear_rollout_inputs(gait, batch, plan):
+    """(prob, state) in float32: the state an eager kernel_jac solve of the
+    scenarios leaves (its nominal X, U, defect, the last sweep's K, dU)."""
+    from hkdmpc_tpu_torch import bench
+    from hkdmpc_tpu_torch.solver import ddp
+    if gait == "mixed":
+        cases, opt = bench.mixed_layouts("cuda", batch, plan)
+        prob, state = cases["interleaved"]
+    else:
+        prob, state, opt = bench.scenarios(gait, batch, 0, "cuda", plan)
+    return prob, ddp._solve_batch(prob, state, opt, kernel_jac=True).state
+
+
+def linear_rollout_phase(card, launches=None, fleet_launches=None):
+    """Phase 16: the linear rollout kernel alone against its plain version
+    and its bound, at every shape of LINEAR_CASES in f32 and f64. Returns
+    its JSON record, with the launches of phase 3's solve and phase 7's
+    fleet steps where given."""
+    torch = _torch()
+    from hkdmpc_tpu_torch.ops import _build, riccati_bound
+    from hkdmpc_tpu_torch.ops import linear_rollout_hkd as lr
+    from hkdmpc_tpu_torch.solver.structs import tree_map
+    t0 = time.perf_counter()
+    as_ = lambda dtype, tree: tree_map(
+        lambda a: a.to(dtype) if a.is_floating_point() else a, tree)
+    record = {"name": "linear_rollout_hkd", "route": "cuda",
+              "source": "hkdmpc_tpu_torch/csrc/linear_rollout_hkd.cu",
+              "replaces": None, "launches": launches,
+              "fleet_launches": fleet_launches}
+    for label, gait, batch, plan, form in LINEAR_CASES:
+        prob, state = linear_rollout_inputs(gait, batch, plan)
+        T = prob.T
+        oracle = None
+        for dtype, real, tag in ((torch.float32, riccati_bound.F32, ""),
+                                 (torch.float64, riccati_bound.F64, "_f64")):
+            p, s = as_(dtype, prob), as_(dtype, state)
+            args = (p, s, s.Xbar, s.Ubar, s.defect_bar, 1.0)
+            got = lr.linear_rollout_hkd(*args)
+            plain = lr.linear_rollout_hkd_plain(*args)
+            if oracle is None:
+                s64 = as_(torch.float64, state)
+                oracle = lr.linear_rollout_hkd_plain(
+                    as_(torch.float64, prob), s64, s64.Xbar, s64.Ubar,
+                    s64.defect_bar, 1.0)
+            torch.cuda.synchronize()
+            errs = []
+            for n, k, q, o in zip(("dX", "dv1", "dv2"), got, plain, oracle):
+                scale = float(o.abs().max())
+                err = float((k.double() - o).abs().max())
+                err_p = float((q.double() - o).abs().max())
+                limit = (1e-12 * scale if dtype == torch.float64
+                         else max(1e-5 * scale, 10 * err_p))
+                if not (bool(torch.isfinite(k).all()) and err <= limit):
+                    raise AssertionError(
+                        f"phase 16 {label} B={batch} T={T} {dtype}: {n} "
+                        f"error {err:.3e} against the f64 plain version, "
+                        f"limit {limit:.3e}")
+                errs.append(f"{n} {err / scale:.2e} / {err_p / scale:.2e}")
+            ms = cuda_ms(torch, lambda: lr.linear_rollout_hkd(*args), 10)
+            plain_ms = cuda_ms(torch, lambda: lr.linear_rollout_hkd_plain(
+                *args), 3)
+            work = riccati_bound.linear_rollout_work(p.kind, real)
+            b = riccati_bound.bound_ms(work)
+            info = _build.kernel_info("linear_rollout_hkd", dtype)
+            for field, v in (("ms", ms), ("plain_ms", plain_ms),
+                             ("bound_ms", b["bound_ms"])):
+                record[form.format(field) + tag] = v
+            if form == "{}":
+                record.update({f"bound_by{tag}": b["bound_by"],
+                               f"threads_per_block{tag}":
+                                   info["threads_per_block"],
+                               f"smem_bytes{tag}": info["smem_bytes"],
+                               f"blocks_per_sm{tag}": info["blocks_per_sm"]})
+            print(f"phase 16 linear_rollout_hkd {label} B={batch} T={T} "
+                  f"{str(dtype)[6:]}: |err| / max |f64 plain| (kernel / "
+                  f"plain): " + ", ".join(errs) + f"; kernel {ms:.4f} ms "
+                  f"(median of 10), plain {plain_ms:.3f} ms (median of 3); "
+                  f"bound {b['bound_ms']:.6f} ms set by {b['bound_by']} "
+                  f"({work['bytes'] / 1e9:.6f} GB = {b['bytes_ms']:.6f} ms "
+                  f"at 3.35 TB/s, {work['flops'] / 1e9:.6f} GFLOP = "
+                  f"{b['operations_ms']:.6f} ms): "
+                  f"{b['bound_ms'] / ms:.3%} of it; "
+                  f"{info['threads_per_block']} threads, "
+                  f"{info['smem_bytes']} B shared memory, "
+                  f"{info['blocks_per_sm']} blocks per SM; on {card}",
+                  flush=True)
+    print(f"phase 16 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return record
+
+
 def main():
     torch = _torch()
     t0 = time.perf_counter()
@@ -3633,12 +3777,13 @@ def main():
                            f"{time.perf_counter() - t0:.1f} s", flush=True)
     card = build_phase()
     hkd = kernel_phase()
-    hkd["launches"], hkd["retry_launches"] = slice_phase(card)
+    hkd["launches"], hkd["retry_launches"], linear_launches = slice_phase(
+        card)
     dense = dense_kernel_phase()
-    dense["launches"], dense["retry_launches"] = dense_slice_phase(card)
+    dense["launches"], dense["retry_launches"], _ = dense_slice_phase(card)
     k2_vs_k1_phase()
     mark(6)
-    hkd["fleet_launches"] = fleet_phase(card)
+    hkd["fleet_launches"], linear_fleet_launches = fleet_phase(card)
     mark(7)
     dense.update(mpc_phase(card))
     mark(8)
@@ -3661,11 +3806,13 @@ def main():
     hkd_more, dense_more = f64_phase(card)
     hkd.update(hkd_more)
     dense.update(dense_more)
-    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - t0:.1f} s",
+    linear = linear_rollout_phase(card, linear_launches,
+                                  linear_fleet_launches)
+    print(f"chip_smoke: phases 1-16 in {time.perf_counter() - t0:.1f} s",
           flush=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
-    print(json.dumps({"kernels": [hkd, dense]}))
+    print(json.dumps({"kernels": [hkd, dense, linear]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -56,6 +56,9 @@ _LAUNCH_ARGTYPES = {
                    + [ctypes.c_void_p],
     "riccati_dense": [ctypes.c_void_p] * 18 + [ctypes.c_int] * 2
                      + [ctypes.c_void_p],
+    # ints: B, T and the flags reb_active, al_active; then the step size
+    "linear_rollout_hkd": [ctypes.c_void_p] * 22 + [ctypes.c_int] * 4
+                          + [ctypes.c_double, ctypes.c_void_p],
 }
 
 _LIBS: dict = {}

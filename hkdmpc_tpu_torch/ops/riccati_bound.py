@@ -1,6 +1,7 @@
 """What a Riccati backward sweep must move and compute, from its shapes: the
 bytes and floating-point operations of one call of each kernel
-(`ops/riccati_hkd.py`, `ops/riccati_dense.py`) in float32 or float64, and
+(`ops/riccati_hkd.py`, `ops/riccati_dense.py`; and of the linear rollout
+kernel, `ops/linear_rollout_hkd.py`) in float32 or float64, and
 the least time a card could take for them (the larger of bytes over its
 memory rate and operations over its peak rate in the sweep's type). Also the fixed sparsity patterns of the HKD model's
 Jacobians that the K1 kernel's products are written from
@@ -177,6 +178,71 @@ def dense_sweep_work(kind, real_bytes: int = F32) -> dict:
     flops = n_dyn * dyn_step_flops() + n_reset * reset_step_flops()
     float_bytes = real_bytes * (reals_in + reals_out)
     return {"bytes": float_bytes + other, "float_bytes": float_bytes,
+            "flops": flops, "real_bytes": real_bytes}
+
+
+# non-zeros of the running partials' Hessians of a DYN step (`produce_dyn`):
+# lxx, the diagonal and the foot-regularization pairs (12 + 3l + j, 3 + j),
+# j < 2, both ways; luu, the diagonal and the cone pairs (3l, 3l + 2),
+# (3l + 1, 3l + 2), both ways
+LXX_NNZ = NX + 16
+LUU_NNZ = NX + 16
+
+
+def linear_dyn_step_flops() -> int:
+    """Operations of one DYN step of the linear rollout: du = eps dU + K dx
+    (dense K), dx + (A - I) dx + B du + eps defect on the non-zeros of A - I
+    and B, dV_1's two dot products, dV_2's quadratic forms on the non-zeros
+    of lxx and luu (two products and a sum each)."""
+    return (2 * NX * NX + 2 * NX
+            + 2 * int(da_pattern().sum()) + 2 * int(db_pattern().sum())
+            + 3 * NX
+            + 4 * NX
+            + 3 * (LXX_NNZ + LUU_NNZ))
+
+
+def terminal_contraction_flops() -> int:
+    """phix dx + dx' phixx dx, phixx dense (a RESET's source node and the
+    last active node: five a scenario on the trot)."""
+    return 2 * NX + 2 * NX * NX + 2 * NX
+
+
+def linear_rollout_work(kind, real_bytes: int = F32,
+                        reb_active: bool = True,
+                        al_active: bool = True) -> dict:
+    """Bytes and operations of one `linear_rollout_hkd` call (the linear
+    rollout kernel, `ops/linear_rollout_hkd.py`) on the schedule `kind`
+    (B, T) in the type of `real_bytes` (F32 or F64). The bytes are those the
+    kernel reads, step by step as the schedule has it: at a DYN step K[t],
+    dU[t], and the rows at t of X, U, xr, ur, foot_r, contact and defect
+    at t + 1 (and of reb_delta, reb_eps when reb_active); at a RESET step
+    its source node's terminal rows (X, xr, foot_r, term_contact, td_mask,
+    term_mask; al_sigma, al_lambda when al_active), contact and
+    contact_next at t, defect at t + 1; at each scenario's last active node
+    its terminal rows; at a PAD step nothing. Once a scenario: kind,
+    defect[0], dt, and dX, dv1, dv2 written. The operations: a RESET step's
+    Px dx on the non-zeros of S, and a terminal contraction at each RESET's
+    source node and at each scenario's last active node; a flag that is off
+    changes none (its rows are contracted with zero weights).
+    `float_bytes` is the share of the bytes in that type."""
+    nb, T, n_dyn, n_reset = _counts(kind)
+    terminal_reals = (2 * NX + 12 + 4 + 4 + 1       # X, xr, foot_r, tc, td, tm
+                      + (2 * 4 if al_active else 0))   # al_sigma, al_lambda
+    dyn_reals = (NX * NX + NX                        # K, dU
+                 + 5 * NX + 12 + 4                   # X, U, xr, ur, defect,
+                                                     # foot_r, contact
+                 + (2 * 20 if reb_active else 0))    # reb_delta, reb_eps
+    reset_reals = terminal_reals + 4 + 4 + NX        # contacts, defect
+    scenario_reals = (terminal_reals                 # the last active node
+                      + NX + 1                       # defect[0], dt
+                      + (T + 1) * NX + 2)            # dX, dv1, dv2
+    reset_flops = (2 * int(reset_pattern().sum()) + NX + 2 * NX
+                   + terminal_contraction_flops())
+    flops = (n_dyn * linear_dyn_step_flops() + n_reset * reset_flops
+             + nb * terminal_contraction_flops())
+    float_bytes = real_bytes * (n_dyn * dyn_reals + n_reset * reset_reals
+                                + nb * scenario_reals)
+    return {"bytes": float_bytes + nb * INT * T, "float_bytes": float_bytes,
             "flops": flops, "real_bytes": real_bytes}
 
 

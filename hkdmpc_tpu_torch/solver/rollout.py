@@ -15,11 +15,12 @@
 - linear_rollout_jvp: the same search direction with the tangent step taken
   as a Jacobian-vector product. Without `lq`, the default HKD model's form
   with the closed-form expected-cost change: A dx + B du (DYN) and Px dx
-  (RESET) from A/B assembled out of the sparse Jacobian entries
-  (`ops/jac_tminor.build_AB_tminor`) — the same numbers `jax.jvp` of the JAX
-  package's dynamics/reset map gives, up to float reassociation. With `lq`,
-  any model's: `torch.func.jvp` through its `dynamics` / `reset_map`, the
-  expected cost change from the LQ partials.
+  (RESET) from the sparse Jacobian entries — the same numbers `jax.jvp` of
+  the JAX package's dynamics/reset map gives, up to float reassociation —
+  by `ops/linear_rollout_hkd` (one CUDA kernel on CUDA tensors, the plain
+  version on the CPU). With `lq`, any model's: `torch.func.jvp` through its
+  `dynamics` / `reset_map`, the expected cost change from the LQ
+  partials.
 
 Every array carries a leading scenario axis B. `model=None` means
 `hkd_model_spec()`.
@@ -29,8 +30,8 @@ from __future__ import annotations
 
 import torch
 
-from hkdmpc_tpu_torch.ops import consts, hkd_tminor, precise
-from hkdmpc_tpu_torch.ops.jac_tminor import build_AB_tminor
+from hkdmpc_tpu_torch.ops import (consts, hkd_tminor, linear_rollout_hkd,
+                                  precise)
 from hkdmpc_tpu_torch.solver import costs
 from hkdmpc_tpu_torch.solver.model_api import hkd_model_spec
 from hkdmpc_tpu_torch.solver.structs import (DYN, PAD, RESET, LQData,
@@ -282,25 +283,8 @@ def linear_rollout_jvp(prob: ProblemData, state: SolverState, X, U, defect,
     if model is not None:
         raise ValueError("the closed-form expected cost change is the "
                          "default HKD model's: give lq= for another model")
-    last = last_active_node(prob)
-    eps = consts.scale(eps, X.dtype)
-    A, B = build_AB_tminor(prob, X, U)
-    kind = prob.kind
-    dx = eps * defect[..., 0, :]
-    dxs = [dx]
-    for t in range(prob.T):
-        du = eps * state.dU[..., t, :] + precise.mv(state.K[..., t, :, :], dx)
-        lin = precise.mv(A[..., t, :, :], dx) + precise.mv(B[..., t, :, :], du)
-        k = kind[..., t, None]
-        dx = torch.where((k == DYN) | (k == RESET),
-                         lin + eps * defect[..., t + 1, :], dx)
-        dxs.append(dx)
-    dX = torch.stack(dxs, dim=-2)
-    dU_full = eps * state.dU + precise.mv(state.K, dX[..., :-1, :])
-    dv1, dv2 = hkd_tminor.linear_dv_tbatch(prob, X, U, state.constr, dX,
-                                           dU_full, last, reb_active,
-                                           al_active)
-    return dX, dv1, dv2
+    return linear_rollout_hkd.linear_rollout_hkd(prob, state, X, U, defect,
+                                                 eps, reb_active, al_active)
 
 
 def _step_dv(lq: LQData, t, dx, du):

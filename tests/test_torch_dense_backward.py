@@ -148,15 +148,22 @@ def test_build_key_covers_included_headers(tmp_path):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     dense, hkd = csrc / "riccati_dense.cu", csrc / "riccati_hkd.cu"
+    linear = csrc / "linear_rollout_hkd.cu"
     assert [p.name for p in _build.included_files(dense)] == \
         ["riccati_step.cuh"]
-    assert [p.name for p in _build.included_files(hkd)] == \
-        ["riccati_step.cuh"]
-    assert _build.uses_generated_header(hkd)
+    for src in (hkd, linear):
+        assert [p.name for p in _build.included_files(src)] == \
+            ["hkd_entries.cuh", "riccati_step.cuh"]
+        assert _build.uses_generated_header(src)
     assert not _build.uses_generated_header(dense)
-    keys = {p: _build.build_key(p) for p in (dense, hkd)}
+    keys = {p: _build.build_key(p) for p in (dense, hkd, linear)}
     (csrc / "unrelated.cuh").write_text("// not included\n")
     assert {p: _build.build_key(p) for p in keys} == keys
+    entries = csrc / "hkd_entries.cuh"
+    entries.write_text(entries.read_text() + "\n// edited\n")
+    assert {p: _build.build_key(p) != k for p, k in keys.items()} == \
+        {dense: False, hkd: True, linear: True}
+    keys = {p: _build.build_key(p) for p in keys}
     step = csrc / "riccati_step.cuh"
     step.write_text(step.read_text() + "\n// edited\n")
     for p, k in keys.items():

@@ -733,6 +733,39 @@ def test_graph_fleet_steps_equal_eager_steps(cuda, tmp_path, monkeypatch):
             np.testing.assert_array_equal(g[name], w[name], err_msg=name)
 
 
+def test_fleet_outputs_keep_their_values_after_later_steps(cuda, tmp_path):
+    """A step's arrays (the bundle copied into pinned host memory, which a
+    later step reuses once it is free) keep their values while they are
+    held, through later steps whose arrays are dropped, and share no
+    memory with another step's; a CUDA bundle unpacks as its CPU copy."""
+    from hkdmpc_tpu_torch.mpc.fleet import FleetConfig, FleetMPC
+    from hkdmpc_tpu_torch.workload import gait_file, meas_stream
+
+    names = ("scalars", "controls", "body", "gains", "pf")
+    f = FleetMPC(gait_file("trot", str(tmp_path)), 8, config=FleetConfig(),
+                 dtype=torch.float32, device="cuda")
+    f.initialize()
+    stream = meas_stream(8, 5)
+    held, copies = [], []
+    for s in range(7):
+        m = stream(s)
+        out = f.step(m["rpy"], m["p"], m["v"], m["omega"], m["qJ"],
+                     mpc_time=0.01 * s)
+        if s % 3 == 0:
+            held.append(out)
+            copies.append({k: out[k].copy() for k in names})
+    for out, want in zip(held, copies):
+        for name in names:
+            np.testing.assert_array_equal(out[name], want[name],
+                                          err_msg=name)
+    for a, b in zip(held, held[1:]):
+        assert not any(np.shares_memory(a[k], b[k]) for k in names)
+    bundle = f.rollout_steps(1, stream, mpc_time0=0.07)
+    got, want = f.unpack(bundle), f.unpack(bundle.cpu().numpy())
+    for name in names:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
 def test_graph_capture_refuses_a_host_read(cuda, monkeypatch):
     """A body that reads the host (a forced `.item()`) runs in the eager
     warm-up but raises at capture, naming the capture; nothing is cached
