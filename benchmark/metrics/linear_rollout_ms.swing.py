@@ -1,0 +1,20 @@
+"""linear_rollout_ms.swing: the median, over the replays that the dense
+sweep's solve program's stage clock holds (the window's calls, with the 2
+warm-up and the traced ones among them), of its `linear_rollout` stage in
+ms: the dense linear rollout through the LQ data
+(`solver.rollout.linear_rollout`: A dx + B du and the expected cost change
+from the LQ partials, one step of T at a time) and the merit weight, timed
+on the device inside the program by its laps (`graphs.stats()` `stage_ms`).
+Layer: dense linear rollout. Source: program_counter. None where the
+program keeps no stage clock."""
+
+STAGE = "linear_rollout"
+
+
+def read(run):
+    from hkdmpc_tpu_torch.solver import graphs
+    head = (f"solve_batch(B={run.window['batch']}, T={run.window['T']}, "
+            "kernel_jac=False,")
+    got = [s["stage_ms"][STAGE] for s in graphs.stats()
+           if s["label"].startswith(head) and s.get("stage_ms")]
+    return got[-1] if got else None
