@@ -271,6 +271,21 @@ Phases, one line each:
      (bytes over 3.35 TB/s, as the schedule reads them); threads,
      shared memory and blocks per SM; the phase's seconds. No cell runs
      this phase. Alone: `c.linear_rollout_phase(c.build_phase())`.
+ 17. (run last) the rollout kernel (rollout_hkd, built in phase 1) alone,
+     on phase 16's inputs and one trot scenario (B = 1), every fifth
+     scenario pushed past the divergence norm: the line search's launch of
+     4 step sizes in float32 and float64, X, U, Xsim and defect against the
+     plain version in f64 (f32: within 1e-5 of the trajectory's or the
+     controls' largest magnitude or 10 x the plain f32 error; f64: 1e-13),
+     success equal on every row; the launch (median of 10, CUDA events) and
+     the nominal rollout's one-candidate launch, each beside the least time
+     of `riccati_bound.rollout_work` (bytes over 3.35 TB/s), the plain
+     version (median of 3); ptxas's registers and spills, threads, shared
+     memory and blocks per SM; the phase's seconds. Phases 3, 5 and 7 hold
+     the rollout kernel to the main path: it launches once per run of a
+     program's carry0 and inner_b (1 + inner_b a replay or a parallel step;
+     0 in the sequential step program), never in f64. Alone:
+     `c.rollout_phase(c.build_phase())`.
 Each solve path runs with its kernel's launch count set to 0 just before it
 and read just after. Then one JSON line with the three kernels (name, route,
 source, replaces, launches, retry_launches, max_abs_err, ms, plain_ms,
@@ -290,8 +305,9 @@ program in (b)); K1 also mixed_ms_f64, longt_ms_f64, longt_bound_ms_f64,
 fleet_launches_f64; K2 also ms_b1_f64, bound_ms_b1_f64, plain_ms_b1_f64,
 mpc_launches_f64, service_launches_f64; the linear rollout: launches
 (phase 3's solve) and fleet_launches (phase 7's steps), each equal to the
-runs of inner_b, and phase 16's figures), the card's name and power limit, and the
-result line. Any
+runs of inner_b, and phase 16's figures; the rollout kernel: launches and
+fleet_launches, and phase 17's figures), the card's name and power limit,
+and the result line. Any
 failure raises and exits non-zero. No CUDA device: exit 1.
 """
 
@@ -330,7 +346,8 @@ MPC_CLOSE = {"cost": 1e-4, "cmd": 1e-3}
 MPC_WORST = {"cost": 5e-3, "cmd": 1e-1}
 MPC_SHARE = 0.9
 # the kernels; each library holds its float32 and float64 instantiation
-KERNELS = ("riccati_hkd", "riccati_dense", "linear_rollout_hkd")
+KERNELS = ("riccati_hkd", "riccati_dense", "linear_rollout_hkd",
+           "rollout_hkd")
 # the native assembly of the while graphs (set_cond: no TPU kernel)
 GRAPH_SOURCES = ("graph_while",)
 SERVICE_WARMUP = 2
@@ -426,6 +443,24 @@ def inner_b_runs():
     graphs.fold_counts()
     return sum(n for g in list(graphs._GRAPHS.values())
                for p, n in zip(g.pieces, g.folded) if p.name == "inner_b")
+
+
+def piece_runs(name, parallel=None):
+    """Runs of the piece `name` of every device program since each was
+    made; with `parallel` True or False, of the fleet step programs whose
+    rollout is parallel or sequential only."""
+    from hkdmpc_tpu_torch.solver import graphs
+    graphs.fold_counts()
+    keep = lambda g: parallel is None or (
+        f"parallel_rollout={parallel}" in g.label)
+    return sum(n for g in list(graphs._GRAPHS.values()) if keep(g)
+               for p, n in zip(g.pieces, g.folded) if p.name == name)
+
+
+def rollout_runs(parallel=None):
+    """Runs of the pieces that launch the rollout kernel: `carry0` (the
+    nominal rollout) and `inner_b` (a line search)."""
+    return piece_runs("carry0", parallel) + piece_runs("inner_b", parallel)
 
 
 def require_replays(phase, n):
@@ -746,8 +781,11 @@ def slice_run(torch, phase, label, run, eager_run, counter, plain_route,
     before it), the result checks, the first scenarios against the
     plain-path solve (eager), and the timing. The linear rollout kernel
     launches once per run of `inner_b` where `linear`, else never. Returns
-    (launches, retry launches, linear rollout launches)."""
+    (launches, retry launches, linear rollout launches, rollout launches).
+    The rollout kernel (rollout_hkd, both models' maps) launches once per
+    run of `carry0` and of `inner_b`, never in f64."""
     from hkdmpc_tpu_torch.ops import linear_rollout_hkd as lr
+    from hkdmpc_tpu_torch.ops import rollout_hkd
     from hkdmpc_tpu_torch.solver.structs import tree_map
     prob_b, state_b, opt = trot_batch(torch, batch, torch.float32, model)
     optr = opt.runtime()
@@ -755,12 +793,15 @@ def slice_run(torch, phase, label, run, eager_run, counter, plain_route,
     torch.cuda.synchronize()
     counter.LAUNCHES = counter.RETRY_LAUNCHES = 0
     lr.LAUNCHES = lr.LAUNCHES_F64 = 0
-    replays, runs = graph_replays(), inner_b_runs()
+    rollout_hkd.LAUNCHES = rollout_hkd.LAUNCHES_F64 = 0
+    replays, runs, ro_runs = graph_replays(), inner_b_runs(), rollout_runs()
     res = run(prob_b, state_b, optr)
     torch.cuda.synchronize()
     launches, retries = counter.LAUNCHES, counter.RETRY_LAUNCHES
     lin, lin64 = lr.LAUNCHES, lr.LAUNCHES_F64
+    ro_n, ro64 = rollout_hkd.LAUNCHES, rollout_hkd.LAUNCHES_F64
     replays, runs = graph_replays() - replays, inner_b_runs() - runs
+    ro_runs = rollout_runs() - ro_runs
     require_replays(phase, replays)
     if launches < min_launches:
         raise AssertionError(f"the {label} solve launched its kernel "
@@ -770,6 +811,11 @@ def slice_run(torch, phase, label, run, eager_run, counter, plain_route,
                              f"kernel {lin} times ({lin64} f64) in {runs} "
                              f"runs of inner_b, expected "
                              f"{runs if linear else 0} (0 f64)")
+    if (ro_n, ro64) != (ro_runs, 0) or ro_runs != 1 + runs:
+        raise AssertionError(f"the {label} solve launched the rollout kernel "
+                             f"{ro_n} times ({ro64} f64) in {ro_runs} runs "
+                             f"of carry0 and inner_b, expected 1 + {runs} "
+                             "(0 f64)")
     check_solve(torch, res, batch, prob_b.T)
 
     head = lambda a: a[:PLAIN_CHECK_LANES].contiguous()
@@ -787,14 +833,15 @@ def slice_run(torch, phase, label, run, eager_run, counter, plain_route,
           f" (AL {optr.max_AL_iter} x DDP {optr.max_DDP_iter}); graph "
           f"replays {replays}; kernel launches {launches}, masked retry "
           f"launches {retries}; linear rollout launches {lin} in {runs} "
-          f"runs of inner_b; 0/{batch} failed; mean cost "
+          f"runs of inner_b; rollout launches {ro_n} (1 + inner_b); "
+          f"0/{batch} failed; mean cost "
           f"{float(res.cost.mean()):.6g}; n_iters "
           f"{sorted(set(res.n_iters.tolist()))}; first {PLAIN_CHECK_LANES} "
           f"costs vs the eager plain-path solve {rel:.3e} rel; {ms:.3f} ms "
           f"per solve (graph replay) "
           f"(median of 5) = {batch / ms * 1e3:.1f} solves/s on {card}",
           flush=True)
-    return launches, retries, lin
+    return launches, retries, lin, ro_n
 
 
 def slice_phase(card, batch=BATCH):
@@ -874,13 +921,16 @@ def _rate(ms_list, n):
 
 def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
     """The fleet MPC at full width on K1's path; returns the launch counts
-    of K1 and of the linear rollout kernel over the timed steps (the latter
-    once per run of the replayed programs' `inner_b`)."""
+    of K1, of the linear rollout kernel (once per run of the replayed
+    programs' `inner_b`) and of the rollout kernel (once per run of the
+    parallel step program's `carry0` and `inner_b`, never in the sequential
+    one) over the timed steps."""
     torch = _torch()
     import tempfile
     from hkdmpc_tpu_torch.mpc.fleet import FleetConfig, FleetMPC
     from hkdmpc_tpu_torch.ops import linear_rollout_hkd as lr
-    from hkdmpc_tpu_torch.ops import riccati_hkd
+    from hkdmpc_tpu_torch.ops import riccati_hkd, rollout_hkd
+    from hkdmpc_tpu_torch.solver import graphs
     from hkdmpc_tpu_torch.workload import gait_file, meas_stream
 
     with tempfile.TemporaryDirectory() as d:
@@ -909,14 +959,24 @@ def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
 
         riccati_hkd.LAUNCHES = riccati_hkd.RETRY_LAUNCHES = 0
         lr.LAUNCHES = lr.LAUNCHES_F64 = 0
+        rollout_hkd.LAUNCHES = rollout_hkd.LAUNCHES_F64 = 0
         runs = inner_b_runs()
+        par_runs = (rollout_runs(True), piece_runs("inner_b", True))
+        seq_runs = rollout_runs(False)
         t0 = time.perf_counter()
         last = fleet.rollout_steps(steps, meas_fn,
                                    mpc_time0=0.01 * FLEET_WARMUP)
         t1 = time.perf_counter()
         launches, retries = riccati_hkd.LAUNCHES, riccati_hkd.RETRY_LAUNCHES
         lin, lin64 = lr.LAUNCHES, lr.LAUNCHES_F64
+        ro_n, ro64 = rollout_hkd.LAUNCHES, rollout_hkd.LAUNCHES_F64
         runs = inner_b_runs() - runs
+        par_runs = (rollout_runs(True) - par_runs[0],
+                    piece_runs("inner_b", True) - par_runs[1])
+        seq_runs = rollout_runs(False) - seq_runs
+        seq_launches = [st["launches"]["rollout_hkd.LAUNCHES"]
+                        for st in graphs.stats()
+                        if "parallel_rollout=False" in st["label"]]
         shooting.append(fleet.problem.all_shooting())
         calls.append(replays_by_label())
         stamps.append(t1)
@@ -930,6 +990,16 @@ def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
                              f"times ({lin64} f64) in {steps} fleet steps "
                              f"with {runs} runs of inner_b, expected one a "
                              "run (0 f64)")
+    n_par = sum(shooting[:steps])
+    if ((ro_n, ro64) != (par_runs[0], 0) or par_runs[0] != n_par
+            + par_runs[1] or any(seq_launches)):
+        raise AssertionError(
+            f"the rollout kernel launched {ro_n} times ({ro64} f64) in "
+            f"{steps} fleet steps ({n_par} parallel: {par_runs[0]} runs of "
+            f"their carry0 and inner_b, {par_runs[1]} of inner_b; sequential "
+            f"programs: {seq_runs} runs, launches a replay {seq_launches}), "
+            "expected 1 + inner_b a parallel step, 0 in the sequential "
+            "program (0 f64)")
     n_failed = int((out["scalars"][:, 5] > 0).sum())
     if n_failed:
         raise AssertionError(f"{n_failed} robots failed in the last step")
@@ -965,14 +1035,17 @@ def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
           f"says); K1 launches {launches} ({launches / steps:.2f}/step), "
           f"masked retry launches {retries} ({retries / steps:.2f}/step); "
           f"linear rollout launches {lin} ({lin / steps:.2f}/step) in "
-          f"{runs} runs of inner_b; {n_seq} of {steps} steps not "
+          f"{runs} runs of inner_b; rollout launches {ro_n} in {n_par} "
+          f"parallel steps ({par_runs[1]} runs of their inner_b; 0 in the "
+          f"sequential program's {seq_runs} runs); {n_seq} of {steps} steps "
+          f"not "
           f"all-shooting took the sequential rollout; parallel-rollout "
           f"steps: {_rate(par_ms, n)}; sequential-rollout steps: "
           f"{_rate(seq_ms, n)}; last step 0/{n} failed, mean cost "
           f"{float(out['scalars'][:, 0].mean()):.6g}; on {card}",
           flush=True)
     fleet_vs_plain(torch, card)
-    return launches, lin
+    return launches, lin, ro_n
 
 
 def fleet_vs_plain(torch, card, n=PLAIN_CHECK_LANES,
@@ -3770,6 +3843,121 @@ def linear_rollout_phase(card, launches=None, fleet_launches=None):
     return record
 
 
+ROLLOUT_CASES = LINEAR_CASES + (("trot", "trot", 1, 0.6, "{}_b1"),)
+ROLLOUT_EPS = (1.0, 0.1, 0.01, 0.001)   # the line search's step sizes
+ROLLOUT_FORCED = 5      # every fifth scenario pushed past the divergence norm
+
+
+def rollout_phase(card, launches=None, fleet_launches=None):
+    """Phase 17: the rollout kernel alone against its plain version and its
+    bound, at every shape of ROLLOUT_CASES in f32 and f64: the line
+    search's launch (4 candidates) and the nominal rollout's (eps = 0).
+    Returns its JSON record, with the launches of phase 3's solve and phase
+    7's fleet steps where given."""
+    torch = _torch()
+    from hkdmpc_tpu_torch.ops import _build, precise, riccati_bound
+    from hkdmpc_tpu_torch.ops import rollout_hkd
+    from hkdmpc_tpu_torch.solver.structs import tree_map
+    t0 = time.perf_counter()
+    as_ = lambda dtype, tree: tree_map(
+        lambda a: a.to(dtype) if a.is_floating_point() else a, tree)
+    log = (_build.build("rollout_hkd").parent
+           / "rollout_hkd.build.log").read_text()
+    record = {"name": "rollout_hkd", "route": "cuda",
+              "source": "hkdmpc_tpu_torch/csrc/rollout_hkd.cu",
+              "replaces": None, "launches": launches,
+              "fleet_launches": fleet_launches}
+
+    def plain(p, s, eps):
+        du_eff = s.dU + precise.mv(s.K, s.dX[..., :-1, :])
+        return [rollout_hkd.rollout_plain(p, s, eps[i], du_eff)
+                for i in range(eps.shape[0])]
+
+    for label, gait, batch, plan, form in ROLLOUT_CASES:
+        prob, state = linear_rollout_inputs(gait, batch, plan)
+        forced = torch.arange(batch, device="cuda") % ROLLOUT_FORCED \
+            == ROLLOUT_FORCED - 1
+        Xbar = state.Xbar.clone()
+        Xbar[forced, 10:21, 9] = 2e6
+        state = dataclasses.replace(state, Xbar=Xbar)
+        keep = ~forced
+        T = prob.T
+        oracle = None
+        for dtype, real, tag in ((torch.float32, riccati_bound.F32, ""),
+                                 (torch.float64, riccati_bound.F64, "_f64")):
+            p, s = as_(dtype, prob), as_(dtype, state)
+            eps = torch.tensor(ROLLOUT_EPS, dtype=dtype, device="cuda")
+            got = rollout_hkd.rollout_hkd_candidates(p, s, eps)
+            ref = plain(p, s, eps)
+            if oracle is None:
+                oracle = plain(as_(torch.float64, prob),
+                               as_(torch.float64, state),
+                               torch.tensor(ROLLOUT_EPS, dtype=torch.float64,
+                                            device="cuda"))
+            torch.cuda.synchronize()
+            worst = {}
+            for k, q, o in zip(got, ref, oracle):
+                if not torch.equal(k.success, o.success) or bool(
+                        k.success[forced].any()):
+                    raise AssertionError(f"phase 17 {label} B={batch} "
+                                         f"{dtype}: success differs")
+                xs = float(torch.cat([o.X[keep], o.Xsim[keep]]).abs().max())
+                for n in ("X", "U", "Xsim", "defect"):
+                    kv, qv, ov = (getattr(r, n)[keep] for r in (k, q, o))
+                    scale = float(ov.abs().max()) if n == "U" else xs
+                    err = float((kv.double() - ov).abs().max())
+                    err_p = float((qv.double() - ov).abs().max())
+                    limit = (1e-13 * scale if dtype == torch.float64
+                             else max(1e-5 * scale, 10 * err_p))
+                    if not (bool(torch.isfinite(kv).all()) and err <= limit):
+                        raise AssertionError(
+                            f"phase 17 {label} B={batch} T={T} {dtype}: {n} "
+                            f"error {err:.3e} against the f64 plain version, "
+                            f"limit {limit:.3e}")
+                    a, b = worst.get(n, (0.0, 0.0))
+                    worst[n] = (max(a, err / scale), max(b, err_p / scale))
+            ms = cuda_ms(torch, lambda: rollout_hkd.rollout_hkd_candidates(
+                p, s, eps), 10)
+            ms1 = cuda_ms(torch, lambda: rollout_hkd.rollout_hkd(p, s, 0.0),
+                          10)
+            plain_ms = cuda_ms(torch, lambda: plain(p, s, eps), 3)
+            work = riccati_bound.rollout_work(p.kind, len(ROLLOUT_EPS), real)
+            b = riccati_bound.bound_ms(work)
+            b1 = riccati_bound.bound_ms(
+                riccati_bound.rollout_work(p.kind, 1, real))
+            info = _build.kernel_info("rollout_hkd", dtype)
+            for field, v in (("ms", ms), ("plain_ms", plain_ms),
+                             ("bound_ms", b["bound_ms"]), ("ms_nominal", ms1),
+                             ("bound_ms_nominal", b1["bound_ms"])):
+                record[form.format(field) + tag] = v
+            if form == "{}":
+                record.update({f"bound_by{tag}": b["bound_by"],
+                               f"ptxas{tag}": ptxas_report(log, dtype),
+                               f"threads_per_block{tag}":
+                                   info["threads_per_block"],
+                               f"smem_bytes{tag}": info["smem_bytes"],
+                               f"blocks_per_sm{tag}": info["blocks_per_sm"]})
+            print(f"phase 17 rollout_hkd {label} B={batch} T={T} "
+                  f"{str(dtype)[6:]}: |err| / max |f64 plain| (kernel / "
+                  f"plain): " + ", ".join(
+                      f"{n} {a:.2e} / {q:.2e}" for n, (a, q) in worst.items())
+                  + f"; {int(forced.sum())} rows diverge in both; "
+                  f"{len(ROLLOUT_EPS)} candidates {ms:.4f} ms (median of "
+                  f"10), bound {b['bound_ms']:.6f} ms set by "
+                  f"{b['bound_by']} ({work['bytes'] / 1e9:.6f} GB at 3.35 "
+                  f"TB/s, {work['flops'] / 1e9:.6f} GFLOP): "
+                  f"{b['bound_ms'] / ms:.3%} of it; plain {plain_ms:.3f} ms "
+                  f"(median of 3); one candidate (eps 0) {ms1:.4f} ms, bound "
+                  f"{b1['bound_ms']:.6f} ms: {b1['bound_ms'] / ms1:.3%}; "
+                  f"{ptxas_report(log, dtype)}; "
+                  f"{info['threads_per_block']} threads, "
+                  f"{info['smem_bytes']} B shared memory, "
+                  f"{info['blocks_per_sm']} blocks per SM; on {card}",
+                  flush=True)
+    print(f"phase 17 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return record
+
+
 def main():
     torch = _torch()
     t0 = time.perf_counter()
@@ -3777,13 +3965,14 @@ def main():
                            f"{time.perf_counter() - t0:.1f} s", flush=True)
     card = build_phase()
     hkd = kernel_phase()
-    hkd["launches"], hkd["retry_launches"], linear_launches = slice_phase(
-        card)
+    (hkd["launches"], hkd["retry_launches"], linear_launches,
+     rollout_launches) = slice_phase(card)
     dense = dense_kernel_phase()
-    dense["launches"], dense["retry_launches"], _ = dense_slice_phase(card)
+    dense["launches"], dense["retry_launches"], _, _ = dense_slice_phase(card)
     k2_vs_k1_phase()
     mark(6)
-    hkd["fleet_launches"], linear_fleet_launches = fleet_phase(card)
+    (hkd["fleet_launches"], linear_fleet_launches,
+     rollout_fleet_launches) = fleet_phase(card)
     mark(7)
     dense.update(mpc_phase(card))
     mark(8)
@@ -3808,11 +3997,12 @@ def main():
     dense.update(dense_more)
     linear = linear_rollout_phase(card, linear_launches,
                                   linear_fleet_launches)
-    print(f"chip_smoke: phases 1-16 in {time.perf_counter() - t0:.1f} s",
+    rollout = rollout_phase(card, rollout_launches, rollout_fleet_launches)
+    print(f"chip_smoke: phases 1-17 in {time.perf_counter() - t0:.1f} s",
           flush=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
-    print(json.dumps({"kernels": [hkd, dense, linear]}))
+    print(json.dumps({"kernels": [hkd, dense, linear, rollout]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -59,6 +59,10 @@ _LAUNCH_ARGTYPES = {
     # ints: B, T and the flags reb_active, al_active; then the step size
     "linear_rollout_hkd": [ctypes.c_void_p] * 22 + [ctypes.c_int] * 4
                           + [ctypes.c_double, ctypes.c_void_p],
+    # ints: B, T, the candidates and eps's two strides; doubles: the step
+    # size of a number eps, gravity and the three default leg angles
+    "rollout_hkd": [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
+                   + [ctypes.c_double] * 5 + [ctypes.c_void_p],
 }
 
 _LIBS: dict = {}

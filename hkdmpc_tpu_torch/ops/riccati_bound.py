@@ -1,7 +1,8 @@
 """What a Riccati backward sweep must move and compute, from its shapes: the
 bytes and floating-point operations of one call of each kernel
 (`ops/riccati_hkd.py`, `ops/riccati_dense.py`; and of the linear rollout
-kernel, `ops/linear_rollout_hkd.py`) in float32 or float64, and
+and rollout kernels, `ops/linear_rollout_hkd.py`, `ops/rollout_hkd.py`) in
+float32 or float64, and
 the least time a card could take for them (the larger of bytes over its
 memory rate and operations over its peak rate in the sweep's type). Also the fixed sparsity patterns of the HKD model's
 Jacobians that the K1 kernel's products are written from
@@ -244,6 +245,66 @@ def linear_rollout_work(kind, real_bytes: int = F32,
                                 + nb * scenario_reals)
     return {"bytes": float_bytes + nb * INT * T, "float_bytes": float_bytes,
             "flops": flops, "real_bytes": real_bytes}
+
+
+# operations of the HKD model's maps (`csrc/rollout_hkd.cu`), each 3 x 3
+# product 45 (9 entries, 3 products and 2 sums), sines and cosines not
+# counted: the rotation (Rz Ry) Rx, 90
+ROTATION_FLOPS = 2 * 9 * (3 + 2)
+
+
+def dynamics_flops() -> int:
+    """One forward-Euler step: the rotation; the Euler rates 16 (s_, t_ 3
+    each; the three rows 3, 2, 5); positions 6; per leg the moment arm 2,
+    the three moment terms 15 and the force sums 6; R' m 15, I w 3,
+    w x I w 9, the angular rows 12; the velocity rows 10; the twelve
+    joint rows 36 and the four 1 - c 4."""
+    return (ROTATION_FLOPS + 16 + 6 + 4 * (2 + 15 + 6) + 15 + 3 + 9 + 12
+            + 10 + 12 * 3 + 4)
+
+
+def reset_flops() -> int:
+    """One reset map: the rotation; per leg the switches 6 (to_swing,
+    to_stance 2 each, keep 2), the hip-frame foot position 12 (ext, flx 3
+    each, p 6) and its hip offset 3, the three world coordinates 6 each
+    (R p 5, the body position 1) and the three rows 5 each."""
+    return ROTATION_FLOPS + 4 * (6 + 12 + 3 + 3 * 6 + 3 * 5)
+
+
+def rollout_transition_flops() -> int:
+    """One candidate's share of a transition: X[t+1] and U[t] (eps times a
+    row plus a row, 48 each), the Euler step, the defect (a difference and
+    a mask, 48) and the squared norm (48)."""
+    return 2 * 2 * NX + dynamics_flops() + 2 * NX + 2 * NX
+
+
+def rollout_work(kind, n_eps: int = 1, real_bytes: int = F32) -> dict:
+    """Bytes and operations of one `rollout_hkd` launch (the rollout
+    kernel, `ops/rollout_hkd.py`) of `n_eps` candidates on the schedule
+    `kind` (B, T) in the type of `real_bytes` (F32 or F64). Read once: K
+    whole (every transition's du_eff = dU + K dX), Xbar, dX, Ubar, dU,
+    contact, x0, dt, kind, contact_next at the RESET transitions and the
+    n_eps step sizes. Written for each candidate: X, U, Xsim, defect and
+    the success flag (one byte). Operations: du_eff once a transition (K dX
+    and the sum, 2 * 576 + 24), each candidate's share of every transition
+    (`rollout_transition_flops`), a reset map at each RESET transition, and
+    node 0 (X[0] 48, defect[0] 24). `float_bytes` is the share of the bytes
+    in that type."""
+    nb, T, _, n_reset = _counts(kind)
+    reals_in = (nb * (T * NX * NX                    # K
+                      + 2 * (T + 1) * NX             # Xbar, dX
+                      + 2 * T * NX                   # Ubar, dU
+                      + T * 4 + NX + 1)              # contact, x0, dt
+                + n_reset * 4                        # contact_next
+                + n_eps)                             # eps
+    reals_out = n_eps * nb * (3 * (T + 1) * NX + T * NX)
+    float_bytes = real_bytes * (reals_in + reals_out)
+    flops = (nb * T * (2 * NX * NX + NX)
+             + n_eps * (nb * T * rollout_transition_flops()
+                        + n_reset * reset_flops() + nb * 3 * NX))
+    return {"bytes": float_bytes + nb * INT * T + n_eps * nb,
+            "float_bytes": float_bytes, "flops": flops,
+            "real_bytes": real_bytes}
 
 
 def bound_ms(work: dict, bytes_per_s: float = H100_BYTES_PER_S,

@@ -333,10 +333,9 @@ def solve_pieces(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
     zeros_i = torch.zeros(nb, dtype=torch.int32, device=dev)
     falses = torch.zeros(nb, dtype=torch.bool, device=dev)
 
-    def rollout_fn(st, eps, du_eff=None):
+    def rollout_fn(st, eps):
         if parallel_rollout:
-            return ro_mod.hybrid_rollout_parallel(prob, st, eps, model,
-                                                  du_eff=du_eff)
+            return ro_mod.hybrid_rollout_parallel(prob, st, eps, model)
         return ro_mod.hybrid_rollout(prob, st, eps, ms, model)
 
     def cost_of(X, U, constr):
@@ -371,16 +370,16 @@ def solve_pieces(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
 
     # ---- line search (every candidate step size, first Armijo pick) -------
     def line_search(st, dv1, dv2, merit_rho, merit_prev, feas_prev):
-        # dX is fixed across trials: dU + K dX is shared by every parallel
-        # trial (the sequential rollout applies K to the rolled state)
-        du_eff = (st.dU + precise.mv(st.K, st.dX[..., :-1, :])
-                  if parallel_rollout else None)
         # every candidate's rollout, then every candidate's cost: one lap
-        # each for all of them (each candidate's ops are its own)
-        ros = []
-        for i in range(n_eps):
-            ro_t = rollout_fn(st, eps_candidates[i], du_eff)
-            ros.append((ro_t.X, ro_t.U, ro_t.defect, ro_t.success))
+        # each for all of them. The parallel rollouts share dU + K dX (dX
+        # is fixed across trials) and take one call for all of them; the
+        # sequential rollout applies K to the rolled state, a call each
+        if parallel_rollout:
+            ros = ro_mod.hybrid_rollout_candidates(prob, st, eps_candidates,
+                                                   model)
+        else:
+            ros = [rollout_fn(st, eps_candidates[i]) for i in range(n_eps)]
+        ros = [(r.X, r.U, r.defect, r.success) for r in ros]
         lap("rollout")
         trials = []
         for i, (X_t, U_t, d_t, ok_t) in enumerate(ros):

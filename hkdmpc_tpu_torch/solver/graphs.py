@@ -76,7 +76,7 @@ import numpy as np
 import torch
 
 from hkdmpc_tpu_torch.ops import (counters, linear_rollout_hkd,
-                                  riccati_dense, riccati_hkd)
+                                  riccati_dense, riccati_hkd, rollout_hkd)
 from hkdmpc_tpu_torch.solver import backward
 from hkdmpc_tpu_torch.utils import spans
 
@@ -88,7 +88,8 @@ COUNTERS = ((riccati_hkd, "LAUNCHES"), (riccati_hkd, "RETRY_LAUNCHES"),
             (riccati_dense, "LAUNCHES_F64"),
             (riccati_dense, "RETRY_LAUNCHES_F64"),
             (linear_rollout_hkd, "LAUNCHES"),
-            (linear_rollout_hkd, "LAUNCHES_F64"))
+            (linear_rollout_hkd, "LAUNCHES_F64"),
+            (rollout_hkd, "LAUNCHES"), (rollout_hkd, "LAUNCHES_F64"))
 REPLAYS = 0          # every replay of every graph
 
 # the stages a program's clock splits a replay into: the nominal and the

@@ -6,7 +6,9 @@
   at phase starts only) — the rollout of a problem that is not
   all-shooting
 - hybrid_rollout_parallel: the scan-free multiple-shooting rollout, with the
-  model's horizon-minor dynamics/reset maps or its generic ones
+  HKD model's maps by `ops/rollout_hkd` (one CUDA kernel on CUDA tensors,
+  the plain version on the CPU) or the model's own;
+  hybrid_rollout_candidates: the line search's, every step size at once
 - run_ctx / term_ctx: the per-transition / per-node reference data the
   model's terms read (`solver/model_api.py`)
 - compute_cost / cost_nodes / dynamics_feasibility / max_violations
@@ -31,14 +33,13 @@ from __future__ import annotations
 import torch
 
 from hkdmpc_tpu_torch.ops import (consts, hkd_tminor, linear_rollout_hkd,
-                                  precise)
+                                  precise, rollout_hkd)
+from hkdmpc_tpu_torch.ops.rollout_hkd import DIVERGE_NORM, node_active_mask
 from hkdmpc_tpu_torch.solver import costs
 from hkdmpc_tpu_torch.solver.model_api import hkd_model_spec
 from hkdmpc_tpu_torch.solver.structs import (DYN, PAD, RESET, LQData,
                                              ProblemData, Rollout,
                                              SolverState)
-
-DIVERGE_NORM = 1e6  # reference: SinglePhase.cpp:205-208
 
 
 def run_ctx(prob: ProblemData):
@@ -129,56 +130,46 @@ def hybrid_rollout_parallel(prob: ProblemData, state: SolverState, eps,
     and every one-step simulation is independent; the Xsim source of a RESET
     transition is the simulated output of the preceding transition.
 
-    eps: a float or a (B,) tensor; du_eff: optional precomputed
-    dU + K @ dX[:-1] (B, T, us), shared by every line-search trial. A model
-    without `dynamics_tbatch` / `reset_tbatch` has its `dynamics` /
-    `reset_map` called on all transitions at once."""
-    eps = consts.scale(eps, prob.xr.dtype)
-    e3 = (eps.reshape(eps.shape + (1, 1))
-          if isinstance(eps, torch.Tensor) else eps)
+    eps: a float, a 0-dim or a (B,) tensor; du_eff: optional precomputed
+    dU + K @ dX[:-1] (B, T, us). The HKD model's maps (`model` None, or a
+    model whose `dynamics_tbatch` / `reset_tbatch` are `ops.hkd_tminor`'s)
+    take `ops/rollout_hkd` (one CUDA kernel launch on CUDA tensors, the plain
+    version on the CPU); any other model its own maps, `dynamics` /
+    `reset_map` on all transitions at once where it has no horizon-minor
+    ones."""
+    if rollout_hkd.takes(model):
+        return rollout_hkd.rollout_hkd(prob, state, eps, du_eff)
+    return rollout_hkd.rollout_plain(prob, state, eps, du_eff,
+                                     _model_maps(prob, model))
 
-    X = state.Xbar + e3 * state.dX
-    if du_eff is None:
-        du_eff = state.dU + precise.mv(state.K, state.dX[..., :-1, :])
-    U = state.Ubar + e3 * du_eff
 
-    dyn_tb = model.dynamics_tbatch if model is not None else \
-        hkd_tminor.dynamics_tbatch
-    rst_tb = model.reset_tbatch if model is not None else \
-        hkd_tminor.reset_tbatch
-    if dyn_tb is not None:
-        sim = dyn_tb(X[..., :-1, :], U, prob.contact, prob.dt[..., None])
+def hybrid_rollout_candidates(prob: ProblemData, state: SolverState,
+                              eps_candidates, model=None) -> list:
+    """Every line-search candidate's `hybrid_rollout_parallel`, eps_candidates
+    an (n_eps,) or (n_eps, B) tensor: a list of n_eps Rollouts. The HKD
+    model's maps take one kernel launch for all of them on CUDA tensors;
+    otherwise du_eff = dU + K dX[:-1] once, then one rollout a candidate."""
+    if rollout_hkd.takes(model):
+        return rollout_hkd.rollout_hkd_candidates(prob, state,
+                                                  eps_candidates)
+    du_eff = state.dU + precise.mv(state.K, state.dX[..., :-1, :])
+    return [hybrid_rollout_parallel(prob, state, eps_candidates[i], model,
+                                    du_eff=du_eff)
+            for i in range(eps_candidates.shape[0])]
+
+
+def _model_maps(prob: ProblemData, model):
+    """A model's transition maps over every transition at once, as
+    `rollout_hkd.rollout_plain` calls them: its horizon-minor ones where it
+    has them, else its `dynamics` / `reset_map`."""
+    if model.dynamics_tbatch is not None:
+        dyn = lambda Xs, U: model.dynamics_tbatch(Xs, U, prob.contact,
+                                                  prob.dt[..., None])
     else:
-        sim = model.dynamics(X[..., :-1, :], U, prob.contact,
-                             prob.dt[..., None].expand(prob.kind.shape))
-
-    # reset transitions: source sim state = sim output of transition t-1
-    sim_prev = torch.cat([prob.x0[..., None, :], sim[..., :-1, :]], dim=-2)
-    if rst_tb is not None:
-        reset_out = rst_tb(sim_prev, prob.contact, prob.contact_next)
-    else:
-        reset_out = model.reset_map(sim_prev, prob.contact,
-                                    prob.contact_next)
-
-    is_dyn = (prob.kind == DYN)[..., None]
-    is_reset = (prob.kind == RESET)[..., None]
-    xsim_dest = torch.where(is_dyn, sim,
-                            torch.where(is_reset, reset_out, X[..., 1:, :]))
-    Xsim = torch.cat([prob.x0[..., None, :], xsim_dest], dim=-2)
-
-    node_active = node_active_mask(prob)
-    defect = (Xsim - X) * node_active[..., None]
-
-    norms = torch.linalg.vector_norm(xsim_dest, dim=-1)
-    pad = (prob.kind == PAD)
-    success = torch.all(pad | (norms <= DIVERGE_NORM), dim=-1)
-    return Rollout(X=X, U=U, Xsim=Xsim, defect=defect, success=success)
-
-
-def node_active_mask(prob: ProblemData):
-    """(B, T+1) 1.0 for node 0 and every dest node of an active transition."""
-    act = (prob.kind != PAD).to(prob.xr.dtype)
-    return torch.cat([torch.ones_like(act[..., :1]), act], dim=-1)
+        dyn = lambda Xs, U: model.dynamics(
+            Xs, U, prob.contact, prob.dt[..., None].expand(prob.kind.shape))
+    rst = model.reset_tbatch or model.reset_map
+    return dyn, lambda Xsrc: rst(Xsrc, prob.contact, prob.contact_next)
 
 
 def dynamics_feasibility(defect, norm_id: int = 2):
