@@ -166,7 +166,7 @@ Phases, one line each:
      phase 13; the fleet's and the robot's retry sweeps must be the same in
      every turn.
  13. (run after phase 11, before phase 12) the loops that stop as one CUDA
-     graph with two nested conditional while nodes (`graphs.solve_while`,
+     graph with two nested conditional while nodes (`ddp.replay_solve`,
      csrc/graph_while.cu), and resets that reuse the resident buffers.
      (a) `solve_batch(unroll_caps=False)` at B = 4096, cold caps (2 AL x 3
      DDP): the kernel_jac trot (K1) and the dense swing solve (K2), the
@@ -313,6 +313,7 @@ failure raises and exits non-zero. No CUDA device: exit 1.
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import queue
@@ -469,10 +470,13 @@ def require_replays(phase, n):
         raise AssertionError(f"phase {phase}: no CUDA graph was replayed")
 
 
-def _eager_while(prob, state, opt, **flags):
+def _eager_while(replay, prob, state, opt, unroll_caps, flags):
     """The loops that stop as the eager body (`ddp._solve_batch`), in the
-    place of their while graph (`graphs.solve_while`)."""
+    place of their while graph; the unrolled solves `replay` theirs
+    (`ddp.replay_solve`)."""
     from hkdmpc_tpu_torch.solver import ddp
+    if unroll_caps:
+        return replay(prob, state, opt, unroll_caps, flags)
     return ddp._solve_batch(prob, state, opt, unroll_caps=False, **flags)
 
 
@@ -482,14 +486,14 @@ def eager_steps():
     that stop), run eagerly while inside (the reference runs of phases 7,
     11 and 13; the main paths replay graphs)."""
     from hkdmpc_tpu_torch.mpc import fused
-    from hkdmpc_tpu_torch.solver import graphs
-    saved = fused.fleet_step, graphs.solve_while
+    from hkdmpc_tpu_torch.solver import ddp
+    saved = fused.fleet_step, ddp.replay_solve
     fused.fleet_step = fused.fleet_step_eager
-    graphs.solve_while = _eager_while
+    ddp.replay_solve = functools.partial(_eager_while, saved[1])
     try:
         yield
     finally:
-        fused.fleet_step, graphs.solve_while = saved
+        fused.fleet_step, ddp.replay_solve = saved
 
 
 def trot_batch(torch, batch, dtype, model=None):

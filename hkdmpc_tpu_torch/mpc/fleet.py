@@ -31,7 +31,7 @@ program reads it and writes the new state over it. A step runs its AL and
 DDP loops to their caps (`FleetConfig.unroll_caps`, True as in the JAX
 fleet) or stopped, and its retry loop stopped. The cold solve (`initialize`)
 takes the loops that stop (`unroll_caps=False`), as the JAX package's does:
-on the card the solve's while graph (`graphs.solve_while`). A reset
+on the card the solve's while graph (`ddp.replay_solve`). A reset
 (`initialize` again, `utils.checkpoint.load_fleet`) copies the new tables
 and state into the resident buffers (`graphs.rearm`), so the step graphs
 keyed on their addresses replay on.

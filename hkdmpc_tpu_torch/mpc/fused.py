@@ -27,9 +27,10 @@ vectors gather every robot's rows at once (`state.Xbar[:, gidx]`).
 `fleet_step` is the compiled entry point and `fused_step`, the single
 robot's, one call of it at N = 1; both take the JAX step's `model` and
 `unroll_caps`. On a CUDA device a step replays its device program
-(`solver/graphs.py`: the captured pieces `step_pre`, the solve's and
-`step_post` under the solve's while nodes; one per (`parallel_rollout`,
-flags, model, shapes), two per fleet: parallel and sequential rollout),
+(`replay_step`: `StepProgram`, the captured pieces `step_pre`, the solve's
+and `step_post` under the solve's while nodes, on the engine of
+`solver/graphs.py`; one per (`parallel_rollout`, flags, model, shapes),
+two per fleet: parallel and sequential rollout),
 and the previous state is donated as in the JAX package
 (`donate_argnums=(1,)`): the program writes the new state over it, and
 the state returned is the one passed in. On the CPU the step runs
@@ -42,7 +43,7 @@ import numpy as np
 import torch
 
 from hkdmpc_tpu_torch.models import hkd
-from hkdmpc_tpu_torch.solver import ddp
+from hkdmpc_tpu_torch.solver import ddp, graphs
 from hkdmpc_tpu_torch.solver.structs import (DYN, ConstraintState,
                                              ProblemData, SolverState,
                                              tree_map)
@@ -346,7 +347,7 @@ def _fused_core(tables, state, ints, floats, meas, opt, parallel_rollout,
     recursions, unroll_caps the AL and DDP loops run to their caps (True)
     or stopped (False), as `ddp.solve_batch`. The eager body: `step_pre`,
     the solve's pieces (`ddp._solve_batch`), `step_post`, the order in
-    which the step's device program runs them (`graphs.fused_step`).
+    which the step's device program runs them (`StepProgram`).
     Returns (new state, bundle (N, L))."""
     ddp._check_flags(kernel_jac, model, assoc_linear, assoc_backward, False,
                      False)
@@ -360,6 +361,94 @@ def _fused_core(tables, state, ints, floats, meas, opt, parallel_rollout,
     return res.state, step_post(res, ints, n_cmd)
 
 
+class StepProgram(ddp.SolveProgram):
+    """The MPC step (`_fused_core`) as a program: `pre` (`step_pre`: the
+    packed host vectors unpacked, the warm-start gathers over the resident
+    state, the problem and x0) into static (prob, state) buffers, the
+    solve's pieces on them, and `post` (`step_post`: the commands and the
+    bundle) into a static bundle, writing the new state over the resident
+    one (donated). `pre` reads the resident state before any piece writes
+    it; `post` writes it from the solve's outer carry, which aliases
+    nothing of it."""
+
+    PIECES = ("pre",) + ddp.SolveProgram.PIECES + ("post",)
+    PIECE_STAGE = dict(ddp.SolveProgram.PIECE_STAGE, pre="step_io",
+                       post="step_io")
+
+    def __init__(self, tables, state, ins, opt, n_cmd, flags, unroll_caps):
+        self.tables, self.state, self.ins, self.n_cmd = (tables, state,
+                                                         tuple(ins), n_cmd)
+        self.prob, self.st = graphs.like(step_pre(tables, state, *ins,
+                                                  n_cmd))
+        self._pre()
+        self.inputs = (self.prob, self.st)
+        self._meter(state.Xbar.device)
+        self.p = ddp.solve_pieces(self.prob, self.st, opt, clock=self.clock,
+                                  **flags)
+        c = self._setup(state.Xbar.device, unroll_caps)
+        self.bundle = graphs.like(step_post(self.p.result(c), ins[0], n_cmd))
+        self.code = ["pre"] + self.code + ["post"]
+
+    def _pre(self):
+        graphs.write((self.prob, self.st), step_pre(
+            self.tables, self.state, *self.ins, self.n_cmd))
+
+    def _post(self):
+        res = self.result()
+        graphs.write(self.bundle, step_post(res, self.ins[0], self.n_cmd))
+        if not self.warming:
+            graphs.write(self.state, res.state)
+
+
+def replay_step(tables, state, ints, floats, meas, *, opt, parallel_rollout,
+                n_cmd, kernel_jac, assoc_linear, assoc_backward, model,
+                unroll_caps):
+    """`fleet_step` on CUDA: replay the step's device program for this key
+    (a `StepProgram` built at the first call, `graphs.replay`). `tables`
+    and `state` stay where they are (the program reads them and writes the
+    new state over `state`), and the key names their addresses; ints,
+    floats and meas (host arrays or tensors) are copied into the program's
+    static buffers (`graphs.HostInput`). Nothing is read on the host.
+    Returns (state, bundle (N, L) the caller owns)."""
+    device = state.Xbar.device
+    parallel_rollout = bool(parallel_rollout) and bool(opt.MS)
+    resident = graphs.leaves((tables, state))
+    host_shapes = ((tuple(np.shape(ints)), torch.int32),
+                   (tuple(np.shape(floats)), state.Xbar.dtype),
+                   (tuple(np.shape(meas)), state.Xbar.dtype))
+    addresses = tuple(t.data_ptr() for t in resident)
+    key = ("fused_step", opt, device, parallel_rollout, int(n_cmd),
+           bool(kernel_jac), bool(assoc_linear), bool(assoc_backward),
+           None if model is None else id(model), bool(unroll_caps),
+           graphs.layout(resident), addresses, host_shapes)
+
+    def load(host):
+        for h, v in zip(host, (ints, floats, meas)):
+            h.load(v)
+
+    def build():
+        host = tuple(graphs.HostInput(shape, dtype, device)
+                     for shape, dtype in host_shapes)
+        load(host)
+        flags = dict(kernel_jac=kernel_jac, model=model,
+                     parallel_rollout=parallel_rollout,
+                     assoc_linear=assoc_linear, assoc_backward=assoc_backward)
+        prog = StepProgram(tables, state, [h.device_buf for h in host], opt,
+                           n_cmd, flags, unroll_caps)
+        label = (f"fleet_step(N={state.Xbar.shape[0]}, "
+                 f"T={state.Ubar.shape[1]}, kernel_jac={kernel_jac}, "
+                 f"parallel_rollout={parallel_rollout}, "
+                 f"assoc_backward={assoc_backward}, "
+                 f"unroll_caps={unroll_caps})")
+        return graphs.program_graph(label, device, prog, [], (model,),
+                                    host_inputs=host,
+                                    addresses=frozenset(addresses))
+
+    return graphs.replay(key, device, build,
+                         lambda g: load(g.host_inputs),
+                         lambda g: (state, g.outputs.bundle.clone()))
+
+
 def fleet_step(tables, state, ints, floats, meas, opt, parallel_rollout,
                n_cmd, kernel_jac, assoc_linear=False, assoc_backward=False,
                *, model=None, unroll_caps=False):
@@ -371,15 +460,14 @@ def fleet_step(tables, state, ints, floats, meas, opt, parallel_rollout,
     model and unroll_caps as `_fused_core` (the JAX package's defaults:
     the default model, the loops that stop).
 
-    On CUDA the step replays its device program (`graphs.fused_step`) and
+    On CUDA the step replays its device program (`replay_step`) and
     donates `state`: the new state is written over it and `state` itself
     is returned. On the CPU `_fused_core` runs eagerly and returns a new
     state. Returns (new state, bundle (N, L))."""
     if state.Xbar.device.type == "cuda":
-        from hkdmpc_tpu_torch.solver import graphs
         ddp._check_flags(kernel_jac, model, assoc_linear, assoc_backward,
                          False, False)
-        return graphs.fused_step(
+        return replay_step(
             tables, state, ints, floats, meas, opt=opt,
             parallel_rollout=parallel_rollout, n_cmd=n_cmd,
             kernel_jac=kernel_jac, assoc_linear=assoc_linear,

@@ -183,7 +183,7 @@ def forms(torch):
     graph of the same pieces, FORM_INSTANCES instances each."""
     import statistics
     from hkdmpc_tpu_torch.parallel.batch import replicate_problem
-    from hkdmpc_tpu_torch.solver import graphs
+    from hkdmpc_tpu_torch.solver import ddp, graphs
     from hkdmpc_tpu_torch.workload import trot_problem
 
     card = card_line()
@@ -216,7 +216,7 @@ def forms(torch):
           f"caps, ms per replay (CUDA events, median [min, max] of 15), on "
           f"{card}")
     for inst in range(FORM_INSTANCES):
-        prog = graphs.SolveProgram(prob, state, opt.runtime(), flags, True)
+        prog = ddp.SolveProgram(prob, state, opt.runtime(), flags, True)
         program = graphs.build_program("forms", prog)
         assembled = times(lambda: graphs.replay_program(program))
         stream = graphs._capture_stream(prob.xr.device)

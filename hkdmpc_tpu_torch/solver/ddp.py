@@ -33,7 +33,8 @@ at one host read per iteration. The two give the same decisions and values.
 Compiled entry points, as the JAX package's `solve_jit` / jitted
 `solve_batch`: on a CUDA device, `solve_batch` runs the solve as one CUDA
 graph, built once per (options, flags, model, input shapes, unroll_caps)
-and replayed (`solver/graphs.py`). `_solve_batch` is the eager body (the
+and replayed (`replay_solve`: `SolveProgram` on the engine of
+`solver/graphs.py`). `_solve_batch` is the eager body (the
 JAX package's un-jitted `_solve_batch`), `solve_pieces` the same solve cut
 at its three loops (AL, DDP, and the regularization retry of the backward
 sweep): the eager body drives the pieces on the host, the graph runs each
@@ -51,7 +52,7 @@ import torch
 
 from hkdmpc_tpu_torch.config import HSDDPOption
 from hkdmpc_tpu_torch.ops import assoc, precise
-from hkdmpc_tpu_torch.solver import backward, lq as lq_mod
+from hkdmpc_tpu_torch.solver import backward, graphs, lq as lq_mod
 from hkdmpc_tpu_torch.solver import rollout as ro_mod
 from hkdmpc_tpu_torch.solver.model_api import hkd_model_spec
 from hkdmpc_tpu_torch.solver.structs import (ConstraintState, ProblemData,
@@ -170,13 +171,11 @@ def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
     False stops a loop once no scenario would run its next iteration (on
     the CPU one host read per iteration). Same decisions and values.
 
-    On CUDA the solve replays its CUDA graph, built at the first call
-    with this key from the captured pieces of `solve_pieces`, and returns
-    tensors the caller owns: with unroll_caps the AL and DDP loops
-    unrolled (`graphs.solve_batch`), without it as two nested conditional
-    while nodes (`graphs.solve_while`); the retry loop is a while node in
-    both. On the CPU it runs `_solve_batch` eagerly. A failed capture or
-    graph build raises: nothing falls back to eager."""
+    On CUDA the solve replays its CUDA graph (`replay_solve`), built at
+    the first call with this key from the captured pieces of
+    `solve_pieces`, and returns tensors the caller owns. On the CPU it runs
+    `_solve_batch` eagerly. A failed capture or graph build raises:
+    nothing falls back to eager."""
     _check_flags(kernel_jac, model, assoc_linear, assoc_backward,
                  scan_backward, jvp_linear)
     parallel_rollout = parallel_rollout and bool(opt.MS)
@@ -188,10 +187,7 @@ def solve_batch(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
                  scan_backward=scan_backward, aug_sweep=aug_sweep,
                  jvp_linear=jvp_linear)
     if prob.xr.device.type == "cuda":
-        from hkdmpc_tpu_torch.solver import graphs
-        if unroll_caps:
-            return graphs.solve_batch(prob, state, opt, **flags)
-        return graphs.solve_while(prob, state, opt, **flags)
+        return replay_solve(prob, state, opt, unroll_caps, flags)
     return _solve_batch(prob, state, opt, unroll_caps=unroll_caps, **flags)
 
 
@@ -313,7 +309,7 @@ def solve_pieces(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
     stage ends with `clock.lap(stage)` (rollout, cost, lq, backward,
     linear_rollout, other), which writes only the clock's buffer, but the
     last stage of a piece, which the program's lap at the piece's end
-    ends (`graphs.SolveProgram.PIECE_STAGE`: inner_a and retry end in the
+    ends (`SolveProgram.PIECE_STAGE`: inner_a and retry end in the
     backward sweep, the others in "other"). A lap is a kernel node of its
     own, so an op too small to be worth one goes with a stage beside it:
     the last active node with the backward sweep, the merit weight with
@@ -569,6 +565,121 @@ def solve_pieces(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
         retry=retry, inner_b=inner_b, tail=tail, result=result,
         max_outer=int(opt.max_AL_iter), max_inner=int(opt.max_DDP_iter),
         max_retry=backward.retry_sweeps(opt.update_regularization) - 1)
+
+
+def solve_code(unroll_caps, max_outer, max_inner) -> list:
+    """The order in which a solve's device program runs its pieces
+    (`graphs.Program.code`). The retry loop is a while loop in both forms;
+    the AL and DDP loops are unrolled to their caps (unroll_caps) or while
+    loops."""
+    inner = ["inner_a", ("retry", ["retry"]), "inner_b"]
+    if unroll_caps:
+        return ["carry0"] + (["head"] + inner * max_inner
+                             + ["tail"]) * max_outer
+    return ["carry0", ("outer", ["head", ("inner", inner), "tail"])]
+
+
+class SolveProgram(graphs.Program):
+    """A solve (`solve_pieces`) on static buffers, cut into the pieces that
+    its device program runs in the order `solve_code` gives them: the
+    outer carry `c`, the inner carry `ic`, the retry carry `ia` and a
+    device flag per loop (outer, inner, retry). Each piece reads and writes
+    only those and the static inputs (prob, state), and ends by setting its
+    loop's flag, so a CUDA graph of each piece can run in any order a while
+    node gives it. The buffers are made here, outside any capture, by one
+    run of carry0, head and inner_a."""
+
+    PIECES = ("carry0", "head", "inner_a", "retry", "inner_b", "tail")
+    FLAGS = ("outer", "inner", "retry")
+    # the pieces that end in the backward sweep (`solve_pieces`)
+    PIECE_STAGE = {"inner_a": "backward", "retry": "backward"}
+    ITERATION_PIECES = ("head", "inner_b")   # (outer, inner)
+    RETRY_PIECE = "retry"
+
+    def __init__(self, prob, state, opt, flags, unroll_caps):
+        self.inputs = (prob, state)
+        self._meter(prob.xr.device)
+        self.p = solve_pieces(prob, state, opt, clock=self.clock, **flags)
+        self._setup(prob.xr.device, unroll_caps)
+
+    def _setup(self, dev, unroll_caps):
+        c = self.p.carry0()
+        ic = self.p.head(c)
+        self.c, self.ic = graphs.like(c), graphs.like(ic)
+        self.ia = graphs.like(self.p.inner_a(ic))
+        self._init(dev, solve_code(unroll_caps, self.p.max_outer,
+                                   self.p.max_inner))
+        return c
+
+    def _carry0(self):
+        graphs.write(self.c, self.p.carry0())
+        self.flag["outer"].copy_(self.p.outer_cond(self.c))
+
+    def _head(self):
+        graphs.write(self.ic, self.p.head(self.c))
+        self.flag["inner"].copy_(self.p.inner_cond(self.ic))
+
+    def _inner_a(self):
+        ia = self.p.inner_a(self.ic)
+        if self.adopt:   # the retry carry's only writer: no copy of it
+            self.ia = graphs.own(ia, (self.inputs, self.c, self.ic))
+        else:
+            graphs.write(self.ia, ia)
+        self.flag["retry"].copy_(self.p.retry_cond(self.ia))
+
+    def _retry(self):
+        graphs.write(self.ia, self.p.retry(self.ic, self.ia))
+        self.flag["retry"].copy_(self.p.retry_cond(self.ia))
+
+    def _inner_b(self):
+        graphs.write_where(self.ic, *self.p.inner_b(self.ic, self.ia))
+        self.flag["inner"].copy_(self.p.inner_cond(self.ic))
+
+    def _tail(self):
+        graphs.write_where(self.c, *self.p.tail(self.ic, self.c))
+        self.flag["outer"].copy_(self.p.outer_cond(self.c))
+
+    def result(self):
+        """The SolveResult on the static outer carry (views of it)."""
+        return self.p.result(self.c)
+
+
+def replay_solve(prob, state, opt, unroll_caps, flags) -> SolveResult:
+    """`solve_batch` on CUDA: replay the solve's device program for this
+    key (a `SolveProgram` built at the first call, `graphs.replay`) on
+    copies of prob and state; returns a SolveResult of tensors the caller
+    owns. unroll_caps=True unrolls the AL and DDP loops to their caps
+    (`solve_batch(...)` programs), False runs them as two nested
+    conditional while nodes (`solve_while(...)`, the JAX package's
+    `lax.while_loop`s); each backward sweep's retry loop is a while node in
+    both. The key: the option set, the device, the model object, the other
+    flags, unroll_caps and the inputs' layout."""
+    device = prob.xr.device
+    ins = graphs.leaves((prob, state))
+    model = flags["model"]
+    key = ("solve_batch", opt, device, None if model is None else id(model),
+           tuple(sorted((k, v) for k, v in flags.items() if k != "model")),
+           bool(unroll_caps), graphs.layout(ins))
+
+    def build():
+        static = [torch.empty(t.shape, dtype=t.dtype, device=device).copy_(t)
+                  for t in ins]
+        kind = "solve_batch" if unroll_caps else "solve_while"
+        label = (f"{kind}(B={prob.kind.shape[0]}, T={prob.kind.shape[1]}, "
+                 f"kernel_jac={flags['kernel_jac']}, "
+                 f"parallel_rollout={flags['parallel_rollout']}, "
+                 f"assoc_backward={flags['assoc_backward']}, "
+                 f"caps {opt.max_AL_iter}x{opt.max_DDP_iter})")
+        prog = SolveProgram(*graphs.rebuild((prob, state), static), opt,
+                            flags, unroll_caps)
+        return graphs.program_graph(label, device, prog, static, (model,))
+
+    def load(g):
+        for s, t in zip(g.inputs, ins):
+            s.copy_(t)
+
+    return graphs.replay(key, device, build, load,
+                         lambda g: tree_map(torch.clone, g.outputs.result()))
 
 
 def solve(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,

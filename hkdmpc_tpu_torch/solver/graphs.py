@@ -1,41 +1,39 @@
-"""Device programs of the solve and of the MPC steps: the port's
-counterpart of the JAX package's jit cache (`ddp.solve_jit` /
-`solve_batch`, `fused.fused_step` / `fleet_step` with the state donated).
+"""The device programs' engine: the port's counterpart of the JAX package's
+jit cache. The programs themselves live with their callers: the solve's
+(`ddp.SolveProgram`, replayed by `ddp.replay_solve`, `ddp.solve_batch` on
+CUDA) and the MPC step's (`fused.StepProgram`, `fused.replay_step`,
+`fused.fleet_step` on CUDA, with the state donated). This module knows
+neither, nor any kernel by name.
 
 JAX compiles each entry point once per static key and runs it as one
 device program, its `lax.while_loop`s included. Here each entry point is
-built once per key into one CUDA graph and replayed:
+built once per key into one CUDA graph and replayed (`replay`):
 
-- the key: the entry point, its static flags (the option set, `kernel_jac`,
-  `parallel_rollout`, the assoc / scan / jvp flags, `unroll_caps`, the
-  model object), and every input's shape, dtype and device; the MPC steps
-  also key on the addresses of the tables and of the resident state they
-  read and write;
-- the pieces: the solve cut at its loops (`SolveProgram` over
-  `ddp.solve_pieces`: carry0, head, inner_a, retry, inner_b, tail; the
-  steps add `pre` and `post`, `StepProgram`), each reading and writing
-  static buffers and setting its loop's device flag;
+- the key: the caller's (its static flags, its inputs' layout, the
+  addresses of what it reads and writes in place);
+- the pieces: a `Program` names its pieces, each reading and writing
+  static buffers and setting its loop's device flag, and the order that
+  runs them (`code`);
 - the build: a warm-up run of each piece on the capture stream (it builds
   and loads the kernels, makes every cached constant and the cuBLAS
   handles), then one torch capture of each piece on that stream in
   "thread_local" mode (a capture in the MPC service's worker thread leaves
   the polling thread free), all into one memory pool per device; then
-  `csrc/graph_while.cu` assembles the pieces in the program's order
-  (`solve_code`): each piece a child graph node, as often as the order
-  names it, each loop that stops a conditional while node. The retry loop
-  of every backward sweep is a while node; the AL and DDP loops are
-  unrolled to their caps (unroll_caps) or two nested while nodes;
+  `csrc/graph_while.cu` assembles the pieces in the program's order: each
+  piece a child graph node, as often as the order names it, each loop a
+  conditional while node;
 - a replay: the inputs are copied into the static buffers (host arrays
-  through pinned staging buffers, copied without blocking), then the
-  program is launched on the caller's current stream. Nothing is read on
-  the host: each piece counts its runs in a device tensor, and
+  through pinned staging buffers, copied without blocking, `HostInput`),
+  then the program is launched on the caller's current stream. Nothing is
+  read on the host: each piece counts its runs in a device tensor, and
   `fold_counts` adds them, times the kernel launches each piece recorded
-  at capture, to the kernels' counters when a counter is read
-  (`ops/counters.py`) or `stats()` is called.
+  at capture, to the kernels' counters (every counter that a kernel
+  wrapper declares to `ops/counters.install`, `counters.REGISTRY`) when a
+  counter is read or `stats()` is called.
 
 The stage clock: every program carries a device buffer with its runs
 (`StageClock`). A one-thread lap kernel (`csrc/graph_while.cu`) at the end
-of each stage of `ddp.solve_pieces` and of each piece reads the device's
+of each stage of a piece and of each piece reads the device's
 %globaltimer and adds the time since the last lap to that stage (`STAGES`),
 so the stages of a replay sum to its device time; the lap at a piece's end
 also counts the piece's run. Each replay leaves a row in a ring of
@@ -52,13 +50,6 @@ every graph, as `jax.clear_caches` frees the compiled programs. A reset of
 an MPC object copies its new tables and state into the resident ones
 (`rearm`), so the step programs keyed on their addresses replay on;
 tensors replaced for good take their graphs with them (`forget`).
-
-`solve_batch` / `solve_while` return tensors the caller owns (clones of
-the static outputs), as a jitted JAX function returns fresh arrays.
-`fused_step` keeps the state where the caller keeps it: the step's last
-piece writes the new state over the old, the counterpart of
-`donate_argnums=(1,)`, and returns that same state with a bundle the caller
-owns.
 """
 
 from __future__ import annotations
@@ -75,21 +66,9 @@ import traceback
 import numpy as np
 import torch
 
-from hkdmpc_tpu_torch.ops import (counters, linear_rollout_hkd,
-                                  riccati_dense, riccati_hkd, rollout_hkd)
-from hkdmpc_tpu_torch.solver import backward
+from hkdmpc_tpu_torch.ops import _build, counters
 from hkdmpc_tpu_torch.utils import spans
 
-# the counters that a replay adds to: the kernels' launches, the retries
-COUNTERS = ((riccati_hkd, "LAUNCHES"), (riccati_hkd, "RETRY_LAUNCHES"),
-            (riccati_dense, "LAUNCHES"), (riccati_dense, "RETRY_LAUNCHES"),
-            (backward, "RETRY_SWEEPS"),
-            (riccati_hkd, "LAUNCHES_F64"), (riccati_hkd, "RETRY_LAUNCHES_F64"),
-            (riccati_dense, "LAUNCHES_F64"),
-            (riccati_dense, "RETRY_LAUNCHES_F64"),
-            (linear_rollout_hkd, "LAUNCHES"),
-            (linear_rollout_hkd, "LAUNCHES_F64"),
-            (rollout_hkd, "LAUNCHES"), (rollout_hkd, "LAUNCHES_F64"))
 REPLAYS = 0          # every replay of every graph
 
 # the stages a program's clock splits a replay into: the nominal and the
@@ -123,24 +102,19 @@ def leaves(tree) -> list:
     return [t for item in tree for t in leaves(item)]
 
 
-def _shape(value) -> tuple:
-    """The shape of a host array or of a tensor on any device."""
-    if isinstance(value, torch.Tensor):
-        return tuple(value.shape)
-    return tuple(np.shape(value))
-
-
-def _layout(tensors) -> tuple:
+def layout(tensors) -> tuple:
+    """The shapes and dtypes of `tensors`, for a program's key."""
     return tuple((tuple(t.shape), t.dtype) for t in tensors)
 
 
-def _counts() -> tuple:
-    return tuple(counters.raw(m, n) for m, n in COUNTERS)
+def _counts() -> dict:
+    """{(module, name): value} of every installed counter."""
+    return {c: counters.raw(*c) for c in counters.REGISTRY}
 
 
 def _set_counts(values) -> None:
-    for (m, n), v in zip(COUNTERS, values):
-        counters.set_raw(m, n, v)
+    for c, v in values.items():
+        counters.set_raw(*c, v)
 
 
 def _node_count(graph):
@@ -187,7 +161,7 @@ class _Graph:
     graph: object
     inputs: list          # static input buffers, in the order of the key
     outputs: object       # static outputs (a tree)
-    launches: tuple       # per COUNTERS, recorded at capture
+    launches: dict        # {counter: launches} of the last replay
     capture_s: float
     nodes: object
     keep: tuple = ()      # objects the key names by identity
@@ -204,7 +178,7 @@ class _Graph:
     clock: object = None        # the stage clock as last read (numpy)
 
 
-class _HostInput:
+class HostInput:
     """A graph input that arrives from the host: a static device buffer fed
     from a pinned staging buffer without blocking. Before the staging
     buffer is written again, the copy out of it must have run (an event)."""
@@ -272,8 +246,10 @@ def _capture(label, device, body) -> tuple:
             raise
         raise err from exc
     finally:
-        recorded = tuple(a - b for a, b in zip(_counts(), before))
-        _set_counts(before)   # a capture launches nothing
+        after = _counts()
+        recorded = {c: v - before.get(c, 0) for c, v in after.items()}
+        # a capture launches nothing
+        _set_counts({c: before.get(c, 0) for c in after})
     return graph, recorded, time.perf_counter() - t0, _node_count(graph)
 
 
@@ -320,24 +296,12 @@ def own(tree, others):
     for t in leaves(tree):
         out.append(t.clone() if _storage(t) in seen else t)
         seen.add(_storage(t))
-    return _rebuild(tree, out)
+    return rebuild(tree, out)
 
 
 def like(tree):
     """Static buffers of tree's layout (`torch.empty_like` per leaf)."""
-    return _rebuild(tree, [torch.empty_like(t) for t in leaves(tree)])
-
-
-def solve_code(unroll_caps, max_outer, max_inner) -> list:
-    """The order in which a solve's device program runs its pieces: a list
-    of items, each a piece's name or (flag, [items]), a while loop on that
-    device flag. The retry loop is a while loop in both forms; the AL and
-    DDP loops are unrolled to their caps (unroll_caps) or while loops."""
-    inner = ["inner_a", ("retry", ["retry"]), "inner_b"]
-    if unroll_caps:
-        return ["carry0"] + (["head"] + inner * max_inner
-                             + ["tail"]) * max_outer
-    return ["carry0", ("outer", ["head", ("inner", inner), "tail"])]
+    return rebuild(tree, [torch.empty_like(t) for t in leaves(tree)])
 
 
 class StageClock:
@@ -430,12 +394,15 @@ class Program:
     """Pieces on static buffers and the order that runs them. A subclass
     names its pieces (`PIECES`: a method `_<name>` each, reading and
     writing only static buffers) and its loops' device flags (`FLAGS`),
-    and sets `code` (`solve_code`'s items) and the buffers; `_init`
-    makes the flags and the meter (`StageClock`: `clock`, and its `runs`,
-    each piece's runs since the program was made, row 0, and in its last
-    run, row 1, counted on the device). The program's first piece begins
-    a replay on the clock; each piece ends with a lap that counts its run
-    and ends its last stage (`PIECE_STAGE`, else "other").
+    and sets the buffers and `code`, the order: a list of items, each a
+    piece's name or (flag, [items]), a while loop on that device flag;
+    `_init` makes the flags and the meter (`StageClock`: `clock`, and its
+    `runs`, each piece's runs since the program was made, row 0, and in its
+    last run, row 1, counted on the device). The program's first piece
+    begins a replay on the clock; each piece ends with a lap that counts
+    its run and ends its last stage (`PIECE_STAGE`, else "other").
+    `stats()` reports the runs of `ITERATION_PIECES` in a replay as its
+    iterations and those of `RETRY_PIECE` as its retries.
 
     `run_on_host` drives the pieces in `code`'s order and reads each flag
     on the host where a while node would test it: on the CPU the tests
@@ -444,6 +411,8 @@ class Program:
     PIECES: tuple = ()
     FLAGS: tuple = ()
     PIECE_STAGE: dict = {}
+    ITERATION_PIECES: tuple = ()
+    RETRY_PIECE = None
 
     def _meter(self, dev) -> None:
         """The runs and the stage clock (`StageClock`, made once)."""
@@ -505,120 +474,11 @@ class Program:
         return dict(zip(self.PIECES, self.runs[row].tolist()))
 
 
-class SolveProgram(Program):
-    """A solve (`ddp.solve_pieces`) on static buffers, cut into the pieces
-    that its device program runs in the order `solve_code` gives them: the
-    outer carry `c`, the inner carry `ic`, the retry carry `ia` and a
-    device flag per loop (outer, inner, retry). Each piece reads and writes
-    only those and the static inputs (prob, state), and ends by setting its
-    loop's flag, so a CUDA graph of each piece can run in any order a while
-    node gives it. The buffers are made here, outside any capture, by one
-    run of carry0, head and inner_a."""
-
-    PIECES = ("carry0", "head", "inner_a", "retry", "inner_b", "tail")
-    FLAGS = ("outer", "inner", "retry")
-    # the pieces that end in the backward sweep (`ddp.solve_pieces`)
-    PIECE_STAGE = {"inner_a": "backward", "retry": "backward"}
-
-    def __init__(self, prob, state, opt, flags, unroll_caps):
-        from hkdmpc_tpu_torch.solver import ddp
-        self.inputs = (prob, state)
-        self._meter(prob.xr.device)
-        self.p = ddp.solve_pieces(prob, state, opt, clock=self.clock,
-                                  **flags)
-        self._setup(prob.xr.device, unroll_caps)
-
-    def _setup(self, dev, unroll_caps):
-        c = self.p.carry0()
-        ic = self.p.head(c)
-        self.c, self.ic = like(c), like(ic)
-        self.ia = like(self.p.inner_a(ic))
-        self._init(dev, solve_code(unroll_caps, self.p.max_outer,
-                                   self.p.max_inner))
-        return c
-
-    def _carry0(self):
-        write(self.c, self.p.carry0())
-        self.flag["outer"].copy_(self.p.outer_cond(self.c))
-
-    def _head(self):
-        write(self.ic, self.p.head(self.c))
-        self.flag["inner"].copy_(self.p.inner_cond(self.ic))
-
-    def _inner_a(self):
-        ia = self.p.inner_a(self.ic)
-        if self.adopt:   # the retry carry's only writer: no copy of it
-            self.ia = own(ia, (self.inputs, self.c, self.ic))
-        else:
-            write(self.ia, ia)
-        self.flag["retry"].copy_(self.p.retry_cond(self.ia))
-
-    def _retry(self):
-        write(self.ia, self.p.retry(self.ic, self.ia))
-        self.flag["retry"].copy_(self.p.retry_cond(self.ia))
-
-    def _inner_b(self):
-        write_where(self.ic, *self.p.inner_b(self.ic, self.ia))
-        self.flag["inner"].copy_(self.p.inner_cond(self.ic))
-
-    def _tail(self):
-        write_where(self.c, *self.p.tail(self.ic, self.c))
-        self.flag["outer"].copy_(self.p.outer_cond(self.c))
-
-    def result(self):
-        """The SolveResult on the static outer carry (views of it)."""
-        return self.p.result(self.c)
-
-
-class StepProgram(SolveProgram):
-    """The MPC step (`fused._fused_core`) as a program: `pre`
-    (`fused.step_pre`: the packed host vectors unpacked, the warm-start
-    gathers over the resident state, the problem and x0) into static
-    (prob, state) buffers, the solve's pieces on them, and `post`
-    (`fused.step_post`: the commands and the bundle) into a static bundle,
-    writing the new state over the resident one (donated). `pre` reads the
-    resident state before any piece writes it; `post` writes it from the
-    solve's outer carry, which aliases nothing of it."""
-
-    PIECES = ("pre",) + SolveProgram.PIECES + ("post",)
-    PIECE_STAGE = dict(SolveProgram.PIECE_STAGE, pre="step_io",
-                       post="step_io")
-
-    def __init__(self, tables, state, ins, opt, n_cmd, flags, unroll_caps):
-        from hkdmpc_tpu_torch.mpc import fused
-        from hkdmpc_tpu_torch.solver import ddp
-        self.tables, self.state, self.ins, self.n_cmd = (tables, state,
-                                                         tuple(ins), n_cmd)
-        self.prob, self.st = like(fused.step_pre(tables, state, *ins,
-                                                  n_cmd))
-        self._pre()
-        self.inputs = (self.prob, self.st)
-        self._meter(state.Xbar.device)
-        self.p = ddp.solve_pieces(self.prob, self.st, opt, clock=self.clock,
-                                  **flags)
-        c = self._setup(state.Xbar.device, unroll_caps)
-        self.bundle = like(fused.step_post(self.p.result(c), ins[0],
-                                            n_cmd))
-        self.code = ["pre"] + self.code + ["post"]
-
-    def _pre(self):
-        from hkdmpc_tpu_torch.mpc import fused
-        write((self.prob, self.st), fused.step_pre(
-            self.tables, self.state, *self.ins, self.n_cmd))
-
-    def _post(self):
-        from hkdmpc_tpu_torch.mpc import fused
-        res = self.result()
-        write(self.bundle, fused.step_post(res, self.ins[0], self.n_cmd))
-        if not self.warming:
-            write(self.state, res.state)
-
-
 @dataclasses.dataclass
 class _Piece:
     name: str
     graph: object         # torch.cuda.CUDAGraph, kept: its pool memory
-    launches: tuple       # per COUNTERS, recorded at capture
+    launches: dict        # {counter: launches} recorded at capture
     capture_s: float
     nodes: object
 
@@ -627,7 +487,6 @@ class _Piece:
 def _program_lib():
     """The native assembly of the device programs (csrc/graph_while.cu),
     built and loaded at first use."""
-    from hkdmpc_tpu_torch.ops import _build
     lib = _build.load("graph_while")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.graph_program_build.argtypes = [
@@ -648,7 +507,6 @@ def _program_lib():
 def _clock_lib():
     """The stage clock's lap and stamp kernels, in the same native library
     (csrc/graph_while.cu)."""
-    from hkdmpc_tpu_torch.ops import _build
     lib = _build.load("graph_while")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.stage_lap_launch.argtypes = [vp, ci, ci, ci, ci, ci, vp]
@@ -662,7 +520,7 @@ MAX_LEVELS = 8   # graph levels whose native nodes the assembly counts
 
 
 def encode(code, pieces, flags) -> list:
-    """`code` (`solve_code`'s items) as the assembly's int32 program: a
+    """`code` (a `Program`'s order) as the assembly's int32 program: a
     piece is (0, its index in `pieces`), a while loop (1, its flag's index
     in `flags`, the length of its body's encoding) and then its body."""
     out = []
@@ -761,18 +619,21 @@ def build_program(label, prog) -> "_Graph":
     """`prog` (a `Program` on CUDA tensors) as a device program outside the
     entry points' cache: run it with `replay_program`; its counts stay in
     `prog.runs` (they are not folded into the counters)."""
-    return _program_graph(label, prog.runs.device, prog, [], ())
+    return program_graph(label, prog.runs.device, prog, [], ())
 
 
-def _program_graph(label, device, prog, inputs, keep, **kw) -> _Graph:
+def program_graph(label, device, prog, inputs, keep, **kw) -> _Graph:
+    """`prog` built into a device program (`_build_program`) labelled
+    `label`: its static inputs `inputs` (the buffers `replay`'s load
+    writes), `keep` the objects its key names by identity; `kw` more
+    fields of `_Graph` (host_inputs, addresses)."""
     native, pieces, capture_s, assembly_s, taken = _build_program(
         label, device, prog)
     if not _OFFSETS.get(str(torch.device(device))):
         _measure_offset(device)
     known = [p.nodes for p in pieces]
     return _Graph(label=label, graph=native, inputs=inputs, outputs=prog,
-                  launches=tuple(0 for _ in COUNTERS),
-                  capture_s=capture_s + assembly_s,
+                  launches={}, capture_s=capture_s + assembly_s,
                   nodes=None if None in known else sum(known)
                   + sum(native.nodes),
                   keep=keep, pieces=tuple(pieces),
@@ -788,6 +649,28 @@ def replay_program(g: _Graph) -> None:
     g.graph.launch(g.label)
     g.replays += 1
     REPLAYS += 1
+
+
+def replay(key, device, build, load, result):
+    """An entry point's replay on `device`, under the lock: the program of
+    `key`, on a miss `build()` (a `_Graph`, `program_graph`; its inputs
+    loaded) inside span `graphs.build`, else `load(g)` (this call's inputs
+    copied into its static buffers) inside `graphs.load`, is launched on
+    the current stream inside `graphs.launch`; returns `result(g)` (what
+    the caller owns), taken inside `graphs.clone`."""
+    with torch.cuda.device(device), _LOCK:
+        g = _GRAPHS.get(key)
+        if g is None:
+            with spans.span("graphs.build"):
+                g = _GRAPHS[key] = build()
+        else:
+            with spans.span("graphs.load", request=g.replays):
+                load(g)
+        k = g.replays
+        with spans.span("graphs.launch", request=k):
+            replay_program(g)
+        with spans.span("graphs.clone", request=k):
+            return result(g)
 
 
 def fold_counts() -> None:
@@ -807,86 +690,18 @@ def _fold(g) -> None:
     n = len(g.pieces)
     total, last = meter[:2 * n].reshape(2, n).tolist()
     g.clock = meter[2 * n:].reshape(1 + RING_ROWS, 2 + len(STAGES))
-    added = [0] * len(COUNTERS)
+    counts = _counts()
     for p, now, before in zip(g.pieces, total, g.folded):
-        for i, v in enumerate(p.launches):
-            added[i] += (now - before) * v
-    _set_counts(tuple(a + b for a, b in zip(_counts(), added)))
+        for c, v in p.launches.items():
+            counts[c] += (now - before) * v
+    _set_counts(counts)
     g.folded, g.last_runs, g.folded_replays = total, last, g.replays
-    g.launches = tuple(sum(n * p.launches[i] for n, p in zip(last, g.pieces))
-                       for i in range(len(COUNTERS)))
+    g.launches = {c: sum(n * p.launches.get(c, 0)
+                         for n, p in zip(last, g.pieces))
+                  for c in counts}
 
 
-def _program(kind, prob, state, opt, unroll_caps, flags):
-    """`ddp.solve_batch` on CUDA: replay the solve's device program for
-    this key (built at the first call) on copies of prob and state;
-    returns a SolveResult of tensors the caller owns."""
-    from hkdmpc_tpu_torch.solver.structs import tree_map
-
-    device = prob.xr.device
-    ins = leaves((prob, state))
-    key = _solve_key(opt, device, flags, ins, unroll_caps=unroll_caps)
-    with torch.cuda.device(device):
-        with _LOCK:
-            g = _GRAPHS.get(key)
-            if g is None:
-                with spans.span("graphs.build"):
-                    static = _static_copies(ins, device)
-                    sp, ss = _rebuild((prob, state), static)
-                    label = (f"{kind}(B={prob.kind.shape[0]}, "
-                             f"T={prob.kind.shape[1]}, "
-                             f"kernel_jac={flags['kernel_jac']}, "
-                             f"parallel_rollout="
-                             f"{flags['parallel_rollout']}, "
-                             f"assoc_backward={flags['assoc_backward']}, "
-                             f"caps {opt.max_AL_iter}x{opt.max_DDP_iter})")
-                    prog = SolveProgram(sp, ss, opt, flags, unroll_caps)
-                    g = _program_graph(label, device, prog, static,
-                                       (flags["model"],))
-                    _GRAPHS[key] = g
-            else:
-                with spans.span("graphs.load", request=g.replays):
-                    for s, t in zip(g.inputs, ins):
-                        s.copy_(t)
-            k = g.replays
-            with spans.span("graphs.launch", request=k):
-                replay_program(g)
-            with spans.span("graphs.clone", request=k):
-                return tree_map(lambda t: t.clone(), g.outputs.result())
-
-
-def solve_batch(prob, state, opt, **flags):
-    """`ddp.solve_batch` on CUDA with unroll_caps=True: the AL and DDP
-    loops unrolled to their caps, each backward sweep's retry loop a
-    conditional while node."""
-    return _program("solve_batch", prob, state, opt, True, flags)
-
-
-def solve_while(prob, state, opt, **flags):
-    """`ddp.solve_batch` on CUDA with unroll_caps=False: the AL and DDP
-    loops as two nested conditional while nodes, the retry loop a third
-    inside them (the JAX package's `lax.while_loop`s)."""
-    return _program("solve_while", prob, state, opt, False, flags)
-
-
-def _solve_key(opt, device, flags, ins, unroll_caps) -> tuple:
-    """A solve graph's key: the option set, the device, the model object,
-    the other flags, unroll_caps and the inputs' layout."""
-    model = flags["model"]
-    return ("solve_batch", opt, device, None if model is None else id(model),
-            tuple(sorted((k, v) for k, v in flags.items() if k != "model")),
-            bool(unroll_caps), _layout(ins))
-
-
-def _static_copies(ins, device) -> list:
-    """Static input buffers holding copies of `ins`."""
-    static = [torch.empty(t.shape, dtype=t.dtype, device=device) for t in ins]
-    for s, t in zip(static, ins):
-        s.copy_(t)
-    return static
-
-
-def _rebuild(tree, tensors):
+def rebuild(tree, tensors):
     """tree with its tensor leaves replaced, in order, by `tensors`."""
     it = iter(tensors)
 
@@ -903,63 +718,6 @@ def _rebuild(tree, tensors):
         return obj
 
     return sub(tree)
-
-
-def fused_step(tables, state, ints, floats, meas, *, opt, parallel_rollout,
-               n_cmd, kernel_jac, assoc_linear, assoc_backward, model,
-               unroll_caps):
-    """`fused.fleet_step` on CUDA: replay the step's device program for
-    this key (`StepProgram`, built at the first call). `tables` and `state`
-    stay where they are (the program reads them and writes the new state
-    over `state`); ints, floats and meas (host arrays or tensors) are
-    copied into the program's static buffers. Nothing is read on the host.
-    Returns (state, bundle (N, L) the caller owns)."""
-    device = state.Xbar.device
-    parallel_rollout = bool(parallel_rollout) and bool(opt.MS)
-    resident = leaves((tables, state))
-    host_shapes = ((_shape(ints), torch.int32),
-                   (_shape(floats), state.Xbar.dtype),
-                   (_shape(meas), state.Xbar.dtype))
-    addresses = tuple(t.data_ptr() for t in resident)
-    key = ("fused_step", opt, device, parallel_rollout, int(n_cmd),
-           bool(kernel_jac), bool(assoc_linear), bool(assoc_backward),
-           None if model is None else id(model), bool(unroll_caps),
-           _layout(resident), addresses, host_shapes)
-    with torch.cuda.device(device):
-        with _LOCK:
-            g = _GRAPHS.get(key)
-            new = g is None
-            if new:
-                host = tuple(_HostInput(shape, dtype, device)
-                             for shape, dtype in host_shapes)
-            else:
-                host = g.host_inputs
-            with spans.span("graphs.load", request=0 if new else g.replays):
-                for h, v in zip(host, (ints, floats, meas)):
-                    h.load(v)
-            if new:
-                flags = dict(kernel_jac=kernel_jac, model=model,
-                             parallel_rollout=parallel_rollout,
-                             assoc_linear=assoc_linear,
-                             assoc_backward=assoc_backward)
-                with spans.span("graphs.build"):
-                    prog = StepProgram(tables, state,
-                                       [h.device_buf for h in host], opt,
-                                       n_cmd, flags, unroll_caps)
-                    n = state.Xbar.shape[0]
-                    label = (f"fleet_step(N={n}, T={state.Ubar.shape[1]}, "
-                             f"kernel_jac={kernel_jac}, parallel_rollout="
-                             f"{parallel_rollout}, assoc_backward="
-                             f"{assoc_backward}, unroll_caps={unroll_caps})")
-                    g = _program_graph(label, device, prog, [], (model,),
-                                       host_inputs=host,
-                                       addresses=frozenset(addresses))
-                    _GRAPHS[key] = g
-            k = g.replays
-            with spans.span("graphs.launch", request=k):
-                replay_program(g)
-            with spans.span("graphs.clone", request=k):
-                return state, g.outputs.bundle.clone()
 
 
 def stats() -> list:
@@ -980,22 +738,23 @@ def stats() -> list:
     replay, and the clock offset of the program's device as measured now
     (`clock_offset`: device ns less host ns, and its uncertainty)."""
     name = lambda m, n: f"{m.__name__.rsplit('.', 1)[-1]}.{n}"
-    per = lambda launches: {name(m, n): v
-                            for (m, n), v in zip(COUNTERS, launches)}
+    per = lambda launches: {name(*c): dict(launches).get(c, 0)
+                            for c in counters.REGISTRY}
     fold_counts()
     offsets = _refresh_offsets()
     out = []
     for g in list(_GRAPHS.values()):
         runs = dict(zip((p.name for p in g.pieces), g.last_runs))
+        prog = g.outputs
         known = all(p.nodes is not None for p in g.pieces)
         stage_ms, device_ms = ((None, None) if g.clock is None
                                else stage_summary(g.clock))
         out.append(dict(
             label=g.label, replays=g.replays, capture_s=g.capture_s,
             nodes=g.nodes, launches=per(g.launches),
-            iterations=((runs.get("head", 0), runs.get("inner_b", 0))
+            iterations=(tuple(runs.get(p, 0) for p in prog.ITERATION_PIECES)
                         if g.replays else None),
-            retries=runs.get("retry", 0) if g.replays else None,
+            retries=runs.get(prog.RETRY_PIECE, 0) if g.replays else None,
             nodes_run=(sum(p.nodes * runs.get(p.name, 0) for p in g.pieces)
                        if known and g.replays else None),
             native_nodes=g.native_nodes, assembly_s=g.assembly_s,
@@ -1225,3 +984,6 @@ def clear_graphs() -> None:
         _POOLS.clear()
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
+
+
+counters.fold_with(fold_counts)

@@ -1,5 +1,5 @@
 """The pieces that the device program of `solve_batch` captures
-(`graphs.SolveProgram`, unroll_caps: the AL and DDP loops unrolled, the
+(`ddp.SolveProgram`, unroll_caps: the AL and DDP loops unrolled, the
 retry loop a while loop on its device flag) on the CPU in float64, on the
 default model's path (kernel_jac; the dense path:
 `test_torch_graph_body_dense.py`), driven in the program's order

@@ -1,5 +1,5 @@
 """The pieces that the device program of `solve_batch` captures
-(`graphs.SolveProgram`, unroll_caps) on the CPU in float64 on the dense
+(`ddp.SolveProgram`, unroll_caps) on the CPU in float64 on the dense
 path (the swing-constraint model; the default model's path:
 `test_torch_graph_body.py`), driven in the program's order
 (`_torch_twin.drive`): after one warm-up run every piece runs with no host

@@ -1,5 +1,5 @@
 """The pieces that the device programs of `fleet_step` and `fused_step`
-capture (`graphs.StepProgram`: `pre`, the solve's pieces with the AL and
+capture (`fused.StepProgram`: `pre`, the solve's pieces with the AL and
 DDP loops unrolled and the retry loop a while loop, `post` writing the new
 state over the resident one) on the CPU in float64, driven in the
 program's order (`_torch_twin.drive`): after one warm-up run, every piece

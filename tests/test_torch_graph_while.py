@@ -1,5 +1,5 @@
 """The loops that stop cut into the pieces that the card's while graph runs
-(`graphs.SolveProgram` over `ddp.solve_pieces`, unroll_caps=False), on the
+(`ddp.SolveProgram` over `ddp.solve_pieces`, unroll_caps=False), on the
 CPU in float64: a host loop of this file drives the pieces in the while
 nodes' order (carry0; while the outer flag: head, while the inner flag:
 inner_a, while the retry flag: retry, inner_b; tail), reading the three
@@ -67,10 +67,10 @@ def _drive(prog):
 
 def _pieces_solve(t, opt, flags):
     """(the pieces' SolveResult, inner iterations run, SolveProgram) on
-    static copies of the inputs, as `graphs.solve_while` makes them."""
+    static copies of the inputs, as `ddp.replay_solve` makes them."""
     sp, ss = (tstructs.tree_map(torch.clone, t["prob"]),
               tstructs.tree_map(torch.clone, t["state"]))
-    prog = graphs.SolveProgram(sp, ss, opt, flags, unroll_caps=False)
+    prog = ddp.SolveProgram(sp, ss, opt, flags, unroll_caps=False)
     n_inner = _drive(prog)
     return (tstructs.tree_map(torch.clone, prog.result()), n_inner, prog)
 

@@ -7,7 +7,7 @@ tested on the CPU (the port only; no JAX):
   kernel; a device that is neither the CPU nor CUDA raises, and so does the
   kernel's wrapper on CPU tensors;
 - the kernel's launch counters are folded from the device programs
-  (`solver/graphs.COUNTERS`);
+  (`ops/counters.REGISTRY`);
 - the bytes and operations of one kernel call
   (`ops/riccati_bound.linear_rollout_work`) against a count by hand at
   B = 4096, T = 75 (60 DYN, 4 RESET, 11 PAD), float32 and float64.
@@ -19,10 +19,10 @@ import numpy as np
 import pytest
 import torch
 
-from hkdmpc_tpu_torch.ops import linear_rollout_hkd as lr
+from hkdmpc_tpu_torch.ops import counters, linear_rollout_hkd as lr
 from hkdmpc_tpu_torch.ops import riccati_bound as rb
 from hkdmpc_tpu_torch.parallel.batch import perturb_scenarios, replicate_problem
-from hkdmpc_tpu_torch.solver import graphs, rollout as ro
+from hkdmpc_tpu_torch.solver import rollout as ro
 from hkdmpc_tpu_torch.workload import trot_problem
 
 FLAGS = [(True, True), (False, True), (True, False), (False, False)]
@@ -88,7 +88,7 @@ def test_launch_counters_fold_from_programs():
     """Both counters are program counters: `graphs.stats()` reports them
     per program beside K1's, and `fold_counts` adds a replay's runs."""
     for name in ("LAUNCHES", "LAUNCHES_F64"):
-        assert (lr, name) in graphs.COUNTERS
+        assert (lr, name) in counters.REGISTRY
     assert type(lr).__name__ == "CountingModule"
 
 

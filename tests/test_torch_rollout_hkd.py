@@ -9,7 +9,7 @@ tested on the CPU (the port only; no JAX):
 - a model with its own transition maps takes the generic path;
 - the kernel's wrapper raises on CPU tensors, another device raises in the
   dispatch, and the launch counters are folded from the device programs
-  (`solver/graphs.COUNTERS`);
+  (`ops/counters.REGISTRY`);
 - the bytes and operations of one kernel launch
   (`ops/riccati_bound.rollout_work`) against a count by hand at B = 4096,
   T = 75 (60 DYN, 4 RESET, 11 PAD), float32 and float64.
@@ -22,11 +22,11 @@ import numpy as np
 import pytest
 import torch
 
-from hkdmpc_tpu_torch.ops import consts, hkd_tminor, precise
+from hkdmpc_tpu_torch.ops import consts, counters, hkd_tminor, precise
 from hkdmpc_tpu_torch.ops import riccati_bound as rb
 from hkdmpc_tpu_torch.ops import rollout_hkd
 from hkdmpc_tpu_torch.parallel.batch import perturb_scenarios, replicate_problem
-from hkdmpc_tpu_torch.solver import ddp, graphs, rollout as ro
+from hkdmpc_tpu_torch.solver import ddp, rollout as ro
 from hkdmpc_tpu_torch.solver.model_api import hkd_model_spec
 from hkdmpc_tpu_torch.solver.structs import DYN, PAD, RESET, Rollout
 from hkdmpc_tpu_torch.workload import trot_problem
@@ -236,7 +236,7 @@ def test_launch_counters_fold_from_programs():
     per program beside the other kernels', and `fold_counts` adds a
     replay's runs."""
     for name in ("LAUNCHES", "LAUNCHES_F64"):
-        assert (rollout_hkd, name) in graphs.COUNTERS
+        assert (rollout_hkd, name) in counters.REGISTRY
         before = getattr(rollout_hkd, name)
         setattr(rollout_hkd, name, before + 3)
         assert getattr(rollout_hkd, name) == before + 3

@@ -15,10 +15,14 @@ clock with the bookkeeping a device replay does (`graphs.StageClock`).
   `hkd.*` events under `torch.profiler` and no profiler event without one,
   and a `FleetMPC` step's spans; `graphs.outside_program` over programs
   whose clocks and spans are known, and `graphs.label_gap`.
+- The counters (`ops/counters.REGISTRY`): the kernels' 13, and one that a
+  module installs is folded and reported with no edit to `graphs.py`.
 
 The trot at plan 0.3 s (T = 45), 3 perturbed scenarios, runtime caps."""
 import collections
+import sys
 import time
+import types
 
 import numpy as np
 import pytest
@@ -28,6 +32,7 @@ from hkdmpc_tpu_torch.config import HSDDPOption
 from hkdmpc_tpu_torch.mpc import fused
 from hkdmpc_tpu_torch.mpc.fleet import FleetConfig, FleetMPC
 from hkdmpc_tpu_torch.mpc.solver import default_stand_state
+from hkdmpc_tpu_torch.ops import counters
 from hkdmpc_tpu_torch.parallel.batch import (perturb_scenarios,
                                              replicate_problem)
 from hkdmpc_tpu_torch.reference.quad_reference import QuadReference
@@ -66,9 +71,9 @@ def trot():
 
 def _program(trot, unroll_caps, **flags):
     prob, state, opt = trot
-    return graphs.SolveProgram(tree_map(torch.clone, prob),
-                               tree_map(torch.clone, state), opt,
-                               _flags(**flags), unroll_caps)
+    return ddp.SolveProgram(tree_map(torch.clone, prob),
+                            tree_map(torch.clone, state), opt,
+                            _flags(**flags), unroll_caps)
 
 
 def _rows(prog) -> np.ndarray:
@@ -169,8 +174,8 @@ def test_step_program_laps_its_io_and_equals_the_eager_step(tmp_path):
     flags = dict(kernel_jac=True, model=None, parallel_rollout=seq,
                  assoc_linear=False, assoc_backward=False)
     resident = tree_map(torch.clone, state)
-    prog = drive(graphs.StepProgram(tables, resident, ins, opt, n_cmd,
-                                    flags, True))
+    prog = drive(fused.StepProgram(tables, resident, ins, opt, n_cmd,
+                                   flags, True))
     want_state, want_bundle = fused.fleet_step_eager(
         tables, state, ints, floats, meas, opt, seq, n_cmd, True,
         unroll_caps=True)
@@ -316,3 +321,65 @@ def test_outside_program_splits_the_gaps_by_span(trot, monkeypatch):
         assert s["device_ms"] > 0 and s["stage_ms"]["rollout"] > 0
         assert s["laps"]["rollout"] > 0
         assert s["clock_offset"] == dict(ns=0, uncertainty_ns=0)
+
+
+KERNEL_COUNTERS = sorted(
+    [f"hkdmpc_tpu_torch.ops.{m}.{n}" for m in ("riccati_hkd", "riccati_dense")
+     for n in ("LAUNCHES", "RETRY_LAUNCHES", "LAUNCHES_F64",
+               "RETRY_LAUNCHES_F64")]
+    + [f"hkdmpc_tpu_torch.ops.{m}.{n}"
+       for m in ("linear_rollout_hkd", "rollout_hkd")
+       for n in ("LAUNCHES", "LAUNCHES_F64")]
+    + ["hkdmpc_tpu_torch.solver.backward.RETRY_SWEEPS"])
+
+
+class _TwoPieces(graphs.Program):
+    PIECES = ("a", "b")
+
+    def __init__(self):
+        self._init("cpu", ["a", "b", "b"])
+
+    def _a(self):
+        pass
+
+    def _b(self):
+        pass
+
+
+def test_an_installed_counter_is_folded_and_reported(monkeypatch):
+    """The registry holds the kernels' 13 counters, once each. A module
+    that declares a counter to `counters.install` has a program's runs
+    folded into it (`graphs.fold_counts`, on a read from outside the
+    module) and `stats()['launches']` report it as '<module>.<NAME>'
+    beside the 13: a program of two pieces, `b` run twice in its one
+    replay and recorded at capture with 5 launches, adds 10."""
+    assert len(counters.REGISTRY) == len(KERNEL_COUNTERS)
+    assert sorted(f"{m.__name__}.{n}"
+                  for m, n in counters.REGISTRY) == KERNEL_COUNTERS
+    monkeypatch.setattr(counters, "REGISTRY", list(counters.REGISTRY))
+    monkeypatch.setattr(graphs, "_GRAPHS", {})
+    monkeypatch.setattr(graphs, "_OFFSETS", {})
+    monkeypatch.setattr(graphs, "clock_offset",
+                        lambda device: (time.time_ns(), 0, 0))
+    mod = types.ModuleType("hkd_probe_kernel")
+    mod.LAUNCHES = 0
+    monkeypatch.setitem(sys.modules, mod.__name__, mod)
+    counters.install(mod.__name__, ("LAUNCHES",))
+    assert counters.REGISTRY[-1] == (mod, "LAUNCHES")
+    prog = _TwoPieces()
+    prog.warm_up()
+    prog.run_on_host()
+    pieces = tuple(graphs._Piece(name, None, launches, 0.0, 1)
+                   for name, launches in (("a", {}),
+                                          ("b", {(mod, "LAUNCHES"): 5})))
+    graphs._GRAPHS["probe"] = graphs._Graph(
+        label="probe", graph=None, inputs=[], outputs=prog, launches={},
+        capture_s=0.0, nodes=2, pieces=pieces, folded=[0, 0], replays=1)
+    assert mod.LAUNCHES == 10
+    (st,) = graphs.stats()
+    assert st["launches"] == {
+        **{name.split(".", 2)[2]: 0 for name in KERNEL_COUNTERS},
+        "hkd_probe_kernel.LAUNCHES": 10}
+    assert st["pieces"]["b"]["launches"]["hkd_probe_kernel.LAUNCHES"] == 5
+    assert st["pieces"]["b"]["runs"] == 2 and st["nodes_run"] == 3
+    assert mod.LAUNCHES == 10

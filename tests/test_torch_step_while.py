@@ -8,7 +8,7 @@ with the same keywords:
   `unroll_caps` True and False;
 - one robot's `fused_step(model=hkd_model_spec(swing_constraint=True))` at
   plan 0.1 s after 3 updates, the loops that stop;
-- the step's device program (`graphs.StepProgram`: `pre`, the solve's
+- the step's device program (`fused.StepProgram`: `pre`, the solve's
   pieces, `post`) driven on the host in its order, every piece under
   `_torch_twin.no_host_reads`, equals `fused._fused_core` bit for bit.
 
