@@ -286,8 +286,23 @@ Phases, one line each:
      program's carry0 and inner_b (1 + inner_b a replay or a parallel step;
      0 in the sequential step program), never in f64. Alone:
      `c.rollout_phase(c.build_phase())`.
+ 18. (run last) the cost kernel (cost_hkd, built in phase 1) alone, on
+     phase 16's inputs: the line search's four candidates from the rollout
+     kernel, in float32 and float64, and the nominal evaluation (the first
+     candidate alone); cost, g_all, h, feasibility and the maxima against
+     the plain version (`compute_cost`, `dynamics_feasibility`,
+     `max_violations`) in f64 (f32: within 1e-5 of each output's largest
+     magnitude or 10 x the plain f32 error; f64: 1e-13); the launch (median
+     of 10, CUDA events) and the nominal launch, each beside the least time
+     of `riccati_bound.cost_work` (bytes over 3.35 TB/s), the plain version
+     (median of 3); ptxas's registers and spills, threads and blocks per
+     SM; the phase's seconds. Phases 3, 5 and 7 hold the cost kernel to
+     the main path: it launches once per run of a program's carry0,
+     inner_a and inner_b with the default model (5 on a trot replay of
+     2 AL x 1 DDP; both fleet step programs), never on the swing model's
+     path (phase 5), never in f64. Alone: `c.cost_phase(c.build_phase())`.
 Each solve path runs with its kernel's launch count set to 0 just before it
-and read just after. Then one JSON line with the three kernels (name, route,
+and read just after. Then one JSON line with the five kernels (name, route,
 source, replaces, launches, retry_launches, max_abs_err, ms, plain_ms,
 bound_ms, bound_by, library_ms, ms_b1024, bound_ms_b1024, ms_all_inactive,
 threads_per_block, smem_bytes, blocks_per_sm, while_launches,
@@ -306,7 +321,8 @@ fleet_launches_f64; K2 also ms_b1_f64, bound_ms_b1_f64, plain_ms_b1_f64,
 mpc_launches_f64, service_launches_f64; the linear rollout: launches
 (phase 3's solve) and fleet_launches (phase 7's steps), each equal to the
 runs of inner_b, and phase 16's figures; the rollout kernel: launches and
-fleet_launches, and phase 17's figures), the card's name and power limit,
+fleet_launches, and phase 17's figures; the cost kernel: launches and
+fleet_launches, and phase 18's figures), the card's name and power limit,
 and the result line. Any
 failure raises and exits non-zero. No CUDA device: exit 1.
 """
@@ -348,7 +364,7 @@ MPC_WORST = {"cost": 5e-3, "cmd": 1e-1}
 MPC_SHARE = 0.9
 # the kernels; each library holds its float32 and float64 instantiation
 KERNELS = ("riccati_hkd", "riccati_dense", "linear_rollout_hkd",
-           "rollout_hkd")
+           "rollout_hkd", "cost_hkd")
 # the native assembly of the while graphs (set_cond: no TPU kernel)
 GRAPH_SOURCES = ("graph_while",)
 SERVICE_WARMUP = 2
@@ -462,6 +478,13 @@ def rollout_runs(parallel=None):
     """Runs of the pieces that launch the rollout kernel: `carry0` (the
     nominal rollout) and `inner_b` (a line search)."""
     return piece_runs("carry0", parallel) + piece_runs("inner_b", parallel)
+
+
+def cost_runs(parallel=None):
+    """Runs of the pieces that launch the cost kernel on the default model:
+    `carry0` (the nominal evaluation), `inner_a` (the carry's) and
+    `inner_b` (every line-search candidate in one launch)."""
+    return rollout_runs(parallel) + piece_runs("inner_a", parallel)
 
 
 def require_replays(phase, n):
@@ -785,9 +808,13 @@ def slice_run(torch, phase, label, run, eager_run, counter, plain_route,
     before it), the result checks, the first scenarios against the
     plain-path solve (eager), and the timing. The linear rollout kernel
     launches once per run of `inner_b` where `linear`, else never. Returns
-    (launches, retry launches, linear rollout launches, rollout launches).
-    The rollout kernel (rollout_hkd, both models' maps) launches once per
-    run of `carry0` and of `inner_b`, never in f64."""
+    (launches, retry launches, linear rollout launches, rollout launches,
+    cost launches). The rollout kernel (rollout_hkd, both models' maps)
+    launches once per run of `carry0` and of `inner_b`, never in f64; the
+    cost kernel (cost_hkd) once per run of `carry0`, `inner_a` and
+    `inner_b` where the model's cost is the default one
+    (`cost_hkd.takes`), else never, and never in f64."""
+    from hkdmpc_tpu_torch.ops import cost_hkd
     from hkdmpc_tpu_torch.ops import linear_rollout_hkd as lr
     from hkdmpc_tpu_torch.ops import rollout_hkd
     from hkdmpc_tpu_torch.solver.structs import tree_map
@@ -798,14 +825,19 @@ def slice_run(torch, phase, label, run, eager_run, counter, plain_route,
     counter.LAUNCHES = counter.RETRY_LAUNCHES = 0
     lr.LAUNCHES = lr.LAUNCHES_F64 = 0
     rollout_hkd.LAUNCHES = rollout_hkd.LAUNCHES_F64 = 0
+    cost_hkd.LAUNCHES = cost_hkd.LAUNCHES_F64 = 0
     replays, runs, ro_runs = graph_replays(), inner_b_runs(), rollout_runs()
+    co_runs = cost_runs()
     res = run(prob_b, state_b, optr)
     torch.cuda.synchronize()
     launches, retries = counter.LAUNCHES, counter.RETRY_LAUNCHES
     lin, lin64 = lr.LAUNCHES, lr.LAUNCHES_F64
     ro_n, ro64 = rollout_hkd.LAUNCHES, rollout_hkd.LAUNCHES_F64
+    co_n, co64 = cost_hkd.LAUNCHES, cost_hkd.LAUNCHES_F64
     replays, runs = graph_replays() - replays, inner_b_runs() - runs
     ro_runs = rollout_runs() - ro_runs
+    co_runs = cost_runs() - co_runs
+    co_want = co_runs if cost_hkd.takes(model) else 0
     require_replays(phase, replays)
     if launches < min_launches:
         raise AssertionError(f"the {label} solve launched its kernel "
@@ -820,6 +852,11 @@ def slice_run(torch, phase, label, run, eager_run, counter, plain_route,
                              f"{ro_n} times ({ro64} f64) in {ro_runs} runs "
                              f"of carry0 and inner_b, expected 1 + {runs} "
                              "(0 f64)")
+    if (co_n, co64) != (co_want, 0) or co_runs < 1 + 2 * runs:
+        raise AssertionError(f"the {label} solve launched the cost kernel "
+                             f"{co_n} times ({co64} f64) in {co_runs} runs "
+                             f"of carry0, inner_a and inner_b, expected "
+                             f"{co_want} (0 f64)")
     check_solve(torch, res, batch, prob_b.T)
 
     head = lambda a: a[:PLAIN_CHECK_LANES].contiguous()
@@ -838,14 +875,15 @@ def slice_run(torch, phase, label, run, eager_run, counter, plain_route,
           f"replays {replays}; kernel launches {launches}, masked retry "
           f"launches {retries}; linear rollout launches {lin} in {runs} "
           f"runs of inner_b; rollout launches {ro_n} (1 + inner_b); "
-          f"0/{batch} failed; mean cost "
+          f"cost launches {co_n} in {co_runs} runs of carry0, inner_a and "
+          f"inner_b; 0/{batch} failed; mean cost "
           f"{float(res.cost.mean()):.6g}; n_iters "
           f"{sorted(set(res.n_iters.tolist()))}; first {PLAIN_CHECK_LANES} "
           f"costs vs the eager plain-path solve {rel:.3e} rel; {ms:.3f} ms "
           f"per solve (graph replay) "
           f"(median of 5) = {batch / ms * 1e3:.1f} solves/s on {card}",
           flush=True)
-    return launches, retries, lin, ro_n
+    return launches, retries, lin, ro_n, co_n
 
 
 def slice_phase(card, batch=BATCH):
@@ -926,12 +964,14 @@ def _rate(ms_list, n):
 def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
     """The fleet MPC at full width on K1's path; returns the launch counts
     of K1, of the linear rollout kernel (once per run of the replayed
-    programs' `inner_b`) and of the rollout kernel (once per run of the
+    programs' `inner_b`), of the rollout kernel (once per run of the
     parallel step program's `carry0` and `inner_b`, never in the sequential
-    one) over the timed steps."""
+    one) and of the cost kernel (once per run of either step program's
+    `carry0`, `inner_a` and `inner_b`) over the timed steps."""
     torch = _torch()
     import tempfile
     from hkdmpc_tpu_torch.mpc.fleet import FleetConfig, FleetMPC
+    from hkdmpc_tpu_torch.ops import cost_hkd
     from hkdmpc_tpu_torch.ops import linear_rollout_hkd as lr
     from hkdmpc_tpu_torch.ops import riccati_hkd, rollout_hkd
     from hkdmpc_tpu_torch.solver import graphs
@@ -964,9 +1004,11 @@ def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
         riccati_hkd.LAUNCHES = riccati_hkd.RETRY_LAUNCHES = 0
         lr.LAUNCHES = lr.LAUNCHES_F64 = 0
         rollout_hkd.LAUNCHES = rollout_hkd.LAUNCHES_F64 = 0
+        cost_hkd.LAUNCHES = cost_hkd.LAUNCHES_F64 = 0
         runs = inner_b_runs()
         par_runs = (rollout_runs(True), piece_runs("inner_b", True))
         seq_runs = rollout_runs(False)
+        co_runs = cost_runs()
         t0 = time.perf_counter()
         last = fleet.rollout_steps(steps, meas_fn,
                                    mpc_time0=0.01 * FLEET_WARMUP)
@@ -974,13 +1016,20 @@ def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
         launches, retries = riccati_hkd.LAUNCHES, riccati_hkd.RETRY_LAUNCHES
         lin, lin64 = lr.LAUNCHES, lr.LAUNCHES_F64
         ro_n, ro64 = rollout_hkd.LAUNCHES, rollout_hkd.LAUNCHES_F64
+        co_n, co64 = cost_hkd.LAUNCHES, cost_hkd.LAUNCHES_F64
         runs = inner_b_runs() - runs
         par_runs = (rollout_runs(True) - par_runs[0],
                     piece_runs("inner_b", True) - par_runs[1])
         seq_runs = rollout_runs(False) - seq_runs
+        co_runs = cost_runs() - co_runs
         seq_launches = [st["launches"]["rollout_hkd.LAUNCHES"]
                         for st in graphs.stats()
                         if "parallel_rollout=False" in st["label"]]
+        # the cost kernel's launches in each step program's last replay
+        step_cost = {st["label"]: st["launches"]["cost_hkd.LAUNCHES"]
+                     for st in graphs.stats()
+                     if st["label"].startswith("fleet_step")
+                     and st["replays"]}
         shooting.append(fleet.problem.all_shooting())
         calls.append(replays_by_label())
         stamps.append(t1)
@@ -1004,6 +1053,13 @@ def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
             f"programs: {seq_runs} runs, launches a replay {seq_launches}), "
             "expected 1 + inner_b a parallel step, 0 in the sequential "
             "program (0 f64)")
+    if ((co_n, co64) != (co_runs, 0) or co_runs < 3 * steps
+            or not step_cost or not all(step_cost.values())):
+        raise AssertionError(
+            f"the cost kernel launched {co_n} times ({co64} f64) in {steps} "
+            f"fleet steps with {co_runs} runs of carry0, inner_a and "
+            f"inner_b (last replays: {step_cost}), expected one a run in "
+            "every step program (0 f64)")
     n_failed = int((out["scalars"][:, 5] > 0).sum())
     if n_failed:
         raise AssertionError(f"{n_failed} robots failed in the last step")
@@ -1041,7 +1097,9 @@ def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
           f"linear rollout launches {lin} ({lin / steps:.2f}/step) in "
           f"{runs} runs of inner_b; rollout launches {ro_n} in {n_par} "
           f"parallel steps ({par_runs[1]} runs of their inner_b; 0 in the "
-          f"sequential program's {seq_runs} runs); {n_seq} of {steps} steps "
+          f"sequential program's {seq_runs} runs); cost launches {co_n} "
+          f"({co_n / steps:.2f}/step) in {co_runs} runs of carry0, inner_a "
+          f"and inner_b; {n_seq} of {steps} steps "
           f"not "
           f"all-shooting took the sequential rollout; parallel-rollout "
           f"steps: {_rate(par_ms, n)}; sequential-rollout steps: "
@@ -1049,7 +1107,7 @@ def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
           f"{float(out['scalars'][:, 0].mean()):.6g}; on {card}",
           flush=True)
     fleet_vs_plain(torch, card)
-    return launches, lin, ro_n
+    return launches, lin, ro_n, co_n
 
 
 def fleet_vs_plain(torch, card, n=PLAIN_CHECK_LANES,
@@ -3892,6 +3950,7 @@ def rollout_phase(card, launches=None, fleet_launches=None):
             p, s = as_(dtype, prob), as_(dtype, state)
             eps = torch.tensor(ROLLOUT_EPS, dtype=dtype, device="cuda")
             got = rollout_hkd.rollout_hkd_candidates(p, s, eps)
+            got = [tree_map(lambda a: a[i], got) for i in range(len(eps))]
             ref = plain(p, s, eps)
             if oracle is None:
                 oracle = plain(as_(torch.float64, prob),
@@ -3962,6 +4021,103 @@ def rollout_phase(card, launches=None, fleet_launches=None):
     return record
 
 
+COST_NAMES = ("cost", "g_all", "h", "feas", "max_pconstr", "max_tconstr")
+
+
+def cost_phase(card, launches=None, fleet_launches=None):
+    """Phase 18: the cost kernel alone against its plain version and its
+    bound, at every shape of LINEAR_CASES in f32 and f64: the line search's
+    launch (4 candidates) and the nominal evaluation's (one). Returns its
+    JSON record, with the launches of phase 3's solve and phase 7's fleet
+    steps where given."""
+    torch = _torch()
+    from hkdmpc_tpu_torch.ops import _build, cost_hkd, riccati_bound
+    from hkdmpc_tpu_torch.ops import rollout_hkd
+    from hkdmpc_tpu_torch.solver import rollout as ro
+    from hkdmpc_tpu_torch.solver.structs import tree_map
+    t0 = time.perf_counter()
+    as_ = lambda dtype, tree: tree_map(
+        lambda a: a.to(dtype) if a.is_floating_point() else a, tree)
+    log = (_build.build("cost_hkd").parent / "cost_hkd.build.log").read_text()
+    record = {"name": "cost_hkd", "route": "cuda",
+              "source": "hkdmpc_tpu_torch/csrc/cost_hkd.cu", "replaces": None,
+              "launches": launches, "fleet_launches": fleet_launches}
+
+    def plain(p, c, X, U, D):
+        outs = [ro._evaluate_plain(p, X[i], U[i], D[i], c, True, True, None,
+                                   True) for i in range(X.shape[0])]
+        return [torch.stack([o[0] for o in outs]),
+                torch.stack([o[1][0] for o in outs]),
+                torch.stack([o[1][1] for o in outs]),
+                torch.stack([o[2] for o in outs]),
+                torch.stack([o[3][0] for o in outs]),
+                torch.stack([o[3][1] for o in outs])]
+
+    for label, gait, batch, plan, form in LINEAR_CASES:
+        prob, state = linear_rollout_inputs(gait, batch, plan)
+        r = rollout_hkd.rollout_hkd_candidates(
+            prob, state, torch.tensor(ROLLOUT_EPS, device="cuda"))
+        T = prob.T
+        oracle = plain(as_(torch.float64, prob),
+                       as_(torch.float64, state.constr),
+                       *(a.double() for a in (r.X, r.U, r.defect)))
+        for dtype, real, tag in ((torch.float32, riccati_bound.F32, ""),
+                                 (torch.float64, riccati_bound.F64, "_f64")):
+            p, c = as_(dtype, prob), as_(dtype, state.constr)
+            X, U, D = (a.to(dtype) for a in (r.X, r.U, r.defect))
+            run = lambda n: cost_hkd.cost_hkd(p, X[:n], U[:n], D[:n], c, True,
+                                              True)
+            got, ref = run(len(ROLLOUT_EPS)), plain(p, c, X, U, D)
+            torch.cuda.synchronize()
+            errs = []
+            for n, k, q, o in zip(COST_NAMES, got, ref, oracle):
+                scale = max(float(o.abs().max()), 1e-30)
+                err = float((k.double() - o).abs().max())
+                err_p = float((q.double() - o).abs().max())
+                limit = (1e-13 * scale if dtype == torch.float64
+                         else max(1e-5 * scale, 10 * err_p))
+                if not (bool(torch.isfinite(k).all()) and err <= limit):
+                    raise AssertionError(
+                        f"phase 18 {label} B={batch} T={T} {dtype}: {n} "
+                        f"error {err:.3e} against the f64 plain version, "
+                        f"limit {limit:.3e}")
+                errs.append(f"{n} {err / scale:.2e} / {err_p / scale:.2e}")
+            ms = cuda_ms(torch, lambda: run(len(ROLLOUT_EPS)), 10)
+            ms1 = cuda_ms(torch, lambda: run(1), 10)
+            plain_ms = cuda_ms(torch, lambda: plain(p, c, X, U, D), 3)
+            work = riccati_bound.cost_work(p.kind, len(ROLLOUT_EPS), real)
+            b = riccati_bound.bound_ms(work)
+            b1 = riccati_bound.bound_ms(riccati_bound.cost_work(p.kind, 1,
+                                                                real))
+            info = _build.kernel_info("cost_hkd", dtype)
+            for field, v in (("ms", ms), ("plain_ms", plain_ms),
+                             ("bound_ms", b["bound_ms"]), ("ms_nominal", ms1),
+                             ("bound_ms_nominal", b1["bound_ms"])):
+                record[form.format(field) + tag] = v
+            if form == "{}":
+                record.update({f"bound_by{tag}": b["bound_by"],
+                               f"ptxas{tag}": ptxas_report(log, dtype),
+                               f"threads_per_block{tag}":
+                                   info["threads_per_block"],
+                               f"blocks_per_sm{tag}": info["blocks_per_sm"]})
+            print(f"phase 18 cost_hkd {label} B={batch} T={T} "
+                  f"{str(dtype)[6:]}: |err| / max |f64 plain| (kernel / "
+                  f"plain): " + ", ".join(errs) + f"; {len(ROLLOUT_EPS)} "
+                  f"candidates {ms:.4f} ms (median of 10), bound "
+                  f"{b['bound_ms']:.6f} ms set by {b['bound_by']} "
+                  f"({work['bytes'] / 1e9:.6f} GB at 3.35 TB/s, "
+                  f"{work['flops'] / 1e9:.6f} GFLOP): "
+                  f"{b['bound_ms'] / ms:.3%} of it; plain {plain_ms:.3f} ms "
+                  f"(median of 3); one evaluation {ms1:.4f} ms, bound "
+                  f"{b1['bound_ms']:.6f} ms: {b1['bound_ms'] / ms1:.3%}; "
+                  f"{ptxas_report(log, dtype)}; "
+                  f"{info['threads_per_block']} threads, "
+                  f"{info['blocks_per_sm']} blocks per SM; on {card}",
+                  flush=True)
+    print(f"phase 18 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return record
+
+
 def main():
     torch = _torch()
     t0 = time.perf_counter()
@@ -3970,13 +4126,14 @@ def main():
     card = build_phase()
     hkd = kernel_phase()
     (hkd["launches"], hkd["retry_launches"], linear_launches,
-     rollout_launches) = slice_phase(card)
+     rollout_launches, cost_launches) = slice_phase(card)
     dense = dense_kernel_phase()
-    dense["launches"], dense["retry_launches"], _, _ = dense_slice_phase(card)
+    dense["launches"], dense["retry_launches"], _, _, _ = dense_slice_phase(
+        card)
     k2_vs_k1_phase()
     mark(6)
-    (hkd["fleet_launches"], linear_fleet_launches,
-     rollout_fleet_launches) = fleet_phase(card)
+    (hkd["fleet_launches"], linear_fleet_launches, rollout_fleet_launches,
+     cost_fleet_launches) = fleet_phase(card)
     mark(7)
     dense.update(mpc_phase(card))
     mark(8)
@@ -4002,11 +4159,12 @@ def main():
     linear = linear_rollout_phase(card, linear_launches,
                                   linear_fleet_launches)
     rollout = rollout_phase(card, rollout_launches, rollout_fleet_launches)
-    print(f"chip_smoke: phases 1-17 in {time.perf_counter() - t0:.1f} s",
+    cost = cost_phase(card, cost_launches, cost_fleet_launches)
+    print(f"chip_smoke: phases 1-18 in {time.perf_counter() - t0:.1f} s",
           flush=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
-    print(json.dumps({"kernels": [hkd, dense, linear, rollout]}))
+    print(json.dumps({"kernels": [hkd, dense, linear, rollout, cost]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

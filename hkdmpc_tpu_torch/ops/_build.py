@@ -63,6 +63,10 @@ _LAUNCH_ARGTYPES = {
     # size of a number eps, gravity and the three default leg angles
     "rollout_hkd": [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
                    + [ctypes.c_double] * 5 + [ctypes.c_void_p],
+    # the problem's 13 batch strides; ints: B, T, the evaluations and the
+    # flags reb_active, al_active
+    "cost_hkd": [ctypes.c_void_p] * 22 + [ctypes.c_longlong] * 13
+                + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 }
 
 _LIBS: dict = {}

@@ -1,8 +1,8 @@
 """What a Riccati backward sweep must move and compute, from its shapes: the
 bytes and floating-point operations of one call of each kernel
-(`ops/riccati_hkd.py`, `ops/riccati_dense.py`; and of the linear rollout
-and rollout kernels, `ops/linear_rollout_hkd.py`, `ops/rollout_hkd.py`) in
-float32 or float64, and
+(`ops/riccati_hkd.py`, `ops/riccati_dense.py`; and of the linear rollout,
+rollout and cost kernels, `ops/linear_rollout_hkd.py`, `ops/rollout_hkd.py`,
+`ops/cost_hkd.py`) in float32 or float64, and
 the least time a card could take for them (the larger of bytes over its
 memory rate and operations over its peak rate in the sweep's type). Also the fixed sparsity patterns of the HKD model's
 Jacobians that the K1 kernel's products are written from
@@ -305,6 +305,71 @@ def rollout_work(kind, n_eps: int = 1, real_bytes: int = F32) -> dict:
     return {"bytes": float_bytes + nb * INT * T + n_eps * nb,
             "float_bytes": float_bytes, "flops": flops,
             "real_bytes": real_bytes}
+
+
+# operations of the horizon-minor cost (`csrc/cost_hkd.cu`) as
+# `hkd_tminor.compute_cost_tbatch` states them: the tracking terms of a
+# node or transition, the 24 differences and squares 48, the body weights
+# 12 products and 12 sums, each leg's 1 - c, weight, two sums, product and
+# sum 6
+TRACKING_FLOPS = 2 * NX + 2 * 12 + 4 * 6
+# the foot-placement term of a node or transition: for each of 4 legs x 2
+# axes, the error 3, the weight 1, the weighted square 3 and its sum 1
+FOOTREG_FLOPS = 8 * (3 + 1 + 3 + 1)
+
+
+def cost_running_flops(reb_active: bool = True) -> int:
+    """One transition's running cost, cone rows and ReB barrier: the
+    tracking, the controls' 24 differences, 24 squares, 22 sums and the two
+    weights 2 x 2, the half 1; the foot placement and its sum 1; the cone
+    rows (mu fz and four sums a leg, 20) and g_all = g m + (1 - m) 60; the
+    ReB barrier of each of 20 rows 13 (the quadratic branch 8, -log g 2,
+    times eps 1, the mask 1, the sum 1) and its sum 1; the weight is_dyn dt
+    2 and the sum over the horizon 1; the 20 comparisons of max_pconstr."""
+    return (TRACKING_FLOPS + 3 * NX + 22 + 4 + 1 + FOOTREG_FLOPS + 1
+            + 20 + 60 + ((20 * 13 + 1) if reb_active else 0) + 3 + 20)
+
+
+def cost_terminal_flops(al_active: bool = True) -> int:
+    """One node's terminal cost, touchdown rows and feasibility: the
+    tracking and its half 1; the foot placement; the rotation; each of 4
+    legs' hip-frame foot position 12, hip offset 3, world height 6 and its
+    mask 1; the AL penalty of each leg 7 (sigma h^2 / 2 3, lambda h 1, the
+    sum 1, the mask 1, the sum over legs 1); the weight term_mask and the
+    sum 2; max_tconstr's |h|, mask and comparison for each leg 12; the
+    defect's 24 squares and sums 48."""
+    return (TRACKING_FLOPS + 1 + FOOTREG_FLOPS + ROTATION_FLOPS
+            + 4 * (12 + 3 + 6 + 1) + (4 * 7 if al_active else 0) + 2 + 12
+            + 2 * NX)
+
+
+def cost_work(kind, n_eps: int = 1, real_bytes: int = F32,
+              reb_active: bool = True, al_active: bool = True) -> dict:
+    """Bytes and operations of one `cost_hkd` launch (the cost kernel,
+    `ops/cost_hkd.py`) of `n_eps` evaluations on the schedule `kind` (B, T)
+    in the type of `real_bytes` (F32 or F64). Read once a launch, the
+    scenario's references: xr and foot_r at every node, ur and contact at
+    every transition, term_contact, td_mask and term_mask at every node, dt,
+    kind; reb_delta and reb_eps (20 rows a transition) when reb_active,
+    al_sigma and al_lambda (4 a node) when al_active. Read for each
+    evaluation: X and defect at every node, U at every transition; written:
+    g_all (20 a transition), h (4 a node), cost, feasibility and the two
+    maxima. Operations for each evaluation: `cost_running_flops` at every
+    transition and `cost_terminal_flops` at every node (the kernel evaluates
+    both whatever a step's kind; the masks zero them), the feasibility's
+    root and the total's sum 2. `float_bytes` is the share of the bytes in
+    that type."""
+    nb, T, _, _ = _counts(kind)
+    ref_reals = ((T + 1) * (NX + 12 + 4 + 4 + 1) + T * (NX + 4) + 1
+                 + (2 * T * 20 if reb_active else 0)
+                 + (2 * (T + 1) * 4 if al_active else 0))
+    eval_reals = (2 * (T + 1) * NX + T * NX          # X, defect, U
+                  + T * 20 + (T + 1) * 4 + 4)        # g_all, h, 4 scalars
+    float_bytes = real_bytes * nb * (ref_reals + n_eps * eval_reals)
+    flops = n_eps * nb * (T * cost_running_flops(reb_active)
+                          + (T + 1) * cost_terminal_flops(al_active) + 2)
+    return {"bytes": float_bytes + nb * INT * T, "float_bytes": float_bytes,
+            "flops": flops, "real_bytes": real_bytes}
 
 
 def bound_ms(work: dict, bytes_per_s: float = H100_BYTES_PER_S,

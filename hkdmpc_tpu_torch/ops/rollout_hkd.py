@@ -16,7 +16,8 @@ scenarios:
   (n_eps,) or (n_eps, B) step sizes.
   The kernel's wrapper returns X, U, Xsim, defect ((n_eps, B, T+1, 24);
   U (n_eps, B, T, 24)) and success (n_eps, B) bool, n_eps = 1 for a
-  number; the dispatch returns a `Rollout` a candidate.
+  number; the dispatch returns them as a `Rollout`, without the candidate
+  axis for one step size.
 
 `rollout_hkd` (one step size) and `rollout_hkd_candidates` (the line
 search's) dispatch on the tensors' device: CPU tensors go to
@@ -32,13 +33,15 @@ launches are folded in when they are read, `ops/counters.py`).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import numbers
 
 import torch
 
 from hkdmpc_tpu_torch.models import mini_cheetah as mc
 from hkdmpc_tpu_torch.ops import consts, counters, hkd_tminor, precise
-from hkdmpc_tpu_torch.solver.structs import DYN, PAD, RESET, Rollout
+from hkdmpc_tpu_torch.solver.structs import (DYN, PAD, RESET, Rollout,
+                                             tree_map)
 
 LAUNCHES = 0
 LAUNCHES_F64 = 0
@@ -124,22 +127,29 @@ def rollout_hkd(prob, state, eps, du_eff=None) -> Rollout:
     return Rollout(*(t[0] for t in out))
 
 
-def rollout_hkd_candidates(prob, state, eps) -> list:
-    """Every candidate's rollout, eps an (n_eps,) or (n_eps, B) tensor: a
-    list of n_eps Rollouts. CPU tensors: du_eff once, then the plain version
-    once per candidate; CUDA tensors: one kernel launch for every
-    candidate."""
+def rollout_hkd_candidates(prob, state, eps) -> Rollout:
+    """Every candidate's rollout, eps an (n_eps,) or (n_eps, B) tensor: one
+    Rollout whose fields carry a leading candidate axis (n_eps, B, ...).
+    CPU tensors: du_eff once, then the plain version once per candidate,
+    stacked (`stack_candidates`: no Xsim); CUDA tensors: one kernel launch
+    for every candidate."""
     dev = state.Xbar.device
     if dev.type == "cpu":
         du_eff = state.dU + precise.mv(state.K, state.dX[..., :-1, :])
-        return [rollout_plain(prob, state, eps[i], du_eff)
-                for i in range(eps.shape[0])]
+        return stack_candidates([rollout_plain(prob, state, eps[i], du_eff)
+                                 for i in range(eps.shape[0])])
     if dev.type != "cuda":
         raise ValueError(f"no HKD rollout for device {dev}")
     eps = eps.to(state.Xbar.dtype).contiguous()
-    X, U, Xsim, defect, success = _cuda_from(prob, state, eps, None)
-    return [Rollout(X=X[i], U=U[i], Xsim=Xsim[i], defect=defect[i],
-                    success=success[i]) for i in range(eps.shape[0])]
+    return Rollout(*_cuda_from(prob, state, eps, None))
+
+
+def stack_candidates(rollouts) -> Rollout:
+    """Rollouts of one batch as one Rollout with a leading candidate axis,
+    the fields a line search reads: X, U, defect and success stacked, Xsim
+    left out (None)."""
+    return tree_map(lambda *fields: torch.stack(fields),
+                    *(dataclasses.replace(r, Xsim=None) for r in rollouts))
 
 
 def _cuda_from(prob, state, eps, du_eff):

@@ -334,8 +334,9 @@ def solve_pieces(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
             return ro_mod.hybrid_rollout_parallel(prob, st, eps, model)
         return ro_mod.hybrid_rollout(prob, st, eps, ms, model)
 
-    def cost_of(X, U, constr):
-        return ro_mod.compute_cost(prob, X, U, constr, reb_on, al_on, model)
+    def cost_of(X, U, defect, constr, maxima=False):
+        return ro_mod.evaluate(prob, X, U, defect, constr, reb_on, al_on,
+                               model, maxima=maxima)
 
     trace_len = trace_len_for(opt)
 
@@ -344,9 +345,8 @@ def solve_pieces(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
         ro = rollout_fn(state, 0.0)
         lap("rollout")
         st = _replace(state, Xbar=ro.X, Ubar=ro.U, defect_bar=ro.defect)
-        cost0, (g0, h0) = cost_of(ro.X, ro.U, st.constr)
-        feas0 = ro_mod.dynamics_feasibility(ro.defect)
-        maxp0, maxt0 = ro_mod.max_violations(prob, g0, h0)
+        cost0, (g0, h0), feas0, (maxp0, maxt0) = cost_of(
+            ro.X, ro.U, ro.defect, st.constr, maxima=True)
         lap("cost")
         nan = torch.full((nb, trace_len), float("nan"), dtype=dtype,
                          device=dev)
@@ -366,36 +366,32 @@ def solve_pieces(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
 
     # ---- line search (every candidate step size, first Armijo pick) -------
     def line_search(st, dv1, dv2, merit_rho, merit_prev, feas_prev):
-        # every candidate's rollout, then every candidate's cost: one lap
-        # each for all of them. The parallel rollouts share dU + K dX (dX
-        # is fixed across trials) and take one call for all of them; the
-        # sequential rollout applies K to the rolled state, a call each
+        # every candidate's rollout, then every candidate's cost, each with
+        # a leading candidate axis: one lap each for all of them. The
+        # parallel rollouts share dU + K dX (dX is fixed across trials) and
+        # take one call for all of them; the sequential rollout applies K
+        # to the rolled state, a call each, stacked
         if parallel_rollout:
-            ros = ro_mod.hybrid_rollout_candidates(prob, st, eps_candidates,
-                                                   model)
+            ro = ro_mod.hybrid_rollout_candidates(prob, st, eps_candidates,
+                                                  model)
         else:
-            ros = [rollout_fn(st, eps_candidates[i]) for i in range(n_eps)]
-        ros = [(r.X, r.U, r.defect, r.success) for r in ros]
+            ro = ro_mod.stack_candidates([rollout_fn(st, eps_candidates[i])
+                                          for i in range(n_eps)])
         lap("rollout")
-        trials = []
-        for i, (X_t, U_t, d_t, ok_t) in enumerate(ros):
-            eps = eps_candidates[i]
-            cost_t, (g_t, h_t) = cost_of(X_t, U_t, st.constr)
-            feas_t = ro_mod.dynamics_feasibility(d_t)
-            merit_t = cost_t + merit_rho * feas_t
-            exp_cost = eps * dv1 + 0.5 * eps * eps * dv2
-            exp_merit = exp_cost - eps * merit_rho * feas_prev
-            ok = (merit_t <= merit_prev + opt.gamma * exp_merit) & ok_t
-            trials.append((ok, merit_t, cost_t, feas_t, X_t, U_t, d_t, g_t,
-                           h_t))
+        cost_t, (g_t, h_t), feas_t, _ = cost_of(ro.X, ro.U, ro.defect,
+                                                st.constr)
+        eps = eps_candidates[:, None]
+        merit_t = cost_t + merit_rho * feas_t
+        exp_cost = eps * dv1 + 0.5 * eps * eps * dv2
+        exp_merit = exp_cost - eps * merit_rho * feas_prev
+        oks = (merit_t <= merit_prev + opt.gamma * exp_merit) & ro.success
         lap("cost")
-        stacked = [torch.stack(f, dim=1) for f in zip(*trials)]
-        oks = stacked[0]
-        any_ok = torch.any(oks, dim=1)
-        idx = torch.where(any_ok, torch.argmax(oks.to(torch.int8), dim=1),
+        any_ok = torch.any(oks, dim=0)
+        idx = torch.where(any_ok, torch.argmax(oks.to(torch.int8), dim=0),
                           torch.full_like(lanes, n_eps - 1))
         merit_s, cost_s, feas_s, X_s, U_s, d_s, g_s, h_s = (
-            a[lanes, idx] for a in stacked[1:])
+            a[idx, lanes] for a in (merit_t, cost_t, feas_t, ro.X, ro.U,
+                                    ro.defect, g_t, h_t))
         return any_ok, X_s, U_s, d_s, g_s, h_s, cost_s, feas_s, merit_s
 
     # ---- inner DDP iteration (MultiPhaseDDP.cpp:304-382) ------------------
@@ -412,8 +408,8 @@ def solve_pieces(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
 
     def inner_a(ic):
         c = ic["c"]
-        cost, (g, h) = cost_of(c["X"], c["U"], c["state"].constr)
-        feas = ro_mod.dynamics_feasibility(c["defect"])
+        cost, (g, h), feas, _ = cost_of(c["X"], c["U"], c["defect"],
+                                        c["state"].constr)
         lap("cost")
         last_node = ro_mod.last_active_node(prob)
         lqd = None

@@ -11,7 +11,10 @@
   hybrid_rollout_candidates: the line search's, every step size at once
 - run_ctx / term_ctx: the per-transition / per-node reference data the
   model's terms read (`solver/model_api.py`)
-- compute_cost / cost_nodes / dynamics_feasibility / max_violations
+- compute_cost / cost_nodes / dynamics_feasibility / max_violations, and
+  evaluate: the three at once, for one trajectory or every line-search
+  candidate; with the default model's horizon-minor cost one CUDA kernel
+  launch (`ops/cost_hkd`) on CUDA tensors
 - linear_rollout: the search direction dX and expected cost change from the
   dense LQ data (lq.A/B and the cost partials)
 - linear_rollout_jvp: the same search direction with the tangent step taken
@@ -32,9 +35,10 @@ from __future__ import annotations
 
 import torch
 
-from hkdmpc_tpu_torch.ops import (consts, hkd_tminor, linear_rollout_hkd,
-                                  precise, rollout_hkd)
-from hkdmpc_tpu_torch.ops.rollout_hkd import DIVERGE_NORM, node_active_mask
+from hkdmpc_tpu_torch.ops import (consts, cost_hkd, hkd_tminor,
+                                  linear_rollout_hkd, precise, rollout_hkd)
+from hkdmpc_tpu_torch.ops.rollout_hkd import (DIVERGE_NORM, node_active_mask,
+                                              stack_candidates)
 from hkdmpc_tpu_torch.solver import costs
 from hkdmpc_tpu_torch.solver.model_api import hkd_model_spec
 from hkdmpc_tpu_torch.solver.structs import (DYN, PAD, RESET, LQData,
@@ -144,18 +148,21 @@ def hybrid_rollout_parallel(prob: ProblemData, state: SolverState, eps,
 
 
 def hybrid_rollout_candidates(prob: ProblemData, state: SolverState,
-                              eps_candidates, model=None) -> list:
+                              eps_candidates, model=None) -> Rollout:
     """Every line-search candidate's `hybrid_rollout_parallel`, eps_candidates
-    an (n_eps,) or (n_eps, B) tensor: a list of n_eps Rollouts. The HKD
-    model's maps take one kernel launch for all of them on CUDA tensors;
-    otherwise du_eff = dU + K dX[:-1] once, then one rollout a candidate."""
+    an (n_eps,) or (n_eps, B) tensor: one Rollout whose fields carry a
+    leading candidate axis (n_eps, B, ...). The HKD model's maps take one
+    kernel launch for all of them on CUDA tensors; otherwise du_eff =
+    dU + K dX[:-1] once, then one rollout a candidate, stacked
+    (`stack_candidates`: no Xsim)."""
     if rollout_hkd.takes(model):
         return rollout_hkd.rollout_hkd_candidates(prob, state,
                                                   eps_candidates)
     du_eff = state.dU + precise.mv(state.K, state.dX[..., :-1, :])
-    return [hybrid_rollout_parallel(prob, state, eps_candidates[i], model,
-                                    du_eff=du_eff)
-            for i in range(eps_candidates.shape[0])]
+    return stack_candidates([
+        hybrid_rollout_parallel(prob, state, eps_candidates[i], model,
+                                du_eff=du_eff)
+        for i in range(eps_candidates.shape[0])])
 
 
 def _model_maps(prob: ProblemData, model):
@@ -180,6 +187,48 @@ def dynamics_feasibility(defect, norm_id: int = 2):
     if norm_id == 1:
         return torch.sum(torch.abs(defect), dim=(-2, -1))
     return torch.sqrt(torch.sum(defect * defect, dim=(-2, -1)))
+
+
+def evaluate(prob: ProblemData, X, U, defect, constr, reb_active: bool,
+             al_active: bool, model=None, maxima: bool = True):
+    """What a solve measures of trajectories (X, U) and their defects:
+    (cost, (g_all, h_all), feas, (max_pconstr, max_tconstr)), as
+    `compute_cost`, `dynamics_feasibility` (the 2-norm) and
+    `max_violations` give them.
+    X, U and defect may carry a leading evaluation axis (the line search's
+    candidates, stacked), and every output then does too.
+
+    The default model's horizon-minor cost (`cost_hkd.takes(model)`) takes
+    one launch of the CUDA kernel for all evaluations on CUDA tensors
+    (`ops/cost_hkd`), and raises on another device that is not the CPU; on
+    the CPU, and for any other model, the three functions run once per
+    evaluation, the maxima only where `maxima` asks for them (else None)."""
+    one = X.dim() == 3
+    if cost_hkd.takes(model) and X.device.type != "cpu":
+        out = cost_hkd.cost_hkd(
+            prob, *((X[None], U[None], defect[None]) if one
+                    else (X, U, defect)),
+            constr, reb_active, al_active)
+        cost, g, h, feas, maxp, maxt = (a[0] for a in out) if one else out
+        return cost, (g, h), feas, (maxp, maxt)
+    plain = lambda X, U, defect: _evaluate_plain(
+        prob, X, U, defect, constr, reb_active, al_active, model, maxima)
+    if one:
+        return plain(X, U, defect)
+    outs = [plain(X[i], U[i], defect[i]) for i in range(X.shape[0])]
+    pair = lambda k: (None if outs[0][k] is None else tuple(
+        torch.stack(f) for f in zip(*(o[k] for o in outs))))
+    return (torch.stack([o[0] for o in outs]), pair(1),
+            torch.stack([o[2] for o in outs]), pair(3))
+
+
+def _evaluate_plain(prob, X, U, defect, constr, reb_active, al_active, model,
+                    maxima):
+    """`evaluate` of one trajectory by the plain functions."""
+    cost, (g, h) = compute_cost(prob, X, U, constr, reb_active, al_active,
+                                model)
+    mx = max_violations(prob, g, h) if maxima else None
+    return cost, (g, h), dynamics_feasibility(defect), mx
 
 
 def compute_cost(prob: ProblemData, X, U, constr, reb_active: bool,

@@ -144,9 +144,9 @@ def profile_solve(prob, state, opt, timer: StageTimer, max_iters: int = None):
                                                      float("inf"))
             for eps in opt.line_search_epsilons:
                 ro_t = ro_mod.hybrid_rollout(prob, state, eps, ms)
-                cost_t, _ = ro_mod.compute_cost(prob, ro_t.X, ro_t.U,
-                                                state.constr, reb, al)
-                feas_t = ro_mod.dynamics_feasibility(ro_t.defect)
+                cost_t, _, feas_t, _ = ro_mod.evaluate(
+                    prob, ro_t.X, ro_t.U, ro_t.defect, state.constr, reb, al,
+                    maxima=False)
                 merit = cost_t + 1e4 * feas_t
                 better = merit < best_merit
                 best = ro_t if best is None else _select(better, ro_t, best)

@@ -82,7 +82,8 @@ def test_kernel_entry_points_by_dtype():
     `<name>_info_f64`, each a C entry point of the kernel's source; any
     other dtype has no entry point, and the error names the kernel and the
     types it takes."""
-    for name in ("riccati_hkd", "riccati_dense", "linear_rollout_hkd"):
+    for name in ("riccati_hkd", "riccati_dense", "linear_rollout_hkd",
+                 "rollout_hkd", "cost_hkd"):
         text = (_build.CSRC / f"{name}.cu").read_text()
         for fn in ("launch", "info"):
             f32 = _build.entry(name, fn, torch.float32)

@@ -771,20 +771,20 @@ def test_graph_capture_refuses_a_host_read(cuda, monkeypatch):
     warm-up but raises at capture, naming the capture; nothing is cached
     and nothing falls back to eager. The next solve captures and runs."""
     from hkdmpc_tpu_torch.solver import graphs
-    real = ro.dynamics_feasibility
+    real = ro.last_active_node
 
-    def reading(defect, norm_id=2):
-        defect.abs().max().item()
-        return real(defect, norm_id)
+    def reading(prob):
+        prob.kind.max().item()
+        return real(prob)
 
     prob, state, optr = _trot_batch(11, torch.float32, cuda)
-    monkeypatch.setattr(ro, "dynamics_feasibility", reading)
+    monkeypatch.setattr(ro, "last_active_node", reading)
     held, replays = len(graphs.stats()), graphs.REPLAYS
     with pytest.raises(RuntimeError, match="CUDA graph capture of "
                        "solve_batch"):
         ddp.solve_batch(prob, state, optr, kernel_jac=True)
     assert len(graphs.stats()) == held and graphs.REPLAYS == replays
-    monkeypatch.setattr(ro, "dynamics_feasibility", real)
+    monkeypatch.setattr(ro, "last_active_node", real)
     res = ddp.solve_batch(prob, state, optr, kernel_jac=True)
     assert bool(torch.isfinite(res.cost).all())
     assert graphs.REPLAYS == replays + 1

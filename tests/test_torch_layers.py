@@ -1,8 +1,8 @@
 """The device-program layer points one way, by a source scan (`ast`): the
 engine, `solver/graphs.py`, imports no module of `mpc`, not `solver.ddp`
-and no kernel wrapper (`ops.riccati_*`, `ops.*rollout_hkd`), at module
-level or inside a function; the programs that use it (`ddp.SolveProgram`,
-`fused.StepProgram`) import it. No module under `ops/` imports or looks
+and no kernel wrapper (`ops.riccati_*`, `ops.*rollout_hkd`,
+`ops.cost_hkd`), at module level or inside a function; the programs that
+use it (`ddp.SolveProgram`, `fused.StepProgram`) import it. No module under `ops/` imports or looks
 up by its dotted name (`sys.modules`, `importlib`) `solver.graphs`,
 `solver.ddp` or any module of `mpc`. (The plain versions in `ops/` that
 import `solver.structs`, `solver.backward`, `solver.rollout` or
@@ -16,7 +16,7 @@ PKG = REPO / "hkdmpc_tpu_torch"
 
 ENGINE_REFUSES = re.compile(
     r"hkdmpc_tpu_torch\.(mpc(\.|$)|solver\.ddp$"
-    r"|ops\.(riccati_\w+|\w*rollout_hkd)$)")
+    r"|ops\.(riccati_\w+|\w*rollout_hkd|cost_hkd)$)")
 OPS_REFUSE = re.compile(
     r"hkdmpc_tpu_torch\.(mpc(\.|$)|solver\.(graphs|ddp)$)")
 
@@ -75,6 +75,7 @@ def f():
                  "hkdmpc_tpu_torch.ops.riccati_dense",
                  "hkdmpc_tpu_torch.ops.rollout_hkd",
                  "hkdmpc_tpu_torch.ops.linear_rollout_hkd",
+                 "hkdmpc_tpu_torch.ops.cost_hkd",
                  "hkdmpc_tpu_torch.mpc.fleet"):
         assert ENGINE_REFUSES.match(name), name
     for name in ("hkdmpc_tpu_torch.ops.counters",

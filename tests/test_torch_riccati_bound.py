@@ -7,7 +7,8 @@
   entry outside a pattern is exactly zero at every step of its kind, and the
   pattern is tight (every entry in it is non-zero at some step);
 - the byte and operation counts of the roofline bound against the tensors'
-  own sizes and a count by hand;
+  own sizes and a count by hand (the sweeps; the cost kernel's
+  `cost_work`);
 - the 16-byte alignment check of the dense kernel's wrapper
   (`ops/_build.check_tensor`)."""
 import numpy as np
@@ -185,3 +186,62 @@ def test_check_tensor_demands_alignment():
     with pytest.raises(ValueError, match="16-byte aligned"):
         _build.check_tensor("lx", shifted, (4, 24), torch.float32, dev,
                             align=16)
+
+
+def _trot_kind(nb=4096):
+    """The trot's schedule at plan 0.6 s: 60 DYN, 4 RESET, 11 PAD."""
+    kind = np.zeros((nb, 75), np.int32)
+    kind[:, :64] = 1
+    kind[:, [15, 31, 47, 63]] = 2
+    return kind
+
+
+@pytest.mark.parametrize("real,n_eps,bytes_", [
+    (rb.F32, 1, 269_680_640), (rb.F64, 1, 538_132_480),
+    (rb.F32, 4, 626_327_552), (rb.F64, 4, 1_251_426_304)],
+    ids=["f32_x1", "f64_x1", "f32_x4", "f64_x4"])
+def test_cost_work_counts_by_hand(real, n_eps, bytes_):
+    """`cost_work` of one cost launch at B = 4096, T = 75. Per scenario, in
+    values of the type, read once a launch: xr 76 x 24 = 1,824, foot_r
+    76 x 12 = 912, term_contact and td_mask 2 x 76 x 4 = 608, term_mask 76,
+    ur 75 x 24 = 1,800, contact 75 x 4 = 300, dt 1, reb_delta and reb_eps
+    2 x 75 x 20 = 3,000, al_sigma and al_lambda 2 x 76 x 4 = 608: 9,129;
+    kind 75 x 4 bytes. For each evaluation: X and defect 2 x 76 x 24 =
+    3,648 and U 75 x 24 = 1,800 read, g_all 75 x 20 = 1,500, h 76 x 4 = 304
+    and 4 scalars written: 7,256. The line search's launch (4 candidates)
+    in f32: 0.626 GB, 0.187 ms at 3.35 TB/s; one evaluation's 0.270 GB,
+    0.081 ms. Operations: 624 a transition, 429 a node, 2 an evaluation;
+    without the ReB rows 261 fewer a transition and their 3,000 reads,
+    without the AL rows 28 fewer a node and their 608 reads."""
+    refs = 1_824 + 912 + 608 + 76 + 1_800 + 300 + 1 + 3_000 + 608
+    assert refs == 9_129
+    per_eval = 3_648 + 1_800 + 1_500 + 304 + 4
+    assert per_eval == 7_256
+    want = real * 4096 * (refs + n_eps * per_eval) + 4096 * 75 * 4
+    assert want == bytes_
+    w = rb.cost_work(_trot_kind(), n_eps, real)
+    assert w["bytes"] == bytes_ and w["real_bytes"] == real
+    assert w["float_bytes"] == bytes_ - 4096 * 75 * 4
+    assert rb.cost_running_flops() == 624 and rb.cost_terminal_flops() == 429
+    assert rb.cost_running_flops(False) == 624 - 261
+    assert rb.cost_terminal_flops(False) == 429 - 28
+    assert w["flops"] == n_eps * 4096 * (75 * 624 + 76 * 429 + 2)
+    bound = rb.bound_ms(w)
+    assert bound["bound_by"] == "bytes"
+    if real == rb.F32:
+        assert bound["bound_ms"] == pytest.approx(
+            0.187 if n_eps == 4 else 0.0805, abs=5e-4)
+    off = rb.cost_work(_trot_kind(), n_eps, real, reb_active=False,
+                       al_active=False)
+    assert w["bytes"] - off["bytes"] == real * 4096 * (3_000 + 608)
+    assert w["flops"] - off["flops"] == n_eps * 4096 * (75 * 261 + 76 * 28)
+
+
+def test_cost_work_reads_the_references_once():
+    """More evaluations in a launch add only their own rows; the schedule's
+    kinds change no count (the kernel evaluates every step and node)."""
+    kind = _trot_kind(8)
+    one, four = rb.cost_work(kind), rb.cost_work(kind, 4)
+    assert four["bytes"] - one["bytes"] == 3 * 4 * 8 * 7_256
+    assert four["flops"] == 4 * one["flops"]
+    assert rb.cost_work(np.zeros_like(kind)) == one

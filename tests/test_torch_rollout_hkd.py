@@ -5,7 +5,8 @@ tested on the CPU (the port only; no JAX):
   `hybrid_rollout_candidates` give what the scan-free rollout gave before it
   took `ops/rollout_hkd` (`_before`, its former body), bit for bit, for the
   default model and the swing-clearance spec, and launch no kernel; the
-  candidates call equals one call a candidate with the shared du_eff;
+  candidates call (one Rollout, a leading candidate axis, no Xsim) equals
+  one call a candidate with the shared du_eff;
 - a model with its own transition maps takes the generic path;
 - the kernel's wrapper raises on CPU tensors, another device raises in the
   dispatch, and the launch counters are folded from the device programs
@@ -28,7 +29,8 @@ from hkdmpc_tpu_torch.ops import rollout_hkd
 from hkdmpc_tpu_torch.parallel.batch import perturb_scenarios, replicate_problem
 from hkdmpc_tpu_torch.solver import ddp, rollout as ro
 from hkdmpc_tpu_torch.solver.model_api import hkd_model_spec
-from hkdmpc_tpu_torch.solver.structs import DYN, PAD, RESET, Rollout
+from hkdmpc_tpu_torch.solver.structs import (DYN, PAD, RESET, Rollout,
+                                             tree_map)
 from hkdmpc_tpu_torch.workload import trot_problem
 
 NB = 3
@@ -101,8 +103,21 @@ def trot(request):
 def _equal(a: Rollout, b: Rollout):
     for f in dataclasses.fields(Rollout):
         x, y = getattr(a, f.name), getattr(b, f.name)
+        if x is None or y is None:
+            assert x is None and y is None, f.name
+            continue
         assert x.dtype == y.dtype and x.shape == y.shape, f.name
         assert torch.equal(x.nan_to_num(7.0), y.nan_to_num(7.0)), f.name
+
+
+def _split(r: Rollout) -> list:
+    """A Rollout with a leading candidate axis as one Rollout a candidate."""
+    return [tree_map(lambda a: a[i], r) for i in range(r.X.shape[0])]
+
+
+def _stacked(r: Rollout) -> Rollout:
+    """One rollout as the stacked candidates carry it: no Xsim."""
+    return dataclasses.replace(r, Xsim=None)
 
 
 def _eps(kind, prob):
@@ -145,11 +160,13 @@ def test_cpu_candidates_are_single_calls(trot, spec, per_scenario):
     before = rollout_hkd.LAUNCHES
     got = ro.hybrid_rollout_candidates(prob, state, eps, model)
     du_eff = state.dU + precise.mv(state.K, state.dX[..., :-1, :])
-    assert len(got) == eps.shape[0]
-    for i, r in enumerate(got):
-        _equal(r, _before(prob, state, eps[i], model, du_eff=du_eff))
-        _equal(r, ro.hybrid_rollout_parallel(prob, state, eps[i], model,
-                                             du_eff=du_eff))
+    assert got.X.shape == (eps.shape[0],) + state.Xbar.shape
+    assert got.Xsim is None
+    for i, r in enumerate(_split(got)):
+        _equal(r, _stacked(_before(prob, state, eps[i], model,
+                                   du_eff=du_eff)))
+        _equal(r, _stacked(ro.hybrid_rollout_parallel(
+            prob, state, eps[i], model, du_eff=du_eff)))
     assert rollout_hkd.LAUNCHES == before
 
 
@@ -189,9 +206,10 @@ def test_own_maps_take_the_generic_path(trot, monkeypatch):
         _equal(ro.hybrid_rollout_parallel(prob, state, 0.3, model),
                _before(prob, state, 0.3, model))
         du_eff = state.dU + precise.mv(state.K, state.dX[..., :-1, :])
-        for i, r in enumerate(ro.hybrid_rollout_candidates(prob, state, eps,
-                                                           model)):
-            _equal(r, _before(prob, state, eps[i], model, du_eff=du_eff))
+        for i, r in enumerate(_split(ro.hybrid_rollout_candidates(
+                prob, state, eps, model))):
+            _equal(r, _stacked(_before(prob, state, eps[i], model,
+                                       du_eff=du_eff)))
     # one rollout and two candidates, each by the port and the former code
     assert calls == ["dyn"] * 6
 

@@ -98,6 +98,11 @@ def _check(got, plain, oracle, dtype, forced):
             assert err <= limit, (name, err, limit, scale)
 
 
+def _split(r: Rollout) -> list:
+    """A Rollout with a leading candidate axis as one Rollout a candidate."""
+    return [tree_map(lambda a: a[i], r) for i in range(r.X.shape[0])]
+
+
 def _plain_candidates(prob, state, eps):
     du_eff = state.dU + precise.mv(state.K, state.dX[..., :-1, :])
     return [rollout_hkd.rollout_plain(prob, state, eps[i], du_eff)
@@ -113,7 +118,7 @@ def test_candidates_match_plain(solved, name, dtype):
     p, s = _as(dtype, prob), _as(dtype, state)
     eps = torch.tensor(EPS, dtype=dtype, device="cuda")
     before = (rollout_hkd.LAUNCHES, rollout_hkd.LAUNCHES_F64)
-    got = rollout_hkd.rollout_hkd_candidates(p, s, eps)
+    got = _split(rollout_hkd.rollout_hkd_candidates(p, s, eps))
     f64 = int(dtype == torch.float64)
     assert (rollout_hkd.LAUNCHES, rollout_hkd.LAUNCHES_F64) == (
         before[0] + 1, before[1] + f64)
@@ -146,7 +151,7 @@ def test_single_step_size_matches_plain(solved, eps, dtype):
     _check([got], [plain], [oracle], dtype, forced)
     if isinstance(e, torch.Tensor):
         cand = torch.stack([e, e.flip(0)])
-        got = ro.hybrid_rollout_candidates(p, s, cand.to(dtype))
+        got = _split(ro.hybrid_rollout_candidates(p, s, cand.to(dtype)))
         plain = _plain_candidates(p, s, cand.to(dtype))
         oracle = _plain_candidates(p64, s64, cand.double())
         _check(got, plain, oracle, dtype, forced)
@@ -171,7 +176,7 @@ def test_more_candidates_than_a_launch_holds(solved):
     n = rollout_hkd.MAX_EPS + 8
     eps = torch.logspace(0, -3, n, device="cuda")
     before = rollout_hkd.LAUNCHES
-    got = rollout_hkd.rollout_hkd_candidates(prob, state, eps)
+    got = _split(rollout_hkd.rollout_hkd_candidates(prob, state, eps))
     assert rollout_hkd.LAUNCHES == before + 2 and len(got) == n
     plain = _plain_candidates(prob, state, eps)
     oracle = _plain_candidates(_as(torch.float64, prob),
@@ -196,6 +201,7 @@ def test_graph_capture_equals_eager(solved):
         got = rollout_hkd.rollout_hkd_candidates(prob, state, eps)
     g.replay()
     torch.cuda.synchronize()
+    got, want = _split(got), _split(want)
     for a, b in zip(got, want):
         for f in dataclasses.fields(Rollout):
             assert torch.equal(getattr(a, f.name), getattr(b, f.name))

@@ -15,7 +15,7 @@ clock with the bookkeeping a device replay does (`graphs.StageClock`).
   `hkd.*` events under `torch.profiler` and no profiler event without one,
   and a `FleetMPC` step's spans; `graphs.outside_program` over programs
   whose clocks and spans are known, and `graphs.label_gap`.
-- The counters (`ops/counters.REGISTRY`): the kernels' 13, and one that a
+- The counters (`ops/counters.REGISTRY`): the kernels' 15, and one that a
   module installs is folded and reported with no edit to `graphs.py`.
 
 The trot at plan 0.3 s (T = 45), 3 perturbed scenarios, runtime caps."""
@@ -328,7 +328,7 @@ KERNEL_COUNTERS = sorted(
      for n in ("LAUNCHES", "RETRY_LAUNCHES", "LAUNCHES_F64",
                "RETRY_LAUNCHES_F64")]
     + [f"hkdmpc_tpu_torch.ops.{m}.{n}"
-       for m in ("linear_rollout_hkd", "rollout_hkd")
+       for m in ("linear_rollout_hkd", "rollout_hkd", "cost_hkd")
        for n in ("LAUNCHES", "LAUNCHES_F64")]
     + ["hkdmpc_tpu_torch.solver.backward.RETRY_SWEEPS"])
 
@@ -347,11 +347,11 @@ class _TwoPieces(graphs.Program):
 
 
 def test_an_installed_counter_is_folded_and_reported(monkeypatch):
-    """The registry holds the kernels' 13 counters, once each. A module
+    """The registry holds the kernels' 15 counters, once each. A module
     that declares a counter to `counters.install` has a program's runs
     folded into it (`graphs.fold_counts`, on a read from outside the
     module) and `stats()['launches']` report it as '<module>.<NAME>'
-    beside the 13: a program of two pieces, `b` run twice in its one
+    beside the 15: a program of two pieces, `b` run twice in its one
     replay and recorded at capture with 5 launches, adds 10."""
     assert len(counters.REGISTRY) == len(KERNEL_COUNTERS)
     assert sorted(f"{m.__name__}.{n}"

@@ -49,12 +49,29 @@ def _program(head):
     return got[0]
 
 
+def _sleep_cycles(ms):
+    """Cycles of `torch.cuda._sleep` that last about `ms` on this card at
+    its present clock, from a timed trial sleep."""
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    torch.cuda._sleep(10_000_000)
+    b.record()
+    torch.cuda.synchronize()
+    return int(10_000_000 * ms / a.elapsed_time(b))
+
+
 def test_stages_sum_to_the_replay_span_inside_the_events(solve):
+    """The stage clock's stages sum to its replay span, and the span lies
+    within the CUDA events around the call. The device sleeps (about 10 ms)
+    while the host enqueues each call, so the events time only the call's
+    device work: host gaps inside a call are not what this test sees."""
     solve()
     torch.cuda.synchronize()
+    cycles = _sleep_cycles(10.0)
     event_ms = []
     for _ in range(4):
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(cycles)
         a.record()
         solve()
         b.record()
