@@ -224,9 +224,11 @@ Phases, one line each:
      scenarios solved in a uniform batch of their gait on 99% of rows.
      (b) the 2.0 s plan (T = 250) at B = 256: K1 against plain and the
      oracle, its ms beside its bound at T = 250; the solve's graph replay
-     (K1 launched, 0 failed, finite), the first 8 final costs within 1e-3
-     of an eager plain-path f32 solve, ms per solve, the graph's capture
-     time and nodes and torch.cuda.max_memory_allocated. (c) `python -m
+     (K1 launched, 0 failed, finite; its masked retry launches and the
+     rows they swept, `RETRY_LAUNCHES` and `backward.RETRY_ROWS`), the
+     first 8 final costs within 1e-3 of an eager plain-path f32 solve, ms
+     per solve, the graph's capture time and nodes,
+     torch.cuda.max_memory_allocated and the part's seconds. (c) `python -m
      hkdmpc_tpu_torch.bench` in a process of its own with BENCH_MIXED=1
      BENCH_LONGT=1 BENCH_REPS=2 BENCH_FLEET_STEPS=10: exit 0, one JSON line
      with every key present and finite, no vs_baseline,
@@ -2527,8 +2529,9 @@ def longt_phase(card):
     torch = _torch()
     from hkdmpc_tpu_torch import bench
     from hkdmpc_tpu_torch.ops import riccati_bound, riccati_hkd
-    from hkdmpc_tpu_torch.solver import ddp, graphs
+    from hkdmpc_tpu_torch.solver import backward, ddp, graphs
     from hkdmpc_tpu_torch.solver.structs import tree_map
+    t0 = time.perf_counter()
     prob_b, state_b, opt = bench.scenarios("trot", LONGT_BATCH, 0, "cuda",
                                            LONGT_PLAN)
     T = prob_b.T
@@ -2543,7 +2546,10 @@ def longt_phase(card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     solve()                             # the capture
+    retry0 = (riccati_hkd.RETRY_LAUNCHES, backward.RETRY_ROWS)
     res, k1, replays = _counted_replay(torch, riccati_hkd, solve)
+    k1_retries = riccati_hkd.RETRY_LAUNCHES - retry0[0]
+    retry_rows = backward.RETRY_ROWS - retry0[1]
     require_replays("12 (b)", replays)
     if k1 < 1:
         raise AssertionError("phase 12 (b): K1 not launched")
@@ -2563,7 +2569,8 @@ def longt_phase(card):
     ms = cuda_ms(torch, solve, 5)
     print(f"phase 12 (b) long plan: solve_batch(kernel_jac=True) B="
           f"{LONGT_BATCH} T={T} f32 runtime caps, graph replays {replays}, "
-          f"K1 launches {k1}, 0 failed, mean cost "
+          f"K1 launches {k1}, RETRY_LAUNCHES {k1_retries} sweeping "
+          f"RETRY_ROWS {retry_rows} rows, 0 failed, mean cost "
           f"{float(res.cost.mean()):.6g}; first {PLAIN_CHECK_LANES} costs vs "
           f"the eager plain-path solve {rel:.3e} rel; {ms:.3f} ms per solve "
           f"(median of 5) = {LONGT_BATCH / ms * 1e3:.1f} solves/s; K1 "
@@ -2573,7 +2580,8 @@ def longt_phase(card):
           f"{_graph_text(['solve_batch(B=' + str(LONGT_BATCH) + ', T=' + str(T)])}"
           f"; torch.cuda.max_memory_allocated over the capture and replay "
           f"{peak:.3f} GiB, with {len(graphs.stats())} graphs held; on "
-          f"{card}", flush=True)
+          f"{card}; phase 12 (b) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     return {"longt_ms": measured["ms"], "longt_bound_ms": measured["bound_ms"]}
 
 

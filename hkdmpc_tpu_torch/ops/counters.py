@@ -11,14 +11,25 @@ becomes a property of the module's class, which folds and then reads or
 writes the module's own global. Inside the module the global is read and
 written as before (`global LAUNCHES; LAUNCHES += 1`). `install` also
 records each (module, name) in `REGISTRY`, the counters that the device
-programs record at capture and fold into."""
+programs record at capture and fold into.
+
+A count that depends on the data (the rows a masked launch swept) is not a
+piece's runs times what it recorded at capture: `tally(module, name,
+amount)` adds a device tensor to a running total on that tensor's device,
+in the stream's order (captured with the piece, it adds at every replay),
+and reads nothing on the host. Reading or setting the counter from outside
+its module first folds what its totals gained since the last fold (one
+host read a device), for every such counter alike."""
 
 from __future__ import annotations
 
 import sys
 import types
 
+import torch
+
 REGISTRY: list = []   # (module, name) of every installed counter, in order
+_TALLIES: dict = {}   # (module, name) -> {device: [running total, folded]}
 
 
 def _fold() -> None:
@@ -32,13 +43,24 @@ def fold_with(fold) -> None:
     _fold = fold
 
 
+def _fold_tallies(mod, name) -> None:
+    """Add to the counter what its device totals gained since the last
+    fold."""
+    for total in _TALLIES.get((mod, name), {}).values():
+        now = int(total[0])
+        mod.__dict__[name] += now - total[1]
+        total[1] = now
+
+
 def _counter(name):
     def get(mod):
         _fold()
+        _fold_tallies(mod, name)
         return mod.__dict__[name]
 
     def put(mod, value):
         _fold()
+        _fold_tallies(mod, name)
         mod.__dict__[name] = value
 
     return property(get, put)
@@ -52,6 +74,24 @@ def install(module_name: str, names) -> None:
     mod.__class__ = type("CountingModule", (types.ModuleType,),
                          {n: _counter(n) for n in names})
     REGISTRY.extend((mod, n) for n in names)
+
+
+def tally(module_name: str, name, amount) -> None:
+    """Add `amount` (a 0-d integer tensor) to the counter `name` of the
+    module on `amount`'s device, without reading it; the
+    first tally of a device makes its total, which a CUDA graph capture
+    cannot do (run the piece once before its capture, as a warm-up
+    does)."""
+    mod = sys.modules[module_name]
+    totals = _TALLIES.setdefault((mod, name), {})
+    dev = amount.device
+    if dev not in totals:
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"counter {module_name}.{name}: its first "
+                               f"tally on {dev} is inside a CUDA graph "
+                               "capture; run the body once before")
+        totals[dev] = [torch.zeros((), dtype=torch.int64, device=dev), 0]
+    totals[dev][0].add_(amount)
 
 
 def raw(mod, name) -> int:

@@ -46,7 +46,8 @@ REG_MAX = 1e2         # reference: MultiPhaseDDP.cpp:160
 CHOL_SHIFT = 1e-9     # reference: SinglePhase.cpp:337
 
 RETRY_SWEEPS = 0      # retry sweeps run (`retry_sweep`), on every route
-counters.install(__name__, ("RETRY_SWEEPS",))
+RETRY_ROWS = 0        # scenarios those sweeps swept (`active`), a tally
+counters.install(__name__, ("RETRY_SWEEPS", "RETRY_ROWS"))
 
 
 def _riccati_step_aug_sweep(Qx, Qu, Qxx, Quu, Qux):
@@ -383,7 +384,9 @@ def retry_sweep(prob, defect, update_regularization, last_node, bw, *,
     """One step of the retry loop on its carry `bw`: the scenarios that are
     neither ok nor failed are swept again at their grown reg, into bw's
     outputs (in place), and the reg of those still not PSD grows (failed
-    past REG_MAX). Returns the new carry; reads nothing on the host."""
+    past REG_MAX). Counts the sweep in RETRY_SWEEPS and its active rows in
+    RETRY_ROWS (on the device). Returns the new carry; reads nothing on
+    the host."""
     global RETRY_SWEEPS
     sweep = _route_sweep(prob, defect, last_node, kernel_jac_XU, lq,
                          assoc_backward, scan, aug_sweep)
@@ -392,6 +395,7 @@ def retry_sweep(prob, defect, update_regularization, last_node, bw, *,
     reg, failed = _grow(bw["reg"], bw["failed"], active & ~out[4],
                         update_regularization)
     RETRY_SWEEPS += 1
+    counters.tally(__name__, "RETRY_ROWS", active.sum())
     return _carry(out, reg, failed)
 
 
