@@ -54,14 +54,17 @@ Phases, one line each:
      f32, runtime caps: K1 must have been launched, every cost finite, no
      scenario failed, and the first 8 scenarios' final costs must match a
      plain-path f32 solve on the card to 1e-3 relative (line-search accepts
-     are ulp-sensitive in f32); solves/s from 5 CUDA-event-timed runs;
+     are ulp-sensitive in f32); the sequential rollout kernel
+     (rollout_seq_hkd) must not be launched (the scenarios are
+     all-shooting); solves/s from 5 CUDA-event-timed runs;
   4. K2 (riccati_dense) vs plain: the same check as phase 2 on the LQ data
      (lq_approximation) of the swing-constraint trot's first rollout;
   5. the dense path, solve_batch(kernel_jac=False,
      model=hkd_model_spec(swing_constraint=True)), at B = 4096, f32, runtime
      caps: K2 launched at least twice, finite costs, no scenario failed, the
      first 8 final costs within 1e-3 relative of a plain-path f32 solve on
-     the card; solves/s from 5 runs;
+     the card; the sequential rollout kernel not launched; solves/s from
+     5 runs;
   6. K2 against K1: the default model on the phase-3 scenarios through both
      paths; both without failures and at least 99% of the final costs within
      1e-3 relative of each other;
@@ -73,7 +76,10 @@ Phases, one line each:
      launched at least twice per step, the cold solve and the last step
      without a failed robot, the last controls and gains finite, and every
      step that is not all-shooting must have taken the sequential rollout
-     (and only those); ms per step and robot-steps/s overall and for the
+     (and only those); the sequential rollout kernel (rollout_seq_hkd)
+     launched once per run of the sequential program's carry0 and inner_b
+     (3 a replay at the runtime caps), never in the parallel program, never
+     in f64; ms per step and robot-steps/s overall and for the
      parallel- and sequential-rollout steps apart. Then an 8-robot fleet
      with the plain sweep on the card beside an 8-robot K1 fleet, both
      stepped 5 times with the same measurements: per-step final costs
@@ -90,7 +96,11 @@ Phases, one line each:
      update_fused_complete; backward sweeps per update (K2 launches in (b)
      and (c): one per inner iteration an update ran, its n_iters: every
      update runs the loops that stop, as the JAX solver's; the masked
-     retry launches apart); no failed solve, finite commands. (a) against (b) and (b)
+     retry launches apart); the sequential rollout kernel (rollout_seq_hkd)
+     launched 1 + n_iters times in an update that is not all-shooting (the
+     nominal rollout and a line search an inner iteration; more in an
+     update that builds its program), never in one that is, never in f64;
+     no failed solve, finite commands. (a) against (b) and (b)
      against (c), update by update: final cost within 1e-4 relative and
      controls and body states within 1e-3 of their magnitude in at least
      90% of the updates, and within 5e-3 and 1e-1 in every update; each
@@ -111,7 +121,9 @@ Phases, one line each:
      after it); every mpc_command and solver_info is decoded and must be
      finite with n_iter >= 1, no solve may fail, K2 must be launched once
      per inner iteration an update ran (its n_iters; twice more in an
-     update that builds its program), and the commands of the updates must lie within
+     update that builds its program), the sequential rollout kernel as in
+     phase 8 (every single-shooting update takes it), and the commands of
+     the updates must lie within
      phase 8's limits of a bare HKDMPCSolver fed the same decoded requests.
      A reset of a shooting mode already served (the MS = true one: the
      service's own initialize was the first) reuses the resident state and
@@ -303,8 +315,22 @@ Phases, one line each:
      inner_a and inner_b with the default model (5 on a trot replay of
      2 AL x 1 DDP; both fleet step programs), never on the swing model's
      path (phase 5), never in f64. Alone: `c.cost_phase(c.build_phase())`.
+ 19. (run last) the sequential rollout kernel (rollout_seq_hkd, built at
+     its first use) alone, on problems that are not all-shooting: the trot
+     after 2 receding-horizon updates at B = 1024 and B = 1 (T = 75) and at
+     plan 2.0 s (T = 250) with B = 256, the state an eager sequential solve
+     leaves, every fifth scenario pushed past the divergence norm: the line
+     search's launch of 4 step sizes and the nominal rollout's (eps 0), in
+     float32 and float64, X, U, Xsim and defect against the plain version
+     (the loop over T) in f64 (f32: within 1e-5 of the trajectory's or the
+     controls' largest magnitude or 10 x the plain f32 error; f64: 1e-13),
+     success equal on every row; each launch (median of 10, CUDA events)
+     beside the least time of `riccati_bound.seq_rollout_work` (bytes over
+     3.35 TB/s) and the plain version (median of 3); ptxas's registers and
+     spills, threads, shared memory and blocks per SM; the phase's
+     seconds. Alone: `c.seq_rollout_phase(c.build_phase())`.
 Each solve path runs with its kernel's launch count set to 0 just before it
-and read just after. Then one JSON line with the five kernels (name, route,
+and read just after. Then one JSON line with the six kernels (name, route,
 source, replaces, launches, retry_launches, max_abs_err, ms, plain_ms,
 bound_ms, bound_by, library_ms, ms_b1024, bound_ms_b1024, ms_all_inactive,
 threads_per_block, smem_bytes, blocks_per_sm, while_launches,
@@ -324,7 +350,10 @@ mpc_launches_f64, service_launches_f64; the linear rollout: launches
 (phase 3's solve) and fleet_launches (phase 7's steps), each equal to the
 runs of inner_b, and phase 16's figures; the rollout kernel: launches and
 fleet_launches, and phase 17's figures; the cost kernel: launches and
-fleet_launches, and phase 18's figures), the card's name and power limit,
+fleet_launches, and phase 18's figures; the sequential rollout kernel:
+launches (phase 3's solve: 0), fleet_launches (phase 7's steps),
+mpc_launches (phase 8's timed updates), service_launches (phase 9 (a)'s)
+and phase 19's figures), the card's name and power limit,
 and the result line. Any
 failure raises and exits non-zero. No CUDA device: exit 1.
 """
@@ -811,14 +840,16 @@ def slice_run(torch, phase, label, run, eager_run, counter, plain_route,
     plain-path solve (eager), and the timing. The linear rollout kernel
     launches once per run of `inner_b` where `linear`, else never. Returns
     (launches, retry launches, linear rollout launches, rollout launches,
-    cost launches). The rollout kernel (rollout_hkd, both models' maps)
+    cost launches, sequential rollout launches). The sequential rollout
+    kernel (rollout_seq_hkd) never launches: the scenarios are
+    all-shooting. The rollout kernel (rollout_hkd, both models' maps)
     launches once per run of `carry0` and of `inner_b`, never in f64; the
     cost kernel (cost_hkd) once per run of `carry0`, `inner_a` and
     `inner_b` where the model's cost is the default one
     (`cost_hkd.takes`), else never, and never in f64."""
     from hkdmpc_tpu_torch.ops import cost_hkd
     from hkdmpc_tpu_torch.ops import linear_rollout_hkd as lr
-    from hkdmpc_tpu_torch.ops import rollout_hkd
+    from hkdmpc_tpu_torch.ops import rollout_hkd, rollout_seq_hkd
     from hkdmpc_tpu_torch.solver.structs import tree_map
     prob_b, state_b, opt = trot_batch(torch, batch, torch.float32, model)
     optr = opt.runtime()
@@ -828,6 +859,7 @@ def slice_run(torch, phase, label, run, eager_run, counter, plain_route,
     lr.LAUNCHES = lr.LAUNCHES_F64 = 0
     rollout_hkd.LAUNCHES = rollout_hkd.LAUNCHES_F64 = 0
     cost_hkd.LAUNCHES = cost_hkd.LAUNCHES_F64 = 0
+    rollout_seq_hkd.LAUNCHES = rollout_seq_hkd.LAUNCHES_F64 = 0
     replays, runs, ro_runs = graph_replays(), inner_b_runs(), rollout_runs()
     co_runs = cost_runs()
     res = run(prob_b, state_b, optr)
@@ -836,6 +868,7 @@ def slice_run(torch, phase, label, run, eager_run, counter, plain_route,
     lin, lin64 = lr.LAUNCHES, lr.LAUNCHES_F64
     ro_n, ro64 = rollout_hkd.LAUNCHES, rollout_hkd.LAUNCHES_F64
     co_n, co64 = cost_hkd.LAUNCHES, cost_hkd.LAUNCHES_F64
+    sq_n, sq64 = rollout_seq_hkd.LAUNCHES, rollout_seq_hkd.LAUNCHES_F64
     replays, runs = graph_replays() - replays, inner_b_runs() - runs
     ro_runs = rollout_runs() - ro_runs
     co_runs = cost_runs() - co_runs
@@ -859,6 +892,10 @@ def slice_run(torch, phase, label, run, eager_run, counter, plain_route,
                              f"{co_n} times ({co64} f64) in {co_runs} runs "
                              f"of carry0, inner_a and inner_b, expected "
                              f"{co_want} (0 f64)")
+    if (sq_n, sq64) != (0, 0):
+        raise AssertionError(f"the {label} solve launched the sequential "
+                             f"rollout kernel {sq_n} times ({sq64} f64) on "
+                             "all-shooting scenarios, expected 0")
     check_solve(torch, res, batch, prob_b.T)
 
     head = lambda a: a[:PLAIN_CHECK_LANES].contiguous()
@@ -878,14 +915,15 @@ def slice_run(torch, phase, label, run, eager_run, counter, plain_route,
           f"launches {retries}; linear rollout launches {lin} in {runs} "
           f"runs of inner_b; rollout launches {ro_n} (1 + inner_b); "
           f"cost launches {co_n} in {co_runs} runs of carry0, inner_a and "
-          f"inner_b; 0/{batch} failed; mean cost "
+          f"inner_b; sequential rollout launches {sq_n}; 0/{batch} failed; "
+          f"mean cost "
           f"{float(res.cost.mean()):.6g}; n_iters "
           f"{sorted(set(res.n_iters.tolist()))}; first {PLAIN_CHECK_LANES} "
           f"costs vs the eager plain-path solve {rel:.3e} rel; {ms:.3f} ms "
           f"per solve (graph replay) "
           f"(median of 5) = {batch / ms * 1e3:.1f} solves/s on {card}",
           flush=True)
-    return launches, retries, lin, ro_n, co_n
+    return launches, retries, lin, ro_n, co_n, sq_n
 
 
 def slice_phase(card, batch=BATCH):
@@ -968,14 +1006,16 @@ def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
     of K1, of the linear rollout kernel (once per run of the replayed
     programs' `inner_b`), of the rollout kernel (once per run of the
     parallel step program's `carry0` and `inner_b`, never in the sequential
-    one) and of the cost kernel (once per run of either step program's
-    `carry0`, `inner_a` and `inner_b`) over the timed steps."""
+    one), of the cost kernel (once per run of either step program's
+    `carry0`, `inner_a` and `inner_b`) and of the sequential rollout kernel
+    (once per run of the sequential step program's `carry0` and `inner_b`,
+    never in the parallel one) over the timed steps."""
     torch = _torch()
     import tempfile
     from hkdmpc_tpu_torch.mpc.fleet import FleetConfig, FleetMPC
     from hkdmpc_tpu_torch.ops import cost_hkd
     from hkdmpc_tpu_torch.ops import linear_rollout_hkd as lr
-    from hkdmpc_tpu_torch.ops import riccati_hkd, rollout_hkd
+    from hkdmpc_tpu_torch.ops import riccati_hkd, rollout_hkd, rollout_seq_hkd
     from hkdmpc_tpu_torch.solver import graphs
     from hkdmpc_tpu_torch.workload import gait_file, meas_stream
 
@@ -1007,6 +1047,7 @@ def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
         lr.LAUNCHES = lr.LAUNCHES_F64 = 0
         rollout_hkd.LAUNCHES = rollout_hkd.LAUNCHES_F64 = 0
         cost_hkd.LAUNCHES = cost_hkd.LAUNCHES_F64 = 0
+        rollout_seq_hkd.LAUNCHES = rollout_seq_hkd.LAUNCHES_F64 = 0
         runs = inner_b_runs()
         par_runs = (rollout_runs(True), piece_runs("inner_b", True))
         seq_runs = rollout_runs(False)
@@ -1019,6 +1060,7 @@ def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
         lin, lin64 = lr.LAUNCHES, lr.LAUNCHES_F64
         ro_n, ro64 = rollout_hkd.LAUNCHES, rollout_hkd.LAUNCHES_F64
         co_n, co64 = cost_hkd.LAUNCHES, cost_hkd.LAUNCHES_F64
+        sq_n, sq64 = rollout_seq_hkd.LAUNCHES, rollout_seq_hkd.LAUNCHES_F64
         runs = inner_b_runs() - runs
         par_runs = (rollout_runs(True) - par_runs[0],
                     piece_runs("inner_b", True) - par_runs[1])
@@ -1032,6 +1074,15 @@ def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
                      for st in graphs.stats()
                      if st["label"].startswith("fleet_step")
                      and st["replays"]}
+        # the sequential rollout kernel's in each step program's last
+        # replay, and what it should be: 1 + inner_b's runs (sequential),
+        # 0 (parallel)
+        step_seq = {st["label"]: (
+            st["launches"]["rollout_seq_hkd.LAUNCHES"],
+            0 if "parallel_rollout=True" in st["label"]
+            else 1 + st["pieces"]["inner_b"]["runs"])
+            for st in graphs.stats()
+            if st["label"].startswith("fleet_step") and st["replays"]}
         shooting.append(fleet.problem.all_shooting())
         calls.append(replays_by_label())
         stamps.append(t1)
@@ -1062,6 +1113,14 @@ def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
             f"fleet steps with {co_runs} runs of carry0, inner_a and "
             f"inner_b (last replays: {step_cost}), expected one a run in "
             "every step program (0 f64)")
+    if ((sq_n, sq64) != (seq_runs, 0) or not seq_runs or len(step_seq) != 2
+            or any(n != want for n, want in step_seq.values())):
+        raise AssertionError(
+            f"the sequential rollout kernel launched {sq_n} times ({sq64} "
+            f"f64) in {steps} fleet steps with {seq_runs} runs of the "
+            f"sequential program's carry0 and inner_b (last replays, "
+            f"launches and expected: {step_seq}), expected one a run, 0 in "
+            "the parallel program (0 f64)")
     n_failed = int((out["scalars"][:, 5] > 0).sum())
     if n_failed:
         raise AssertionError(f"{n_failed} robots failed in the last step")
@@ -1101,7 +1160,10 @@ def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
           f"parallel steps ({par_runs[1]} runs of their inner_b; 0 in the "
           f"sequential program's {seq_runs} runs); cost launches {co_n} "
           f"({co_n / steps:.2f}/step) in {co_runs} runs of carry0, inner_a "
-          f"and inner_b; {n_seq} of {steps} steps "
+          f"and inner_b; sequential rollout launches {sq_n} in {seq_runs} "
+          f"runs of the sequential program's carry0 and inner_b (a replay: "
+          + ", ".join(str(n) for n, _ in step_seq.values())
+          + f"); {n_seq} of {steps} steps "
           f"not "
           f"all-shooting took the sequential rollout; parallel-rollout "
           f"steps: {_rate(par_ms, n)}; sequential-rollout steps: "
@@ -1109,7 +1171,7 @@ def fleet_phase(card, n=FLEET_N, steps=FLEET_STEPS):
           f"{float(out['scalars'][:, 0].mean()):.6g}; on {card}",
           flush=True)
     fleet_vs_plain(torch, card)
-    return launches, lin, ro_n, co_n
+    return launches, lin, ro_n, co_n, sq_n
 
 
 def fleet_vs_plain(torch, card, n=PLAIN_CHECK_LANES,
@@ -1161,10 +1223,13 @@ def mpc_run(torch, ref, label, stream, dtype=None, **cfg):
     """One single-robot MPC run (f32 unless `dtype` says otherwise): cold
     solve, MPC_WARMUP updates, then MPC_UPDATES timed updates of `stream`'s
     measurements. Counts K2's launches and retry launches (and its f64
-    launches) and the graphs replayed (by label) over the timed updates.
-    Returns a record of per-update times, costs and commands."""
+    launches) and the graphs replayed (by label) over the timed updates,
+    and the sequential rollout kernel's launches and the programs built in
+    each (read outside the timed span). Returns a record of per-update
+    times, costs and commands."""
     from hkdmpc_tpu_torch.mpc.solver import HKDMPCSolver, MPCConfig
-    from hkdmpc_tpu_torch.ops import riccati_dense
+    from hkdmpc_tpu_torch.ops import riccati_dense, rollout_seq_hkd
+    from hkdmpc_tpu_torch.solver import graphs
 
     solver = HKDMPCSolver(ref, config=MPCConfig(**cfg),
                           dtype=dtype or torch.float32, device="cuda")
@@ -1175,14 +1240,16 @@ def mpc_run(torch, ref, label, stream, dtype=None, **cfg):
         raise AssertionError(f"{label}: the cold solve failed")
     rec = dict(label=label, cold_ms=solver.solve_time, ms=[], dispatch=[],
                wait=[], ready=[], shooting=[], iters=[], cost=[], cmds=[],
-               assoc_bw=solver._assoc_bw,
+               seq=[], captures=[], assoc_bw=solver._assoc_bw,
                cold_graphs=replayed_since(cold_replays))
     replays = None
     for k in range(MPC_WARMUP + MPC_UPDATES):
         if k == MPC_WARMUP:
             riccati_dense.LAUNCHES = riccati_dense.RETRY_LAUNCHES = 0
             riccati_dense.LAUNCHES_F64 = 0
+            rollout_seq_hkd.LAUNCHES = rollout_seq_hkd.LAUNCHES_F64 = 0
             replays = replays_by_label()
+        seq0, held = rollout_seq_hkd.LAUNCHES, len(graphs._GRAPHS)
         m = {name: v[0] for name, v in stream(k).items()}
         args = (m["rpy"], m["p"], m["v"], m["omega"], m["qJ"])
         torch.cuda.synchronize()
@@ -1213,12 +1280,15 @@ def mpc_run(torch, ref, label, stream, dtype=None, **cfg):
             rec["wait"].append((t2 - t1) * 1e3)
             rec["ready"].append(ready)
         rec["shooting"].append(solver.problem.all_shooting())
+        rec["seq"].append(rollout_seq_hkd.LAUNCHES - seq0)
+        rec["captures"].append(len(graphs._GRAPHS) - held)
         rec["iters"].append(int(res.n_iters))
         rec["cost"].append(float(res.cost))
         rec["cmds"].append(cmd)
     rec["k2_launches"] = riccati_dense.LAUNCHES
     rec["k2_launches_f64"] = riccati_dense.LAUNCHES_F64
     rec["k2_retries"] = riccati_dense.RETRY_LAUNCHES
+    rec["seq_f64"] = rollout_seq_hkd.LAUNCHES_F64
     rec["graphs"] = replayed_since(replays)
     rec["solver"] = solver
     return rec
@@ -1226,6 +1296,37 @@ def mpc_run(torch, ref, label, stream, dtype=None, **cfg):
 
 def _mean(xs):
     return sum(xs) / len(xs) if xs else float("nan")
+
+
+def check_seq_launches(phase, label, per, f64_launches, f64=False):
+    """The sequential rollout kernel's launches in each update of `per`
+    (dicts of seq: launches, sequential: whether the update's rollout was
+    sequential, iters: its n_iters, captures: programs it built): 1 +
+    n_iters in a sequential update (the nominal rollout and one line search
+    an inner iteration, more in one that builds a program), 0 in a
+    parallel one; f64_launches of them in float64, all or none by `f64`.
+    Returns the launches in all."""
+    bad = []
+    for k, p in enumerate(per):
+        want = 1 + p["iters"] if p["sequential"] else 0
+        if p["seq"] != want and not (p["sequential"] and p["captures"]
+                                     and p["seq"] > want):
+            bad.append((k, p["seq"], want, p["captures"]))
+    total = sum(p["seq"] for p in per)
+    if bad or not any(p["sequential"] for p in per) or (
+            f64_launches != (total if f64 else 0)):
+        raise AssertionError(
+            f"phase {phase} {label}: sequential rollout launches "
+            f"(update, launches, expected, builds) {bad}, {total} in all, "
+            f"{f64_launches} f64")
+    return total
+
+
+def seq_per_update(rec):
+    """mpc_run's record as check_seq_launches's updates."""
+    return [dict(seq=n, sequential=not s, iters=i, captures=c)
+            for n, s, i, c in zip(rec["seq"], rec["shooting"], rec["iters"],
+                                  rec["captures"])]
 
 
 def mpc_report(rec, card):
@@ -1258,7 +1359,8 @@ def mpc_report(rec, card):
           f"{rec['k2_launches']} ({rec['k2_launches'] / n:.2f}/update, "
           f"inner iterations {sum(rec['iters'])}), "
           f"masked retry launches {rec['k2_retries']} "
-          f"({rec['k2_retries'] / n:.2f}/update); 0 "
+          f"({rec['k2_retries'] / n:.2f}/update); sequential rollout "
+          f"launches {rec['seq']}; 0 "
           f"failed, last cost {rec['cost'][-1]:.6g}; on {card}", flush=True)
 
 
@@ -1381,6 +1483,9 @@ def mpc_phase(card):
                                  f"{rec['k2_launches']} times in "
                                  f"{len(rec['ms'])} updates of "
                                  f"{sum(rec['iters'])} inner iterations")
+    seq = sum(check_seq_launches(8, rec["label"], seq_per_update(rec),
+                                 rec["seq_f64"]) for rec in runs)
+    KEPT["seq_mpc_launches"] = seq
     mpc_compare(a, b)
     mpc_compare(b, c)
     KEPT["mpc_solver"] = c["solver"]
@@ -1489,7 +1594,7 @@ def service_scripted(torch, card, ref, lcm_dir, lcm):
     """Phase 9 (a). Returns (K2 launches over the timed requests, the mean
     ms of the timed multiple-shooting updates by rollout kind, as text)."""
     from hkdmpc_tpu_torch.mpc.runtime import MPCService
-    from hkdmpc_tpu_torch.ops import riccati_dense
+    from hkdmpc_tpu_torch.ops import riccati_dense, rollout_seq_hkd
     from hkdmpc_tpu_torch.solver import graphs
     from hkdmpc_tpu_torch.workload import meas_stream
 
@@ -1508,12 +1613,14 @@ def service_scripted(torch, card, ref, lcm_dir, lcm):
 
     def timed_handle(msg):
         before = riccati_dense.LAUNCHES
+        seq0 = rollout_seq_hkd.LAUNCHES
         held = len(graphs.stats())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         handle(msg)
         per.append(dict(ms=(time.perf_counter() - t0) * 1e3,
                         launches=riccati_dense.LAUNCHES - before,
+                        seq=rollout_seq_hkd.LAUNCHES - seq0,
                         captures=len(graphs.stats()) - held,
                         failed=bool(solver.last_result.solve_failed),
                         iters=int(solver.last_result.n_iters),
@@ -1523,9 +1630,11 @@ def service_scripted(torch, card, ref, lcm_dir, lcm):
     svc.handle = timed_handle
     svc.run(max_messages=SERVICE_WARMUP)
     riccati_dense.LAUNCHES = 0
+    rollout_seq_hkd.LAUNCHES = rollout_seq_hkd.LAUNCHES_F64 = 0
     replays = graph_replays()
     svc.run(max_messages=SERVICE_REQUESTS)
     launches = riccati_dense.LAUNCHES
+    seq_f64 = rollout_seq_hkd.LAUNCHES_F64
     replays = graph_replays() - replays
     require_replays("9 (a)", replays)
     solver.close()
@@ -1585,6 +1694,12 @@ def service_scripted(torch, card, ref, lcm_dir, lcm):
                              f"and builds per update {bad} (expected one a "
                              f"inner iteration and 2 a build), {launches} "
                              "in all")
+    # the sequential rollout kernel: every single-shooting update and every
+    # multiple-shooting one that is not all-shooting
+    seq = check_seq_launches("9 (a)", "service", [
+        dict(p, sequential=not (p["shooting"] and p["ms_mode"]))
+        for p in upd], seq_f64)
+    KEPT["seq_service_launches"] = seq
     captures = sum(p["captures"] for p in upd)
     # a reset reuses the resident state and the graphs keyed on it: after
     # a reset of a shooting mode already served (the service's own
@@ -1615,6 +1730,8 @@ def service_scripted(torch, card, ref, lcm_dir, lcm):
           f"({sum(p['launches'] for p in upd) / len(upd):.2f} per update, "
           f"one per inner iteration a replay ran; "
           f"resets {cold[True]['launches']} and {cold[False]['launches']}); "
+          f"sequential rollout launches {seq} "
+          f"({[p['seq'] for p in upd]} by update); "
           f"multiple shooting: {len(ms_upd)} parallel-rollout updates "
           f"{_mean(ms_upd):.3f} ms, {len(ms_seq)} sequential-rollout "
           f"updates {_mean(ms_seq):.3f} ms, cold solve (reset) "
@@ -3716,6 +3833,8 @@ def f64_robot(torch, card, ref):
                                  f"{rec['assoc_bw']}, K2 f64 launches "
                                  f"{rec['k2_launches_f64']}")
         require_replays("15 (d)", sum(rec["graphs"].values()))
+        check_seq_launches("15 (d)", label, seq_per_update(rec),
+                           rec["seq_f64"], f64=True)
         launches += rec["k2_launches_f64"]
         par = [m for m, s in zip(rec["ms"], rec["shooting"]) if s]
         seq = [m for m, s in zip(rec["ms"], rec["shooting"]) if not s]
@@ -4126,6 +4245,151 @@ def cost_phase(card, launches=None, fleet_launches=None):
     return record
 
 
+# the sequential rollout's shapes: (label, plan, updates, batch, form); the
+# trot after `updates` receding-horizon updates is not all-shooting
+SEQ_CASES = (("trot", 0.6, 2, FLEET_N, "{}"), ("trot", 0.6, 2, 1, "{}_b1"),
+             ("trot", LONGT_PLAN, 2, LONGT_BATCH, "longt_{}"))
+
+
+def sequential_inputs(plan, updates, batch):
+    """(prob, state) in float32 of `batch` trot scenarios at `plan` after
+    `updates` updates (not all-shooting), x0 perturbed: the state an eager
+    sequential solve leaves (its nominal X, U, the last search direction,
+    the last sweep's K, dU)."""
+    torch = _torch()
+    from hkdmpc_tpu_torch import bench
+    from hkdmpc_tpu_torch.mpc.solver import default_stand_state
+    from hkdmpc_tpu_torch.parallel.batch import replicate_problem
+    from hkdmpc_tpu_torch.solver import ddp
+    from hkdmpc_tpu_torch.workload import trot_problem
+    pb, _, _, opt = trot_problem(plan, dtype=torch.float32, device="cuda")
+    for _ in range(updates):
+        pb.update(1)
+    if pb.all_shooting():
+        raise AssertionError("phase 19: the updated trot is all-shooting")
+    prob, state = pb.build(default_stand_state(pb.phases[0].contact))
+    prob, state = replicate_problem(prob, state, batch)
+    prob = dataclasses.replace(prob, x0=bench._perturbed_x0(prob, SEED))
+    res = ddp._solve_batch(prob, state, opt.runtime(), kernel_jac=True,
+                           parallel_rollout=False)
+    return prob, res.state
+
+
+def seq_rollout_phase(card, launches=None, fleet_launches=None):
+    """Phase 19: the sequential rollout kernel alone against its plain
+    version (the loop over T) and its bound, at every shape of SEQ_CASES
+    in f32 and f64, multiple shooting: the line search's launch (4
+    candidates) and the nominal rollout's (eps = 0). Returns its JSON
+    record, with the launches of phase 3's solve (`launches`), of phase 7's
+    steps (`fleet_launches`) and of phases 8 and 9 (a)'s timed updates."""
+    torch = _torch()
+    from hkdmpc_tpu_torch.ops import _build, riccati_bound
+    from hkdmpc_tpu_torch.solver import rollout as ro
+    from hkdmpc_tpu_torch.solver.structs import tree_map
+    t0 = time.perf_counter()
+    as_ = lambda dtype, tree: tree_map(
+        lambda a: a.to(dtype) if a.is_floating_point() else a, tree)
+    log = (_build.build("rollout_seq_hkd").parent
+           / "rollout_seq_hkd.build.log").read_text()
+    record = {"name": "rollout_seq_hkd", "route": "cuda",
+              "source": "hkdmpc_tpu_torch/csrc/rollout_seq_hkd.cu",
+              "replaces": None, "launches": launches,
+              "fleet_launches": fleet_launches,
+              "mpc_launches": KEPT.get("seq_mpc_launches"),
+              "service_launches": KEPT.get("seq_service_launches")}
+    plain = lambda p, s, eps: [ro.hybrid_rollout_plain(p, s, eps[i], True)
+                               for i in range(eps.shape[0])]
+    for label, plan, updates, batch, form in SEQ_CASES:
+        prob, state = sequential_inputs(plan, updates, batch)
+        forced = torch.arange(batch, device="cuda") % ROLLOUT_FORCED \
+            == ROLLOUT_FORCED - 1
+        Xbar = state.Xbar.clone()
+        Xbar[forced, 10:21, 9] = 2e6
+        state = dataclasses.replace(state, Xbar=Xbar)
+        T = prob.T
+        oracle = None
+        for dtype, real, tag in ((torch.float32, riccati_bound.F32, ""),
+                                 (torch.float64, riccati_bound.F64, "_f64")):
+            p, s = as_(dtype, prob), as_(dtype, state)
+            eps = torch.tensor(ROLLOUT_EPS, dtype=dtype, device="cuda")
+            got = ro.hybrid_rollout_seq_candidates(p, s, eps, True)
+            got = [tree_map(lambda a: a[i], got) for i in range(len(eps))]
+            ref = plain(p, s, eps)
+            if oracle is None:
+                oracle = plain(as_(torch.float64, prob),
+                               as_(torch.float64, state),
+                               torch.tensor(ROLLOUT_EPS, dtype=torch.float64,
+                                            device="cuda"))
+            torch.cuda.synchronize()
+            worst = {}
+            for k, q, o in zip(got, ref, oracle):
+                if not torch.equal(k.success, o.success) or bool(
+                        k.success[forced].any()):
+                    raise AssertionError(f"phase 19 {label} B={batch} "
+                                         f"{dtype}: success differs")
+                keep = ~forced & o.success
+                xs = float(torch.cat([o.X[keep], o.Xsim[keep]]).abs().max())
+                for n in ("X", "U", "Xsim", "defect"):
+                    kv, qv, ov = (getattr(r, n)[keep] for r in (k, q, o))
+                    scale = float(ov.abs().max()) if n == "U" else xs
+                    err = float((kv.double() - ov).abs().max())
+                    err_p = float((qv.double() - ov).abs().max())
+                    limit = (1e-13 * scale if dtype == torch.float64
+                             else max(1e-5 * scale, 10 * err_p))
+                    if not (bool(torch.isfinite(kv).all()) and err <= limit):
+                        raise AssertionError(
+                            f"phase 19 {label} B={batch} T={T} {dtype}: {n} "
+                            f"error {err:.3e} against the f64 plain version, "
+                            f"limit {limit:.3e}")
+                    a, b = worst.get(n, (0.0, 0.0))
+                    worst[n] = (max(a, err / scale), max(b, err_p / scale))
+            ms = cuda_ms(torch, lambda: ro.hybrid_rollout_seq_candidates(
+                p, s, eps, True), 10)
+            ms1 = cuda_ms(torch, lambda: ro.hybrid_rollout(p, s, 0.0, True),
+                          10)
+            plain_ms = cuda_ms(torch, lambda: plain(p, s, eps), 3)
+            plain_ms1 = cuda_ms(torch, lambda: ro.hybrid_rollout_plain(
+                p, s, 0.0, True), 3)
+            work = riccati_bound.seq_rollout_work(p.kind, len(ROLLOUT_EPS),
+                                                  real)
+            b = riccati_bound.bound_ms(work)
+            b1 = riccati_bound.bound_ms(
+                riccati_bound.seq_rollout_work(p.kind, 1, real))
+            info = _build.kernel_info("rollout_seq_hkd", dtype)
+            for field, v in (("ms", ms), ("plain_ms", plain_ms),
+                             ("bound_ms", b["bound_ms"]), ("ms_nominal", ms1),
+                             ("plain_ms_nominal", plain_ms1),
+                             ("bound_ms_nominal", b1["bound_ms"])):
+                record[form.format(field) + tag] = v
+            if form == "{}":
+                record.update({f"bound_by{tag}": b["bound_by"],
+                               f"ptxas{tag}": ptxas_report(log, dtype),
+                               f"threads_per_block{tag}":
+                                   info["threads_per_block"],
+                               f"smem_bytes{tag}": info["smem_bytes"],
+                               f"blocks_per_sm{tag}": info["blocks_per_sm"]})
+            print(f"phase 19 rollout_seq_hkd {label} B={batch} T={T} "
+                  f"{str(dtype)[6:]}: |err| / max |f64 plain| (kernel / "
+                  f"plain): " + ", ".join(
+                      f"{n} {a:.2e} / {q:.2e}" for n, (a, q) in worst.items())
+                  + f"; {int(forced.sum())} rows pushed, "
+                  f"{int((~oracle[0].success).sum())} diverge in both; "
+                  f"{len(ROLLOUT_EPS)} candidates {ms:.4f} ms (median of "
+                  f"10), bound {b['bound_ms']:.6f} ms set by "
+                  f"{b['bound_by']} ({work['bytes'] / 1e9:.6f} GB at 3.35 "
+                  f"TB/s, {work['flops'] / 1e9:.6f} GFLOP): "
+                  f"{b['bound_ms'] / ms:.3%} of it; plain {plain_ms:.3f} ms "
+                  f"(median of 3); one candidate (eps 0) {ms1:.4f} ms, bound "
+                  f"{b1['bound_ms']:.6f} ms: {b1['bound_ms'] / ms1:.3%}, "
+                  f"plain {plain_ms1:.3f} ms; {ptxas_report(log, dtype)}; "
+                  f"{info['threads_per_block']} threads, "
+                  f"{info['smem_bytes']} B shared memory, "
+                  f"{info['blocks_per_sm']} blocks per SM; on {card}",
+                  flush=True)
+    print(f"phase 19 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return record
+
+
 def main():
     torch = _torch()
     t0 = time.perf_counter()
@@ -4134,14 +4398,13 @@ def main():
     card = build_phase()
     hkd = kernel_phase()
     (hkd["launches"], hkd["retry_launches"], linear_launches,
-     rollout_launches, cost_launches) = slice_phase(card)
+     rollout_launches, cost_launches, seq_launches) = slice_phase(card)
     dense = dense_kernel_phase()
-    dense["launches"], dense["retry_launches"], _, _, _ = dense_slice_phase(
-        card)
+    dense["launches"], dense["retry_launches"], *_ = dense_slice_phase(card)
     k2_vs_k1_phase()
     mark(6)
     (hkd["fleet_launches"], linear_fleet_launches, rollout_fleet_launches,
-     cost_fleet_launches) = fleet_phase(card)
+     cost_fleet_launches, seq_fleet_launches) = fleet_phase(card)
     mark(7)
     dense.update(mpc_phase(card))
     mark(8)
@@ -4168,11 +4431,12 @@ def main():
                                   linear_fleet_launches)
     rollout = rollout_phase(card, rollout_launches, rollout_fleet_launches)
     cost = cost_phase(card, cost_launches, cost_fleet_launches)
-    print(f"chip_smoke: phases 1-18 in {time.perf_counter() - t0:.1f} s",
+    seq = seq_rollout_phase(card, seq_launches, seq_fleet_launches)
+    print(f"chip_smoke: phases 1-19 in {time.perf_counter() - t0:.1f} s",
           flush=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
-    print(json.dumps({"kernels": [hkd, dense, linear, rollout, cost]}))
+    print(json.dumps({"kernels": [hkd, dense, linear, rollout, cost, seq]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

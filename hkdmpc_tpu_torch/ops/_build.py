@@ -67,6 +67,10 @@ _LAUNCH_ARGTYPES = {
     # flags reb_active, al_active
     "cost_hkd": [ctypes.c_void_p] * 22 + [ctypes.c_longlong] * 13
                 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    # rollout_hkd's pointers and, after dt, the restart mask; ints: B, T,
+    # the candidates; doubles: gravity and the three default leg angles
+    "rollout_seq_hkd": [ctypes.c_void_p] * 17 + [ctypes.c_int] * 3
+                       + [ctypes.c_double] * 4 + [ctypes.c_void_p],
 }
 
 _LIBS: dict = {}

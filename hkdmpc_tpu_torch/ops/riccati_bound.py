@@ -1,8 +1,9 @@
 """What a Riccati backward sweep must move and compute, from its shapes: the
 bytes and floating-point operations of one call of each kernel
 (`ops/riccati_hkd.py`, `ops/riccati_dense.py`; and of the linear rollout,
-rollout and cost kernels, `ops/linear_rollout_hkd.py`, `ops/rollout_hkd.py`,
-`ops/cost_hkd.py`) in float32 or float64, and
+rollout, sequential rollout and cost kernels, `ops/linear_rollout_hkd.py`,
+`ops/rollout_hkd.py`, `ops/rollout_seq_hkd.py`, `ops/cost_hkd.py`) in
+float32 or float64, and
 the least time a card could take for them (the larger of bytes over its
 memory rate and operations over its peak rate in the sweep's type). Also the fixed sparsity patterns of the HKD model's
 Jacobians that the K1 kernel's products are written from
@@ -302,6 +303,43 @@ def rollout_work(kind, n_eps: int = 1, real_bytes: int = F32) -> dict:
     flops = (nb * T * (2 * NX * NX + NX)
              + n_eps * (nb * T * rollout_transition_flops()
                         + n_reset * reset_flops() + nb * 3 * NX))
+    return {"bytes": float_bytes + nb * INT * T + n_eps * nb,
+            "float_bytes": float_bytes, "flops": flops,
+            "real_bytes": real_bytes}
+
+
+def seq_feedback_flops() -> int:
+    """A DYN transition's feedback control in the sequential rollout:
+    eps dU + Ubar 48, x - Xbar 24, K times it 2 * 576."""
+    return 2 * NX + NX + 2 * NX * NX
+
+
+def seq_rollout_work(kind, n_eps: int = 1, real_bytes: int = F32) -> dict:
+    """Bytes and operations of one `rollout_seq_hkd` launch (the sequential
+    rollout kernel, `ops/rollout_seq_hkd.py`) of `n_eps` candidates on the
+    schedule `kind` (B, T) in the type of `real_bytes` (F32 or F64). Read
+    once: K whole, Xbar, dX, Ubar, dU, contact, the restart mask (T + 1 a
+    scenario), x0, dt, kind, contact_next at the RESET transitions and the
+    n_eps step sizes. Written for each candidate: X, U, Xsim, defect and the
+    success flag (one byte). Operations, for each candidate: at each DYN
+    transition the feedback control (`seq_feedback_flops`) and the Euler
+    step; at each RESET transition two reset maps, of the rolled and of the
+    simulated state; at each DYN or RESET transition the restart state
+    (eps dX + Xbar), the defect (a difference and a mask) and the squared
+    norm, 48 each; node 0 (X[0] 48, defect[0] 24). `float_bytes` is the
+    share of the bytes in that type."""
+    nb, T, n_dyn, n_reset = _counts(kind)
+    reals_in = (nb * (T * NX * NX                    # K
+                      + 2 * (T + 1) * NX             # Xbar, dX
+                      + 2 * T * NX                   # Ubar, dU
+                      + T * 4 + (T + 1) + NX + 1)    # contact, restart, x0, dt
+                + n_reset * 4                        # contact_next
+                + n_eps)                             # eps
+    reals_out = n_eps * nb * (3 * (T + 1) * NX + T * NX)
+    float_bytes = real_bytes * (reals_in + reals_out)
+    flops = n_eps * (n_dyn * (seq_feedback_flops() + dynamics_flops())
+                     + n_reset * 2 * reset_flops()
+                     + (n_dyn + n_reset) * 3 * 2 * NX + nb * 3 * NX)
     return {"bytes": float_bytes + nb * INT * T + n_eps * nb,
             "float_bytes": float_bytes, "flops": flops,
             "real_bytes": real_bytes}

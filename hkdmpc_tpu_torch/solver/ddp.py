@@ -61,12 +61,13 @@ from hkdmpc_tpu_torch.solver.structs import (ConstraintState, ProblemData,
 
 TRACE_LEN = 64
 
-# the line search's step sizes, one tensor per (step sizes, dtype, device)
+# step sizes, one tensor per (step sizes, dtype, device): the line
+# search's and the sequential nominal rollout's (0.0,)
 _EPS: dict = {}
 
 
-def _eps_candidates(opt: HSDDPOption, dtype, device):
-    key = (tuple(opt.line_search_epsilons), dtype, torch.device(device))
+def _eps_tensor(values, dtype, device):
+    key = (tuple(values), dtype, torch.device(device))
     t = _EPS.get(key)
     if t is None:
         t = torch.tensor(key[0], dtype=dtype, device=device)
@@ -323,16 +324,17 @@ def solve_pieces(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
     dtype, dev = prob.xr.dtype, prob.xr.device
     nb = prob.kind.shape[0]
     al_on, reb_on = bool(opt.AL_active), bool(opt.ReB_active)
-    eps_candidates = _eps_candidates(opt, dtype, dev)
+    eps_candidates = _eps_tensor(opt.line_search_epsilons, dtype, dev)
+    eps_zero = _eps_tensor((0.0,), dtype, dev)
     n_eps = eps_candidates.shape[0]
     lanes = torch.arange(nb, device=dev)
     zeros_i = torch.zeros(nb, dtype=torch.int32, device=dev)
     falses = torch.zeros(nb, dtype=torch.bool, device=dev)
 
-    def rollout_fn(st, eps):
+    def nominal_rollout(st):
         if parallel_rollout:
-            return ro_mod.hybrid_rollout_parallel(prob, st, eps, model)
-        return ro_mod.hybrid_rollout(prob, st, eps, ms, model)
+            return ro_mod.hybrid_rollout_parallel(prob, st, 0.0, model)
+        return ro_mod.hybrid_rollout(prob, st, eps_zero, ms, model)
 
     def cost_of(X, U, defect, constr, maxima=False):
         return ro_mod.evaluate(prob, X, U, defect, constr, reb_on, al_on,
@@ -342,7 +344,7 @@ def solve_pieces(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
 
     # ---- initial nominal rollout (MultiPhaseDDP.cpp:257-280) -------------
     def carry0():
-        ro = rollout_fn(state, 0.0)
+        ro = nominal_rollout(state)
         lap("rollout")
         st = _replace(state, Xbar=ro.X, Ubar=ro.U, defect_bar=ro.defect)
         cost0, (g0, h0), feas0, (maxp0, maxt0) = cost_of(
@@ -368,15 +370,16 @@ def solve_pieces(prob: ProblemData, state: SolverState, opt: HSDDPOption, *,
     def line_search(st, dv1, dv2, merit_rho, merit_prev, feas_prev):
         # every candidate's rollout, then every candidate's cost, each with
         # a leading candidate axis: one lap each for all of them. The
-        # parallel rollouts share dU + K dX (dX is fixed across trials) and
-        # take one call for all of them; the sequential rollout applies K
-        # to the rolled state, a call each, stacked
+        # parallel rollouts share dU + K dX (dX is fixed across trials); the
+        # sequential rollout applies K to the rolled state. Each takes one
+        # call for all of them
         if parallel_rollout:
             ro = ro_mod.hybrid_rollout_candidates(prob, st, eps_candidates,
                                                   model)
         else:
-            ro = ro_mod.stack_candidates([rollout_fn(st, eps_candidates[i])
-                                          for i in range(n_eps)])
+            ro = ro_mod.hybrid_rollout_seq_candidates(prob, st,
+                                                      eps_candidates, ms,
+                                                      model)
         lap("rollout")
         cost_t, (g_t, h_t), feas_t, _ = cost_of(ro.X, ro.U, ro.defect,
                                                 st.constr)

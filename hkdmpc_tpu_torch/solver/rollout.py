@@ -4,7 +4,10 @@
 - hybrid_rollout: the sequential rollout with the feedback policy applied to
   the state as it is rolled, shooting at shooting nodes (or, with ms=False,
   at phase starts only) — the rollout of a problem that is not
-  all-shooting
+  all-shooting; with the HKD model's maps one CUDA kernel launch
+  (`ops/rollout_seq_hkd`) on CUDA tensors, the loop over T
+  (`hybrid_rollout_plain`) otherwise; hybrid_rollout_seq_candidates: the
+  line search's, every step size at once
 - hybrid_rollout_parallel: the scan-free multiple-shooting rollout, with the
   HKD model's maps by `ops/rollout_hkd` (one CUDA kernel on CUDA tensors,
   the plain version on the CPU) or the model's own;
@@ -36,14 +39,15 @@ from __future__ import annotations
 import torch
 
 from hkdmpc_tpu_torch.ops import (consts, cost_hkd, hkd_tminor,
-                                  linear_rollout_hkd, precise, rollout_hkd)
+                                  linear_rollout_hkd, precise, rollout_hkd,
+                                  rollout_seq_hkd)
 from hkdmpc_tpu_torch.ops.rollout_hkd import (DIVERGE_NORM, node_active_mask,
                                               stack_candidates)
 from hkdmpc_tpu_torch.solver import costs
 from hkdmpc_tpu_torch.solver.model_api import hkd_model_spec
 from hkdmpc_tpu_torch.solver.structs import (DYN, PAD, RESET, LQData,
                                              ProblemData, Rollout,
-                                             SolverState)
+                                             SolverState, tree_map)
 
 
 def run_ctx(prob: ProblemData):
@@ -65,11 +69,51 @@ def term_ctx(prob: ProblemData):
             "term_contact": prob.term_contact, "td_mask": prob.td_mask}
 
 
+def restart_mask(prob: ProblemData, ms: bool = True) -> torch.Tensor:
+    """(B, T+1) nodes where the sequential rollout restarts the rolled state
+    from the shooting state: the shooting nodes under multiple shooting,
+    the shooting nodes that start a phase under single shooting (the
+    reference's asymmetric check)."""
+    return prob.ss_mask if ms else prob.ss_mask * prob.start_mask
+
+
 def hybrid_rollout(prob: ProblemData, state: SolverState, eps,
                    ms: bool = True, model=None) -> Rollout:
     """Roll the hybrid system forward at step size eps, one transition at a
     time (parity: MultiPhaseDDP::hybrid_rollout, MultiPhaseDDP.cpp:57-95,
-    SinglePhase::hybrid_rollout, SinglePhase.cpp:182-233).
+    SinglePhase::hybrid_rollout, SinglePhase.cpp:182-233). The HKD model's
+    maps (`rollout_hkd.takes(model)`) on CUDA tensors take one launch of the
+    CUDA kernel (`ops/rollout_seq_hkd`), for one step size; otherwise, and
+    for a step size per scenario, `hybrid_rollout_plain`.
+    eps: a float, a 0-dim or (1,) tensor, or a (B,) tensor."""
+    one = not (isinstance(eps, torch.Tensor) and eps.numel() > 1)
+    if one and rollout_hkd.takes(model) and state.Xbar.device.type == "cuda":
+        eps = consts.per_scenario(eps, 1, state.Xbar.dtype,
+                                  state.Xbar.device)
+        return tree_map(lambda f: f[0], rollout_seq_hkd.rollout_seq_hkd(
+            prob, state, eps, restart_mask(prob, ms)))
+    return hybrid_rollout_plain(prob, state, eps, ms, model)
+
+
+def hybrid_rollout_seq_candidates(prob: ProblemData, state: SolverState,
+                                  eps_candidates, ms: bool = True,
+                                  model=None) -> Rollout:
+    """Every line-search candidate's `hybrid_rollout`, eps_candidates an
+    (n_eps,) tensor: one Rollout whose fields carry a leading candidate
+    axis (n_eps, B, ...). The HKD model's maps on CUDA tensors take one
+    kernel launch for all of them; otherwise one `hybrid_rollout_plain` a
+    candidate, stacked (`stack_candidates`: no Xsim)."""
+    if rollout_hkd.takes(model) and state.Xbar.device.type == "cuda":
+        return rollout_seq_hkd.rollout_seq_hkd(prob, state, eps_candidates,
+                                               restart_mask(prob, ms))
+    return stack_candidates([
+        hybrid_rollout_plain(prob, state, eps_candidates[i], ms, model)
+        for i in range(eps_candidates.shape[0])])
+
+
+def hybrid_rollout_plain(prob: ProblemData, state: SolverState, eps,
+                         ms: bool = True, model=None) -> Rollout:
+    """`hybrid_rollout` as a loop over T on any device, for any model.
 
     The carry is (x_node, xsim): the optimization node state and the pure
     simulation state, which chains through the reset maps of simulated
@@ -80,12 +124,12 @@ def hybrid_rollout(prob: ProblemData, state: SolverState, eps,
     model's `dynamics` and `reset_map` both run at every transition and the
     kind selects, so the launches do not depend on the kind pattern and no
     kind is read on the host.
-    eps: a float, a 0-dim tensor or a (B,) tensor."""
+    eps: a float, a 0-dim or (1,) tensor, or a (B,) tensor."""
     model = model or hkd_model_spec()
     eps = consts.scale(eps, prob.xr.dtype)
     batched = isinstance(eps, torch.Tensor) and eps.dim()
     e3 = eps[..., None, None] if batched else eps
-    ss = (prob.ss_mask if ms else prob.ss_mask * prob.start_mask) > 0
+    ss = restart_mask(prob, ms) > 0
     Xbar = state.Xbar
     X_shoot = Xbar + e3 * state.dX
     U_ff = state.Ubar + e3 * state.dU

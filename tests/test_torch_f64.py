@@ -83,7 +83,7 @@ def test_kernel_entry_points_by_dtype():
     other dtype has no entry point, and the error names the kernel and the
     types it takes."""
     for name in ("riccati_hkd", "riccati_dense", "linear_rollout_hkd",
-                 "rollout_hkd", "cost_hkd"):
+                 "rollout_hkd", "cost_hkd", "rollout_seq_hkd"):
         text = (_build.CSRC / f"{name}.cu").read_text()
         for fn in ("launch", "info"):
             f32 = _build.entry(name, fn, torch.float32)

@@ -328,7 +328,8 @@ KERNEL_COUNTERS = sorted(
      for n in ("LAUNCHES", "RETRY_LAUNCHES", "LAUNCHES_F64",
                "RETRY_LAUNCHES_F64")]
     + [f"hkdmpc_tpu_torch.ops.{m}.{n}"
-       for m in ("linear_rollout_hkd", "rollout_hkd", "cost_hkd")
+       for m in ("linear_rollout_hkd", "rollout_hkd", "cost_hkd",
+                 "rollout_seq_hkd")
        for n in ("LAUNCHES", "LAUNCHES_F64")]
     + [f"hkdmpc_tpu_torch.solver.backward.{n}"
        for n in ("RETRY_SWEEPS", "RETRY_ROWS")])
@@ -348,11 +349,11 @@ class _TwoPieces(graphs.Program):
 
 
 def test_an_installed_counter_is_folded_and_reported(monkeypatch):
-    """The registry holds the 16 counters, once each. A module
+    """The registry holds the 18 counters, once each. A module
     that declares a counter to `counters.install` has a program's runs
     folded into it (`graphs.fold_counts`, on a read from outside the
     module) and `stats()['launches']` report it as '<module>.<NAME>'
-    beside the 16: a program of two pieces, `b` run twice in its one
+    beside the 18: a program of two pieces, `b` run twice in its one
     replay and recorded at capture with 5 launches, adds 10."""
     assert len(counters.REGISTRY) == len(KERNEL_COUNTERS)
     assert sorted(f"{m.__name__}.{n}"
